@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``sleap_nn_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code != 0):
+
+1. Device report: the card's name and power limit.
+2. Build: every CUDA kernel of the port, compiled from ``csrc/`` with nvcc
+   (one process per source, in parallel).
+3. Kernels against their plain PyTorch versions, at the shapes of the
+   top-down path (UNet medium_rf, 1024x1024 frames, batch 8, 256x256 crops,
+   6 instances): the fused double conv at all 18 double-conv blocks of one
+   batch in bf16 (plus four f32 checks), the peak NMS on the (8, 512, 512,
+   1) centroid map (k = 3 and 5, bf16 and f32). Times the kernel, the
+   plain version and, where one exists, the library call that computes
+   the same function (cuDNN convolutions), and the bound of each call.
+4. End to end: ``Predictor.predict`` of the top-down pair (medium_rf
+   centroid + centered-instance UNets, random weights from a seed, bf16)
+   over an in-memory video of 20 synthetic 1024x1024 uint8 frames, batch
+   8 (the last batch is partial). Launch counters, zeroed just before the
+   run, must show both kernels ran (18 and 1 per batch); every output must
+   have the JAX package's shapes, with NaN exactly on invalid slots.
+   Prints frames/s and per-stage ms.
+5. Agreement with the CPU on a small input: a narrow f32 pair runs on the
+   card and on the CPU; maps must agree to 1e-4 and each post-processing
+   stage, fed the same maps, to the index.
+
+Prints one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Without a CUDA device, or without the port package beside it, it exits 1
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
+PEAK_F32 = 67e12    # f32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+IMG, BATCH, N_FRAMES, CROP, MAX_INST, N_NODES = 1024, 8, 20, 256, 6, 15
+DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu" and small sizes, then calls the phases
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls, after one warm-up call."""
+    import torch
+
+    fn()
+    if DEVICE == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """(least ms, what bounds it) for ``flops`` at ``peak_flops`` and ``nbytes`` at HBM rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulp(m: float) -> float:
+    """Spacing of bf16 values at magnitude ``m`` (8 significant bits)."""
+    return float(2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7))
+
+
+# --------------------------------------------------------------------------
+# Models of the top-down path
+# --------------------------------------------------------------------------
+
+
+class ArrayVideo:
+    """In-memory video: ``__len__`` and ``get_frame(idx, fmt)``."""
+
+    def __init__(self, frames):
+        self.frames = frames
+        self.shape = frames.shape
+
+    def __len__(self):
+        return len(self.frames)
+
+    def get_frame(self, idx, fmt=None):
+        return self.frames[idx]
+
+
+def build_models(cfg_cls, n_nodes, seed, **cfg_kw):
+    """Centroid + centered-instance models with random weights from ``seed``.
+
+    Backbone convs get He-normal weights and zero biases, so activations
+    keep their scale through the UNet; the 1x1 heads get weights of gain
+    0.1 and a 0.5 bias. The maps then vary by about 0.1 around 0.5: a flat
+    map would round to one bf16 value and hold no strict maximum, and a
+    map that swings negative breaks integral refinement's mass. Centroid
+    peaks clear the 0.2 threshold and stage 2 runs on real crops.
+    """
+    import torch
+    from types import SimpleNamespace as ns
+    from torch import nn
+
+    from sleap_nn_tpu_torch.models.model import Model
+
+    cfg = cfg_cls(in_channels=1, output_stride=2, **cfg_kw)
+    torch.manual_seed(seed)
+    centroid = Model.from_config("unet", cfg, ns(confmaps=ns(
+        anchor_part=None, sigma=5.0, output_stride=2, loss_weight=None)), "centroid")
+    instance = Model.from_config("unet", cfg, ns(confmaps=ns(
+        part_names=[f"n{i}" for i in range(n_nodes)], anchor_part=None, sigma=3.0,
+        output_stride=2, loss_weight=None)), "centered_instance")
+    with torch.no_grad():
+        for m in (centroid, instance):
+            for conv in m.backbone.modules():
+                if isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
+                    nn.init.kaiming_normal_(conv.weight, nonlinearity="relu")
+                    nn.init.zeros_(conv.bias)
+            for layer in m.head_layers:
+                for head in layer.values():
+                    nn.init.normal_(head[0].weight, std=0.1 * head[0].in_channels ** -0.5)
+                    head[0].bias.fill_(0.5)
+    return cfg, centroid, instance
+
+
+def build_layer(cfg, centroid, instance, device, use_bf16, crop, max_inst):
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.layers import (
+        CenteredInstanceLayer, CentroidLayer, PostprocessConfig, PreprocessConfig, TopDownLayer)
+
+    pre = PreprocessConfig(ensure_grayscale=True, max_stride=cfg.max_stride)
+    kw = dict(use_bf16=use_bf16, output_dtype=None, device=device)
+    c_layer = CentroidLayer(TorchBackend(centroid, None, **kw), pre,
+                            PostprocessConfig(peak_threshold=0.2, max_instances=max_inst),
+                            output_stride=2, device=device)
+    i_layer = CenteredInstanceLayer(TorchBackend(instance, None, **kw), pre,
+                                    PostprocessConfig(peak_threshold=0.2),
+                                    output_stride=2, device=device)
+    return TopDownLayer(c_layer, i_layer, max_instances=max_inst, crop_size=crop,
+                        device=device)
+
+
+def fused_shapes(model, batch: int, size: int):
+    """(name, x shape, conv0, conv1) of every fused double-conv call of one forward."""
+    bb = model.backbone
+    out = []
+    for b, blk in enumerate(bb.encoders[0].encoder_stack):
+        c0, c1 = list(blk.blocks.values())
+        s = size >> b
+        out.append((f"enc{b}", (batch, s, s, c0.in_channels), c0, c1))
+    dec = bb.decoders[0]
+    for b, blk in enumerate(dec.decoder_stack):
+        c0, c1 = list(blk.blocks.values())[-2:]
+        s = size // dec.strides[b]
+        out.append((f"dec{b}", (batch, s, s, c0.in_channels), c0, c1))
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def check_fused(layer, rng):
+    import torch
+    import torch.nn.functional as F
+
+    from sleap_nn_tpu_torch.models.encoder_decoder import hwio
+    from sleap_nn_tpu_torch.ops.fused_conv import _plain_double_conv, fused_double_conv3x3
+
+    c_model = layer.centroid_layer.backend.model
+    i_model = layer.instance_layer.backend.model
+    calls = ([("centroid", *s) for s in fused_shapes(c_model, BATCH, IMG)]
+             + [("instance", *s) for s in fused_shapes(i_model, BATCH * MAX_INST, CROP)])
+    f32_checks = {("centroid", n) for n in ("enc0", "enc4", "dec0", "dec3")}
+    rows = []
+    for model_name, name, shape, c0, c1 in calls:
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and (model_name, name) not in f32_checks:
+                continue
+            # Inputs as the path sees them: an image in [0, 1), else ReLU features.
+            x = rng.random(shape, dtype=np.float32) if shape[-1] == 1 else \
+                np.maximum(rng.standard_normal(shape, dtype=np.float32), 0)
+            x = torch.from_numpy(x).to(DEVICE, dtype)
+            w1, b1 = hwio(c0.weight).to(dtype), c0.bias.to(dtype)
+            w2, b2 = hwio(c1.weight).to(dtype), c1.bias.to(dtype)
+            got = fused_double_conv3x3(x, w1, b1, w2, b2)
+            want = _plain_double_conv(x, w1, b1, w2, b2)
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            tol = bf16_ulp(top) if dtype == torch.bfloat16 else 1e-4 * top
+            bsz, h, w, cin = shape
+            cmid, cout = c0.out_channels, c1.out_channels
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            flops = 2.0 * bsz * h * w * 9 * (cin * cmid + cmid * cout)
+            nbytes = (bsz * h * w * (cin + cout) + 9 * (cin * cmid + cmid * cout)) * itemsize \
+                + 4 * (cmid + cout)
+            bound_ms, bound_by = bound(flops, nbytes,
+                                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            xc = x.permute(0, 3, 1, 2)
+            wc1 = c0.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+            wc2 = c1.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+            row = dict(
+                model=model_name, block=name, dtype=str(dtype).split(".")[-1],
+                x=list(shape), c_mid=cmid, c_out=cout, max_abs_err=err, tol=tol,
+                frac_diff=(got != want).float().mean().item(), ok=bool(err <= tol),
+                kernel_ms=cuda_ms(lambda: fused_double_conv3x3(x, w1, b1, w2, b2)),
+                plain_ms=cuda_ms(lambda: _plain_double_conv(x, w1, b1, w2, b2), reps=2),
+                library_ms=cuda_ms(lambda: F.relu(F.conv2d(
+                    F.relu(F.conv2d(xc, wc1, b1, padding=1)), wc2, b2, padding=1))),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+            )
+            log("fused_double_conv3x3 " + json.dumps(row))
+            rows.append(row)
+            del x, got, want
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"fused_double_conv3x3 disagrees with its plain version: {bad}")
+    return rows
+
+
+def check_nms(rng):
+    import torch
+
+    from sleap_nn_tpu_torch.ops.kernels import _plain_nms_scores, nms_scores
+
+    rows = []
+    shape = (BATCH, IMG // 2, IMG // 2, 1)
+    base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(DEVICE)
+    for dtype in (torch.bfloat16, torch.float32):
+        cms = base.to(dtype)
+        for k in (3, 5):
+            got = nms_scores(cms, 0.2, kernel=k)
+            want = _plain_nms_scores(cms, 0.2, kernel=k)
+            sync()
+            same = torch.equal(got, want)
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            n = cms.numel()
+            bound_ms, bound_by = bound(float(n * k * k), n * (itemsize + 4), PEAK_F32)
+            row = dict(dtype=str(dtype).split(".")[-1], x=list(shape), kernel=k,
+                       exact=same, n_peaks=int(torch.isfinite(got).sum()),
+                       max_abs_err=0.0 if same else float("inf"),
+                       kernel_ms=cuda_ms(lambda: nms_scores(cms, 0.2, kernel=k), reps=20),
+                       plain_ms=cuda_ms(lambda: _plain_nms_scores(cms, 0.2, kernel=k), reps=5),
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            log("nms_scores " + json.dumps(row))
+            rows.append(row)
+    if not all(r["exact"] for r in rows):
+        raise AssertionError(f"nms_scores differs from its plain version: {rows}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 4: end to end
+# --------------------------------------------------------------------------
+
+
+def check_outputs(results):
+    """JAX package shapes; NaN exactly on invalid slots."""
+    assert len(results) == -(-N_FRAMES // BATCH), len(results)
+    for i, out in enumerate(results):
+        kp, vals = out["pred_keypoints"], out["pred_peak_values"]
+        valid = out["instance_valid"]
+        assert kp.shape == (BATCH, MAX_INST, N_NODES, 2) and kp.dtype == np.float32, kp.shape
+        assert vals.shape == (BATCH, MAX_INST, N_NODES), vals.shape
+        assert out["pred_centroids"].shape == (BATCH, MAX_INST, 2)
+        assert out["centroid_vals"].shape == (BATCH, MAX_INST)
+        assert valid.shape == (BATCH, MAX_INST) and valid.dtype == bool
+        assert valid.any(), "no centroid found: stage 2 ran on empty crops only"
+        assert np.isnan(kp[~valid]).all() and (vals[~valid] == 0).all()
+        assert np.isfinite(out["pred_centroids"][valid]).all()
+        assert np.isnan(out["pred_centroids"][~valid]).all()
+        # Heads biased to 0.5 put every node above the threshold.
+        assert np.isfinite(kp[valid]).all()
+        assert (np.abs(kp[valid] - IMG / 2) <= IMG / 2 + CROP).all()
+        n_valid = min(BATCH, N_FRAMES - i * BATCH)
+        assert out["valid"].tolist() == [True] * n_valid + [False] * (BATCH - n_valid)
+        assert out["frame_inds"][:n_valid].tolist() == list(range(i * BATCH, i * BATCH + n_valid))
+
+
+def stage_times(layer, frames):
+    """Per-stage ms of one batch, each stage fenced by synchronize()."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
+    from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
+
+    c, inst = layer.centroid_layer, layer.instance_layer
+    images = torch.from_numpy(frames).to(DEVICE)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            x, _eff = timed("preprocess", lambda: preprocess_images(c.pre, images))
+            cms = timed("centroid_unet", lambda: c.backend(x)[c.head_name])
+            pts = timed("centroid_peaks", lambda: find_local_peaks(
+                cms, threshold=0.2, refinement="integral", max_peaks=MAX_INST)[0])
+            cent = torch.nan_to_num(pts * 2, nan=-1e6).reshape(-1, 2)
+            crops = timed("crop", lambda: crop_bboxes(
+                x, make_centered_bboxes(cent, CROP, CROP),
+                torch.arange(BATCH, device=DEVICE).repeat_interleave(MAX_INST), CROP, CROP))
+            icms = timed("instance_unet", lambda: inst.backend(crops)[inst.head_name])
+            timed("instance_peaks", lambda: find_global_peaks(
+                icms, threshold=0.2, refinement="integral"))
+    return times
+
+
+def run_end_to_end(layer, kernels):
+    import torch
+
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.providers import VideoProvider
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (N_FRAMES, IMG, IMG, 1), dtype=np.uint8)
+    video = ArrayVideo(frames)
+    predictor = Predictor(layer, "topdown", batch_size=BATCH, device=DEVICE)
+    predictor.predict(provider=VideoProvider(ArrayVideo(frames[:BATCH]), batch_size=BATCH),
+                      make_labels=False)  # warm-up: allocator, cuDNN
+    sync()
+    for k in kernels.values():
+        k.launches = 0
+    results = predictor.predict(provider=VideoProvider(video, batch_size=BATCH),
+                                make_labels=False)
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_batches = len(results)
+    want = {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    check_outputs(results)
+    stats = dict(predictor.last_stats)
+    stats["instances"] = int(sum(r["instance_valid"][r["valid"]].sum() for r in results))
+    stats["stage_ms"] = stage_times(layer, frames[:BATCH])
+    stats["launches"] = launches
+    stats["n_batches"] = n_batches
+    log("end_to_end " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 5: card against CPU on a small input
+# --------------------------------------------------------------------------
+
+
+def check_against_cpu():
+    import torch
+
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
+
+    cfg, cm, im = build_models(UNetConfig, 5, seed=1, filters=8, max_stride=16)
+    frames = np.random.default_rng(1).integers(0, 256, (2, 128, 128, 1), dtype=np.uint8)
+    gpu = build_layer(cfg, cm, im, DEVICE, False, 32, 3)
+    cpu = build_layer(cfg, cm, im, "cpu", False, 32, 3)
+    report = {}
+    with torch.inference_mode():
+        for name, (g, c) in {"centroid": (gpu.centroid_layer, cpu.centroid_layer),
+                             "instance": (gpu.instance_layer, cpu.instance_layer)}.items():
+            x, _ = preprocess_images(c.pre, torch.from_numpy(frames))
+            cms_g = g.backend(x.to(DEVICE))[g.head_name]
+            cms_c = c.backend(x)[c.head_name]
+            err = (cms_g.cpu() - cms_c).abs().max().item()
+            report[f"{name}_maps_max_abs_err"] = err
+            if err > 1e-4:
+                raise AssertionError(f"{name} maps: card vs CPU max abs err {err}")
+            if name == "centroid":
+                got = find_local_peaks(cms_g, refinement="integral", max_peaks=8)
+                want = find_local_peaks(cms_g.cpu(), refinement="integral", max_peaks=8)
+            else:
+                got = find_global_peaks(cms_g, refinement="integral")
+                want = find_global_peaks(cms_g.cpu(), refinement="integral")
+            for a, b in zip(got, want):
+                a = a.cpu()
+                if a.dtype.is_floating_point:
+                    torch.testing.assert_close(a, b, rtol=0, atol=1e-5, equal_nan=True)
+                else:
+                    assert torch.equal(a, b)
+    log("card_vs_cpu " + json.dumps(report))
+    return report
+
+
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from sleap_nn_tpu_torch.config.model_config import UNetMediumRFConfig
+        from sleap_nn_tpu_torch.ops import _build, fused_conv, kernels  # noqa: F401
+    except ImportError as exc:
+        print(f"the port package is not beside this script: {exc}", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 1. Device report.
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+
+    # 2. Build.
+    build_s = _build.build()
+    log(f"build: {build_s:.2f} s for {len(_build.KERNELS)} kernels")
+    for k in _build.KERNELS.values():
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {k.name}: {line.strip()}")
+
+    # 3. Kernels against their plain versions, at the path's shapes.
+    cfg, centroid, instance = build_models(UNetMediumRFConfig, N_NODES, seed=0)
+    layer = build_layer(cfg, centroid, instance, DEVICE, True, CROP, MAX_INST)
+    rng = np.random.default_rng(0)
+    fused_rows = check_fused(layer, rng)
+    nms_rows = check_nms(rng)
+
+    # 4. End to end through Predictor.predict.
+    e2e = run_end_to_end(layer, _build.KERNELS)
+
+    # 5. Card against CPU on a small input.
+    check_against_cpu()
+
+    main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
+    nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
+    t_ops = sum(r["flops"] / PEAK_BF16 for r in main_path)
+    t_bytes = sum(r["bytes"] / PEAK_BYTES for r in main_path)
+    n_batches = e2e["n_batches"]
+    summary = {"kernels": [
+        {
+            "name": "fused_double_conv3x3", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/fused_double_conv3x3.cu",
+            "replaces": "sleap_nn_tpu/ops/fused_conv.py:112",
+            "launches": e2e["launches"]["fused_double_conv3x3"],
+            "launches_per_batch": e2e["launches"]["fused_double_conv3x3"] // n_batches,
+            "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
+            "max_err": max(r["max_abs_err"] / r["tol"] for r in fused_rows),
+            "tol": "bf16: 1 bf16 ulp at the output's largest magnitude; f32: 1e-4 x that magnitude",
+            "ms": sum(r["kernel_ms"] for r in main_path),
+            "kernel_ms": sum(r["kernel_ms"] for r in main_path),
+            "plain_ms": sum(r["plain_ms"] for r in main_path),
+            "bound_ms": sum(r["bound_ms"] for r in main_path),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main_path),
+            "shapes": "the 18 bf16 calls of one batch (9 centroid UNet @ 8x1024^2, "
+                      "9 instance UNet @ 48x256^2); times summed",
+        },
+        {
+            "name": "nms_scores", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/nms_scores.cu",
+            "replaces": "sleap_nn_tpu/ops/pallas_kernels.py:116",
+            "launches": e2e["launches"]["nms_scores"],
+            "launches_per_batch": e2e["launches"]["nms_scores"] // n_batches,
+            "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
+            "max_err": max(r["max_abs_err"] for r in nms_rows),
+            "tol": "exact",
+            "ms": nms_main["kernel_ms"], "kernel_ms": nms_main["kernel_ms"],
+            "plain_ms": nms_main["plain_ms"], "bound_ms": nms_main["bound_ms"],
+            "bound_by": nms_main["bound_by"], "library_ms": None,
+            "shapes": "(8, 512, 512, 1) bf16, k=3",
+        },
+    ]}
+    log(f"e2e: {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
+        f"({e2e['instances']} instances); total script {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

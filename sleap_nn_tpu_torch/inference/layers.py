@@ -1,0 +1,227 @@
+"""Inference layers: preprocess -> backend -> postprocess, top-down family.
+
+Port of the top-down part of ``sleap_nn_tpu/inference/layers.py``:
+``PreprocessConfig``, ``PostprocessConfig``, ``preprocess_images``,
+``CentroidLayer``, ``CenteredInstanceLayer`` and ``TopDownLayer``, with
+the same output keys, shapes and coordinate bookkeeping (eff_scale /
+scale / crop offsets lift coordinates back to the original image).
+
+PyTorch runs eagerly, so the JAX package's ``jit_layer`` has no
+counterpart. ``predict_async`` enqueues a batch's device work and returns
+device tensors without waiting; ``finalize`` copies them to numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
+from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_sizematcher, resize_image
+from sleap_nn_tpu_torch.inference.backends import resolve_device
+from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
+from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
+
+
+@dataclasses.dataclass
+class PreprocessConfig:
+    """Static preprocessing params shared by all layers."""
+
+    ensure_rgb: bool = False
+    ensure_grayscale: bool = False
+    max_height: Optional[int] = None
+    max_width: Optional[int] = None
+    scale: float = 1.0
+    max_stride: int = 16
+
+    def __post_init__(self):
+        if self.ensure_rgb and self.ensure_grayscale:
+            raise ValueError("ensure_rgb and ensure_grayscale cannot both be True")
+
+
+@dataclasses.dataclass
+class PostprocessConfig:
+    """Peak-finding knobs (the top-down subset of the JAX package's config)."""
+
+    peak_threshold: float = 0.2
+    refinement: Optional[str] = "integral"
+    integral_patch_size: int = 5
+    max_instances: Optional[int] = None
+    max_peaks: int = 200
+    return_confmaps: bool = False
+
+
+def preprocess_images(pre: PreprocessConfig, images: torch.Tensor):
+    """uint8 (B, H, W, C) -> network-ready float batch + coordinate factor.
+
+    Returns (x, eff_scale): predicted coords must be divided by
+    ``pre.scale * eff_scale`` to land in original-image space.
+    """
+    x = normalize_image(images)
+    x = apply_channel_config(x, pre.ensure_rgb, pre.ensure_grayscale)
+    x, eff_scale = apply_sizematcher(x, pre.max_height, pre.max_width)
+    if pre.scale != 1.0:
+        x = resize_image(x, pre.scale)
+    x = apply_pad_to_stride(x, pre.max_stride)
+    return x, eff_scale
+
+
+def to_host(out: Dict[str, Any]) -> Dict[str, Any]:
+    """Device tensors -> numpy (bf16 as f32: numpy has no bfloat16; exact)."""
+    host = {}
+    for k, v in out.items():
+        if torch.is_tensor(v):
+            v = (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+        host[k] = v
+    return host
+
+
+class InferenceLayer:
+    """Base: owns backend + configs; runs on the backend's device."""
+
+    def __init__(self, backend, pre: PreprocessConfig, post: PostprocessConfig,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if backend.device != self.device:
+            raise ValueError(f"backend runs on {backend.device}, layer on {self.device}")
+        self.backend = backend
+        self.pre = pre
+        self.post = post
+
+    def _as_tensor(self, images) -> torch.Tensor:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        return images.to(self.device)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def predict_async(self, images) -> Dict[str, Any]:
+        with torch.inference_mode():
+            return self.forward(self._as_tensor(images))
+
+    def finalize(self, device_out: Dict[str, Any]) -> Dict[str, Any]:
+        return to_host(device_out)
+
+    def predict(self, images) -> Dict[str, Any]:
+        return self.finalize(self.predict_async(images))
+
+
+class CentroidLayer(InferenceLayer):
+    """Stage-1 centroid detection via local peaks."""
+
+    def __init__(self, backend, pre, post, head_name="CentroidConfmapsHead",
+                 output_stride=2, device="cuda"):
+        super().__init__(backend, pre, post, device)
+        self.head_name = head_name
+        self.output_stride = output_stride
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        return self.forward_preprocessed(*preprocess_images(self.pre, images))
+
+    def forward_preprocessed(self, x: torch.Tensor, eff_scale: float) -> Dict[str, Any]:
+        post = self.post
+        cms = self.backend(x)[self.head_name]
+        points, vals, _, valid = find_local_peaks(
+            cms,
+            threshold=post.peak_threshold,
+            refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size,
+            max_peaks=post.max_instances or post.max_peaks,
+        )
+        # scaled-image coords (for stage-2 crops) and original coords.
+        points_scaled = points * self.output_stride
+        out = {
+            "pred_centroids": points_scaled / (self.pre.scale * eff_scale),
+            "centroids_scaled": points_scaled,
+            "centroid_vals": vals,
+            "centroid_valid": valid,
+            "eff_scale": eff_scale,
+        }
+        if post.return_confmaps:
+            out["confmaps"] = cms
+        return out
+
+
+class CenteredInstanceLayer(InferenceLayer):
+    """Stage-2 per-crop confmap peaks.
+
+    ``predict_on_crops`` takes crops in the SCALED image space; peaks come
+    back in crop coordinates, callers add the crop offsets.
+    """
+
+    def __init__(self, backend, pre, post, head_name="CenteredInstanceConfmapsHead",
+                 output_stride=2, device="cuda"):
+        super().__init__(backend, pre, post, device)
+        self.head_name = head_name
+        self.output_stride = output_stride
+
+    def predict_on_crops(self, crops: torch.Tensor):
+        cms = self.backend(crops)[self.head_name]
+        points, vals = find_global_peaks(
+            cms,
+            threshold=self.post.peak_threshold,
+            refinement=self.post.refinement,
+            integral_patch_size=self.post.integral_patch_size,
+        )
+        return points * self.output_stride, vals
+
+
+class TopDownLayer(InferenceLayer):
+    """Two-stage: centroids -> fixed-size crop gather -> instance peaks.
+
+    Stage 2 runs on a fixed ``max_instances`` crops per frame, with
+    invalid centroids masked (no data-dependent shapes).
+    """
+
+    def __init__(self, centroid_layer: CentroidLayer, instance_layer: CenteredInstanceLayer,
+                 max_instances: int = 20, crop_size: int = 160, device="cuda"):
+        self.device = resolve_device(device)
+        for layer in (centroid_layer, instance_layer):
+            if layer.device != self.device:
+                raise ValueError(f"stage layer runs on {layer.device}, layer on {self.device}")
+        self.centroid_layer = centroid_layer
+        self.instance_layer = instance_layer
+        self.max_instances = max_instances
+        self.crop_size = crop_size
+
+    def _stage2(self, images_scaled, centroids_scaled, valid):
+        """images_scaled: stage-2-preprocessed frames (B, H, W, C);
+        centroids_scaled: (B, K, 2) in the same scaled space."""
+        crop = self.crop_size
+        b, k = centroids_scaled.shape[:2]
+        flat_c = centroids_scaled.reshape(b * k, 2)
+        bboxes = make_centered_bboxes(flat_c, crop, crop)
+        sample_inds = torch.arange(b, device=self.device).repeat_interleave(k)
+        crops = crop_bboxes(images_scaled, bboxes, sample_inds, crop, crop)
+        peaks, vals = self.instance_layer.predict_on_crops(crops)  # crop coords
+        # Integer-floored bbox top-left, as crop_bboxes takes it.
+        half = crop // 2
+        top_left = torch.trunc(flat_c - (crop - 1) / 2.0 + half) - half
+        peaks = peaks + top_left[:, None, :]
+        peaks = peaks.reshape(b, k, peaks.shape[1], 2)
+        vals = vals.reshape(b, k, -1)
+        peaks = torch.where(valid[..., None, None], peaks, torch.full_like(peaks, float("nan")))
+        vals = torch.where(valid[..., None], vals, torch.zeros_like(vals))
+        return peaks, vals
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        c, inst, k = self.centroid_layer, self.instance_layer, self.max_instances
+        x, eff = preprocess_images(c.pre, images)
+        cres = c.forward_preprocessed(x, eff)
+        # Frames preprocessed for stage 2 in the instance layer's space.
+        x2, eff2 = (x, eff) if inst.pre == c.pre else preprocess_images(inst.pre, images)
+        ratio = (inst.pre.scale * eff2) / (c.pre.scale * cres["eff_scale"])
+        valid = cres["centroid_valid"][:, :k]
+        cent2 = torch.nan_to_num(cres["centroids_scaled"][:, :k] * ratio, nan=-1e6)
+        peaks, vals = self._stage2(x2, cent2, valid)
+        return {
+            "pred_keypoints": peaks / (inst.pre.scale * eff2),
+            "pred_peak_values": vals,
+            "pred_centroids": cres["pred_centroids"][:, :k],
+            "centroid_vals": cres["centroid_vals"][:, :k],
+            "instance_valid": valid,
+        }
