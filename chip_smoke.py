@@ -10,23 +10,35 @@ Phases, each of which raises on failure (exit code != 0):
 1. Device report: the card's name and power limit.
 2. Build: every CUDA kernel of the port, compiled from ``csrc/`` with nvcc
    (one process per source, in parallel).
-3. Kernels against their plain PyTorch versions, at the shapes of the
-   top-down path (UNet medium_rf, 1024x1024 frames, batch 8, 256x256 crops,
-   6 instances): the fused double conv at all 18 double-conv blocks of one
-   batch in bf16 (plus four f32 checks), the peak NMS on the (8, 512, 512,
-   1) centroid map (k = 3 and 5, bf16 and f32). Times the kernel, the
-   plain version and, where one exists, the library call that computes
-   the same function (cuDNN convolutions), and the bound of each call.
-4. End to end: ``Predictor.predict`` of the top-down pair (medium_rf
-   centroid + centered-instance UNets, random weights from a seed, bf16)
-   over an in-memory video of 20 synthetic 1024x1024 uint8 frames, batch
-   8 (the last batch is partial). Launch counters, zeroed just before the
-   run, must show both kernels ran (18 and 1 per batch); every output must
-   have the JAX package's shapes, with NaN exactly on invalid slots.
-   Prints frames/s and per-stage ms.
-5. Agreement with the CPU on a small input: a narrow f32 pair runs on the
-   card and on the CPU; maps must agree to 1e-4 and each post-processing
-   stage, fed the same maps, to the index.
+3. Kernels against their plain PyTorch versions, at the shapes of the two
+   paths (UNet medium_rf, 1024x1024 frames, batch 8): the fused double conv
+   at all 18 double-conv blocks of one top-down batch in bf16 (plus four
+   f32 checks; the bottom-up UNet's 9 blocks have the centroid UNet's
+   shapes), the peak NMS on the (8, 512, 512, 1) centroid map (k = 3 and 5)
+   and on the (8, 512, 512, 15) bottom-up confmaps (k = 3), bf16 and f32,
+   and the PAF line scores on the bottom-up model's own (8, 256, 256, 28)
+   PAFs and peaks, bf16 and f32. Times the kernel, the plain version and,
+   where one exists, the library call that computes the same function
+   (cuDNN convolutions), and the bound of each call.
+4. Top-down end to end: ``Predictor.predict`` of the top-down pair
+   (medium_rf centroid + centered-instance UNets, random weights from a
+   seed, bf16) over an in-memory video of 20 synthetic 1024x1024 uint8
+   frames, batch 8 (the last batch is partial). Launch counters, zeroed
+   just before the run, must show both kernels ran (18 and 1 per batch);
+   every output must have the JAX package's shapes, with NaN exactly on
+   invalid slots. Prints frames/s and per-stage ms.
+5. Bottom-up end to end: ``Predictor.predict`` of a medium_rf bottom-up
+   model (confmaps at stride 2, PAFs at stride 4, 15 nodes, 14 edges,
+   bf16) over the same 20 frames, with the PAF grouping on the fetch
+   thread and then in 2 worker processes. Launch counters must read 9 / 1
+   / 1 per batch (fused conv, NMS, PAF line scores) in each run; outputs
+   must have the JAX package's keys and shapes, hold at least one
+   instance, and be identical between the two runs. Prints frames/s and
+   per-stage ms.
+6. Agreement with the CPU on a small input: a narrow f32 top-down pair and
+   a narrow f32 bottom-up model run on the card and on the CPU; maps must
+   agree to 1e-4 and each post-processing stage, fed the same inputs, to
+   the index (peaks and PAF scores to 1e-5, instances the same).
 
 Prints one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the port package beside it, it exits 1
@@ -48,6 +60,11 @@ PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 PEAK_F32 = 67e12    # f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 IMG, BATCH, N_FRAMES, CROP, MAX_INST, N_NODES = 1024, 8, 20, 256, 6, 15
+# Bottom-up skeleton: a branched tree over 15 nodes (edges whose nodes
+# exist are kept when a CPU rehearsal sets fewer nodes).
+TREE = ((0, 1), (1, 2), (0, 3), (3, 4), (0, 5), (5, 6), (0, 7), (7, 8), (0, 9), (9, 10),
+        (2, 11), (2, 12), (4, 13), (4, 14))
+MAX_PEAKS, K_PER_NODE, N_POINTS, MIN_LINE = 200, 20, 10, 0.25  # the JAX package's defaults
 DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu" and small sizes, then calls the phases
 
 
@@ -124,7 +141,6 @@ def build_models(cfg_cls, n_nodes, seed, **cfg_kw):
     """
     import torch
     from types import SimpleNamespace as ns
-    from torch import nn
 
     from sleap_nn_tpu_torch.models.model import Model
 
@@ -135,8 +151,17 @@ def build_models(cfg_cls, n_nodes, seed, **cfg_kw):
     instance = Model.from_config("unet", cfg, ns(confmaps=ns(
         part_names=[f"n{i}" for i in range(n_nodes)], anchor_part=None, sigma=3.0,
         output_stride=2, loss_weight=None)), "centered_instance")
+    random_init(centroid, instance)
+    return cfg, centroid, instance
+
+
+def random_init(*models):
+    """He-normal backbone convs with zero biases; 1x1 heads of gain 0.1, bias 0.5."""
+    import torch
+    from torch import nn
+
     with torch.no_grad():
-        for m in (centroid, instance):
+        for m in models:
             for conv in m.backbone.modules():
                 if isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
                     nn.init.kaiming_normal_(conv.weight, nonlinearity="relu")
@@ -145,7 +170,6 @@ def build_models(cfg_cls, n_nodes, seed, **cfg_kw):
                 for head in layer.values():
                     nn.init.normal_(head[0].weight, std=0.1 * head[0].in_channels ** -0.5)
                     head[0].bias.fill_(0.5)
-    return cfg, centroid, instance
 
 
 def build_layer(cfg, centroid, instance, device, use_bf16, crop, max_inst):
@@ -163,6 +187,75 @@ def build_layer(cfg, centroid, instance, device, use_bf16, crop, max_inst):
                                     output_stride=2, device=device)
     return TopDownLayer(c_layer, i_layer, max_instances=max_inst, crop_size=crop,
                         device=device)
+
+
+def bottomup_edges(n_nodes):
+    return [e for e in TREE if max(e) < n_nodes]
+
+
+def build_bottomup_model(cfg_cls, n_nodes, seed, frames, **cfg_kw):
+    """A bottom-up model (confmaps at stride 2, PAFs at stride 4, the strides
+    the JAX package's config generator writes) with random weights from
+    ``seed``, initialised as in :func:`build_models`: the 0.5 head biases put
+    confmap peaks above the threshold and PAF vectors at (0.5, 0.5), so
+    lines that run right or down score above ``MIN_LINE``.
+
+    Random heads give each confmap channel its own offset and spread, and
+    the per-sample top-K of local peaks would then come from one or two
+    channels. So the confmap head is moved per channel, on ``frames``: the
+    median to 0.5 and the (max_peaks / n_nodes)-th highest local peak of a
+    sample to 0.9 (mean over samples), and every node gets its share.
+    """
+    import torch
+    from types import SimpleNamespace as ns
+
+    from sleap_nn_tpu_torch.inference.layers import PreprocessConfig, preprocess_images
+    from sleap_nn_tpu_torch.models.model import Model
+    from sleap_nn_tpu_torch.ops.kernels import nms_scores
+
+    cfg = cfg_cls(in_channels=1, output_stride=2, **cfg_kw)
+    names = [f"n{i}" for i in range(n_nodes)]
+    torch.manual_seed(seed)
+    model = Model.from_config("unet", cfg, ns(
+        confmaps=ns(part_names=names, sigma=2.5, output_stride=2, loss_weight=None),
+        pafs=ns(edges=[(names[s], names[d]) for s, d in bottomup_edges(n_nodes)],
+                sigma=15.0, output_stride=4, loss_weight=None)), "bottomup")
+    random_init(model)
+    model.to(DEVICE)
+    head = model.head_layers[0]["MultiInstanceConfmapsHead"][0]
+    with torch.no_grad():
+        x, _ = preprocess_images(PreprocessConfig(ensure_grayscale=True, max_stride=cfg.max_stride),
+                                 torch.from_numpy(frames).to(DEVICE))
+        cms = model(x)["MultiInstanceConfmapsHead"].contiguous()
+        peaks = nms_scores(cms, -1e9).permute(0, 3, 1, 2).flatten(2)  # (B, C, H*W)
+        top = peaks.topk(MAX_PEAKS // n_nodes, dim=-1).values[..., -1].mean(dim=0)
+        median = cms.flatten(0, 2).median(dim=0).values
+        gain = 0.4 / (top - median)
+        head.weight.mul_(gain[:, None, None, None])
+        head.bias.copy_((head.bias - median) * gain + 0.5)
+    return cfg, model
+
+
+def build_bottomup_layer(cfg, model, device, use_bf16, max_inst):
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.layers import (
+        BottomUpLayer, PostprocessConfig, PreprocessConfig)
+    from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
+
+    cm_head, paf_head = model.heads
+    scorer = PAFScorer(cm_head.part_names, paf_head.edges, pafs_stride=paf_head.output_stride,
+                       n_points=N_POINTS, min_line_scores=MIN_LINE, k_per_node=K_PER_NODE)
+    post = PostprocessConfig(peak_threshold=0.2, max_peaks=MAX_PEAKS, max_instances=max_inst,
+                             k_per_node=K_PER_NODE, n_points=N_POINTS, min_line_scores=MIN_LINE)
+    return BottomUpLayer(
+        TorchBackend(model, None, use_bf16=use_bf16, output_dtype=None, device=device),
+        PreprocessConfig(ensure_grayscale=True, max_stride=cfg.max_stride), post, scorer,
+        cm_output_stride=cm_head.output_stride, device=device)
+
+
+def smoke_frames():
+    """The end-to-end phases' 20 synthetic uint8 frames."""
+    return np.random.default_rng(0).integers(0, 256, (N_FRAMES, IMG, IMG, 1), dtype=np.uint8)
 
 
 def fused_shapes(model, batch: int, size: int):
@@ -245,17 +338,17 @@ def check_fused(layer, rng):
     return rows
 
 
-def check_nms(rng):
+def check_nms(rng, channels=1, ks=(3, 5)):
     import torch
 
     from sleap_nn_tpu_torch.ops.kernels import _plain_nms_scores, nms_scores
 
     rows = []
-    shape = (BATCH, IMG // 2, IMG // 2, 1)
+    shape = (BATCH, IMG // 2, IMG // 2, channels)
     base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(DEVICE)
     for dtype in (torch.bfloat16, torch.float32):
         cms = base.to(dtype)
-        for k in (3, 5):
+        for k in ks:
             got = nms_scores(cms, 0.2, kernel=k)
             want = _plain_nms_scores(cms, 0.2, kernel=k)
             sync()
@@ -273,6 +366,84 @@ def check_nms(rng):
             rows.append(row)
     if not all(r["exact"] for r in rows):
         raise AssertionError(f"nms_scores differs from its plain version: {rows}")
+    return rows
+
+
+def paf_inputs(layer, frames):
+    """The bottom-up path's own PAFs, grouped peaks and mask for one batch."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.inference.paf_grouping import group_peaks_by_node
+    from sleap_nn_tpu_torch.ops.peaks import find_local_peaks
+
+    post, scorer = layer.post, layer.paf_scorer
+    with torch.inference_mode():
+        x, _ = preprocess_images(layer.pre, torch.from_numpy(frames).to(DEVICE))
+        preds = layer.backend(x)
+        pts, vals, chans, valid = find_local_peaks(
+            preds[layer.cm_head], threshold=post.peak_threshold, refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size, max_peaks=post.max_peaks)
+        gp, _, mask = group_peaks_by_node(pts * layer.cm_output_stride, vals, chans, valid,
+                                          scorer.n_nodes, scorer.k_per_node)
+    return preds[layer.paf_head], gp, mask
+
+
+def check_paf(layer, frames):
+    import torch
+
+    from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
+    from sleap_nn_tpu_torch.ops.kernels import (
+        _plain_paf_line_scores, paf_line_scores, paf_line_subscripts)
+
+    scorer = layer.paf_scorer
+    pafs, gp, mask = paf_inputs(layer, frames)
+    b, hp, wp, _ = pafs.shape
+    edges = torch.tensor(scorer.edge_inds, dtype=torch.int32, device=DEVICE)
+    t = line_fractions(scorer.n_points, DEVICE)
+    max_len = scorer.max_edge_length_ratio * max(hp, wp, 2 * scorer.n_edges) * scorer.pafs_stride
+    src, dst = gp[:, edges[:, 0].long()], gp[:, edges[:, 1].long()]
+    ys, xs = paf_line_subscripts(src, dst, t, scorer.pafs_stride, hp, wp)
+    b_idx = torch.arange(b, device=DEVICE)[:, None, None, None, None]
+    e_idx = torch.arange(scorer.n_edges, device=DEVICE)[None, :, None, None, None]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        p = pafs.to(dtype).contiguous()
+        args = (p, gp, mask, edges, t, scorer.pafs_stride, max_len, scorer.dist_penalty_weight)
+        got = paf_line_scores(*args)
+        want = _plain_paf_line_scores(*args)
+        sync()
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+        placed = bool(torch.equal(torch.isneginf(got), torch.isneginf(want))
+                      and torch.equal(torch.isnan(got), torch.isnan(want)))
+        # This run's data: a pair with an invalid end loads nothing.
+        n_pairs = int((~torch.isneginf(want)).sum())
+        itemsize = p.element_size()
+        nbytes = (n_pairs * scorer.n_points * 2 * itemsize + gp.numel() * 4 + mask.numel()
+                  + got.numel() * 4)
+        flops = n_pairs * (10.0 * scorer.n_points + 10.0)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        row = dict(
+            dtype=str(dtype).split(".")[-1], pafs=list(p.shape), peaks=list(gp.shape),
+            scores=list(got.shape), peaks_per_node=mask.sum(dim=-1).float().mean(dim=0).tolist(),
+            valid_pairs=n_pairs, finite_scores=int(fin.sum()),
+            above_min_line=int((want >= MIN_LINE).sum()), max_abs_err=err, tol=1e-5,
+            inf_nan_placement_exact=placed, ok=bool(placed and err <= 1e-5),
+            kernel_ms=cuda_ms(lambda: paf_line_scores(*args), reps=20),
+            plain_ms=cuda_ms(lambda: _plain_paf_line_scores(*args), reps=5),
+            # Covers only the sampling the TPU kernel did, not the scoring.
+            gather_ms=cuda_ms(lambda: (p[b_idx, ys, xs, 2 * e_idx],
+                                       p[b_idx, ys, xs, 2 * e_idx + 1]), reps=5),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+        )
+        log("paf_line_scores " + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"paf_line_scores disagrees with its plain version: {bad}")
+    if not all(r["above_min_line"] > 0 for r in rows):
+        raise AssertionError("no pair scores above min_line_scores: the smoke maps are degenerate")
     return rows
 
 
@@ -346,8 +517,7 @@ def run_end_to_end(layer, kernels):
     from sleap_nn_tpu_torch.inference.predictor import Predictor
     from sleap_nn_tpu_torch.inference.providers import VideoProvider
 
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (N_FRAMES, IMG, IMG, 1), dtype=np.uint8)
+    frames = smoke_frames()
     video = ArrayVideo(frames)
     predictor = Predictor(layer, "topdown", batch_size=BATCH, device=DEVICE)
     predictor.predict(provider=VideoProvider(ArrayVideo(frames[:BATCH]), batch_size=BATCH),
@@ -359,8 +529,9 @@ def run_end_to_end(layer, kernels):
                                 make_labels=False)
     launches = {name: k.launches for name, k in kernels.items()}
     n_batches = len(results)
-    want = {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches}
-    if launches != want:
+    want = {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches,
+            "paf_line_scores": 0}
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
         raise AssertionError(f"launch counts {launches}, expected {want}")
     check_outputs(results)
     stats = dict(predictor.last_stats)
@@ -373,7 +544,135 @@ def run_end_to_end(layer, kernels):
 
 
 # --------------------------------------------------------------------------
-# Phase 5: card against CPU on a small input
+# Phase 5: bottom-up end to end
+# --------------------------------------------------------------------------
+
+BOTTOMUP_KEYS = {"pred_keypoints", "pred_peak_values", "pred_instance_scores",
+                 "frame_inds", "video_inds", "valid"}
+
+
+def check_bottomup_outputs(results, n_nodes):
+    """The JAX package's keys and per-sample shapes; returns the instance count."""
+    assert len(results) == -(-N_FRAMES // BATCH), len(results)
+    n_inst = 0
+    for i, out in enumerate(results):
+        assert set(out) == BOTTOMUP_KEYS, sorted(out)
+        for key in ("pred_keypoints", "pred_peak_values", "pred_instance_scores"):
+            assert len(out[key]) == BATCH, (key, len(out[key]))
+        for kp, vals, sc in zip(out["pred_keypoints"], out["pred_peak_values"],
+                                out["pred_instance_scores"]):
+            n = kp.shape[0]
+            assert n <= MAX_INST, n
+            assert kp.shape == (n, n_nodes, 2) and kp.dtype == np.float32, kp.shape
+            assert vals.shape == (n, n_nodes) and sc.shape == (n,), (vals.shape, sc.shape)
+            found = np.isfinite(kp).all(axis=-1)
+            assert (found == np.isfinite(vals)).all() and (found.sum(axis=-1) >= 2).all()
+            assert (np.abs(kp[found] - IMG / 2) <= IMG / 2).all()
+        n_valid = min(BATCH, N_FRAMES - i * BATCH)
+        assert out["valid"].tolist() == [True] * n_valid + [False] * (BATCH - n_valid)
+        assert out["frame_inds"][:n_valid].tolist() == list(range(i * BATCH, i * BATCH + n_valid))
+        n_inst += sum(len(kp) for kp, v in zip(out["pred_keypoints"], out["valid"]) if v)
+    assert n_inst >= 1, "no instance found in any frame"
+    return n_inst
+
+
+def assert_same_outputs(a, b):
+    """Identical per-batch outputs (NaN equal to NaN)."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert set(x) == set(y)
+        for key in x:
+            xs, ys = (x[key], y[key]) if isinstance(x[key], list) else ([x[key]], [y[key]])
+            assert len(xs) == len(ys), key
+            for u, v in zip(xs, ys):
+                assert u.dtype == v.dtype and np.array_equal(u, v, equal_nan=u.dtype.kind == "f"), key
+
+
+def bottomup_stage_times(layer, frames):
+    """Per-stage ms of one bottom-up batch, each stage fenced by synchronize()."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images, to_host
+    from sleap_nn_tpu_torch.inference.paf_grouping import group_peaks_by_node, score_paf_lines_dense
+    from sleap_nn_tpu_torch.ops.peaks import find_local_peaks
+
+    post, scorer = layer.post, layer.paf_scorer
+    images = torch.from_numpy(frames).to(DEVICE)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            x, eff = timed("preprocess", lambda: preprocess_images(layer.pre, images))
+            preds = timed("unet", lambda: layer.backend(x))
+            pts, vals, chans, valid = timed("local_peaks", lambda: find_local_peaks(
+                preds[layer.cm_head], threshold=post.peak_threshold, refinement=post.refinement,
+                integral_patch_size=post.integral_patch_size, max_peaks=post.max_peaks))
+            gp, gv, mask = timed("group_by_node", lambda: group_peaks_by_node(
+                pts * layer.cm_output_stride, vals, chans, valid, scorer.n_nodes,
+                scorer.k_per_node))
+            edges = torch.tensor(scorer.edge_inds, dtype=torch.int32, device=DEVICE)
+            scores = timed("paf_scoring", lambda: score_paf_lines_dense(
+                preds[layer.paf_head], gp, mask, edges, n_line_points=scorer.n_points,
+                pafs_stride=scorer.pafs_stride,
+                max_edge_length_ratio=scorer.max_edge_length_ratio,
+                dist_penalty_weight=scorer.dist_penalty_weight))
+            dev = {"grouped_peaks": gp, "grouped_vals": gv, "scores": scores, "eff_scale": eff}
+            timed("host_grouping", lambda: layer.postprocess_host(to_host(dev)))
+    return times
+
+
+def run_bottomup_end_to_end(layer, kernels):
+    """Predict over the smoke frames with the grouping inline, then in 2 workers."""
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.providers import VideoProvider
+
+    frames = smoke_frames()
+    n_nodes = layer.paf_scorer.n_nodes
+    Predictor(layer, "bottomup", batch_size=BATCH, device=DEVICE).predict(
+        provider=VideoProvider(ArrayVideo(frames[:BATCH]), batch_size=BATCH),
+        make_labels=False)  # warm-up: allocator, cuDNN
+    sync()
+    runs, stats = {}, {}
+    for workers in (0, 2):
+        predictor = Predictor(layer, "bottomup", batch_size=BATCH, device=DEVICE,
+                              paf_workers=workers)
+        for k in kernels.values():
+            k.launches = 0
+        results = predictor.predict(provider=VideoProvider(ArrayVideo(frames), batch_size=BATCH),
+                                    make_labels=False)
+        launches = {name: k.launches for name, k in kernels.items()}
+        n_batches = len(results)
+        want = {"fused_double_conv3x3": 9 * n_batches, "nms_scores": n_batches,
+                "paf_line_scores": n_batches}
+        if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+            raise AssertionError(f"paf_workers={workers}: launch counts {launches}, "
+                                 f"expected {want}")
+        runs[workers] = results
+        stats[f"paf_workers_{workers}"] = dict(predictor.last_stats, launches=launches,
+                                               instances=check_bottomup_outputs(results, n_nodes))
+    assert_same_outputs(runs[0], runs[2])
+    stats["launches"] = stats["paf_workers_0"]["launches"]
+    stats["instances"] = stats["paf_workers_0"]["instances"]
+    stats["fps"] = stats["paf_workers_0"]["fps"]
+    stats["n_frames"] = stats["paf_workers_0"]["n_frames"]
+    stats["n_batches"] = len(runs[0])
+    stats["instances_per_frame"] = [len(kp) for out in runs[0]
+                                    for kp, v in zip(out["pred_keypoints"], out["valid"]) if v]
+    stats["stage_ms"] = bottomup_stage_times(layer, frames[:BATCH])
+    log("bottomup_end_to_end " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 6: card against CPU on a small input
 # --------------------------------------------------------------------------
 
 
@@ -415,6 +714,148 @@ def check_against_cpu():
     return report
 
 
+def check_bottomup_against_cpu():
+    """A narrow f32 bottom-up model on the card and on the CPU: maps to 1e-4;
+    each later stage fed the card's inputs: peaks and scores to 1e-5 (-inf
+    and NaN placement exact), grouped peaks and instances exactly."""
+    import torch
+
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images, to_host
+    from sleap_nn_tpu_torch.inference.paf_grouping import group_peaks_by_node
+    from sleap_nn_tpu_torch.ops.peaks import find_local_peaks
+
+    frames = np.random.default_rng(2).integers(0, 256, (2, 128, 128, 1), dtype=np.uint8)
+    cfg, model = build_bottomup_model(UNetConfig, 5, seed=2, frames=frames, filters=8,
+                                      max_stride=16)
+    gpu = build_bottomup_layer(cfg, model, DEVICE, False, 3)
+    cpu = build_bottomup_layer(cfg, model, "cpu", False, 3)
+    post, scorer = cpu.post, cpu.paf_scorer
+    report = {}
+
+    def close(name, a, b):
+        a, b = a.cpu(), b.cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if not a.dtype.is_floating_point:
+            assert torch.equal(a, b), name
+            return
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b)), name
+        fin = torch.isfinite(b)
+        err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+        report[f"{name}_max_abs_err"] = err
+        assert err <= 1e-5, (name, err)
+
+    with torch.inference_mode():
+        x, _ = preprocess_images(cpu.pre, torch.from_numpy(frames))
+        preds_g, preds_c = gpu.backend(x.to(DEVICE)), cpu.backend(x)
+        for head in (cpu.cm_head, cpu.paf_head):
+            err = (preds_g[head].cpu() - preds_c[head]).abs().max().item()
+            report[f"{head}_max_abs_err"] = err
+            if err > 1e-4:
+                raise AssertionError(f"{head}: card vs CPU max abs err {err}")
+        cms, pafs = preds_g[cpu.cm_head], preds_g[cpu.paf_head]
+        kw = dict(threshold=post.peak_threshold, refinement=post.refinement,
+                  integral_patch_size=post.integral_patch_size, max_peaks=post.max_peaks)
+        peaks_g = find_local_peaks(cms, **kw)
+        for name, a, b in zip(("points", "vals", "channels", "valid"), peaks_g,
+                              find_local_peaks(cms.cpu(), **kw)):
+            close(f"peaks_{name}", a, b)
+        pts, vals, chans, valid = peaks_g
+        grouped_g = group_peaks_by_node(pts * 2, vals, chans, valid, scorer.n_nodes,
+                                        scorer.k_per_node)
+        grouped_c = group_peaks_by_node(*(a.cpu() for a in (pts * 2, vals, chans, valid)),
+                                        scorer.n_nodes, scorer.k_per_node)
+        for name, a, b in zip(("peaks", "vals", "mask"), grouped_g, grouped_c):
+            assert torch.equal(a.cpu().nan_to_num(-1.0), b.nan_to_num(-1.0)), f"grouped_{name}"
+        _, _, _, scores_g = gpu.paf_scorer.score_on_device(pafs, pts * 2, vals, chans, valid)
+        _, _, _, scores_c = scorer.score_on_device(
+            *(a.cpu() for a in (pafs, pts * 2, vals, chans, valid)))
+        close("paf_scores", scores_g, scores_c)
+        report["finite_scores"] = int(torch.isfinite(scores_c).sum())
+        assert report["finite_scores"] > 0, "no pair to score: the check would hold nothing"
+        inst = [layer.postprocess_host(to_host(
+                    {"grouped_peaks": grouped_c[0], "grouped_vals": grouped_c[1],
+                     "scores": s, "eff_scale": 1.0}))
+                for layer, s in ((gpu, scores_g), (cpu, scores_c))]
+    for key in ("pred_keypoints", "pred_peak_values"):
+        for a, b in zip(inst[0][key], inst[1][key]):
+            assert np.array_equal(a, b, equal_nan=True), key
+    for a, b in zip(inst[0]["pred_instance_scores"], inst[1]["pred_instance_scores"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    report["instances"] = [len(kp) for kp in inst[1]["pred_keypoints"]]
+    log("bottomup_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu):
+    """The ``kernels`` line: one entry per kernel, launches from the two paths' runs."""
+    main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
+    nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
+    nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
+    paf_main = next(r for r in paf_rows if r["dtype"] == "bfloat16")
+    t_ops = sum(r["flops"] / PEAK_BF16 for r in main_path)
+    t_bytes = sum(r["bytes"] / PEAK_BYTES for r in main_path)
+
+    def launches(kernel):
+        by_path = {"topdown": e2e["launches"][kernel], "bottomup": bu["launches"][kernel]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launches_per_batch": {path: n // (e2e if path == "topdown" else bu)["n_batches"]
+                                       for path, n in by_path.items()}}
+
+    return {"kernels": [
+        {
+            "name": "fused_double_conv3x3", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/fused_double_conv3x3.cu",
+            "replaces": "sleap_nn_tpu/ops/fused_conv.py:112",
+            **launches("fused_double_conv3x3"),
+            "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
+            "max_err": max(r["max_abs_err"] / r["tol"] for r in fused_rows),
+            "tol": "bf16: 1 bf16 ulp at the output's largest magnitude; f32: 1e-4 x that magnitude",
+            "ms": sum(r["kernel_ms"] for r in main_path),
+            "kernel_ms": sum(r["kernel_ms"] for r in main_path),
+            "plain_ms": sum(r["plain_ms"] for r in main_path),
+            "bound_ms": sum(r["bound_ms"] for r in main_path),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main_path),
+            "shapes": "the 18 bf16 calls of one top-down batch (9 centroid UNet @ 8x1024^2, "
+                      "9 instance UNet @ 48x256^2); times summed. The bottom-up UNet's 9 "
+                      "calls have the centroid UNet's shapes",
+        },
+        {
+            "name": "nms_scores", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/nms_scores.cu",
+            "replaces": "sleap_nn_tpu/ops/pallas_kernels.py:116",
+            **launches("nms_scores"),
+            "max_abs_err": max(r["max_abs_err"] for r in nms_rows + nms_bu_rows),
+            "max_err": max(r["max_abs_err"] for r in nms_rows + nms_bu_rows),
+            "tol": "exact",
+            "ms": nms_main["kernel_ms"], "kernel_ms": nms_main["kernel_ms"],
+            "plain_ms": nms_main["plain_ms"], "bound_ms": nms_main["bound_ms"],
+            "bound_by": nms_main["bound_by"], "library_ms": None,
+            "shapes": "(8, 512, 512, 1) bf16, k=3",
+            "bottomup": {k: nms_bu[k] for k in ("x", "kernel_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "n_peaks")},
+        },
+        {
+            "name": "paf_line_scores", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/paf_line_scores.cu",
+            "replaces": "sleap_nn_tpu/ops/pallas_kernels.py:204",
+            **launches("paf_line_scores"),
+            "max_abs_err": max(r["max_abs_err"] for r in paf_rows),
+            "tol": "1e-5 absolute on finite scores; -inf and NaN placement exact",
+            "ms": paf_main["kernel_ms"], "kernel_ms": paf_main["kernel_ms"],
+            "plain_ms": paf_main["plain_ms"], "bound_ms": paf_main["bound_ms"],
+            "bound_by": paf_main["bound_by"], "library_ms": None,
+            "gather_ms": paf_main["gather_ms"],
+            "gather_note": "advanced-index gather of the x and y samples only (what the TPU "
+                           "kernel computed), not the scoring",
+            "shapes": f"PAFs {paf_main['pafs']} bf16, peaks {paf_main['peaks']}, "
+                      f"{N_POINTS} line points, {paf_main['valid_pairs']} valid pairs",
+        },
+    ]}
+
+
 # --------------------------------------------------------------------------
 
 
@@ -454,60 +895,33 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {k.name}: {line.strip()}")
 
-    # 3. Kernels against their plain versions, at the path's shapes.
+    # 3. Kernels against their plain versions, at the paths' shapes.
     cfg, centroid, instance = build_models(UNetMediumRFConfig, N_NODES, seed=0)
     layer = build_layer(cfg, centroid, instance, DEVICE, True, CROP, MAX_INST)
+    bu_cfg, bu_model = build_bottomup_model(UNetMediumRFConfig, N_NODES, seed=3,
+                                            frames=smoke_frames()[:2])
+    bu_layer = build_bottomup_layer(bu_cfg, bu_model, DEVICE, True, MAX_INST)
     rng = np.random.default_rng(0)
     fused_rows = check_fused(layer, rng)
     nms_rows = check_nms(rng)
+    nms_bu_rows = check_nms(rng, channels=N_NODES, ks=(3,))
+    paf_rows = check_paf(bu_layer, smoke_frames()[:BATCH])
 
-    # 4. End to end through Predictor.predict.
+    # 4. Top-down end to end through Predictor.predict.
     e2e = run_end_to_end(layer, _build.KERNELS)
 
-    # 5. Card against CPU on a small input.
-    check_against_cpu()
+    # 5. Bottom-up end to end through Predictor.predict.
+    bu = run_bottomup_end_to_end(bu_layer, _build.KERNELS)
 
-    main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
-    nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
-    t_ops = sum(r["flops"] / PEAK_BF16 for r in main_path)
-    t_bytes = sum(r["bytes"] / PEAK_BYTES for r in main_path)
-    n_batches = e2e["n_batches"]
-    summary = {"kernels": [
-        {
-            "name": "fused_double_conv3x3", "route": "cuda",
-            "source": "sleap_nn_tpu_torch/csrc/fused_double_conv3x3.cu",
-            "replaces": "sleap_nn_tpu/ops/fused_conv.py:112",
-            "launches": e2e["launches"]["fused_double_conv3x3"],
-            "launches_per_batch": e2e["launches"]["fused_double_conv3x3"] // n_batches,
-            "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
-            "max_err": max(r["max_abs_err"] / r["tol"] for r in fused_rows),
-            "tol": "bf16: 1 bf16 ulp at the output's largest magnitude; f32: 1e-4 x that magnitude",
-            "ms": sum(r["kernel_ms"] for r in main_path),
-            "kernel_ms": sum(r["kernel_ms"] for r in main_path),
-            "plain_ms": sum(r["plain_ms"] for r in main_path),
-            "bound_ms": sum(r["bound_ms"] for r in main_path),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in main_path),
-            "shapes": "the 18 bf16 calls of one batch (9 centroid UNet @ 8x1024^2, "
-                      "9 instance UNet @ 48x256^2); times summed",
-        },
-        {
-            "name": "nms_scores", "route": "cuda",
-            "source": "sleap_nn_tpu_torch/csrc/nms_scores.cu",
-            "replaces": "sleap_nn_tpu/ops/pallas_kernels.py:116",
-            "launches": e2e["launches"]["nms_scores"],
-            "launches_per_batch": e2e["launches"]["nms_scores"] // n_batches,
-            "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
-            "max_err": max(r["max_abs_err"] for r in nms_rows),
-            "tol": "exact",
-            "ms": nms_main["kernel_ms"], "kernel_ms": nms_main["kernel_ms"],
-            "plain_ms": nms_main["plain_ms"], "bound_ms": nms_main["bound_ms"],
-            "bound_by": nms_main["bound_by"], "library_ms": None,
-            "shapes": "(8, 512, 512, 1) bf16, k=3",
-        },
-    ]}
-    log(f"e2e: {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
-        f"({e2e['instances']} instances); total script {time.perf_counter() - t_start:.1f} s")
+    # 6. Card against CPU on a small input.
+    check_against_cpu()
+    check_bottomup_against_cpu()
+
+    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu)
+    log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
+        f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
+        f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
+        f"grouping workers); total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,18 @@
-"""Inference layers: preprocess -> backend -> postprocess, top-down family.
+"""Inference layers: preprocess -> backend -> postprocess, top-down and bottom-up.
 
-Port of the top-down part of ``sleap_nn_tpu/inference/layers.py``:
+Port of the top-down and bottom-up part of ``sleap_nn_tpu/inference/layers.py``:
 ``PreprocessConfig``, ``PostprocessConfig``, ``preprocess_images``,
-``CentroidLayer``, ``CenteredInstanceLayer`` and ``TopDownLayer``, with
-the same output keys, shapes and coordinate bookkeeping (eff_scale /
-scale / crop offsets lift coordinates back to the original image).
+``CentroidLayer``, ``CenteredInstanceLayer``, ``TopDownLayer`` and
+``BottomUpLayer``, with the same output keys, shapes and coordinate
+bookkeeping (eff_scale / scale / crop offsets lift coordinates back to the
+original image).
 
 PyTorch runs eagerly, so the JAX package's ``jit_layer`` has no
 counterpart. ``predict_async`` enqueues a batch's device work and returns
-device tensors without waiting; ``finalize`` copies them to numpy.
+device tensors without waiting; ``finalize`` copies them to numpy and runs
+the layer's host step, ``postprocess_host`` (the identity for top-down, the
+PAF grouping for bottom-up), which the predictor calls on the numpy it
+fetched itself.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_sizematcher, resize_image
 from sleap_nn_tpu_torch.inference.backends import resolve_device
+from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
+from sleap_nn_tpu_torch.inference.streaming import group_batch_host
 from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
 from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
 
@@ -44,7 +50,8 @@ class PreprocessConfig:
 
 @dataclasses.dataclass
 class PostprocessConfig:
-    """Peak-finding knobs (the top-down subset of the JAX package's config)."""
+    """Peak-finding / grouping knobs (the top-down and bottom-up subset of the
+    JAX package's config)."""
 
     peak_threshold: float = 0.2
     refinement: Optional[str] = "integral"
@@ -52,6 +59,15 @@ class PostprocessConfig:
     max_instances: Optional[int] = None
     max_peaks: int = 200
     return_confmaps: bool = False
+    # bottomup debug: emit the matched PAF candidate graph per sample as
+    # (peaks, edge_inds, edge_peak_inds, line_scores) under "pred_paf_graph"
+    return_paf_graph: bool = False
+    # bottomup only
+    k_per_node: int = 20
+    n_points: int = 10
+    max_edge_length_ratio: float = 0.25
+    dist_penalty_weight: float = 1.0
+    min_line_scores: float = 0.25
 
 
 def preprocess_images(pre: PreprocessConfig, images: torch.Tensor):
@@ -103,8 +119,12 @@ class InferenceLayer:
         with torch.inference_mode():
             return self.forward(self._as_tensor(images))
 
+    def postprocess_host(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """The layer's host step on its fetched numpy outputs (none here)."""
+        return host
+
     def finalize(self, device_out: Dict[str, Any]) -> Dict[str, Any]:
-        return to_host(device_out)
+        return self.postprocess_host(to_host(device_out))
 
     def predict(self, images) -> Dict[str, Any]:
         return self.finalize(self.predict_async(images))
@@ -225,3 +245,72 @@ class TopDownLayer(InferenceLayer):
             "centroid_vals": cres["centroid_vals"][:, :k],
             "instance_valid": valid,
         }
+
+
+class BottomUpLayer(InferenceLayer):
+    """Multi-instance confmaps + PAF grouping.
+
+    Device: preprocess, UNet, local peaks over all node channels, PAF line
+    scores of every candidate pair. Host (:meth:`postprocess_host`):
+    Hungarian matching + greedy union into instances, per sample.
+    """
+
+    def __init__(self, backend, pre, post, paf_scorer: PAFScorer,
+                 cm_head="MultiInstanceConfmapsHead", paf_head="PartAffinityFieldsHead",
+                 cm_output_stride=2, device="cuda"):
+        super().__init__(backend, pre, post, device)
+        self.paf_scorer = paf_scorer
+        self.cm_head = cm_head
+        self.paf_head = paf_head
+        self.cm_output_stride = cm_output_stride
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        post = self.post
+        x, eff_scale = preprocess_images(self.pre, images)
+        preds = self.backend(x)
+        cms, pafs = preds[self.cm_head], preds[self.paf_head]
+        points, vals, channels, valid = find_local_peaks(
+            cms,
+            threshold=post.peak_threshold,
+            refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size,
+            max_peaks=post.max_peaks,
+        )
+        points = points * self.cm_output_stride  # image (scaled) coords
+        grouped_peaks, grouped_vals, mask, scores = self.paf_scorer.score_on_device(
+            pafs, points, vals, channels, valid
+        )
+        out = {
+            "grouped_peaks": grouped_peaks,
+            "grouped_vals": grouped_vals,
+            "scores": scores,
+            "eff_scale": eff_scale,
+        }
+        if post.return_confmaps:
+            out["confmaps"] = cms
+            out["pafs"] = pafs
+        return out
+
+    def host_payload(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """Fetched numpy outputs -> the picklable grouping payload."""
+        payload = {
+            "grouped_peaks": host["grouped_peaks"],
+            "grouped_vals": host["grouped_vals"],
+            "scores": host["scores"],
+            "lift": 1.0 / (self.pre.scale * float(np.reshape(host["eff_scale"], -1)[0])),
+        }
+        for k in ("confmaps", "pafs"):
+            if k in host:
+                payload[k] = host[k]
+        return payload
+
+    def device_to_payload(self, dev: Dict[str, Any]) -> Dict[str, Any]:
+        """Fetch the device outputs into a picklable numpy grouping payload."""
+        return self.host_payload(to_host(dev))
+
+    def postprocess_host(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """Host grouping of the fetched scores into per-sample instances."""
+        return group_batch_host(
+            self.host_payload(host), self.paf_scorer, self.post.max_instances,
+            return_paf_graph=self.post.return_paf_graph,
+        )

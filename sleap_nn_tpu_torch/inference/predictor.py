@@ -1,8 +1,8 @@
 """Predictor: providers -> layer -> per-batch numpy outputs.
 
 Port of ``Predictor.predict`` of ``sleap_nn_tpu/inference/predictor.py``
-for a layer built by the caller (the top-down layer of this package),
-with ``make_labels=False``. Building from model directories
+for a layer built by the caller (the top-down or bottom-up layer of this
+package), with ``make_labels=False``. Building from model directories
 (``from_model_paths``) and ``.slp`` output (``to_labels``) are not ported
 yet.
 
@@ -10,11 +10,15 @@ Pipeline on a CUDA device: the main thread decodes (through the
 provider's prefetch thread), copies each batch from pinned host memory on
 a copy stream and enqueues the layer's device work; a second copy stream
 brings the outputs back into pinned buffers and records an event; a fetch
-thread waits on each event in submission order and hands out numpy.
+thread waits on each event in submission order, converts to numpy and runs
+the layer's host step (``postprocess_host``: the PAF grouping of a
+bottom-up layer). With ``paf_workers > 0`` a bottom-up layer's grouping
+runs in a process pool instead, and results keep submission order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -27,6 +31,7 @@ import torch
 from sleap_nn_tpu_torch.inference.backends import resolve_device
 from sleap_nn_tpu_torch.inference.layers import to_host
 from sleap_nn_tpu_torch.inference.providers import VideoProvider
+from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
 
 
 def rgb_to_gray_uint8(frames: np.ndarray) -> np.ndarray:
@@ -41,10 +46,14 @@ def rgb_to_gray_uint8(frames: np.ndarray) -> np.ndarray:
 
 
 class Predictor:
-    """Runs batched inference of one layer over a frame source."""
+    """Runs batched inference of one layer over a frame source.
+
+    ``paf_workers``: for a bottom-up layer, the number of worker processes
+    that group PAF scores into instances (0 groups on the fetch thread).
+    """
 
     def __init__(self, layer, model_type: str, skeleton=None, models: Sequence = (),
-                 batch_size: int = 4, device="cuda"):
+                 batch_size: int = 4, device="cuda", paf_workers: int = 0):
         self.device = resolve_device(device)
         if layer.device != self.device:
             raise ValueError(f"layer runs on {layer.device}, predictor on {self.device}")
@@ -53,6 +62,7 @@ class Predictor:
         self.skeleton = skeleton
         self.models = list(models)
         self.batch_size = batch_size
+        self.paf_workers = paf_workers
         # A grayscale model gets its frames converted on the host, before
         # the copy to the device (3x fewer bytes).
         pre = getattr(getattr(layer, "centroid_layer", layer), "pre", None)
@@ -123,10 +133,23 @@ class Predictor:
         errors: List[Exception] = []
         fetch_q: "queue.Queue" = queue.Queue(maxsize=3)
         n_frames = 0
+        pool = None
+        if self.paf_workers > 0 and hasattr(self.layer, "host_payload"):
+            pool = PafGroupingPool(self.paf_workers, self.layer.paf_scorer,
+                                   self.layer.post.max_instances,
+                                   return_paf_graph=self.layer.post.return_paf_graph)
+        pool_batches: List = []  # by submission ordinal
+
+        def emit(out, batch):
+            nonlocal n_frames
+            out["frame_inds"] = batch.frame_inds
+            out["video_inds"] = batch.video_inds
+            out["valid"] = batch.valid
+            n_frames += int(batch.valid.sum())
+            results.append(out)
 
         def fetcher():
             # One consumer, so results keep submission order.
-            nonlocal n_frames
             while True:
                 item = fetch_q.get()
                 if item is None:
@@ -139,34 +162,41 @@ class Predictor:
                         done.synchronize()
                     out = {k: (np.array(v.numpy()) if torch.is_tensor(v) else v)
                            for k, v in host.items()}
-                    out["frame_inds"] = batch.frame_inds
-                    out["video_inds"] = batch.video_inds
-                    out["valid"] = batch.valid
-                    n_frames += int(batch.valid.sum())
-                    results.append(out)
+                    if pool is None:
+                        emit(self.layer.postprocess_host(out), batch)
+                        continue
+                    pool.submit(len(pool_batches), self.layer.host_payload(out))
+                    pool_batches.append(batch)
+                    if len(pool) > 2 * self.paf_workers:  # bound the backlog
+                        ordinal, grouped = pool.drain_one()
+                        emit(grouped, pool_batches[ordinal])
                 except Exception as e:  # raised again on the main thread
                     errors.append(e)
 
         t0 = time.perf_counter()
-        thread = threading.Thread(target=fetcher, name="sleap-nn-torch-fetch", daemon=True)
-        thread.start()
-        batches = iter(provider)
-        try:
-            for batch in batches:
-                if errors:
-                    break
-                frames_b = batch.frames
-                if self._host_grayscale and frames_b.shape[-1] == 3:
-                    frames_b = rgb_to_gray_uint8(frames_b)
-                out = self.layer.predict_async(self._send(frames_b, h2d))
-                fetch_q.put((self._fetch_async(out, d2h), batch))
-        finally:
-            fetch_q.put(None)
-            thread.join()
-            if hasattr(batches, "close"):
-                batches.close()
-        if errors:
-            raise errors[0]
+        with pool if pool is not None else contextlib.nullcontext():
+            thread = threading.Thread(target=fetcher, name="sleap-nn-torch-fetch", daemon=True)
+            thread.start()
+            batches = iter(provider)
+            try:
+                for batch in batches:
+                    if errors:
+                        break
+                    frames_b = batch.frames
+                    if self._host_grayscale and frames_b.shape[-1] == 3:
+                        frames_b = rgb_to_gray_uint8(frames_b)
+                    out = self.layer.predict_async(self._send(frames_b, h2d))
+                    fetch_q.put((self._fetch_async(out, d2h), batch))
+            finally:
+                fetch_q.put(None)
+                thread.join()
+                if hasattr(batches, "close"):
+                    batches.close()
+            if errors:
+                raise errors[0]
+            if pool is not None:
+                for ordinal, grouped in pool.iter_completed():
+                    emit(grouped, pool_batches[ordinal])
         elapsed = time.perf_counter() - t0
         self.last_stats = {
             "n_frames": n_frames,

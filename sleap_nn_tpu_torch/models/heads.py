@@ -1,8 +1,8 @@
 """Model output heads for the ported model types.
 
-Port of the confidence-map heads of ``sleap_nn_tpu/models/heads.py``: the
-head descriptors (frozen dataclasses keyed by ``name``) and the 1x1 conv
-head layer. The layer is an ``nn.Sequential`` whose conv sits at index 0,
+Port of the confidence-map and part-affinity-field heads of
+``sleap_nn_tpu/models/heads.py``: the head descriptors (frozen dataclasses
+keyed by ``name``) and the 1x1 conv head layer. The layer is an ``nn.Sequential`` whose conv sits at index 0,
 so a model's keys read ``head_layers.{i}.{HeadName}.0.{weight|bias}`` as
 in reference checkpoints.
 """
@@ -37,9 +37,12 @@ class Head:
     loss_weight: float = 1.0
 
     def __post_init__(self):
-        val = getattr(self, "part_names", None)
-        if val is not None and not isinstance(val, tuple):
-            object.__setattr__(self, "part_names", tuple(val))
+        # Tuples all the way down, so a head is hashable like the JAX one.
+        for attr in ("part_names", "edges"):
+            val = getattr(self, attr, None)
+            if val is not None and not isinstance(val, tuple):
+                object.__setattr__(self, attr, tuple(
+                    tuple(v) if isinstance(v, (list, tuple)) else v for v in val))
 
     @property
     def name(self) -> str:
@@ -76,3 +79,23 @@ class CenteredInstanceConfmapsHead(Head):
     @property
     def channels(self) -> int:
         return len(self.part_names)
+
+
+@dataclass(frozen=True)
+class MultiInstanceConfmapsHead(Head):
+    part_names: Sequence[str] = ()
+    sigma: float = 5.0
+
+    @property
+    def channels(self) -> int:
+        return len(self.part_names)
+
+
+@dataclass(frozen=True)
+class PartAffinityFieldsHead(Head):
+    edges: Sequence = ()
+    sigma: float = 15.0
+
+    @property
+    def channels(self) -> int:
+        return 2 * len(self.edges)

@@ -1,7 +1,7 @@
 """Model assembly: backbone + heads.
 
 Port of ``sleap_nn_tpu/models/model.py`` for the UNet backbone and the
-centroid / centered-instance heads: ``get_backbone`` / ``get_head`` and the
+centroid, centered-instance and bottom-up heads: ``get_backbone`` / ``get_head`` and the
 ``Model`` that binds each head's 1x1 conv to the decoder feature at that
 head's ``output_stride``, with gray<->RGB input coercion in ``forward``.
 """
@@ -17,10 +17,12 @@ from sleap_nn_tpu_torch.models.heads import (
     CenteredInstanceConfmapsHead,
     CentroidConfmapsHead,
     Head,
+    MultiInstanceConfmapsHead,
+    PartAffinityFieldsHead,
 )
 from sleap_nn_tpu_torch.models.unet import UNet
 
-MODEL_TYPES = ("centroid", "centered_instance")
+MODEL_TYPES = ("centroid", "centered_instance", "bottomup")
 
 
 def _cfg_get(cfg, key, default=None):
@@ -46,6 +48,14 @@ def get_head(model_type: str, head_config) -> Tuple[Head, ...]:
         return {k: _cfg_get(leaf, k) for k in keys if _cfg_get(leaf, k) is not None}
 
     leaf = _cfg_get(head_config, "confmaps")
+    if model_type == "bottomup":
+        pafs = _cfg_get(head_config, "pafs")
+        return (
+            MultiInstanceConfmapsHead(
+                **kw(leaf, ("part_names", "sigma", "output_stride", "loss_weight"))),
+            PartAffinityFieldsHead(
+                **kw(pafs, ("edges", "sigma", "output_stride", "loss_weight"))),
+        )
     if model_type == "centered_instance":
         return (CenteredInstanceConfmapsHead(
             **kw(leaf, ("part_names", "anchor_part", "sigma", "output_stride", "loss_weight"))),)

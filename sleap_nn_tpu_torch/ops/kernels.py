@@ -4,10 +4,12 @@ PyTorch version.
 Port of ``sleap_nn_tpu/ops/pallas_kernels.py``. A CUDA tensor launches the
 kernel; a CPU tensor takes the plain version. Ported so far:
 
-- :func:`nms_scores` (``csrc/nms_scores.cu``), for ``nms_scores_pallas``.
+- :func:`nms_scores` (``csrc/nms_scores.cu``), for ``nms_scores_pallas``;
+- :func:`paf_line_scores` (``csrc/paf_line_scores.cu``), for
+  ``paf_line_samples_pallas`` fused with the rest of the JAX package's
+  ``score_paf_lines_dense``.
 
-Still to port: ``paf_line_samples_pallas`` (bottom-up inference) and
-``make_multi_confmaps_pallas`` (training targets).
+Still to port: ``make_multi_confmaps_pallas`` (training targets).
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ NMS_SCORES = Kernel(
     "nms_scores", "nms_scores.cu",
     [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+PAF_LINE_SCORES = Kernel(
+    "paf_line_scores", "paf_line_scores.cu",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p],
 )
 
 
@@ -62,5 +68,120 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
         NMS_SCORES.launch(
             cms.data_ptr(), out.data_ptr(), b, h, w, c, kernel, float(threshold),
             int(cms.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def paf_line_subscripts(src: torch.Tensor, dst: torch.Tensor, t: torch.Tensor,
+                        pafs_stride: float, hp: int, wp: int):
+    """PAF pixel ``(ys, xs)`` of every line point, ``(B, E, Ks, Kd, P)`` int64 each.
+
+    ``src`` / ``dst``: ``(B, E, K, 2)`` line ends. The point
+    ``src + t * (dst - src)`` is rounded once, as the fused multiply-add
+    that XLA emits under ``jit``: the sum is taken in f64 and rounded to f32
+    (the f64 product of two f32 values is exact). Then true division by the
+    stride, half-to-even rounding, and a clamp after the int conversion.
+    """
+    disp = dst[:, :, None, :, :] - src[:, :, :, None, :]  # (B, E, Ks, Kd, 2)
+    pts = (src[:, :, :, None, None, :].double()
+           + t.double()[:, None] * disp[..., None, :].double()).float()  # (B,E,Ks,Kd,P,2)
+    # NaN ends belong to pairs that score -inf (or NaN); zero them before
+    # the int conversion so no NaN is converted.
+    sub = torch.round(torch.nan_to_num(pts / pafs_stride, nan=0.0)).to(torch.int32).long()
+    return sub[..., 1].clamp(0, hp - 1), sub[..., 0].clamp(0, wp - 1)
+
+
+def _plain_paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
+                           grouped_mask: torch.Tensor, edge_inds: torch.Tensor,
+                           t: torch.Tensor, pafs_stride: float, max_edge_length: float,
+                           dist_penalty_weight: float) -> torch.Tensor:
+    """The JAX package's jitted ``score_paf_lines_dense`` gather path, in PyTorch."""
+    b, hp, wp, c = pafs.shape
+    n_edges = edge_inds.shape[0]
+    src_node, dst_node = edge_inds[:, 0].long(), edge_inds[:, 1].long()
+    src = grouped_peaks[:, src_node]  # (B, E, K, 2)
+    dst = grouped_peaks[:, dst_node]
+    disp = dst[:, :, None, :, :] - src[:, :, :, None, :]  # (B, E, Ks, Kd, 2)
+    length = torch.sqrt((disp ** 2).sum(dim=-1, keepdim=True))
+    unit = disp / torch.clamp(length, min=1e-8)
+
+    ys, xs = paf_line_subscripts(src, dst, t, pafs_stride, hp, wp)
+    b_idx = torch.arange(b, device=pafs.device)[:, None, None, None, None]
+    e_idx = torch.arange(n_edges, device=pafs.device)[None, :, None, None, None]
+    flat = pafs.reshape(-1).float()
+    at = ((b_idx * hp + ys) * wp + xs) * c + 2 * e_idx
+    dots = flat[at] * unit[..., None, 0] + flat[at + 1] * unit[..., None, 1]  # (B,E,Ks,Kd,P)
+    mean_scores = dots.mean(dim=-1)
+
+    penalty = torch.clamp(max_edge_length / torch.clamp(length[..., 0], min=1e-8) - 1, max=0.0)
+    scores = mean_scores + penalty * dist_penalty_weight
+
+    src_mask = grouped_mask[:, src_node]
+    dst_mask = grouped_mask[:, dst_node]
+    pair_valid = src_mask[:, :, :, None] & dst_mask[:, :, None, :]
+    finite = torch.isfinite(src[..., 0])[:, :, :, None] & torch.isfinite(dst[..., 0])[:, :, None, :]
+    return torch.where(pair_valid & finite, scores,
+                       torch.tensor(float("-inf"), device=scores.device))
+
+
+def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
+                    grouped_mask: torch.Tensor, edge_inds: torch.Tensor, t: torch.Tensor,
+                    pafs_stride: float, max_edge_length: float,
+                    dist_penalty_weight: float) -> torch.Tensor:
+    """Dense PAF line scores of every candidate pair of every edge.
+
+    Args:
+        pafs: ``(B, Hp, Wp, 2E)`` bf16 or f32, channel order
+            ``[e0x, e0y, e1x, ...]``.
+        grouped_peaks: ``(B, N, K, 2)`` f32 image-scale ``(x, y)``.
+        grouped_mask: ``(B, N, K)`` bool.
+        edge_inds: ``(E, 2)`` int32 ``(src_node, dst_node)``.
+        t: ``(P,)`` f32 line fractions (``jnp.linspace(0, 1, P)``'s values).
+
+    Returns:
+        ``(B, E, K, K)`` f32: the mean over the P line points of the PAF
+        sample (nearest PAF pixel) dotted with the unit displacement, plus
+        ``dist_penalty_weight * min(max_edge_length / length - 1, 0)``;
+        ``-inf`` where either endpoint is masked or its x is not finite.
+    """
+    if pafs.ndim != 4 or pafs.shape[-1] != 2 * edge_inds.shape[0]:
+        raise ValueError(f"pafs must be (B, Hp, Wp, 2E) with E = {edge_inds.shape[0]}, "
+                         f"got {tuple(pafs.shape)}")
+    b, hp, wp, c = pafs.shape
+    if grouped_peaks.ndim != 4 or grouped_peaks.shape[0] != b or grouped_peaks.shape[-1] != 2:
+        raise ValueError(f"grouped_peaks must be (B, N, K, 2), got {tuple(grouped_peaks.shape)}")
+    _, n, k, _ = grouped_peaks.shape
+    if tuple(grouped_mask.shape) != (b, n, k):
+        raise ValueError(f"grouped_mask must be {(b, n, k)}, got {tuple(grouped_mask.shape)}")
+    if pafs.device.type == "cpu":
+        return _plain_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t,
+                                      pafs_stride, max_edge_length, dist_penalty_weight)
+    if pafs.device.type != "cuda":
+        raise ValueError(f"paf_line_scores runs on cuda or cpu tensors, got {pafs.device}")
+    if pafs.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pafs must be float32 or bfloat16, got {pafs.dtype}")
+    want = {"grouped_peaks": (grouped_peaks, torch.float32),
+            "grouped_mask": (grouped_mask, torch.bool),
+            "edge_inds": (edge_inds, torch.int32), "t": (t, torch.float32)}
+    for name, (x, dtype) in want.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    for name, x in [("pafs", pafs)] + [(nm, x) for nm, (x, _) in want.items()]:
+        if x.device != pafs.device:
+            raise ValueError(f"{name} is on {x.device}, pafs on {pafs.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if pafs.data_ptr() % (2 * pafs.element_size()):
+        raise ValueError("pafs must be aligned to one (x, y) channel pair")
+    out = torch.empty((b, edge_inds.shape[0], k, k), dtype=torch.float32, device=pafs.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(pafs.device):
+        PAF_LINE_SCORES.launch(
+            pafs.data_ptr(), grouped_peaks.data_ptr(), grouped_mask.data_ptr(),
+            edge_inds.data_ptr(), t.data_ptr(), out.data_ptr(),
+            b, hp, wp, n, k, edge_inds.shape[0], t.shape[0], int(pafs.dtype == torch.bfloat16),
+            float(pafs_stride), float(max_edge_length), float(dist_penalty_weight),
+            torch.cuda.current_stream().cuda_stream,
         )
     return out

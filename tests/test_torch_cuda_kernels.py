@@ -9,7 +9,9 @@ GPU and nvcc:
 Tolerances: the NMS score map exactly; the fused conv in f32 to 1e-4 of
 the output's largest magnitude (sums in another order) and in bf16 to one
 bf16 ulp at that magnitude (a mid value within an f32 rounding error of a
-bf16 tie may round the other way in the two versions).
+bf16 tie may round the other way in the two versions); the PAF line
+scores to 1e-5 absolute (the mean is summed in another order; line points
+and subscripts are computed alike), with -inf and NaN placement exact.
 """
 
 import numpy as np
@@ -17,7 +19,15 @@ import pytest
 import torch
 
 from sleap_nn_tpu_torch.ops.fused_conv import KERNEL, _plain_double_conv, fused_double_conv3x3
-from sleap_nn_tpu_torch.ops.kernels import NMS_SCORES, _plain_nms_scores, nms_scores
+from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
+from sleap_nn_tpu_torch.ops.kernels import (
+    NMS_SCORES,
+    PAF_LINE_SCORES,
+    _plain_nms_scores,
+    _plain_paf_line_scores,
+    nms_scores,
+    paf_line_scores,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +83,51 @@ def test_nms_kernel_matches_plain_exactly(cuda, kernel, dtype):
     assert torch.equal(got, _plain_nms_scores(cms, 0.3, kernel))
 
 
+def test_nms_kernel_matches_plain_at_bottomup_channels(cuda):
+    cms = torch.from_numpy(np.random.default_rng(15).random((2, 64, 48, 15), dtype=np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = cms.to(cuda, dtype)
+        assert torch.equal(nms_scores(x, 0.2), _plain_nms_scores(x, 0.2))
+
+
+def _paf_inputs(seed, b, hp, wp, n_nodes, k, n_edges, stride, device):
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, n_nodes, n_edges), rng.integers(0, n_nodes, n_edges)],
+                     axis=1).astype(np.int32)
+    pafs = rng.standard_normal((b, hp, wp, 2 * n_edges), dtype=np.float32)
+    grid = rng.integers(-2, 2 * max(hp, wp) + 2, (b, n_nodes, k, 2)) * (stride / 2)
+    cont = rng.uniform(-3 * stride, (max(hp, wp) + 3) * stride, (b, n_nodes, k, 2))
+    peaks = np.where(rng.random((b, n_nodes, k, 1)) < 0.5, grid, cont).astype(np.float32)
+    mask = rng.random((b, n_nodes, k)) < 0.8
+    peaks[rng.random((b, n_nodes, k)) < 0.1] = np.nan  # NaN under an open mask too
+    peaks[0, 0, 0, 1] = np.nan  # y alone NaN: the reference's arithmetic gives NaN
+    mask[0, 0, 0] = True
+    return [torch.from_numpy(a).to(device) for a in (pafs, peaks, mask, edges)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hp,wp,n_nodes,k,n_edges,n_points,stride",
+    [(1, 5, 7, 2, 1, 1, 10, 4), (2, 33, 17, 5, 6, 7, 7, 2), (3, 64, 80, 15, 20, 14, 10, 4),
+     (1, 40, 40, 4, 9, 3, 1, 8)],
+)
+def test_paf_line_scores_kernel_matches_plain(cuda, b, hp, wp, n_nodes, k, n_edges,
+                                              n_points, stride, dtype):
+    pafs, peaks, mask, edges = _paf_inputs(b + k, b, hp, wp, n_nodes, k, n_edges, stride, cuda)
+    args = (pafs.to(dtype), peaks, mask, edges, line_fractions(n_points, cuda), stride,
+            0.25 * max(hp, wp, 2 * n_edges) * stride, 1.0)
+    before = PAF_LINE_SCORES.launches
+    got = paf_line_scores(*args)
+    want = _plain_paf_line_scores(*args)
+    torch.cuda.synchronize()
+    assert PAF_LINE_SCORES.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n_edges, k, k)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=1e-5)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.float16)
     w = torch.zeros(3, 3, 2, 2, device=cuda)
@@ -82,3 +137,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fused_double_conv3x3(x.float().transpose(1, 2), w, None, w, None)
     with pytest.raises(TypeError):
         nms_scores(torch.zeros(1, 4, 4, 1, device=cuda, dtype=torch.float16), 0.2)
+    pafs, peaks, mask, edges = _paf_inputs(0, 1, 8, 8, 2, 3, 1, 4, cuda)
+    t = line_fractions(10, cuda)
+    with pytest.raises(TypeError):
+        paf_line_scores(pafs.half(), peaks, mask, edges, t, 4, 8.0, 1.0)
+    with pytest.raises(TypeError, match="grouped_mask"):
+        paf_line_scores(pafs, peaks, mask.float(), edges, t, 4, 8.0, 1.0)
+    with pytest.raises(ValueError, match="edge_inds"):
+        paf_line_scores(pafs, peaks, mask, edges.cpu(), t, 4, 8.0, 1.0)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports without JAX and names nothing of the
-JAX package (nor does chip_smoke.py)."""
+JAX package (nor does chip_smoke.py). Nor does it need networkx or cv2,
+which the GPU machine does not have."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx", "cv2")
 
 
 def _port_modules():
@@ -32,7 +33,8 @@ def _imported_roots(path: Path):
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = list(_port_modules())
-    assert "sleap_nn_tpu_torch.inference.predictor" in mods
+    assert {"sleap_nn_tpu_torch.inference.predictor",
+            "sleap_nn_tpu_torch.inference.paf_grouping"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"
