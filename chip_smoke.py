@@ -39,6 +39,27 @@ Phases, each of which raises on failure (exit code != 0):
    a narrow f32 bottom-up model run on the card and on the CPU; maps must
    agree to 1e-4 and each post-processing stage, fed the same inputs, to
    the index (peaks and PAF scores to 1e-5, instances the same).
+7. Centroid training end to end: ``ModelTrainer.train`` of a UNet medium_rf
+   centroid model (confmaps at stride 2, sigma 5) on 24 synthetic
+   1024x1024 uint8 frames with 1-6 instances of 15 nodes (20 train, 4
+   val), batch 4, f32, Adam lr 1e-4, geometric augmentation at its
+   defaults, 2 epochs of 5 steps, checkpoints in a temporary directory.
+   The kernel-4 launch counter, zeroed before setup, must equal the train
+   steps plus the val batches plus the setup probe (the other kernels: 0);
+   every loss finite, the parameters moved, ``best.ckpt`` loads strictly
+   into a fresh model, ``last.ckpt`` reproduces the trainer's outputs
+   exactly, and 20 steps on one fixed batch bring the loss below its
+   first value. Prints steps/s, samples/s and the ms of one step by stage.
+8. Training on the card against the CPU: a narrow f32 centroid model
+   (filters 8, max_stride 8, 128x128 frames), the same parameters and
+   batch, augmentation off: the first loss to 1e-5 relative, every
+   gradient to 1e-4 of its largest magnitude, the parameters after 3 Adam
+   steps to 1e-5 absolute.
+
+Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
+version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
+and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), to 1e-6, and
+checks that the fused conv refuses a call under autograd.
 
 Prints one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the port package beside it, it exits 1
@@ -66,6 +87,8 @@ TREE = ((0, 1), (1, 2), (0, 3), (3, 4), (0, 5), (5, 6), (0, 7), (7, 8), (0, 9), 
         (2, 11), (2, 12), (4, 13), (4, 14))
 MAX_PEAKS, K_PER_NODE, N_POINTS, MIN_LINE = 200, 20, 10, 0.25  # the JAX package's defaults
 DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu" and small sizes, then calls the phases
+# Phase 7: frames (train + val), their size, batch, epochs x steps, lr.
+TRAIN_FRAMES, VAL_FRAMES, TRAIN_IMG, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 20, 4, 1024, 4, 2, 5
 
 
 def sync() -> None:
@@ -116,7 +139,8 @@ def bf16_ulp(m: float) -> float:
 
 
 class ArrayVideo:
-    """In-memory video: ``__len__`` and ``get_frame(idx, fmt)``."""
+    """In-memory video: ``__len__`` and ``get_frame(idx, fmt)`` for the
+    predictor; ``video[idx]`` and ``.shape`` for the labels model."""
 
     def __init__(self, frames):
         self.frames = frames
@@ -124,6 +148,9 @@ class ArrayVideo:
 
     def __len__(self):
         return len(self.frames)
+
+    def __getitem__(self, idx):
+        return self.frames[idx]
 
     def get_frame(self, idx, fmt=None):
         return self.frames[idx]
@@ -300,8 +327,9 @@ def check_fused(layer, rng):
             x = rng.random(shape, dtype=np.float32) if shape[-1] == 1 else \
                 np.maximum(rng.standard_normal(shape, dtype=np.float32), 0)
             x = torch.from_numpy(x).to(DEVICE, dtype)
-            w1, b1 = hwio(c0.weight).to(dtype), c0.bias.to(dtype)
-            w2, b2 = hwio(c1.weight).to(dtype), c1.bias.to(dtype)
+            # Detached: the fused kernel has no backward and refuses autograd inputs.
+            w1, b1 = hwio(c0.weight).detach().to(dtype), c0.bias.detach().to(dtype)
+            w2, b2 = hwio(c1.weight).detach().to(dtype), c1.bias.detach().to(dtype)
             got = fused_double_conv3x3(x, w1, b1, w2, b2)
             want = _plain_double_conv(x, w1, b1, w2, b2)
             sync()
@@ -317,8 +345,8 @@ def check_fused(layer, rng):
             bound_ms, bound_by = bound(flops, nbytes,
                                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
             xc = x.permute(0, 3, 1, 2)
-            wc1 = c0.weight.to(dtype).contiguous(memory_format=torch.channels_last)
-            wc2 = c1.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+            wc1 = c0.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
+            wc2 = c1.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
             row = dict(
                 model=model_name, block=name, dtype=str(dtype).split(".")[-1],
                 x=list(shape), c_mid=cmid, c_out=cout, max_abs_err=err, tol=tol,
@@ -447,6 +475,64 @@ def check_paf(layer, frames):
     return rows
 
 
+def check_confmaps(rng):
+    """Kernel 4 against its plain version at the training shapes, NaN
+    instances and nodes included."""
+    import torch
+
+    from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
+    from sleap_nn_tpu_torch.ops.kernels import _plain_multi_confmaps, multi_confmaps
+
+    rows = []
+    size = TRAIN_IMG // 2
+    for path, n_nodes, sigma in (("centroid_train", 1, 5.0), ("bottomup_train", N_NODES, 2.5)):
+        pts = rng.uniform(0, TRAIN_IMG, (TRAIN_BATCH, MAX_INST, n_nodes, 2)).astype(np.float32)
+        pts[rng.random((TRAIN_BATCH, MAX_INST, n_nodes)) < 0.2] = np.nan  # NaN nodes
+        pts[:, MAX_INST - 2:] = np.nan  # padding instances
+        pts = torch.from_numpy(pts).to(DEVICE)
+        xv, yv = make_grid_vectors(TRAIN_IMG, TRAIN_IMG, 2, device=DEVICE)
+        args = (pts, xv, yv, sigma * 2)
+        got = multi_confmaps(*args)
+        want = _plain_multi_confmaps(*args)
+        sync()
+        err = (got - want).abs().max().item()
+        # This run's data: one Gaussian term per (pixel, non-NaN point).
+        n_points = int(torch.isfinite(pts[..., 0]).sum())
+        flops = 10.0 * size * size * n_points
+        nbytes = got.numel() * 4 + pts.numel() * 4 + (xv.numel() + yv.numel()) * 4
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        row = dict(path=path, points=list(pts.shape), out=list(got.shape),
+                   valid_points=n_points, max_abs_err=err, tol=1e-6, ok=bool(err <= 1e-6),
+                   max_value=got.max().item(),
+                   kernel_ms=cuda_ms(lambda: multi_confmaps(*args), reps=20),
+                   plain_ms=cuda_ms(lambda: _plain_multi_confmaps(*args), reps=5),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        log("multi_confmaps " + json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"] or r["max_value"] < 0.5]
+    if bad:
+        raise AssertionError(f"multi_confmaps disagrees with its plain version: {bad}")
+    return rows
+
+
+def check_fused_refuses_autograd():
+    """The fused conv has no backward: under autograd it must raise."""
+    import torch
+
+    from sleap_nn_tpu_torch.ops.fused_conv import fused_double_conv3x3
+
+    x = torch.rand(1, 8, 8, 2, device=DEVICE)
+    w = torch.rand(3, 3, 2, 2, device=DEVICE, requires_grad=True)
+    try:
+        fused_double_conv3x3(x, w, None, w, None)
+    except RuntimeError as exc:
+        log(f"fused_double_conv3x3 under autograd raises: {exc}")
+        return
+    if DEVICE != "cpu":  # the CPU takes the plain version, which has autograd
+        raise AssertionError("fused_double_conv3x3 ran under autograd")
+
+
 # --------------------------------------------------------------------------
 # Phase 4: end to end
 # --------------------------------------------------------------------------
@@ -530,7 +616,7 @@ def run_end_to_end(layer, kernels):
     launches = {name: k.launches for name, k in kernels.items()}
     n_batches = len(results)
     want = {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches,
-            "paf_line_scores": 0}
+            "paf_line_scores": 0, "multi_confmaps": 0}
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
         raise AssertionError(f"launch counts {launches}, expected {want}")
     check_outputs(results)
@@ -651,7 +737,7 @@ def run_bottomup_end_to_end(layer, kernels):
         launches = {name: k.launches for name, k in kernels.items()}
         n_batches = len(results)
         want = {"fused_double_conv3x3": 9 * n_batches, "nms_scores": n_batches,
-                "paf_line_scores": n_batches}
+                "paf_line_scores": n_batches, "multi_confmaps": 0}
         if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
             raise AssertionError(f"paf_workers={workers}: launch counts {launches}, "
                                  f"expected {want}")
@@ -788,7 +874,200 @@ def check_bottomup_against_cpu():
     return report
 
 
-def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu):
+# --------------------------------------------------------------------------
+# Phase 7: centroid training end to end
+# --------------------------------------------------------------------------
+
+
+def training_labels(n_frames, img, n_nodes, max_inst, seed):
+    """Labels of ``n_frames`` synthetic uint8 frames, 1..max_inst instances of
+    ``n_nodes`` nodes each (about 10% of the nodes missing), from a seed."""
+    from sleap_nn_tpu_torch.io.model import Instance, LabeledFrame, Labels, Skeleton
+
+    rng = np.random.default_rng(seed)
+    video = ArrayVideo(rng.integers(0, 256, (n_frames, img, img, 1), dtype=np.uint8))
+    names = [f"n{i}" for i in range(n_nodes)]
+    skel = Skeleton(names, edges=bottomup_edges(n_nodes))
+    frames = []
+    for f in range(n_frames):
+        insts = []
+        for _ in range(int(rng.integers(1, max_inst + 1))):
+            center = rng.uniform(0.1 * img, 0.9 * img, 2)
+            pts = center + rng.normal(0, 0.03 * img, (n_nodes, 2))
+            pts[rng.random(n_nodes) < 0.1] = np.nan
+            insts.append(Instance(pts, skel))
+        frames.append(LabeledFrame(video, f, insts))
+    return Labels(frames)
+
+
+def training_config(filters, max_stride, img, batch, augment, **trainer):
+    """A centroid training config: UNet (filters_rate 1.5, output stride 2),
+    confmaps sigma 5 at stride 2, Adam lr 1e-4, f32."""
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+
+    return TrainingJobConfig.from_dict({
+        "data_config": {
+            "use_augmentations_train": augment,
+            "augmentation_config": {"geometric": {}} if augment else None,
+            "preprocessing": {"max_height": img, "max_width": img},
+        },
+        "model_config": {
+            "backbone_config": {"unet": {"filters": filters, "filters_rate": 1.5,
+                                         "max_stride": max_stride, "output_stride": 2}},
+            "head_configs": {"centroid": {"confmaps": {"sigma": 5.0, "output_stride": 2}}},
+        },
+        "trainer_config": {
+            "optimizer_name": "Adam", "optimizer": {"lr": 1e-4}, "seed": 0,
+            "train_data_loader": {"batch_size": batch}, "val_data_loader": {"batch_size": batch},
+            **trainer,
+        },
+    })
+
+
+def train_stage_times(trainer, batch):
+    """ms of one train step by stage, each fenced by synchronize()."""
+    from sleap_nn_tpu_torch.training.losses import compute_loss
+    from sleap_nn_tpu_torch.training.model_trainer import sample_weights
+
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    trainer.model.train()
+    for _ in range(2):  # the second pass is the one kept
+        processed = timed("render", lambda: trainer.render(batch, train=True))
+        trainer.optimizer.zero_grad(set_to_none=True)
+        preds = timed("forward", lambda: trainer.model(processed["image"]))
+        loss = timed("loss", lambda: compute_loss(
+            preds, processed, trainer.model.heads, sample_weights(processed, True),
+            trainer._ohkm)[0])
+        timed("backward", loss.backward)
+        timed("optimizer", trainer.optimizer.step)
+    times["sum"] = sum(times.values())
+    return times
+
+
+def run_training_end_to_end(kernels):
+    """Phase 7: ``ModelTrainer.train`` of the medium_rf centroid model."""
+    import tempfile
+
+    import torch
+
+    from sleap_nn_tpu_torch.models.model import Model
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    labels = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
+    train = labels.extract(range(TRAIN_FRAMES))
+    val = labels.extract(range(TRAIN_FRAMES, TRAIN_FRAMES + VAL_FRAMES))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True,
+                              max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS,
+                              save_ckpt=True, ckpt_dir=tmp, run_name="centroid",
+                              model_ckpt={"save_last": True})
+        trainer = ModelTrainer.get_model_trainer_from_config(cfg, [train], [val], device=DEVICE)
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        trainer.setup()
+        start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        history = trainer.train()
+        sync()
+        launches = {name: k.launches for name, k in kernels.items()}
+        n_val = len(trainer.val_loader)
+        want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
+                "multi_confmaps": TRAIN_EPOCHS * (TRAIN_STEPS + n_val) + 1}
+        if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+            raise AssertionError(f"training launch counts {launches}, expected {want}")
+        losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
+        assert len(history) == TRAIN_EPOCHS and np.isfinite(losses).all(), history
+        moved = {k: (v - start[k]).abs().max().item()
+                 for k, v in trainer.model.state_dict().items()}
+        assert all(d > 0 for d in moved.values()), moved
+        # best.ckpt loads strictly; last.ckpt gives the trainer's outputs exactly.
+        ckpts = {}
+        for name in ("best.ckpt", "last.ckpt"):
+            fresh = Model.from_config("unet", cfg.model_config.backbone_config.unet,
+                                      cfg.model_config.head_configs.centroid, "centroid")
+            fresh.load_state_dict(ModelTrainer.load_checkpoint_params(
+                trainer.ckpt_dir / name), strict=True)
+            ckpts[name] = fresh.to(DEVICE).eval()
+        vbatch = next(iter(trainer.val_loader))
+        trainer.model.eval()
+        with torch.no_grad():
+            x = trainer.render(vbatch, train=False)["image"]
+            ours = trainer.model(x)["CentroidConfmapsHead"]
+            theirs = ckpts["last.ckpt"](x)["CentroidConfmapsHead"]
+        if not torch.equal(ours, theirs):
+            raise AssertionError("last.ckpt does not reproduce the trainer's outputs")
+        best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
+        assert best["best_val_loss"] == min(h["val/loss"] for h in history), best["best_val_loss"]
+
+    batch = next(iter(trainer.train_loader))
+    stages = train_stage_times(trainer, batch)
+    fixed = [trainer.train_step(batch)[0].item() for _ in range(20)]
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"20 steps on one batch did not lower the loss: {fixed}")
+    stats = {
+        "launches": launches, "n_batches": want["multi_confmaps"],
+        "history": history, "steps_per_sec": history[-1]["train/steps_per_sec"],
+        "samples_per_sec": history[-1]["train/samples_per_sec"], "stage_ms": stages,
+        "fixed_batch_loss_first_last": [fixed[0], fixed[-1]],
+        "params": sum(v.numel() for v in start.values()), "input_shape": trainer._input_shape,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None,
+    }
+    log("train_end_to_end " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 8: training on the card against the CPU
+# --------------------------------------------------------------------------
+
+
+def check_training_against_cpu():
+    """A narrow f32 centroid model trained 3 steps on the card and on the CPU
+    from the same parameters and batch (augmentation off)."""
+    import torch
+
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    labels = training_labels(8, 128, 5, 3, seed=5)
+    cfg = lambda: training_config(8, 8, 128, 4, augment=False)  # noqa: E731
+    train, val = labels.extract(range(6)), labels.extract(range(6, 8))
+    card = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device=DEVICE)
+    cpu = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device="cpu")
+    card.setup()
+    cpu.setup()
+    card.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    batch = next(iter(cpu.train_loader))
+    report = {}
+    for step in range(3):
+        loss_card, loss_cpu = card.train_step(batch)[0].item(), cpu.train_step(batch)[0].item()
+        if step == 0:
+            report["loss_rel_err"] = abs(loss_card - loss_cpu) / abs(loss_cpu)
+            assert report["loss_rel_err"] <= 1e-5, report
+            grads = {n: (p.grad.cpu(), cpu_p.grad) for (n, p), cpu_p in zip(
+                card.model.named_parameters(), cpu.model.parameters())}
+            report["grad_err_over_max"] = max(
+                (a - b).abs().max().item() / b.abs().max().item() for a, b in grads.values())
+            assert report["grad_err_over_max"] <= 1e-4, report
+    report["param_max_abs_err"] = max(
+        (a.cpu() - b).abs().max().item()
+        for a, b in zip(card.model.state_dict().values(), cpu.model.state_dict().values()))
+    assert report["param_max_abs_err"] <= 1e-5, report
+    report["losses_step3"] = [loss_card, loss_cpu]
+    log("train_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows, tr):
     """The ``kernels`` line: one entry per kernel, launches from the two paths' runs."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
@@ -797,10 +1076,13 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu):
     t_ops = sum(r["flops"] / PEAK_BF16 for r in main_path)
     t_bytes = sum(r["bytes"] / PEAK_BYTES for r in main_path)
 
+    runs = {"topdown": e2e, "bottomup": bu, "train": tr}
+    cm_main = next(r for r in cm_rows if r["path"] == "centroid_train")
+
     def launches(kernel):
-        by_path = {"topdown": e2e["launches"][kernel], "bottomup": bu["launches"][kernel]}
+        by_path = {path: run["launches"][kernel] for path, run in runs.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
-                "launches_per_batch": {path: n // (e2e if path == "topdown" else bu)["n_batches"]
+                "launches_per_batch": {path: n // runs[path]["n_batches"]
                                        for path, n in by_path.items()}}
 
     return {"kernels": [
@@ -852,6 +1134,22 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu):
                            "kernel computed), not the scoring",
             "shapes": f"PAFs {paf_main['pafs']} bf16, peaks {paf_main['peaks']}, "
                       f"{N_POINTS} line points, {paf_main['valid_pairs']} valid pairs",
+        },
+        {
+            "name": "multi_confmaps", "route": "cuda",
+            "source": "sleap_nn_tpu_torch/csrc/multi_confmaps.cu",
+            "replaces": "sleap_nn_tpu/ops/pallas_kernels.py:35",
+            **launches("multi_confmaps"),
+            "max_abs_err": max(r["max_abs_err"] for r in cm_rows),
+            "tol": "1e-6 absolute",
+            "ms": cm_main["kernel_ms"], "kernel_ms": cm_main["kernel_ms"],
+            "plain_ms": cm_main["plain_ms"], "bound_ms": cm_main["bound_ms"],
+            "bound_by": cm_main["bound_by"], "library_ms": None,
+            "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (centroid training "
+                      "targets; launches_per_batch counts renders: train steps, val batches "
+                      "and the setup probe)",
+            "bottomup_train": {k: cm_rows[1][k] for k in ("points", "out", "kernel_ms",
+                                                          "plain_ms", "bound_ms", "bound_by")},
         },
     ]}
 
@@ -906,6 +1204,8 @@ def main() -> int:
     nms_rows = check_nms(rng)
     nms_bu_rows = check_nms(rng, channels=N_NODES, ks=(3,))
     paf_rows = check_paf(bu_layer, smoke_frames()[:BATCH])
+    cm_rows = check_confmaps(rng)
+    check_fused_refuses_autograd()
 
     # 4. Top-down end to end through Predictor.predict.
     e2e = run_end_to_end(layer, _build.KERNELS)
@@ -917,11 +1217,19 @@ def main() -> int:
     check_against_cpu()
     check_bottomup_against_cpu()
 
-    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu)
+    # 7. Centroid training end to end.
+    tr = run_training_end_to_end(_build.KERNELS)
+
+    # 8. Training on the card against the CPU.
+    check_training_against_cpu()
+
+    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows, tr)
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
-        f"grouping workers); total script {time.perf_counter() - t_start:.1f} s")
+        f"grouping workers); training {tr['steps_per_sec']:.2f} steps/s, "
+        f"{tr['samples_per_sec']:.2f} samples/s; total script "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,1 +1,1 @@
-"""Host and device data handling for inference."""
+"""Host and device data handling: preprocessing, augmentation, the training pipeline."""

@@ -56,6 +56,14 @@ def resize_image(image: torch.Tensor, scale: float) -> torch.Tensor:
     return resize_bilinear(image, int(round(h * scale)), int(round(w * scale)))
 
 
+def apply_resizer(image: torch.Tensor, instances: torch.Tensor, scale: float = 1.0):
+    """Rescale image and ``(x, y)`` keypoints together."""
+    if scale != 1.0:
+        image = resize_image(image, scale)
+        instances = instances * scale
+    return image, instances
+
+
 def apply_sizematcher(
     image: torch.Tensor,
     max_height: Optional[int] = None,

@@ -79,7 +79,8 @@ def fused_double_conv3x3(
     x: (B, H, W, C_in) bf16 or f32, contiguous; w1: (3, 3, C_in, C_mid);
     w2: (3, 3, C_mid, C_out); biases (C) or None. Returns (B, H, W, C_out)
     in x's type. CUDA tensors launch the kernel, CPU tensors take the
-    plain version.
+    plain version. The kernel is forward only: on CUDA tensors it raises
+    when autograd is on and any input requires a gradient.
     """
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {_ACTS}, got {activation!r}")
@@ -91,6 +92,13 @@ def fused_double_conv3x3(
         return _plain_double_conv(x, w1, b1, w2, b2, activation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_conv3x3 runs on cuda or cpu tensors, got {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w1, b1, w2, b2)):
+        # The kernel writes its result through a raw pointer, so autograd
+        # would see a leaf: nothing below the block would get a gradient.
+        raise RuntimeError(
+            "fused_double_conv3x3 has no backward (nor has the TPU kernel it ports): "
+            "call it under torch.no_grad() / inference_mode, or train with use_fused=False")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():

@@ -7,9 +7,9 @@ kernel; a CPU tensor takes the plain version. Ported so far:
 - :func:`nms_scores` (``csrc/nms_scores.cu``), for ``nms_scores_pallas``;
 - :func:`paf_line_scores` (``csrc/paf_line_scores.cu``), for
   ``paf_line_samples_pallas`` fused with the rest of the JAX package's
-  ``score_paf_lines_dense``.
-
-Still to port: ``make_multi_confmaps_pallas`` (training targets).
+  ``score_paf_lines_dense``;
+- :func:`multi_confmaps` (``csrc/multi_confmaps.cu``), for
+  ``make_multi_confmaps_pallas`` (training targets).
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ NMS_SCORES = Kernel(
 PAF_LINE_SCORES = Kernel(
     "paf_line_scores", "paf_line_scores.cu",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p],
+)
+MULTI_CONFMAPS = Kernel(
+    "multi_confmaps", "multi_confmaps.cu",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
 )
 
 
@@ -182,6 +186,59 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
             edge_inds.data_ptr(), t.data_ptr(), out.data_ptr(),
             b, hp, wp, n, k, edge_inds.shape[0], t.shape[0], int(pafs.dtype == torch.bfloat16),
             float(pafs_stride), float(max_edge_length), float(dist_penalty_weight),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def _plain_multi_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                          sigma: float) -> torch.Tensor:
+    """The JAX package's jnp path: Gaussians of every instance, NaN -> 0, max over instances."""
+    from sleap_nn_tpu_torch.ops.confmaps import make_confmaps
+
+    return make_confmaps(points, xv, yv, sigma).amax(dim=-4)
+
+
+def multi_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                   sigma: float) -> torch.Tensor:
+    """Multi-instance confidence maps of a batch.
+
+    Args:
+        points: ``(B, I, N, 2)`` f32 ``(x, y)``, NaN-padded instances/nodes.
+        xv: ``(W,)`` f32 grid x coordinates; yv: ``(H,)`` f32 grid y.
+        sigma: Gaussian std in grid units.
+
+    Returns:
+        ``(B, H, W, N)`` f32: per pixel and node, the max over instances of
+        ``exp(-((x - px)^2 + (y - py)^2) / f32(2 sigma^2))``, each NaN term
+        0 before the max.
+    """
+    if points.ndim != 4 or points.shape[-1] != 2:
+        raise ValueError(f"points must be (B, I, N, 2), got {tuple(points.shape)}")
+    if xv.ndim != 1 or yv.ndim != 1:
+        raise ValueError(f"xv and yv must be 1-D, got {tuple(xv.shape)}, {tuple(yv.shape)}")
+    if points.device.type == "cpu":
+        return _plain_multi_confmaps(points, xv, yv, sigma)
+    if points.device.type != "cuda":
+        raise ValueError(f"multi_confmaps runs on cuda or cpu tensors, got {points.device}")
+    for name, x in (("points", points), ("xv", xv), ("yv", yv)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != points.device:
+            raise ValueError(f"{name} is on {x.device}, points on {points.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, n_inst, n_nodes, _ = points.shape
+    h, w = yv.shape[0], xv.shape[0]
+    out = torch.empty((b, h, w, n_nodes), dtype=torch.float32, device=points.device)
+    if out.numel() == 0:
+        return out
+    if n_inst == 0:
+        return out.zero_()
+    with torch.cuda.device(points.device):
+        MULTI_CONFMAPS.launch(
+            points.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
+            b, n_inst, n_nodes, h, w, float(2 * sigma**2),
             torch.cuda.current_stream().cuda_stream,
         )
     return out

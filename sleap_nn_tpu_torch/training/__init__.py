@@ -1,0 +1,5 @@
+"""Training of the ported models (centroid models so far)."""
+
+from sleap_nn_tpu_torch.training.model_trainer import ModelTrainer, xavier_init_params
+
+__all__ = ["ModelTrainer", "xavier_init_params"]

@@ -11,7 +11,9 @@ the output's largest magnitude (sums in another order) and in bf16 to one
 bf16 ulp at that magnitude (a mid value within an f32 rounding error of a
 bf16 tie may round the other way in the two versions); the PAF line
 scores to 1e-5 absolute (the mean is summed in another order; line points
-and subscripts are computed alike), with -inf and NaN placement exact.
+and subscripts are computed alike), with -inf and NaN placement exact; the
+multi-instance confmaps to 1e-6 absolute (outputs <= 1; ``expf`` and
+ATen's ``exp`` may differ by ulps).
 """
 
 import numpy as np
@@ -20,11 +22,15 @@ import torch
 
 from sleap_nn_tpu_torch.ops.fused_conv import KERNEL, _plain_double_conv, fused_double_conv3x3
 from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
+from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
 from sleap_nn_tpu_torch.ops.kernels import (
+    MULTI_CONFMAPS,
     NMS_SCORES,
     PAF_LINE_SCORES,
+    _plain_multi_confmaps,
     _plain_nms_scores,
     _plain_paf_line_scores,
+    multi_confmaps,
     nms_scores,
     paf_line_scores,
 )
@@ -128,6 +134,37 @@ def test_paf_line_scores_kernel_matches_plain(cuda, b, hp, wp, n_nodes, k, n_edg
     torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "b,n_inst,n_nodes,h,w,stride,sigma",
+    [(4, 6, 1, 1024, 1024, 2, 5.0), (4, 6, 15, 512, 512, 2, 2.5), (3, 1, 2, 37, 53, 1, 1.5),
+     (2, 9, 3, 96, 64, 4, 4.0)],
+)
+def test_multi_confmaps_kernel_matches_plain(cuda, b, n_inst, n_nodes, h, w, stride, sigma):
+    rng = np.random.default_rng(n_inst * n_nodes)
+    pts = rng.uniform(-8, max(h, w) + 8, (b, n_inst, n_nodes, 2)).astype(np.float32)
+    pts[rng.random((b, n_inst, n_nodes)) < 0.2] = np.nan  # NaN nodes
+    pts[0, -1] = np.nan  # a padding instance
+    pts = torch.from_numpy(pts).to(cuda)
+    xv, yv = make_grid_vectors(h, w, stride, device=cuda)
+    before = MULTI_CONFMAPS.launches
+    got = multi_confmaps(pts, xv, yv, sigma * stride)
+    want = _plain_multi_confmaps(pts, xv, yv, sigma * stride)
+    torch.cuda.synchronize()
+    assert MULTI_CONFMAPS.launches == before + 1
+    assert got.shape == (b, len(yv), len(xv), n_nodes) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert got.max().item() > 0.5
+
+
+def test_fused_conv_refuses_autograd(cuda):
+    x = torch.rand(1, 8, 8, 2, device=cuda)
+    w = torch.rand(3, 3, 2, 2, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_double_conv3x3(x, w, None, w, None)
+    with torch.no_grad():
+        assert fused_double_conv3x3(x, w, None, w, None).shape == (1, 8, 8, 2)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 4, 2, device=cuda, dtype=torch.float16)
     w = torch.zeros(3, 3, 2, 2, device=cuda)
@@ -145,3 +182,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         paf_line_scores(pafs, peaks, mask.float(), edges, t, 4, 8.0, 1.0)
     with pytest.raises(ValueError, match="edge_inds"):
         paf_line_scores(pafs, peaks, mask, edges.cpu(), t, 4, 8.0, 1.0)
+    xv, yv = make_grid_vectors(8, 8, 1, device=cuda)
+    with pytest.raises(TypeError):
+        multi_confmaps(torch.zeros(1, 1, 1, 2, device=cuda, dtype=torch.float64), xv, yv, 1.0)
+    with pytest.raises(ValueError, match="xv"):
+        multi_confmaps(torch.zeros(1, 1, 1, 2, device=cuda), xv.cpu(), yv, 1.0)
