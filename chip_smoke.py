@@ -122,6 +122,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(launch, reps: int = 20) -> float:
+    """Mean device ms of one ``launch`` call: ``reps`` calls captured in one
+    CUDA graph, the graph replayed 5 times between two events. The host's
+    per-call work (argument checks, allocation, the ctypes call) is not
+    timed. ``launch`` must issue its work on the current stream."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     """(least ms, what bounds it) for ``flops`` at ``peak_flops`` and ``nbytes`` at HBM rate."""
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -481,7 +503,8 @@ def check_confmaps(rng):
     import torch
 
     from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
-    from sleap_nn_tpu_torch.ops.kernels import _plain_multi_confmaps, multi_confmaps
+    from sleap_nn_tpu_torch.ops.kernels import (
+        MULTI_CONFMAPS, _plain_multi_confmaps, multi_confmaps)
 
     rows = []
     size = TRAIN_IMG // 2
@@ -496,6 +519,18 @@ def check_confmaps(rng):
         want = _plain_multi_confmaps(*args)
         sync()
         err = (got - want).abs().max().item()
+        wrapper_ms = cuda_ms(lambda: multi_confmaps(*args), reps=20)
+        if DEVICE == "cpu":  # a rehearsal has no kernel to launch
+            kernel_ms = wrapper_ms
+        else:
+            # The kernel alone: its C entry into a preallocated output, in a graph.
+            out = torch.empty_like(got)
+            kernel_ms = graph_ms(lambda: MULTI_CONFMAPS.launch(
+                pts.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
+                *pts.shape[:3], len(yv), len(xv), float(2 * (sigma * 2) ** 2),
+                torch.cuda.current_stream().cuda_stream))
+            if not torch.equal(out, got):
+                raise AssertionError(f"multi_confmaps: the timed graph did not render {path}")
         # This run's data: one Gaussian term per (pixel, non-NaN point).
         n_points = int(torch.isfinite(pts[..., 0]).sum())
         flops = 10.0 * size * size * n_points
@@ -503,8 +538,7 @@ def check_confmaps(rng):
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
         row = dict(path=path, points=list(pts.shape), out=list(got.shape),
                    valid_points=n_points, max_abs_err=err, tol=1e-6, ok=bool(err <= 1e-6),
-                   max_value=got.max().item(),
-                   kernel_ms=cuda_ms(lambda: multi_confmaps(*args), reps=20),
+                   max_value=got.max().item(), kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
                    plain_ms=cuda_ms(lambda: _plain_multi_confmaps(*args), reps=5),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
@@ -1011,13 +1045,24 @@ def run_training_end_to_end(kernels):
 
     batch = next(iter(trainer.train_loader))
     stages = train_stage_times(trainer, batch)
-    fixed = [trainer.train_step(batch)[0].item() for _ in range(20)]
+    # A steady window beside the trainer's own 5-step epochs: 20 steps on
+    # one host batch (render included, no loader), fenced by synchronize().
+    sync()
+    t0 = time.perf_counter()
+    fixed = [trainer.train_step(batch)[0] for _ in range(20)]
+    sync()
+    fixed_s = time.perf_counter() - t0
+    fixed = [v.item() for v in fixed]
     if not fixed[-1] < fixed[0]:
         raise AssertionError(f"20 steps on one batch did not lower the loss: {fixed}")
     stats = {
         "launches": launches, "n_batches": want["multi_confmaps"],
         "history": history, "steps_per_sec": history[-1]["train/steps_per_sec"],
-        "samples_per_sec": history[-1]["train/samples_per_sec"], "stage_ms": stages,
+        "samples_per_sec": history[-1]["train/samples_per_sec"],
+        "steps_per_sec_by_epoch": [h["train/steps_per_sec"] for h in history],
+        "fixed_batch_steps_per_sec": 20 / fixed_s,
+        "fixed_batch_samples_per_sec": 20 * TRAIN_BATCH / fixed_s,
+        "stage_ms": stages,
         "fixed_batch_loss_first_last": [fixed[0], fixed[-1]],
         "params": sum(v.numel() for v in start.values()), "input_shape": trainer._input_shape,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None,
@@ -1143,13 +1188,17 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "max_abs_err": max(r["max_abs_err"] for r in cm_rows),
             "tol": "1e-6 absolute",
             "ms": cm_main["kernel_ms"], "kernel_ms": cm_main["kernel_ms"],
+            "wrapper_ms": cm_main["wrapper_ms"],
             "plain_ms": cm_main["plain_ms"], "bound_ms": cm_main["bound_ms"],
             "bound_by": cm_main["bound_by"], "library_ms": None,
+            "timing": "kernel_ms: 20 launches of the C entry captured in a CUDA graph; "
+                      "wrapper_ms: 20 calls of multi_confmaps between events",
             "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (centroid training "
                       "targets; launches_per_batch counts renders: train steps, val batches "
                       "and the setup probe)",
             "bottomup_train": {k: cm_rows[1][k] for k in ("points", "out", "kernel_ms",
-                                                          "plain_ms", "bound_ms", "bound_by")},
+                                                          "wrapper_ms", "plain_ms", "bound_ms",
+                                                          "bound_by")},
         },
     ]}
 
@@ -1228,7 +1277,8 @@ def main() -> int:
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
         f"grouping workers); training {tr['steps_per_sec']:.2f} steps/s, "
-        f"{tr['samples_per_sec']:.2f} samples/s; total script "
+        f"{tr['samples_per_sec']:.2f} samples/s (last 5-step epoch), "
+        f"{tr['fixed_batch_steps_per_sec']:.2f} steps/s over 20 steps on one batch; total script "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Confidence-map target rendering.
 
 Port of ``sleap_nn_tpu/ops/confmaps.py``. Confmaps are channel-last
-``(..., H, W, n_nodes)`` f32. Multi-instance rendering of a batch
-(``(B, I, N, 2)`` points) is the port's kernel 4: a CUDA tensor runs
-``csrc/multi_confmaps.cu`` through :func:`sleap_nn_tpu_torch.ops.kernels.multi_confmaps`,
-a CPU tensor the broadcast-and-max of :func:`make_confmaps`.
+``(..., H, W, n_nodes)`` f32. Multi-instance rendering is the port's
+kernel 4: :func:`make_multi_confmaps` folds any leading axes into one batch
+axis and calls :func:`sleap_nn_tpu_torch.ops.kernels.multi_confmaps`, where a
+CUDA tensor runs ``csrc/multi_confmaps.cu`` and a CPU tensor the
+broadcast-and-max of :func:`make_confmaps`.
 """
 
 from __future__ import annotations
@@ -14,31 +15,10 @@ from typing import Tuple
 import torch
 
 from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
+from sleap_nn_tpu_torch.ops.kernels import make_confmaps, multi_confmaps
 
-
-def make_confmaps(
-    points: torch.Tensor,
-    xv: torch.Tensor,
-    yv: torch.Tensor,
-    sigma: float,
-) -> torch.Tensor:
-    """Per-node Gaussian confidence maps of one instance set.
-
-    ``points``: ``(..., n_nodes, 2)`` (x, y), NaN = missing (renders 0);
-    ``xv`` ``(W,)`` and ``yv`` ``(H,)`` grid vectors; ``sigma`` in grid
-    units. Returns ``(..., H, W, n_nodes)`` f32:
-    ``exp(-((x - px)^2 + (y - py)^2) / (2 sigma^2))`` with an IEEE division
-    by ``f32(2 sigma^2)``, as the JAX package computes it.
-    """
-    x = points[..., 0][..., None, None, :]  # (..., 1, 1, n_nodes)
-    y = points[..., 1][..., None, None, :]
-    xg = xv[None, :, None]  # (1, W, 1)
-    yg = yv[:, None, None]  # (H, 1, 1)
-    # A 0-dim tensor on the points' device: a Python scalar divisor becomes
-    # a multiplication by its reciprocal in ATen's CUDA division.
-    denom = torch.tensor(2 * sigma**2, dtype=torch.float32, device=points.device)
-    cm = torch.exp(-((xg - x) ** 2 + (yg - y) ** 2) / denom)
-    return torch.nan_to_num(cm)
+__all__ = ["make_confmaps", "make_multi_confmaps", "generate_confmaps",
+           "generate_multiconfmaps"]
 
 
 def make_multi_confmaps(
@@ -50,15 +30,11 @@ def make_multi_confmaps(
     """Multi-instance confmaps: the max over instances.
 
     ``points``: ``(..., n_instances, n_nodes, 2)``; NaN instances / nodes
-    contribute zeros. Returns ``(..., H, W, n_nodes)``. A batched 4-D input
-    goes to kernel 4 (CUDA tensors launch it, CPU tensors take its plain
-    version, which is the expression below).
+    contribute zeros. Returns ``(..., H, W, n_nodes)``.
     """
-    if points.ndim == 4:
-        from sleap_nn_tpu_torch.ops.kernels import multi_confmaps
-
-        return multi_confmaps(points, xv, yv, sigma)
-    return make_confmaps(points, xv, yv, sigma).amax(dim=-4)
+    lead = points.shape[:-3]
+    out = multi_confmaps(points.reshape(-1, *points.shape[-3:]), xv, yv, sigma)
+    return out.reshape(*lead, *out.shape[1:])
 
 
 def generate_confmaps(

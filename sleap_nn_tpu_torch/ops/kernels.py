@@ -191,11 +191,30 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
     return out
 
 
+def make_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                  sigma: float) -> torch.Tensor:
+    """Per-node Gaussian confidence maps of one instance set.
+
+    ``points``: ``(..., n_nodes, 2)`` (x, y), NaN = missing (renders 0);
+    ``xv`` ``(W,)`` and ``yv`` ``(H,)`` grid vectors; ``sigma`` in grid
+    units. Returns ``(..., H, W, n_nodes)`` f32:
+    ``exp(-((x - px)^2 + (y - py)^2) / (2 sigma^2))`` with an IEEE division
+    by ``f32(2 sigma^2)``, as the JAX package computes it.
+    """
+    x = points[..., 0][..., None, None, :]  # (..., 1, 1, n_nodes)
+    y = points[..., 1][..., None, None, :]
+    xg = xv[None, :, None]  # (1, W, 1)
+    yg = yv[:, None, None]  # (H, 1, 1)
+    # A 0-dim tensor on the points' device: a Python scalar divisor becomes
+    # a multiplication by its reciprocal in ATen's CUDA division.
+    denom = torch.tensor(2 * sigma**2, dtype=torch.float32, device=points.device)
+    cm = torch.exp(-((xg - x) ** 2 + (yg - y) ** 2) / denom)
+    return torch.nan_to_num(cm)
+
+
 def _plain_multi_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
                           sigma: float) -> torch.Tensor:
     """The JAX package's jnp path: Gaussians of every instance, NaN -> 0, max over instances."""
-    from sleap_nn_tpu_torch.ops.confmaps import make_confmaps
-
     return make_confmaps(points, xv, yv, sigma).amax(dim=-4)
 
 

@@ -25,7 +25,6 @@ device, and loading labels or the YAML / ``.slp`` model-dir artifacts.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import math
 import os
@@ -160,7 +159,6 @@ class ModelTrainer:
         device="cuda",
     ):
         self.config = config
-        self.initial_config = None
         self.train_labels = train_labels or []
         self.val_labels = val_labels or []
         self.model_type = get_model_type_from_cfg(config)
@@ -172,7 +170,6 @@ class ModelTrainer:
                 + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
-        self.lr_override: Optional[float] = None
         self.current_epoch = 0
         self.ckpt_dir: Optional[Path] = None
         self.callbacks: List[Callback] = []
@@ -198,7 +195,6 @@ class ModelTrainer:
         trainer seed, as the JAX trainer splits them.
         """
         verify_training_cfg(config)
-        initial = copy.deepcopy(config)
         if train_labels is None:
             raise NotImplementedError(
                 "loading labels from data_config.train_labels_path waits for the .slp I/O "
@@ -223,7 +219,6 @@ class ModelTrainer:
                 train_labels = [s[0] for s in split]
                 val_labels = [s[1] for s in split]
         trainer = cls(config, train_labels, val_labels, device=device)
-        trainer.initial_config = initial
         trainer._infer_config()
         return trainer
 
@@ -462,8 +457,6 @@ class ModelTrainer:
                 val_loss = _mean(val_losses)
 
                 lr = self.scheduler.step(epoch + 1, val_metric=val_loss)
-                if self.lr_override is not None:
-                    lr = self.lr_override
                 for group in self.optimizer.param_groups:
                     group["lr"] = lr
 

@@ -62,9 +62,11 @@ def test_make_multi_confmaps_matches_jnp_and_pallas(hw, stride, n_inst, n_nodes)
                                            interpret=True))
 
 
-def test_multi_confmaps_unbatched_points():
-    """Points without the batch axis take the broadcast-and-max directly."""
-    pts = _points((3, 2, 2), (20, 20), seed=4)
+@pytest.mark.parametrize("shape", [(3, 2, 2), (2, 2, 3, 2, 2)])
+def test_multi_confmaps_unbatched_points(shape):
+    """Points with no batch axis, or more than one, are folded into one
+    batch axis for kernel 4 and unfolded after."""
+    pts = _points(shape, (20, 20), seed=4)
     jx, jy = jgrid(20, 20, 2)
     px, py = pgrid(20, 20, 2)
     _close(pcm.make_multi_confmaps(torch.from_numpy(pts), px, py, 3.0),
