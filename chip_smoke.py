@@ -17,9 +17,13 @@ Phases, each of which raises on failure (exit code != 0):
    shapes), the peak NMS on the (8, 512, 512, 1) centroid map (k = 3 and 5)
    and on the (8, 512, 512, 15) bottom-up confmaps (k = 3), bf16 and f32,
    and the PAF line scores on the bottom-up model's own (8, 256, 256, 28)
-   PAFs and peaks, bf16 and f32. Times the kernel, the plain version and,
-   where one exists, the library call that computes the same function
-   (cuDNN convolutions), and the bound of each call.
+   PAFs and peaks, bf16 and f32. Times each kernel alone (``graph_ms``:
+   bare launches of its C entry into a preallocated output, pre-packed
+   weights for the fused conv, in a CUDA graph) and through its wrapper,
+   the plain version and, where one exists, the library call that computes
+   the same function (cuDNN convolutions), and the bound of each call.
+   Counts the tensor-core instructions in the fused conv's SASS
+   (``cuobjdump -sass``; it must hold some).
 4. Top-down end to end: ``Predictor.predict`` of the top-down pair
    (medium_rf centroid + centered-instance UNets, random weights from a
    seed, bf16) over an in-memory video of 20 synthetic 1024x1024 uint8
@@ -69,6 +73,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -328,12 +333,26 @@ def fused_shapes(model, batch: int, size: int):
 # --------------------------------------------------------------------------
 
 
+def sass_tensor_ops(kernel):
+    """Counts of tensor-core instructions (HMMA, HGMMA) in a built kernel's
+    SASS, from ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(kernel.library)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
+
+
 def check_fused(layer, rng):
     import torch
     import torch.nn.functional as F
 
     from sleap_nn_tpu_torch.models.encoder_decoder import hwio
-    from sleap_nn_tpu_torch.ops.fused_conv import _plain_double_conv, fused_double_conv3x3
+    from sleap_nn_tpu_torch.ops.fused_conv import (
+        _launch, _pack, _packed, _plain_double_conv, fused_double_conv3x3, plan_tiles)
 
     c_model = layer.centroid_layer.backend.model
     i_model = layer.instance_layer.backend.model
@@ -369,15 +388,31 @@ def check_fused(layer, rng):
             xc = x.permute(0, 3, 1, 2)
             wc1 = c0.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
             wc2 = c1.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last)
+            wrapper_ms = cuda_ms(lambda: fused_double_conv3x3(x, w1, b1, w2, b2))
+            if DEVICE == "cpu":  # a rehearsal has no kernel to launch
+                kernel_ms = wrapper_ms
+            else:
+                # The kernel alone: pre-packed weights, a preallocated output, in a graph.
+                pw1, pw2 = _packed(w1, b1, dtype), _packed(w2, b2, dtype)
+                out = torch.empty_like(got)
+                kernel_ms = graph_ms(lambda: _launch(x, pw1, pw2, out, cmid, "relu"))
+                if not torch.equal(out, got):
+                    raise AssertionError(f"fused_double_conv3x3: the timed graph differs at {name}")
+            plan = plan_tiles(*shape, cmid, cout) if dtype == torch.bfloat16 else None
             row = dict(
                 model=model_name, block=name, dtype=str(dtype).split(".")[-1],
                 x=list(shape), c_mid=cmid, c_out=cout, max_abs_err=err, tol=tol,
+                err_ulps=err / bf16_ulp(top) if dtype == torch.bfloat16 else None,
                 frac_diff=(got != want).float().mean().item(), ok=bool(err <= tol),
-                kernel_ms=cuda_ms(lambda: fused_double_conv3x3(x, w1, b1, w2, b2)),
+                tile=[plan.tile_h, plan.tile_w] if plan else [8, 16],
+                smem_bytes=plan.smem_bytes if plan else None,
+                kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
+                pack_ms=cuda_ms(lambda: (_pack(w1, b1, dtype), _pack(w2, b2, dtype))),
                 plain_ms=cuda_ms(lambda: _plain_double_conv(x, w1, b1, w2, b2), reps=2),
                 library_ms=cuda_ms(lambda: F.relu(F.conv2d(
                     F.relu(F.conv2d(xc, wc1, b1, padding=1)), wc2, b2, padding=1))),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+                tflops=flops / kernel_ms / 1e9,
             )
             log("fused_double_conv3x3 " + json.dumps(row))
             rows.append(row)
@@ -391,7 +426,7 @@ def check_fused(layer, rng):
 def check_nms(rng, channels=1, ks=(3, 5)):
     import torch
 
-    from sleap_nn_tpu_torch.ops.kernels import _plain_nms_scores, nms_scores
+    from sleap_nn_tpu_torch.ops.kernels import NMS_SCORES, _plain_nms_scores, nms_scores
 
     rows = []
     shape = (BATCH, IMG // 2, IMG // 2, channels)
@@ -406,10 +441,21 @@ def check_nms(rng, channels=1, ks=(3, 5)):
             itemsize = 2 if dtype == torch.bfloat16 else 4
             n = cms.numel()
             bound_ms, bound_by = bound(float(n * k * k), n * (itemsize + 4), PEAK_F32)
+            wrapper_ms = cuda_ms(lambda: nms_scores(cms, 0.2, kernel=k), reps=20)
+            if DEVICE == "cpu":  # a rehearsal has no kernel to launch
+                kernel_ms = wrapper_ms
+            else:
+                # The kernel alone: its C entry into a preallocated output, in a graph.
+                out = torch.empty_like(got)
+                kernel_ms = graph_ms(lambda: NMS_SCORES.launch(
+                    cms.data_ptr(), out.data_ptr(), *shape, k, 0.2,
+                    int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream))
+                if not torch.equal(out, got):
+                    raise AssertionError("nms_scores: the timed graph differs")
             row = dict(dtype=str(dtype).split(".")[-1], x=list(shape), kernel=k,
                        exact=same, n_peaks=int(torch.isfinite(got).sum()),
                        max_abs_err=0.0 if same else float("inf"),
-                       kernel_ms=cuda_ms(lambda: nms_scores(cms, 0.2, kernel=k), reps=20),
+                       kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
                        plain_ms=cuda_ms(lambda: _plain_nms_scores(cms, 0.2, kernel=k), reps=5),
                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
             log("nms_scores " + json.dumps(row))
@@ -444,7 +490,7 @@ def check_paf(layer, frames):
 
     from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
     from sleap_nn_tpu_torch.ops.kernels import (
-        _plain_paf_line_scores, paf_line_scores, paf_line_subscripts)
+        PAF_LINE_SCORES, _plain_paf_line_scores, paf_line_scores, paf_line_subscripts)
 
     scorer = layer.paf_scorer
     pafs, gp, mask = paf_inputs(layer, frames)
@@ -474,13 +520,27 @@ def check_paf(layer, frames):
                   + got.numel() * 4)
         flops = n_pairs * (10.0 * scorer.n_points + 10.0)
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        wrapper_ms = cuda_ms(lambda: paf_line_scores(*args), reps=20)
+        if DEVICE == "cpu":  # a rehearsal has no kernel to launch
+            kernel_ms = wrapper_ms
+        else:
+            # The kernel alone: its C entry into a preallocated output, in a graph.
+            out = torch.empty_like(got)
+            kernel_ms = graph_ms(lambda: PAF_LINE_SCORES.launch(
+                p.data_ptr(), gp.data_ptr(), mask.data_ptr(), edges.data_ptr(), t.data_ptr(),
+                out.data_ptr(), b, hp, wp, gp.shape[1], gp.shape[2], scorer.n_edges,
+                t.shape[0], int(dtype == torch.bfloat16), float(scorer.pafs_stride),
+                float(max_len), float(scorer.dist_penalty_weight),
+                torch.cuda.current_stream().cuda_stream))
+            if not torch.equal(out.nan_to_num(), got.nan_to_num()):
+                raise AssertionError("paf_line_scores: the timed graph differs")
         row = dict(
             dtype=str(dtype).split(".")[-1], pafs=list(p.shape), peaks=list(gp.shape),
             scores=list(got.shape), peaks_per_node=mask.sum(dim=-1).float().mean(dim=0).tolist(),
             valid_pairs=n_pairs, finite_scores=int(fin.sum()),
             above_min_line=int((want >= MIN_LINE).sum()), max_abs_err=err, tol=1e-5,
             inf_nan_placement_exact=placed, ok=bool(placed and err <= 1e-5),
-            kernel_ms=cuda_ms(lambda: paf_line_scores(*args), reps=20),
+            kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
             plain_ms=cuda_ms(lambda: _plain_paf_line_scores(*args), reps=5),
             # Covers only the sampling the TPU kernel did, not the scoring.
             gather_ms=cuda_ms(lambda: (p[b_idx, ys, xs, 2 * e_idx],
@@ -1139,8 +1199,16 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
             "max_err": max(r["max_abs_err"] / r["tol"] for r in fused_rows),
             "tol": "bf16: 1 bf16 ulp at the output's largest magnitude; f32: 1e-4 x that magnitude",
+            "max_err_ulps": max(r["err_ulps"] for r in main_path),
+            "timing": "kernel_ms: graph_ms of bare launches with pre-packed weights; "
+                      "wrapper_ms: calls of fused_double_conv3x3 (weights packed once, cached); "
+                      "pack_ms: packing both weights of every call anew",
             "ms": sum(r["kernel_ms"] for r in main_path),
             "kernel_ms": sum(r["kernel_ms"] for r in main_path),
+            "wrapper_ms": sum(r["wrapper_ms"] for r in main_path),
+            "pack_ms": sum(r["pack_ms"] for r in main_path),
+            "tflops": sum(r["flops"] for r in main_path) / sum(r["kernel_ms"] for r in main_path)
+            / 1e9,
             "plain_ms": sum(r["plain_ms"] for r in main_path),
             "bound_ms": sum(r["bound_ms"] for r in main_path),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1158,11 +1226,12 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "max_err": max(r["max_abs_err"] for r in nms_rows + nms_bu_rows),
             "tol": "exact",
             "ms": nms_main["kernel_ms"], "kernel_ms": nms_main["kernel_ms"],
+            "wrapper_ms": nms_main["wrapper_ms"],
             "plain_ms": nms_main["plain_ms"], "bound_ms": nms_main["bound_ms"],
             "bound_by": nms_main["bound_by"], "library_ms": None,
             "shapes": "(8, 512, 512, 1) bf16, k=3",
-            "bottomup": {k: nms_bu[k] for k in ("x", "kernel_ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "n_peaks")},
+            "bottomup": {k: nms_bu[k] for k in ("x", "kernel_ms", "wrapper_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "n_peaks")},
         },
         {
             "name": "paf_line_scores", "route": "cuda",
@@ -1172,6 +1241,7 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "max_abs_err": max(r["max_abs_err"] for r in paf_rows),
             "tol": "1e-5 absolute on finite scores; -inf and NaN placement exact",
             "ms": paf_main["kernel_ms"], "kernel_ms": paf_main["kernel_ms"],
+            "wrapper_ms": paf_main["wrapper_ms"],
             "plain_ms": paf_main["plain_ms"], "bound_ms": paf_main["bound_ms"],
             "bound_by": paf_main["bound_by"], "library_ms": None,
             "gather_ms": paf_main["gather_ms"],
@@ -1242,6 +1312,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {k.name}: {line.strip()}")
 
+    sass = sass_tensor_ops(fused_conv.KERNEL)
+    log(f"sass fused_double_conv3x3: {json.dumps(sass)}")
+    if sass is not None and not sass["HMMA"] + sass["HGMMA"]:
+        raise AssertionError("fused_double_conv3x3's SASS holds no tensor-core instruction")
+
     # 3. Kernels against their plain versions, at the paths' shapes.
     cfg, centroid, instance = build_models(UNetMediumRFConfig, N_NODES, seed=0)
     layer = build_layer(cfg, centroid, instance, DEVICE, True, CROP, MAX_INST)
@@ -1273,6 +1348,7 @@ def main() -> int:
     check_training_against_cpu()
 
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows, tr)
+    summary["kernels"][0]["sass_tensor_ops"] = sass
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "

@@ -50,7 +50,8 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
     ``cms``: channel-last ``(B, H, W, C)`` bf16 or f32. Returns f32 of the
     same shape: the value where it strictly exceeds its ``kernel x kernel``
     neighbourhood (outside cells count as -inf) and ``threshold``, -inf
-    elsewhere. The output feeds the top-K of ``find_local_peaks_rough``.
+    elsewhere. The output feeds the top-K of ``find_local_peaks_rough``. On
+    the card ``kernel`` is 3 to 9.
     """
     if kernel % 2 != 1 or kernel < 3:
         raise ValueError(f"NMS kernel must be an odd int >= 3, got {kernel}")
@@ -60,14 +61,20 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
         return _plain_nms_scores(cms, threshold, kernel)
     if cms.device.type != "cuda":
         raise ValueError(f"nms_scores runs on cuda or cpu tensors, got {cms.device}")
+    if kernel > 9:
+        raise ValueError(f"the CUDA NMS kernel takes windows of 3 to 9, got {kernel}")
     if cms.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"cms must be float32 or bfloat16, got {cms.dtype}")
     if not cms.is_contiguous():
         raise ValueError("cms must be contiguous (NHWC)")
     b, h, w, c = cms.shape
+    if cms.numel() >= 2**31 - 16:
+        raise ValueError(f"nms_scores indexes in 32 bits: {cms.numel()} elements are too many")
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=cms.device)
     if out.numel() == 0:
         return out
+    if cms.data_ptr() % 16:  # the kernel reads cms in aligned 16-byte chunks
+        cms = cms.clone()
     with torch.cuda.device(cms.device):
         NMS_SCORES.launch(
             cms.data_ptr(), out.data_ptr(), b, h, w, c, kernel, float(threshold),

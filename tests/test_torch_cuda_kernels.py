@@ -13,7 +13,8 @@ bf16 tie may round the other way in the two versions); the PAF line
 scores to 1e-5 absolute (the mean is summed in another order; line points
 and subscripts are computed alike), with -inf and NaN placement exact; the
 multi-instance confmaps to 1e-6 absolute (outputs <= 1; ``expf`` and
-ATen's ``exp`` may differ by ulps).
+ATen's ``exp`` may differ by ulps). NaN in the fused conv's input: NaN
+placement exact, the tolerance on the rest.
 """
 
 import numpy as np
@@ -51,14 +52,22 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("activation", ["relu", "identity"])
 @pytest.mark.parametrize(
-    "shape,c_mid,c_out",
-    [((1, 7, 9, 1), 4, 3), ((2, 13, 21, 5), 24, 24), ((1, 9, 17, 303), 121, 121),
-     ((3, 33, 40, 17), 7, 5)],
+    "shape,c_mid,c_out,nan",
+    [((1, 7, 9, 1), 4, 3, False), ((2, 13, 21, 5), 24, 24, False),
+     ((1, 9, 17, 303), 121, 121, False), ((3, 33, 40, 17), 7, 5, False),
+     # medium_rf's odd-channel blocks (dec3, dec2, enc4), H and W no multiple of a tile
+     ((2, 37, 45, 90), 36, 36, False), ((1, 29, 35, 135), 54, 54, False),
+     ((2, 19, 23, 81), 121, 121, False),
+     ((1, 13, 11, 128), 256, 256, False),  # large_rf enc3
+     ((2, 21, 27, 24), 36, 36, True), ((1, 30, 35, 1), 24, 24, True)],
 )
-def test_fused_conv_kernel_matches_plain(cuda, shape, c_mid, c_out, activation, dtype):
+def test_fused_conv_kernel_matches_plain(cuda, shape, c_mid, c_out, nan, activation, dtype):
     rng = np.random.default_rng(sum(shape))
     c_in = shape[-1]
-    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    if nan:  # one NaN pixel in the interior and one on the border
+        x[0, 5, 7, 0] = x[-1, -1, 3, -1] = np.nan
+    x = torch.from_numpy(x).to(cuda, dtype)
     w1 = torch.from_numpy(rng.standard_normal((3, 3, c_in, c_mid), dtype=np.float32)
                           / np.sqrt(9 * c_in)).to(cuda)
     w2 = torch.from_numpy(rng.standard_normal((3, 3, c_mid, c_out), dtype=np.float32)
@@ -71,17 +80,55 @@ def test_fused_conv_kernel_matches_plain(cuda, shape, c_mid, c_out, activation, 
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
     assert got.dtype == dtype and got.shape == (*shape[:3], c_out)
-    top = want.float().abs().max().item()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want).any() == nan
+    fin = ~torch.isnan(want)
+    top = want[fin].float().abs().max().item()
     tol = 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-4 * top
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got[fin].float() - want[fin].float()).abs().max().item() <= tol
+
+
+def test_fused_conv_kernel_takes_unaligned_x(cuda):
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.standard_normal(1 + 2 * 9 * 11 * 3, dtype=np.float32))
+    x = flat.to(cuda, torch.bfloat16)[1:].view(2, 9, 11, 3)  # 2 bytes past an aligned start
+    w1 = torch.from_numpy(rng.standard_normal((3, 3, 3, 8), dtype=np.float32) * 0.3).to(cuda)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, 8, 5), dtype=np.float32) * 0.3).to(cuda)
+    got = fused_double_conv3x3(x, w1, None, w2, None)
+    want = _plain_double_conv(x, w1, None, w2, None)
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def test_fused_conv_repacks_a_changed_weight(cuda):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 4), dtype=np.float32)).to(cuda)
+    conv1, conv2 = torch.nn.Conv2d(4, 6, 3).to(cuda), torch.nn.Conv2d(6, 5, 3).to(cuda)
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            args = (conv1.weight.permute(2, 3, 1, 0), conv1.bias,
+                    conv2.weight.permute(2, 3, 1, 0), conv2.bias)
+            first = fused_double_conv3x3(xd, *args)
+            conv1.weight.mul_(-1.0)  # in place: the same storage, a new version
+            conv2.bias.add_(1.0)
+            second = fused_double_conv3x3(xd, *args)
+            want = _plain_double_conv(xd, *args)
+            torch.cuda.synchronize()
+            assert not torch.equal(first, second)
+            top = want.float().abs().max().item()
+            tol = 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-4 * top
+            assert (second.float() - want.float()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", [3, 5])
-def test_nms_kernel_matches_plain_exactly(cuda, kernel, dtype):
-    cms = torch.from_numpy(np.random.default_rng(kernel).random((2, 37, 45, 3),
-                                                                dtype=np.float32))
-    cms[0, 5, 5, 1] = float("nan")
+@pytest.mark.parametrize("shape", [(2, 37, 45, 3), (2, 29, 101, 15), (1, 3, 1100, 1)])
+def test_nms_kernel_matches_plain_exactly(cuda, shape, kernel, dtype):
+    # W * C of the last two: 1515 and 1100, no multiple of a block's 1024-element span.
+    cms = torch.from_numpy(np.random.default_rng(kernel).random(shape, dtype=np.float32))
+    cms[0, 1, 5, 0] = cms[-1, -1, -1, -1] = float("nan")
+    cms[0, 2, 80 % shape[2], -1] = 2.0  # a peak near a span boundary
     cms = cms.to(cuda, dtype)
     before = NMS_SCORES.launches
     got = nms_scores(cms, 0.3, kernel)
@@ -174,6 +221,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fused_double_conv3x3(x.float().transpose(1, 2), w, None, w, None)
     with pytest.raises(TypeError):
         nms_scores(torch.zeros(1, 4, 4, 1, device=cuda, dtype=torch.float16), 0.2)
+    with pytest.raises(ValueError, match="3 to 9"):
+        nms_scores(torch.zeros(1, 4, 4, 1, device=cuda), 0.2, kernel=11)
     pafs, peaks, mask, edges = _paf_inputs(0, 1, 8, 8, 2, 3, 1, 4, cuda)
     t = line_fractions(10, cuda)
     with pytest.raises(TypeError):

@@ -83,3 +83,119 @@ def test_rejects_bad_arguments():
         fused_double_conv3x3(_t(x), _t(w1), _t(b1), _t(w2), _t(b2), "sigmoid")
     with pytest.raises(ValueError, match="chain"):
         fused_double_conv3x3(_t(x), _t(w2), _t(b1), _t(w1), _t(b2))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's tile planner and weight packing (pure Python, no card)
+# ---------------------------------------------------------------------------
+
+def _fused_block_channels(cfg_cls):
+    """(c_in, c_mid, c_out) of every double-conv block of a UNet preset."""
+    from sleap_nn_tpu_torch.models.encoder_decoder import SimpleConvBlock, SimpleUpsamplingBlock
+    from sleap_nn_tpu_torch.models.unet import UNet
+
+    model = UNet.from_config(cfg_cls(in_channels=1, output_stride=2))
+    out = []
+    for mod in model.modules():
+        if isinstance(mod, (SimpleConvBlock, SimpleUpsamplingBlock)):
+            convs = [c for c in mod.blocks.values() if isinstance(c, torch.nn.Conv2d)]
+            if len(convs) >= 2:
+                out.append((convs[-2].in_channels, convs[-2].out_channels, convs[-1].out_channels))
+    return out
+
+
+@pytest.mark.parametrize("preset", ["UNetConfig", "UNetMediumRFConfig", "UNetLargeRFConfig"])
+def test_tile_plan_fits_every_preset_block(preset):
+    from sleap_nn_tpu_torch.config import model_config
+    from sleap_nn_tpu_torch.ops.fused_conv import SMEM_LIMIT, plan_tiles, smem_bytes
+
+    blocks = _fused_block_channels(getattr(model_config, preset))
+    assert len(blocks) >= 7
+    # Smoke sizes (8 frames of 1024^2, 48 crops of 256^2) and published ones
+    # (SLEAP's 384 px frames and 160 px crops), at every stride a block meets.
+    for bsz, size in ((8, 1024), (48, 256), (4, 384), (32, 160)):
+        for stride in (1, 2, 4, 8, 16, 32):
+            s = max(size // stride, 1)
+            for c_in, c_mid, c_out in blocks:
+                plan = plan_tiles(bsz, s, s, c_in, c_mid, c_out)
+                assert plan.smem_bytes == smem_bytes(plan.tile_h, plan.tile_w, c_in, c_mid, c_out)
+                assert plan.smem_bytes <= SMEM_LIMIT
+                assert plan.blocks == bsz * -(-s // plan.tile_h) * -(-s // plan.tile_w) > 0
+                assert plan.blocks_per_sm in (1, 2)
+
+
+@pytest.mark.parametrize(
+    "shape,c_mid,c_out",
+    [((1, 7, 9, 1), 4, 3), ((2, 13, 21, 5), 24, 24), ((1, 9, 17, 303), 121, 121),
+     ((3, 33, 40, 17), 7, 5), ((2, 37, 45, 90), 36, 36), ((1, 29, 35, 135), 54, 54),
+     ((2, 19, 23, 81), 121, 121), ((1, 13, 11, 128), 256, 256), ((8, 64, 64, 768), 256, 256)],
+)
+def test_tile_plan_fits_card_test_shapes(shape, c_mid, c_out):
+    from sleap_nn_tpu_torch.ops.fused_conv import SMEM_LIMIT, TILES, plan_tiles
+
+    plan = plan_tiles(*shape, c_mid, c_out)
+    assert (plan.tile_h, plan.tile_w) in TILES
+    assert plan.smem_bytes <= SMEM_LIMIT and plan.blocks > 0
+
+
+def test_tile_plan_refuses_what_fits_no_tile():
+    from sleap_nn_tpu_torch.ops.fused_conv import plan_tiles
+
+    with pytest.raises(ValueError, match="no tile fits"):
+        plan_tiles(1, 64, 64, 4096, 1024, 1024)
+
+
+def _unpack(frag, c_in, c_out):
+    """The (K, N) matrix an mma.m16n8k16 B fragment holds, lane by lane."""
+    ks, n_tiles = frag.shape[:2]
+    k = torch.zeros(16 * ks, 8 * n_tiles)
+    for lane in range(32):
+        for j in range(4):
+            row = (lane % 4) * 2 + j % 2 + 8 * (j // 2)
+            for s in range(ks):
+                for t in range(n_tiles):
+                    k[16 * s + row, 8 * t + lane // 4] = frag[s, t, lane, j].float()
+    return k
+
+
+@pytest.mark.parametrize("c_in,c_out", [(1, 24), (3, 5), (24, 36), (36, 54), (17, 7)])
+def test_pack_weight_gives_the_rounded_weights_back(c_in, c_out):
+    from sleap_nn_tpu_torch.ops.fused_conv import pack_weight
+
+    w = torch.from_numpy(np.random.default_rng(c_in).standard_normal(
+        (3, 3, c_in, c_out)).astype(np.float32))
+    frag = pack_weight(w)
+    assert frag.dtype == torch.bfloat16 and frag.shape[1:] == (-(-c_out // 8), 32, 4)
+    k = _unpack(frag, c_in, c_out)
+    rounded = w.to(torch.bfloat16).float()
+    if c_in == 1:  # the 9 taps form K, padded to 16
+        assert k.shape[0] == 16
+        torch.testing.assert_close(k[:9, :c_out], rounded.reshape(9, c_out), rtol=0, atol=0)
+        assert not k[9:].any()
+    else:  # K = (tap, channel padded to 8), padded to 16
+        c_pad = -(-c_in // 8) * 8
+        assert k.shape[0] == -(-9 * c_pad // 16) * 16
+        body = k[:9 * c_pad].reshape(9, c_pad, -1)
+        torch.testing.assert_close(body[:, :c_in, :c_out], rounded.reshape(9, c_in, c_out),
+                                   rtol=0, atol=0)
+        assert not body[:, c_in:].any() and not k[9 * c_pad:].any()
+    assert not k[:, c_out:].any()
+
+
+def test_packed_weights_are_reused_until_they_change():
+    from sleap_nn_tpu_torch.models.encoder_decoder import hwio
+    from sleap_nn_tpu_torch.ops.fused_conv import _packed
+
+    conv = torch.nn.Conv2d(4, 6, 3)
+    first = _packed(hwio(conv.weight), conv.bias, torch.bfloat16)
+    assert _packed(hwio(conv.weight), conv.bias, torch.bfloat16) is first
+    assert _packed(hwio(conv.weight), conv.bias, torch.float32) is not first
+    with torch.no_grad():
+        conv.bias.add_(1.0)
+    again = _packed(hwio(conv.weight), conv.bias, torch.bfloat16)
+    assert again is not first
+    torch.testing.assert_close(again[1][:6], conv.bias.detach(), rtol=0, atol=0)
+    assert not again[1][6:].any()
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    assert _packed(hwio(conv.weight), conv.bias, torch.bfloat16) is not again
