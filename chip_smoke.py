@@ -62,8 +62,13 @@ Phases, each of which raises on failure (exit code != 0):
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
-and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), to 1e-6, and
-checks that the fused conv refuses a call under autograd.
+and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), and at the
+latter with no point and with far points, to 1e-6 with zeros placed
+exactly, and reports the share of tiles and terms its cull keeps; and
+checks that the fused conv refuses a call under autograd. After phase 8 it
+breaks the bottom-up ``paf_scoring`` stage down into its parts
+(``torch.profiler`` where it sees the device), last so that the profiler
+cannot slow the timed phases.
 
 Prints one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the port package beside it, it exits 1
@@ -490,7 +495,7 @@ def check_paf(layer, frames):
 
     from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
     from sleap_nn_tpu_torch.ops.kernels import (
-        PAF_LINE_SCORES, _plain_paf_line_scores, paf_line_scores, paf_line_subscripts)
+        _launch_paf_line_scores, _plain_paf_line_scores, paf_line_scores, paf_line_subscripts)
 
     scorer = layer.paf_scorer
     pafs, gp, mask = paf_inputs(layer, frames)
@@ -526,12 +531,9 @@ def check_paf(layer, frames):
         else:
             # The kernel alone: its C entry into a preallocated output, in a graph.
             out = torch.empty_like(got)
-            kernel_ms = graph_ms(lambda: PAF_LINE_SCORES.launch(
-                p.data_ptr(), gp.data_ptr(), mask.data_ptr(), edges.data_ptr(), t.data_ptr(),
-                out.data_ptr(), b, hp, wp, gp.shape[1], gp.shape[2], scorer.n_edges,
-                t.shape[0], int(dtype == torch.bfloat16), float(scorer.pafs_stride),
-                float(max_len), float(scorer.dist_penalty_weight),
-                torch.cuda.current_stream().cuda_stream))
+            kernel_ms = graph_ms(lambda: _launch_paf_line_scores(
+                p, gp, mask, edges, t, out, scorer.pafs_stride, max_len,
+                scorer.dist_penalty_weight))
             if not torch.equal(out.nan_to_num(), got.nan_to_num()):
                 raise AssertionError("paf_line_scores: the timed graph differs")
         row = dict(
@@ -557,54 +559,194 @@ def check_paf(layer, frames):
     return rows
 
 
+def paf_scoring_breakdown(layer, frames):
+    """Where the bottom-up ``paf_scoring`` stage's time goes, on one batch:
+    ms per call, each call fenced by ``synchronize()`` (the stage's own
+    clock), of the stage as the path runs it (``PAFScorer.score_lines``,
+    device ``t`` cached), of ``score_paf_lines_dense`` building ``t`` anew,
+    and of each part alone; the wrapper's host ms per call unfenced; and,
+    where ``torch.profiler`` sees the device, its per-op totals."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions, score_paf_lines_dense
+    from sleap_nn_tpu_torch.ops.kernels import _launch_paf_line_scores, paf_line_scores
+
+    scorer = layer.paf_scorer
+    pafs, gp, mask = paf_inputs(layer, frames)  # the PAF head's output as the layer gets it
+    hp, wp = pafs.shape[1:3]
+    edges, t = scorer._edge_inds_on(pafs.device), scorer._line_fractions_on(pafs.device)
+    max_len = scorer.max_edge_length_ratio * max(hp, wp, 2 * scorer.n_edges) * scorer.pafs_stride
+    kw = dict(n_line_points=scorer.n_points, pafs_stride=scorer.pafs_stride,
+              max_edge_length_ratio=scorer.max_edge_length_ratio,
+              dist_penalty_weight=scorer.dist_penalty_weight)
+
+    def fenced_ms(fn, reps=50):
+        total = 0.0
+        fn()
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            total += time.perf_counter() - t0
+        return total * 1e3 / reps
+
+    def host_ms(fn, reps=200):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        sync()
+        return host
+
+    wrapper = lambda: paf_line_scores(pafs, gp, mask, edges, t, scorer.pafs_stride, max_len,  # noqa: E731
+                                      scorer.dist_penalty_weight)
+    scores = wrapper()
+    with torch.inference_mode():
+        out = {
+            "pafs": list(pafs.shape), "pafs_dtype": str(pafs.dtype).split(".")[-1],
+            "pafs_contiguous": pafs.is_contiguous(), "pafs_strides": list(pafs.stride()),
+            "stage_cached_t_ms": fenced_ms(lambda: scorer.score_lines(pafs, gp, mask)),
+            "stage_new_t_ms": fenced_ms(lambda: score_paf_lines_dense(pafs, gp, mask, edges, **kw)),
+            "line_fractions_ms": fenced_ms(lambda: line_fractions(scorer.n_points, pafs.device)),
+            "contiguous_ms": fenced_ms(pafs.contiguous),
+            "wrapper_ms": fenced_ms(wrapper),
+            "fence_only_ms": fenced_ms(lambda: None),
+            "wrapper_host_ms": host_ms(wrapper),
+            "stage_host_ms": host_ms(lambda: scorer.score_lines(pafs, gp, mask)),
+            # The wrapper's parts on the host: allocating the output, asking
+            # for the stream, and the ctypes call that launches.
+            "host_empty_ms": host_ms(lambda: torch.empty_like(scores)),
+            "host_current_stream_ms": host_ms(lambda: torch.cuda.current_stream().cuda_stream
+                                              if DEVICE != "cpu" else None),
+        }
+        if DEVICE != "cpu":
+            out["host_launch_ms"] = host_ms(lambda: _launch_paf_line_scores(
+                pafs, gp, mask, edges, t, scores, scorer.pafs_stride, max_len,
+                scorer.dist_penalty_weight))
+        if DEVICE != "cpu":
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        scorer.score_lines(pafs, gp, mask)
+                    sync()
+                ops = []
+                for ev in prof.key_averages():
+                    dev_us = getattr(ev, "self_device_time_total",
+                                     getattr(ev, "self_cuda_time_total", 0.0))
+                    ops.append({"name": ev.key[:60], "count": ev.count,
+                                "cpu_us_per_call": ev.cpu_time_total / max(ev.count, 1),
+                                "self_device_us_per_call": dev_us / max(ev.count, 1)})
+                ops.sort(key=lambda o: -o["cpu_us_per_call"] * o["count"])
+                out["profiler"] = ops[:12]
+                out["profiler_device_us_per_stage"] = sum(
+                    o["self_device_us_per_call"] * o["count"] for o in ops) / 20
+            except Exception as exc:  # the profiler is a report, not a check
+                out["profiler"] = f"failed: {exc!r}"
+    log("paf_scoring_breakdown " + json.dumps(out))
+    return out
+
+
+def confmap_points(rng, n_nodes, case):
+    """Training-target points (TRAIN_BATCH, MAX_INST, n_nodes, 2) of one case:
+    uniform over the frame with NaN nodes and two padding instances;
+    ``all_nan`` has no point at all, ``far_points`` puts most of them far
+    outside the grid (one at x = +inf, whose non-finite bound keeps it)."""
+    pts = rng.uniform(0, TRAIN_IMG, (TRAIN_BATCH, MAX_INST, n_nodes, 2)).astype(np.float32)
+    pts[rng.random((TRAIN_BATCH, MAX_INST, n_nodes)) < 0.2] = np.nan  # NaN nodes
+    pts[:, MAX_INST - 2:] = np.nan  # padding instances
+    if case == "all_nan":
+        pts[:] = np.nan
+    if case == "far_points":
+        pts[:, : MAX_INST - 3] += np.float32(3 * TRAIN_IMG)
+        pts[0, MAX_INST - 3, 0] = [np.inf, 5.0]
+    return pts
+
+
+def needed_terms(pts, xv, yv, sigma):
+    """(pixel, point) pairs whose Gaussian term is not exactly 0 in f32
+    (d^2 / denom below 103.97): the terms this run's data needs."""
+    import torch
+
+    denom = 2 * sigma**2
+    p = pts.reshape(-1, 2)
+    p = p[torch.isfinite(p).all(dim=1)]
+    total = 0
+    for q in p:
+        d2 = (xv[None, :] - q[0]) ** 2 + (yv[:, None] - q[1]) ** 2
+        total += int((d2 < 103.97 * denom).sum())
+    return total
+
+
 def check_confmaps(rng):
-    """Kernel 4 against its plain version at the training shapes, NaN
-    instances and nodes included."""
+    """Kernel 4 against its plain version at the training shapes (NaN
+    instances and nodes included), and with no point and with far points:
+    zeros placed exactly (0 wherever the plain version is 0, > 0 wherever
+    it is >= 1e-30), the rest to 1e-6. Reports the share of tiles and terms
+    that the kernel's cull keeps."""
     import torch
 
     from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
     from sleap_nn_tpu_torch.ops.kernels import (
-        MULTI_CONFMAPS, _plain_multi_confmaps, multi_confmaps)
+        _launch_multi_confmaps, _plain_multi_confmaps, confmap_live_points, confmap_tile,
+        multi_confmaps)
 
     rows = []
     size = TRAIN_IMG // 2
-    for path, n_nodes, sigma in (("centroid_train", 1, 5.0), ("bottomup_train", N_NODES, 2.5)):
-        pts = rng.uniform(0, TRAIN_IMG, (TRAIN_BATCH, MAX_INST, n_nodes, 2)).astype(np.float32)
-        pts[rng.random((TRAIN_BATCH, MAX_INST, n_nodes)) < 0.2] = np.nan  # NaN nodes
-        pts[:, MAX_INST - 2:] = np.nan  # padding instances
-        pts = torch.from_numpy(pts).to(DEVICE)
+    cases = (("centroid_train", 1, 5.0, "uniform"), ("bottomup_train", N_NODES, 2.5, "uniform"),
+             ("all_nan", N_NODES, 2.5, "all_nan"), ("far_points", N_NODES, 2.5, "far_points"))
+    for path, n_nodes, sigma, case in cases:
+        pts = torch.from_numpy(confmap_points(rng, n_nodes, case)).to(DEVICE)
         xv, yv = make_grid_vectors(TRAIN_IMG, TRAIN_IMG, 2, device=DEVICE)
         args = (pts, xv, yv, sigma * 2)
         got = multi_confmaps(*args)
         want = _plain_multi_confmaps(*args)
         sync()
         err = (got - want).abs().max().item()
+        zeros_exact = bool((got[want == 0] == 0).all() and (got[want >= 1e-30] > 0).all())
         wrapper_ms = cuda_ms(lambda: multi_confmaps(*args), reps=20)
         if DEVICE == "cpu":  # a rehearsal has no kernel to launch
             kernel_ms = wrapper_ms
         else:
             # The kernel alone: its C entry into a preallocated output, in a graph.
             out = torch.empty_like(got)
-            kernel_ms = graph_ms(lambda: MULTI_CONFMAPS.launch(
-                pts.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
-                *pts.shape[:3], len(yv), len(xv), float(2 * (sigma * 2) ** 2),
-                torch.cuda.current_stream().cuda_stream))
+            kernel_ms = graph_ms(lambda: _launch_multi_confmaps(pts, xv, yv, out, sigma * 2))
             if not torch.equal(out, got):
                 raise AssertionError(f"multi_confmaps: the timed graph did not render {path}")
-        # This run's data: one Gaussian term per (pixel, non-NaN point).
-        n_points = int(torch.isfinite(pts[..., 0]).sum())
-        flops = 10.0 * size * size * n_points
+        # What the cull keeps: tiles with a live point, and terms computed
+        # (live points x the tile's pixels) against every term (I x N per pixel).
+        live = confmap_live_points(*args)
+        th, tw = confmap_tile(n_nodes)
+        rows_px = torch.full((live.shape[1],), th, device=DEVICE)
+        rows_px[-1] = size - th * (live.shape[1] - 1)
+        cols_px = torch.full((live.shape[2],), tw, device=DEVICE)
+        cols_px[-1] = size - tw * (live.shape[2] - 1)
+        tile_px = rows_px[:, None] * cols_px[None, :]  # (tiles_y, tiles_x)
+        computed = int((live.sum(dim=(3, 4)) * tile_px).sum())
+        all_terms = got.numel() * pts.shape[1]
+        needed = needed_terms(pts, xv, yv, sigma * 2)
+        # This run's data: one Gaussian term per (pixel, point) it reaches.
+        flops = 10.0 * needed
         nbytes = got.numel() * 4 + pts.numel() * 4 + (xv.numel() + yv.numel()) * 4
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
-        row = dict(path=path, points=list(pts.shape), out=list(got.shape),
-                   valid_points=n_points, max_abs_err=err, tol=1e-6, ok=bool(err <= 1e-6),
+        row = dict(path=path, points=list(pts.shape), out=list(got.shape), sigma=sigma * 2,
+                   valid_points=int(torch.isfinite(pts).all(dim=-1).sum()), tile=[th, tw],
+                   tiles_live_share=live.any(dim=(3, 4)).float().mean().item(),
+                   terms_computed=computed, terms_all=all_terms, terms_needed=needed,
+                   terms_computed_share=computed / all_terms,
+                   max_abs_err=err, tol=1e-6, zeros_exact=zeros_exact,
+                   ok=bool(err <= 1e-6 and zeros_exact),
                    max_value=got.max().item(), kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
                    plain_ms=cuda_ms(lambda: _plain_multi_confmaps(*args), reps=5),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         log("multi_confmaps " + json.dumps(row))
         rows.append(row)
-    bad = [r for r in rows if not r["ok"] or r["max_value"] < 0.5]
+    bad = [r for r in rows if not r["ok"] or r["max_value"] < (0 if r["path"] == "all_nan" else 0.5)]
     if bad:
         raise AssertionError(f"multi_confmaps disagrees with its plain version: {bad}")
     return rows
@@ -773,7 +915,7 @@ def bottomup_stage_times(layer, frames):
     import torch
 
     from sleap_nn_tpu_torch.inference.layers import preprocess_images, to_host
-    from sleap_nn_tpu_torch.inference.paf_grouping import group_peaks_by_node, score_paf_lines_dense
+    from sleap_nn_tpu_torch.inference.paf_grouping import group_peaks_by_node
     from sleap_nn_tpu_torch.ops.peaks import find_local_peaks
 
     post, scorer = layer.post, layer.paf_scorer
@@ -798,12 +940,8 @@ def bottomup_stage_times(layer, frames):
             gp, gv, mask = timed("group_by_node", lambda: group_peaks_by_node(
                 pts * layer.cm_output_stride, vals, chans, valid, scorer.n_nodes,
                 scorer.k_per_node))
-            edges = torch.tensor(scorer.edge_inds, dtype=torch.int32, device=DEVICE)
-            scores = timed("paf_scoring", lambda: score_paf_lines_dense(
-                preds[layer.paf_head], gp, mask, edges, n_line_points=scorer.n_points,
-                pafs_stride=scorer.pafs_stride,
-                max_edge_length_ratio=scorer.max_edge_length_ratio,
-                dist_penalty_weight=scorer.dist_penalty_weight))
+            scores = timed("paf_scoring", lambda: scorer.score_lines(
+                preds[layer.paf_head], gp, mask))
             dev = {"grouped_peaks": gp, "grouped_vals": gv, "scores": scores, "eff_scale": eff}
             timed("host_grouping", lambda: layer.postprocess_host(to_host(dev)))
     return times
@@ -1172,7 +1310,8 @@ def check_training_against_cpu():
     return report
 
 
-def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows, tr):
+def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e2e, bu, cm_rows,
+                   tr):
     """The ``kernels`` line: one entry per kernel, launches from the two paths' runs."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
@@ -1247,6 +1386,7 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "gather_ms": paf_main["gather_ms"],
             "gather_note": "advanced-index gather of the x and y samples only (what the TPU "
                            "kernel computed), not the scoring",
+            "paf_scoring_breakdown": {k: v for k, v in paf_breakdown.items() if k != "profiler"},
             "shapes": f"PAFs {paf_main['pafs']} bf16, peaks {paf_main['peaks']}, "
                       f"{N_POINTS} line points, {paf_main['valid_pairs']} valid pairs",
         },
@@ -1266,9 +1406,14 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows
             "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (centroid training "
                       "targets; launches_per_batch counts renders: train steps, val batches "
                       "and the setup probe)",
-            "bottomup_train": {k: cm_rows[1][k] for k in ("points", "out", "kernel_ms",
+            "cull": {r["path"]: {k: r[k] for k in ("tile", "tiles_live_share", "terms_computed",
+                                                   "terms_needed", "terms_all",
+                                                   "terms_computed_share")} for r in cm_rows},
+            "zeros_exact": all(r["zeros_exact"] for r in cm_rows),
+            "other_cases": {r["path"]: {k: r[k] for k in ("points", "out", "kernel_ms",
                                                           "wrapper_ms", "plain_ms", "bound_ms",
-                                                          "bound_by")},
+                                                          "bound_by", "max_abs_err")}
+                            for r in cm_rows[1:]},
         },
     ]}
 
@@ -1347,7 +1492,12 @@ def main() -> int:
     # 8. Training on the card against the CPU.
     check_training_against_cpu()
 
-    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, e2e, bu, cm_rows, tr)
+    # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
+    # torch.profiler window, which must not slow the timed phases above.
+    paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
+
+    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e2e, bu,
+                             cm_rows, tr)
     summary["kernels"][0]["sass_tensor_ops"] = sass
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "

@@ -101,7 +101,7 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
     if ctx.model_type != "centroid":
         raise NotImplementedError(
             f"the render of {ctx.model_type!r} models is not ported yet (ROADMAP section 1, "
-            "item 6); the port renders centroid targets")
+            "item 4); the port renders centroid targets")
 
     @torch.no_grad()
     def fn(batch: Dict[str, torch.Tensor],
@@ -187,7 +187,7 @@ def make_dataset(model_type: str, labels_list, ctx: PipelineContext,
     if model_type != "centroid":
         raise NotImplementedError(
             f"the dataset of {model_type!r} models is not ported yet (ROADMAP section 1, "
-            "item 6)")
+            "item 4)")
     return CentroidDataset(labels_list, ctx, user_instances_only)
 
 

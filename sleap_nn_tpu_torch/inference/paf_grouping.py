@@ -99,6 +99,7 @@ def score_paf_lines_dense(
     pafs_stride: int = 4,
     max_edge_length_ratio: float = 0.25,
     dist_penalty_weight: float = 1.0,
+    t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense PAF line scores for every candidate pair of every edge.
 
@@ -107,6 +108,8 @@ def score_paf_lines_dense(
         grouped_peaks: ``(B, n_nodes, K, 2)`` image-scale (x, y).
         grouped_mask: ``(B, n_nodes, K)`` bool.
         edge_inds: ``(n_edges, 2)`` int32 (src_node, dst_node), on pafs' device.
+        t: the ``line_fractions(n_line_points)`` on pafs' device; built here
+            when not given (:class:`PAFScorer` passes its own copy).
 
     Returns:
         ``(B, n_edges, K, K)`` scores; ``-inf`` where either endpoint is
@@ -116,9 +119,11 @@ def score_paf_lines_dense(
     _, hp, wp, _ = pafs.shape
     n_edges = edge_inds.shape[0]
     max_edge_length = max_edge_length_ratio * max(hp, wp, 2 * n_edges) * pafs_stride
-    t = line_fractions(n_line_points, device=pafs.device)
-    # The head's NHWC output is a permuted view unless the conv kept
-    # channels-last memory; the kernel takes a dense map.
+    if t is None:
+        t = line_fractions(n_line_points, device=pafs.device)
+    # The kernel takes a dense map. The PAF head's NHWC output already is
+    # one (its conv keeps channels-last memory), so this copies nothing on
+    # the predict path.
     return paf_line_scores(pafs.contiguous(), grouped_peaks, grouped_mask, edge_inds, t,
                            pafs_stride, max_edge_length, dist_penalty_weight)
 
@@ -276,8 +281,9 @@ def make_predicted_instances(
 class PAFScorer:
     """Device scoring + host grouping of one skeleton's PAFs.
 
-    Picklable: a grouping pool ships it to its workers. Its device copy of
-    the edge indices is made once per device and is not pickled.
+    Picklable: a grouping pool ships it to its workers. Its device copies
+    of the edge indices (per device) and of the line fractions ``t`` (per
+    ``n_points`` and device) are made once and are not pickled.
     """
 
     part_names: Sequence[str]
@@ -297,27 +303,32 @@ class PAFScorer:
         self.n_edges = len(self.edge_inds)
         self.sorted_edge_inds = toposort_edges(self.edge_inds)
         self._device_edge_inds: Dict[torch.device, torch.Tensor] = {}
+        self._device_t: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_device_edge_inds"] = {}
+        state["_device_t"] = {}
         return state
 
+    # Both made once: a copy from pageable host memory on every batch would
+    # wait for the device's queue, and building t takes three launches.
     def _edge_inds_on(self, device: torch.device) -> torch.Tensor:
-        # Made once per device: a copy from pageable host memory on every
-        # batch would wait for the device's queue.
         if device not in self._device_edge_inds:
             self._device_edge_inds[device] = torch.tensor(
                 self.edge_inds, dtype=torch.int32, device=device).reshape(-1, 2)
         return self._device_edge_inds[device]
 
+    def _line_fractions_on(self, device: torch.device) -> torch.Tensor:
+        key = (self.n_points, device)
+        if key not in self._device_t:
+            self._device_t[key] = line_fractions(self.n_points, device=device)
+        return self._device_t[key]
+
     # -- device ---------------------------------------------------------------
-    def score_on_device(self, pafs, peaks, peak_vals, channel_inds, valid):
-        """Flat top-K peaks -> (grouped peaks/vals/mask, dense scores), on pafs' device."""
-        grouped_peaks, grouped_vals, mask = group_peaks_by_node(
-            peaks, peak_vals, channel_inds, valid, self.n_nodes, self.k_per_node
-        )
-        scores = score_paf_lines_dense(
+    def score_lines(self, pafs, grouped_peaks, mask):
+        """Dense ``(B, E, K, K)`` line scores of grouped peaks, on pafs' device."""
+        return score_paf_lines_dense(
             pafs,
             grouped_peaks,
             mask,
@@ -326,8 +337,15 @@ class PAFScorer:
             pafs_stride=self.pafs_stride,
             max_edge_length_ratio=self.max_edge_length_ratio,
             dist_penalty_weight=self.dist_penalty_weight,
+            t=self._line_fractions_on(pafs.device),
         )
-        return grouped_peaks, grouped_vals, mask, scores
+
+    def score_on_device(self, pafs, peaks, peak_vals, channel_inds, valid):
+        """Flat top-K peaks -> (grouped peaks/vals/mask, dense scores), on pafs' device."""
+        grouped_peaks, grouped_vals, mask = group_peaks_by_node(
+            peaks, peak_vals, channel_inds, valid, self.n_nodes, self.k_per_node
+        )
+        return grouped_peaks, grouped_vals, mask, self.score_lines(pafs, grouped_peaks, mask)
 
     # -- host -------------------------------------------------------------------
     def group_sample(self, grouped_peaks, grouped_vals, scores,

@@ -14,7 +14,10 @@ kernel; a CPU tensor takes the plain version. Ported so far:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import math
+from typing import Tuple
 
 import torch
 
@@ -27,12 +30,27 @@ NMS_SCORES = Kernel(
 )
 PAF_LINE_SCORES = Kernel(
     "paf_line_scores", "paf_line_scores.cu",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p],
 )
 MULTI_CONFMAPS = Kernel(
     "multi_confmaps", "multi_confmaps.cu",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 )
+
+# expf(-x) is exactly 0 in f32 for x above about 103.97 (the last denormal),
+# so a Gaussian term whose d^2 / denom exceeds this cutoff renders 0 with
+# margin. Kernel 4 skips every point whose bound over a tile exceeds it.
+CONFMAP_CUTOFF = 110.0
+# Kernel 4's output tile (elements, where N allows) and its per-node lists
+# of live points (entries over all nodes) in shared memory.
+_CONFMAP_TILE, _CONFMAP_LIST = 4096, 2048
+
+
+def _device_guard(device: torch.device):
+    """Make ``device`` current for a launch; a no-op where it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _plain_nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Tensor:
@@ -75,7 +93,7 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
         return out
     if cms.data_ptr() % 16:  # the kernel reads cms in aligned 16-byte chunks
         cms = cms.clone()
-    with torch.cuda.device(cms.device):
+    with _device_guard(cms.device):
         NMS_SCORES.launch(
             cms.data_ptr(), out.data_ptr(), b, h, w, c, kernel, float(threshold),
             int(cms.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
@@ -169,33 +187,58 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
                                       pafs_stride, max_edge_length, dist_penalty_weight)
     if pafs.device.type != "cuda":
         raise ValueError(f"paf_line_scores runs on cuda or cpu tensors, got {pafs.device}")
-    if pafs.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"pafs must be float32 or bfloat16, got {pafs.dtype}")
-    want = {"grouped_peaks": (grouped_peaks, torch.float32),
-            "grouped_mask": (grouped_mask, torch.bool),
-            "edge_inds": (edge_inds, torch.int32), "t": (t, torch.float32)}
-    for name, (x, dtype) in want.items():
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    for name, x in [("pafs", pafs)] + [(nm, x) for nm, (x, _) in want.items()]:
-        if x.device != pafs.device:
-            raise ValueError(f"{name} is on {x.device}, pafs on {pafs.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    # One pass over what a caller can get wrong; the messages are built on failure only.
+    args = {"pafs": pafs, "grouped_peaks": grouped_peaks, "grouped_mask": grouped_mask,
+            "edge_inds": edge_inds, "t": t}
+    if (pafs.dtype not in (torch.float32, torch.bfloat16) or grouped_peaks.dtype != torch.float32
+            or grouped_mask.dtype != torch.bool or edge_inds.dtype != torch.int32
+            or t.dtype != torch.float32):
+        raise TypeError("paf_line_scores takes pafs float32 or bfloat16, grouped_peaks float32, "
+                        "grouped_mask bool, edge_inds int32 and t float32; got "
+                        + ", ".join(f"{name} {x.dtype}" for name, x in args.items()))
+    index = pafs.get_device()
+    if not (grouped_peaks.get_device() == grouped_mask.get_device() == edge_inds.get_device()
+            == t.get_device() == index):
+        raise ValueError("every input must lie on pafs' device; got "
+                         + ", ".join(f"{name} on {x.device}" for name, x in args.items()))
+    if not (pafs.is_contiguous() and grouped_peaks.is_contiguous()
+            and grouped_mask.is_contiguous() and edge_inds.is_contiguous() and t.is_contiguous()):
+        raise ValueError("every input must be contiguous; not contiguous: "
+                         + ", ".join(name for name, x in args.items() if not x.is_contiguous()))
     if pafs.data_ptr() % (2 * pafs.element_size()):
         raise ValueError("pafs must be aligned to one (x, y) channel pair")
     out = torch.empty((b, edge_inds.shape[0], k, k), dtype=torch.float32, device=pafs.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(pafs.device):
-        PAF_LINE_SCORES.launch(
-            pafs.data_ptr(), grouped_peaks.data_ptr(), grouped_mask.data_ptr(),
-            edge_inds.data_ptr(), t.data_ptr(), out.data_ptr(),
-            b, hp, wp, n, k, edge_inds.shape[0], t.shape[0], int(pafs.dtype == torch.bfloat16),
-            float(pafs_stride), float(max_edge_length), float(dist_penalty_weight),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    with _device_guard(pafs.device):
+        _launch_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, out,
+                                pafs_stride, max_edge_length, dist_penalty_weight)
     return out
+
+
+def stride_reciprocal(stride: float) -> float:
+    """``1 / stride`` where ``stride`` is a power of two, else 0.
+
+    For a power of two (and a normal f32 reciprocal), ``x * f32(1 / stride)``
+    and ``x / stride`` are the correctly rounded value of the same real
+    number, so kernel 3 multiplies instead of dividing and gets the same bits.
+    """
+    return 1.0 / stride if (2.0**-126 <= stride <= 2.0**126
+                            and math.frexp(stride)[0] == 0.5) else 0.0
+
+
+def _launch_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, out,
+                            pafs_stride, max_edge_length, dist_penalty_weight) -> None:
+    """Kernel 3's C entry on checked CUDA tensors, on the current stream."""
+    b, hp, wp, _ = pafs.shape
+    _, n, k, _ = grouped_peaks.shape
+    PAF_LINE_SCORES.launch(
+        pafs.data_ptr(), grouped_peaks.data_ptr(), grouped_mask.data_ptr(),
+        edge_inds.data_ptr(), t.data_ptr(), out.data_ptr(),
+        b, hp, wp, n, k, edge_inds.shape[0], t.shape[0], int(pafs.dtype == torch.bfloat16),
+        float(pafs_stride), stride_reciprocal(float(pafs_stride)), float(max_edge_length),
+        float(dist_penalty_weight), torch.cuda.current_stream().cuda_stream,
+    )
 
 
 def make_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
@@ -261,10 +304,54 @@ def multi_confmaps(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
         return out
     if n_inst == 0:
         return out.zero_()
-    with torch.cuda.device(points.device):
-        MULTI_CONFMAPS.launch(
-            points.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
-            b, n_inst, n_nodes, h, w, float(2 * sigma**2),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    with _device_guard(points.device):
+        _launch_multi_confmaps(points, xv, yv, out, sigma)
     return out
+
+
+def confmap_tile(n_nodes: int) -> Tuple[int, int]:
+    """Kernel 4's output tile ``(rows, columns)`` in pixels for ``n_nodes``
+    channels: columns a power of two up to 32, rows up to 32, at most 4096
+    elements where ``n_nodes`` allows (32 x 32 at one node, 8 x 32 at 15)."""
+    tw = 32
+    while tw > 1 and tw * n_nodes > _CONFMAP_TILE:
+        tw //= 2
+    return min(32, max(1, _CONFMAP_TILE // (tw * n_nodes))), tw
+
+
+def confmap_live_points(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                        sigma: float) -> torch.Tensor:
+    """Which points kernel 4's cull keeps in each of its tiles, computed on
+    the host: ``(B, tiles_y, tiles_x, I, N)`` bool. A mirror of the
+    kernel's rule (box of each tile's own grid values, NaN ignored; NaN
+    points dropped; points whose box bound exceeds :data:`CONFMAP_CUTOFF`
+    dropped unless the bound is not finite), for reports and tests."""
+    th, tw = confmap_tile(points.shape[2])
+    inf = torch.tensor(float("inf"), device=points.device)
+
+    def box(v: torch.Tensor, size: int):
+        v = torch.cat([v, v.new_full(((-len(v)) % size,), float("nan"))]).reshape(-1, size)
+        return (torch.where(v.isnan(), inf, v).amin(dim=1),
+                torch.where(v.isnan(), -inf, v).amax(dim=1))
+
+    (x_lo, x_hi), (y_lo, y_hi) = box(xv, tw), box(yv, th)
+    px = points[:, None, None, :, :, 0]  # (B, 1, 1, I, N)
+    py = points[:, None, None, :, :, 1]
+    ex = torch.clamp(torch.maximum(x_lo[:, None, None] - px, px - x_hi[:, None, None]), min=0)
+    ey = torch.clamp(torch.maximum(y_lo[:, None, None, None] - py,
+                                   py - y_hi[:, None, None, None]), min=0)
+    denom = torch.tensor(2 * sigma**2, dtype=torch.float32, device=points.device)
+    bound = (ex * ex + ey * ey) / denom
+    return ~px.isnan() & ~py.isnan() & ~(bound.isfinite() & (bound > CONFMAP_CUTOFF))
+
+
+def _launch_multi_confmaps(points, xv, yv, out, sigma: float) -> None:
+    """Kernel 4's C entry on checked CUDA tensors, on the current stream."""
+    b, n_inst, n_nodes, _ = points.shape
+    th, tw = confmap_tile(n_nodes)
+    MULTI_CONFMAPS.launch(
+        points.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
+        b, n_inst, n_nodes, yv.shape[0], xv.shape[0], tw.bit_length() - 1, th,
+        min(n_inst, max(1, _CONFMAP_LIST // n_nodes)), float(2 * sigma**2), CONFMAP_CUTOFF,
+        torch.cuda.current_stream().cuda_stream,
+    )

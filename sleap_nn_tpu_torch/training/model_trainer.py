@@ -166,7 +166,7 @@ class ModelTrainer:
         missing = _unsupported(config, self.model_type, self.backbone_type)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, item 6): "
+                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 4 and 7): "
                 + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False

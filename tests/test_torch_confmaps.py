@@ -5,6 +5,8 @@ interpret mode.
 Inputs are numpy-made points with NaN instances and NaN nodes, on square
 and non-square grids at strides 1, 2 and 4. Tolerance: 1e-6 absolute
 (outputs are <= 1; ``exp`` of the same f32 arguments may differ by ulps).
+Kernel 4's cull is held against the jnp path exactly: every term it skips
+renders 0 there.
 """
 
 import jax.numpy as jnp
@@ -17,7 +19,14 @@ from sleap_nn_tpu.ops.grid import make_grid_vectors as jgrid
 from sleap_nn_tpu.ops.pallas_kernels import make_multi_confmaps_pallas
 from sleap_nn_tpu_torch.ops import confmaps as pcm
 from sleap_nn_tpu_torch.ops.grid import make_grid_vectors as pgrid
-from sleap_nn_tpu_torch.ops.kernels import MULTI_CONFMAPS, multi_confmaps
+from sleap_nn_tpu_torch.ops.kernels import (
+    CONFMAP_CUTOFF,
+    MULTI_CONFMAPS,
+    _plain_multi_confmaps,
+    confmap_live_points,
+    confmap_tile,
+    multi_confmaps,
+)
 
 ATOL = 1e-6
 
@@ -107,3 +116,75 @@ def test_multi_confmaps_checks_shapes():
         multi_confmaps(torch.zeros(2, 3, 3), px, py, 2.0)
     with pytest.raises(ValueError, match="1-D"):
         multi_confmaps(torch.zeros(1, 1, 1, 2), px[None], py, 2.0)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_terms_past_the_cull_cutoff_render_exact_zero(monkeypatch, seed):
+    """Kernel 4 skips every term whose d^2 / denom is at or above
+    ``CONFMAP_CUTOFF``. The JAX package's jnp path gives exactly 0 there
+    (and so does the port's plain version), on a seeded grid of distances
+    just past the cutoff and sigmas from tiny to large."""
+    monkeypatch.setenv("SLEAP_NN_TPU_PALLAS", "0")
+    rng = np.random.default_rng(seed)
+    sigma = float(np.exp(rng.uniform(np.log(0.05), np.log(60.0))))
+    denom = np.float32(2 * sigma**2)
+    px, py = np.float32(rng.uniform(-50, 50, 2))
+    reach = np.sqrt(np.float64(CONFMAP_CUTOFF) * denom)
+    # Grid offsets from the point: 0 up to 1.2x the reach, dense near it.
+    offsets = np.concatenate([np.linspace(0, 1.2, 48), 1 + rng.uniform(-0.02, 0.02, 48)]) * reach
+    xv = (px + offsets * rng.choice([-1, 1], offsets.size)).astype(np.float32)
+    yv = (py + rng.permutation(offsets)).astype(np.float32)
+    pts = np.array([[[[px, py]]]], np.float32)  # (1, 1, 1, 2)
+    ratio = ((xv[None, :] - px) ** 2 + (yv[:, None] - py) ** 2) / denom  # f32, (H, W)
+    past = ratio >= np.float32(CONFMAP_CUTOFF)
+    assert past.sum() > 100 and (~past).sum() > 100
+    assert ratio[past].min() < CONFMAP_CUTOFF * 1.001  # terms right at the cutoff are included
+    want = np.asarray(jcm.make_multi_confmaps(jnp.asarray(pts), jnp.asarray(xv), jnp.asarray(yv),
+                                              sigma))[0, ..., 0]
+    plain = _plain_multi_confmaps(torch.from_numpy(pts), torch.from_numpy(xv),
+                                  torch.from_numpy(yv), sigma).numpy()[0, ..., 0]
+    assert (want[past] == 0).all() and (plain[past] == 0).all()
+    assert (want[ratio < 80] > 0).all()  # and the test reaches the nonzero side
+
+
+@pytest.mark.parametrize("case", ["uniform", "far", "tiny_sigma", "huge_sigma", "shuffled_xv",
+                                  "descending_xv", "ragged_15_nodes"])
+def test_cull_drops_only_points_whose_terms_are_zero(monkeypatch, case):
+    """Kernel 4's cull rule, mirrored on the host by ``confmap_live_points``:
+    every point it drops from a tile renders exactly 0 over that tile in the
+    JAX package's jnp path, one instance at a time."""
+    monkeypatch.setenv("SLEAP_NN_TPU_PALLAS", "0")
+    rng = np.random.default_rng(len(case))
+    n_nodes = 15 if case == "ragged_15_nodes" else 2
+    h, w = (19, 51) if case == "ragged_15_nodes" else (70, 45)
+    sigma = {"tiny_sigma": 1e-3, "huge_sigma": 1e4}.get(case, 2.5)
+    xv, yv = (a.numpy() for a in pgrid(2 * h, 2 * w, 2))
+    xv, yv = xv[:w].copy(), yv[:h].copy()
+    if case == "shuffled_xv":
+        xv, yv = rng.permutation(xv), rng.permutation(yv)
+    if case == "descending_xv":
+        xv = xv[::-1].copy()
+    pts = rng.uniform(-10, 2 * max(h, w) + 10, (2, 4, n_nodes, 2)).astype(np.float32)
+    pts[rng.random((2, 4, n_nodes)) < 0.2] = np.nan
+    if case == "far":
+        pts[:, :2] += np.float32(5000.0)
+        pts[1, 2, 0] = [np.inf, 3.0]  # a non-finite bound keeps the point
+    live = confmap_live_points(torch.from_numpy(pts), torch.from_numpy(xv),
+                               torch.from_numpy(yv), sigma).numpy()
+    th, tw = confmap_tile(n_nodes)
+    assert live.shape == (2, -(-h // th), -(-w // tw), 4, n_nodes)
+    assert 0 < live.sum() < live.size
+    terms = np.asarray(jcm.make_confmaps(jnp.asarray(pts), jnp.asarray(xv), jnp.asarray(yv),
+                                         sigma))  # (B, I, H, W, N)
+    for b, ty, tx, i, n in zip(*np.nonzero(~live)):
+        assert (terms[b, i, ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw, n] == 0).all()
+    if case == "far":
+        assert live[1, :, :, 2, 0].all()
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 15, 16, 100, 300, 5000])
+def test_confmap_tile_fits_the_kernel(n_nodes):
+    th, tw = confmap_tile(n_nodes)
+    assert 1 <= th <= 32 and 1 <= tw <= 32 and tw & (tw - 1) == 0
+    assert th * tw * n_nodes <= max(4096, n_nodes)
+    assert (th, tw) == {1: (32, 32), 15: (8, 32)}.get(n_nodes, (th, tw))

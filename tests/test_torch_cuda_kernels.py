@@ -13,8 +13,9 @@ bf16 tie may round the other way in the two versions); the PAF line
 scores to 1e-5 absolute (the mean is summed in another order; line points
 and subscripts are computed alike), with -inf and NaN placement exact; the
 multi-instance confmaps to 1e-6 absolute (outputs <= 1; ``expf`` and
-ATen's ``exp`` may differ by ulps). NaN in the fused conv's input: NaN
-placement exact, the tolerance on the rest.
+ATen's ``exp`` may differ by ulps), and in the cull cases with zeros placed
+exactly. NaN in the fused conv's input: NaN placement exact, the tolerance
+on the rest.
 """
 
 import numpy as np
@@ -162,7 +163,11 @@ def _paf_inputs(seed, b, hp, wp, n_nodes, k, n_edges, stride, device):
 @pytest.mark.parametrize(
     "b,hp,wp,n_nodes,k,n_edges,n_points,stride",
     [(1, 5, 7, 2, 1, 1, 10, 4), (2, 33, 17, 5, 6, 7, 7, 2), (3, 64, 80, 15, 20, 14, 10, 4),
-     (1, 40, 40, 4, 9, 3, 1, 8)],
+     (1, 40, 40, 4, 9, 3, 1, 8),
+     # K = 40: 1600 pairs, beyond one block's 256 threads; P = 40 and 33: beyond the
+     # largest unrolled chunk of 32; stride 3: the division path
+     (2, 48, 40, 6, 40, 5, 10, 4), (2, 30, 30, 5, 7, 4, 40, 4), (2, 33, 29, 5, 8, 4, 10, 3),
+     (1, 20, 24, 4, 6, 3, 33, 3), (1, 16, 16, 3, 1, 2, 1, 3)],
 )
 def test_paf_line_scores_kernel_matches_plain(cuda, b, hp, wp, n_nodes, k, n_edges,
                                               n_points, stride, dtype):
@@ -201,6 +206,82 @@ def test_multi_confmaps_kernel_matches_plain(cuda, b, n_inst, n_nodes, h, w, str
     assert got.shape == (b, len(yv), len(xv), n_nodes) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     assert got.max().item() > 0.5
+
+
+def _confmap_case(case):
+    """(points, xv, yv, sigma) of one cull case, numpy."""
+    rng = np.random.default_rng(len(case))
+    b, n_inst, n_nodes, h, w, stride, sigma = 2, 5, 3, 70, 45, 2, 2.5
+    if case == "ragged":
+        h, w = 37, 61  # no multiple of a tile
+    if case == "odd_width_15_nodes":
+        n_nodes, h, w = 15, 19, 51  # row spans of 51 * 15 floats, unaligned
+    xv = np.arange(0, w * stride, stride, dtype=np.float32)
+    yv = np.arange(0, h * stride, stride, dtype=np.float32)
+    pts = rng.uniform(-8, max(h, w) * stride + 8, (b, n_inst, n_nodes, 2)).astype(np.float32)
+    pts[rng.random((b, n_inst, n_nodes)) < 0.2] = np.nan
+    if case == "far":
+        pts[:, :3] += np.float32(4000.0)
+        pts[0, 3, 0] = [-1e30, 5.0]
+        pts[1, 3, 1] = [np.inf, 5.0]
+    if case == "all_nan":
+        pts[0] = np.nan  # one image of the batch has no point at all
+    if case == "tiny_sigma":
+        sigma = 1e-3
+        pts[..., 0] = rng.choice(xv, pts.shape[:3])  # on the grid: some terms are exactly 1
+        pts[..., 1] = rng.choice(yv, pts.shape[:3])
+    if case == "huge_sigma":
+        sigma = 1e4
+    if case == "descending_xv":
+        xv = xv[::-1].copy()
+    if case == "shuffled_xv":
+        xv, yv = rng.permutation(xv), rng.permutation(yv)
+    return pts, xv, yv, sigma * stride
+
+
+@pytest.mark.parametrize("case", ["far", "all_nan", "tiny_sigma", "huge_sigma", "descending_xv",
+                                  "shuffled_xv", "ragged", "odd_width_15_nodes"])
+def test_multi_confmaps_kernel_cull_cases(cuda, case):
+    """The culled kernel against its plain version: zeros placed exactly
+    (0 wherever the plain version is 0, > 0 wherever it is >= 1e-30), the
+    rest to 1e-6."""
+    pts, xv, yv, sigma = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+                          for a in _confmap_case(case))
+    before = MULTI_CONFMAPS.launches
+    got = multi_confmaps(pts, xv, yv, sigma)
+    want = _plain_multi_confmaps(pts, xv, yv, sigma)
+    torch.cuda.synchronize()
+    assert MULTI_CONFMAPS.launches == before + 1
+    assert got.shape == want.shape == (pts.shape[0], len(yv), len(xv), pts.shape[2])
+    assert (got[want == 0] == 0).all()
+    assert (got[want >= 1e-30] > 0).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert (want > 0.5).any()
+    if case == "all_nan":
+        assert (got[0] == 0).all()
+
+
+def test_paf_head_output_is_read_in_place(cuda):
+    """The PAF head's NHWC output on the card is a dense map, so
+    ``score_paf_lines_dense``'s ``.contiguous()`` copies nothing."""
+    from types import SimpleNamespace as ns
+
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.models.model import Model
+
+    cfg = UNetConfig(in_channels=1, filters=8, filters_rate=1.5, max_stride=16, output_stride=2)
+    heads = ns(confmaps=ns(part_names=["a", "b", "c"], sigma=2.5, output_stride=2,
+                           loss_weight=None),
+               pafs=ns(edges=[["a", "b"], ["b", "c"]], sigma=15.0, output_stride=4,
+                       loss_weight=None))
+    model = Model.from_config("unet", cfg, heads, "bottomup")
+    x = torch.rand(2, 64, 64, 1, device=cuda)
+    for use_bf16 in (True, False):
+        backend = TorchBackend(model, None, use_bf16=use_bf16, output_dtype=None, device=cuda)
+        with torch.inference_mode():
+            pafs = backend(x)["PartAffinityFieldsHead"]
+        assert pafs.shape == (2, 16, 16, 4) and pafs.is_contiguous()
 
 
 def test_fused_conv_refuses_autograd(cuda):
