@@ -64,7 +64,8 @@ Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
 and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), and at the
 latter with no point and with far points, to 1e-6 with zeros placed
-exactly, and reports the share of tiles and terms its cull keeps; and
+exactly, and reports the share of tiles and terms its cull keeps, as the
+kernel counts them (held to the host model of the cull's rule); and
 checks that the fused conv refuses a call under autograd. After phase 8 it
 breaks the bottom-up ``paf_scoring`` stage down into its parts
 (``torch.profiler`` where it sees the device), last so that the profiler
@@ -651,6 +652,12 @@ def paf_scoring_breakdown(layer, frames):
     return out
 
 
+def confmap_cases():
+    """Kernel 4's cases: (name, nodes, sigma at output stride 2, points)."""
+    return (("centroid_train", 1, 5.0, "uniform"), ("bottomup_train", N_NODES, 2.5, "uniform"),
+            ("all_nan", N_NODES, 2.5, "all_nan"), ("far_points", N_NODES, 2.5, "far_points"))
+
+
 def confmap_points(rng, n_nodes, case):
     """Training-target points (TRAIN_BATCH, MAX_INST, n_nodes, 2) of one case:
     uniform over the frame with NaN nodes and two padding instances;
@@ -687,19 +694,17 @@ def check_confmaps(rng):
     instances and nodes included), and with no point and with far points:
     zeros placed exactly (0 wherever the plain version is 0, > 0 wherever
     it is >= 1e-30), the rest to 1e-6. Reports the share of tiles and terms
-    that the kernel's cull keeps."""
+    that the kernel's cull keeps, as the kernel counts them, and holds the
+    counts to the host model of the cull's rule."""
     import torch
 
     from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
     from sleap_nn_tpu_torch.ops.kernels import (
-        _launch_multi_confmaps, _plain_multi_confmaps, confmap_live_points, confmap_tile,
+        _launch_multi_confmaps, _plain_multi_confmaps, confmap_cull_counts, confmap_tile,
         multi_confmaps)
 
     rows = []
-    size = TRAIN_IMG // 2
-    cases = (("centroid_train", 1, 5.0, "uniform"), ("bottomup_train", N_NODES, 2.5, "uniform"),
-             ("all_nan", N_NODES, 2.5, "all_nan"), ("far_points", N_NODES, 2.5, "far_points"))
-    for path, n_nodes, sigma, case in cases:
+    for path, n_nodes, sigma, case in confmap_cases():
         pts = torch.from_numpy(confmap_points(rng, n_nodes, case)).to(DEVICE)
         xv, yv = make_grid_vectors(TRAIN_IMG, TRAIN_IMG, 2, device=DEVICE)
         args = (pts, xv, yv, sigma * 2)
@@ -718,15 +723,18 @@ def check_confmaps(rng):
             if not torch.equal(out, got):
                 raise AssertionError(f"multi_confmaps: the timed graph did not render {path}")
         # What the cull keeps: tiles with a live point, and terms computed
-        # (live points x the tile's pixels) against every term (I x N per pixel).
-        live = confmap_live_points(*args)
-        th, tw = confmap_tile(n_nodes)
-        rows_px = torch.full((live.shape[1],), th, device=DEVICE)
-        rows_px[-1] = size - th * (live.shape[1] - 1)
-        cols_px = torch.full((live.shape[2],), tw, device=DEVICE)
-        cols_px[-1] = size - tw * (live.shape[2] - 1)
-        tile_px = rows_px[:, None] * cols_px[None, :]  # (tiles_y, tiles_x)
-        computed = int((live.sum(dim=(3, 4)) * tile_px).sum())
+        # (live points x the tile's pixels) against every term (I x N per
+        # pixel). The kernel counts them; the host model must agree.
+        model_tiles, model_terms, n_tiles = confmap_cull_counts(*args)
+        if DEVICE == "cpu":  # a rehearsal has no kernel to count
+            live_tiles, computed = model_tiles, model_terms
+        else:
+            stats = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+            _launch_multi_confmaps(pts, xv, yv, out, sigma * 2, stats)
+            live_tiles, computed = stats.tolist()
+            if not torch.equal(out, got):
+                raise AssertionError(f"multi_confmaps: the counting launch differs on {path}")
+        cull_as_modelled = (live_tiles, computed) == (model_tiles, model_terms)
         all_terms = got.numel() * pts.shape[1]
         needed = needed_terms(pts, xv, yv, sigma * 2)
         # This run's data: one Gaussian term per (pixel, point) it reaches.
@@ -734,12 +742,15 @@ def check_confmaps(rng):
         nbytes = got.numel() * 4 + pts.numel() * 4 + (xv.numel() + yv.numel()) * 4
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
         row = dict(path=path, points=list(pts.shape), out=list(got.shape), sigma=sigma * 2,
-                   valid_points=int(torch.isfinite(pts).all(dim=-1).sum()), tile=[th, tw],
-                   tiles_live_share=live.any(dim=(3, 4)).float().mean().item(),
-                   terms_computed=computed, terms_all=all_terms, terms_needed=needed,
+                   valid_points=int(torch.isfinite(pts).all(dim=-1).sum()),
+                   tile=list(confmap_tile(n_nodes)), tiles_live=live_tiles, tiles_all=n_tiles,
+                   tiles_live_share=live_tiles / n_tiles, terms_computed=computed,
+                   terms_all=all_terms, terms_needed=needed,
                    terms_computed_share=computed / all_terms,
+                   cull_counted_by="host model" if DEVICE == "cpu" else "kernel",
+                   cull_as_modelled=cull_as_modelled,
                    max_abs_err=err, tol=1e-6, zeros_exact=zeros_exact,
-                   ok=bool(err <= 1e-6 and zeros_exact),
+                   ok=bool(err <= 1e-6 and zeros_exact and cull_as_modelled),
                    max_value=got.max().item(), kernel_ms=kernel_ms, wrapper_ms=wrapper_ms,
                    plain_ms=cuda_ms(lambda: _plain_multi_confmaps(*args), reps=5),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
@@ -1406,9 +1417,6 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e
             "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (centroid training "
                       "targets; launches_per_batch counts renders: train steps, val batches "
                       "and the setup probe)",
-            "cull": {r["path"]: {k: r[k] for k in ("tile", "tiles_live_share", "terms_computed",
-                                                   "terms_needed", "terms_all",
-                                                   "terms_computed_share")} for r in cm_rows},
             "zeros_exact": all(r["zeros_exact"] for r in cm_rows),
             "other_cases": {r["path"]: {k: r[k] for k in ("points", "out", "kernel_ms",
                                                           "wrapper_ms", "plain_ms", "bound_ms",

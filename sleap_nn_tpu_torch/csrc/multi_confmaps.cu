@@ -40,6 +40,8 @@
 //     no live point stores zeros and never touches the shared tile.
 // Instances are culled in chunks of `ich` per node, so the list stays small
 // whatever I is. Index math within an image is 32-bit; row bases are 64-bit.
+// Given a `stats` pointer (null on the training path), the blocks count what
+// the cull kept: the tiles with a live point and the terms computed.
 #include <math.h>
 #include <stdint.h>
 
@@ -54,7 +56,8 @@ constexpr unsigned FULL = 0xffffffffu;
 __global__ void __launch_bounds__(THREADS) multi_confmaps_kernel(
     const float* __restrict__ points, const float* __restrict__ xv,
     const float* __restrict__ yv, float* __restrict__ out, int I, int N, int H, int W,
-    int tw_log2, int th, int ich, float denom, float cutoff) {
+    int tw_log2, int th, int ich, float denom, float cutoff,
+    unsigned long long* __restrict__ stats) {
   extern __shared__ float4 smem[];
   const int tw = 1 << tw_log2;
   const int tile_len = (th * tw * N + 3) & ~3;  // floats, a whole number of float4
@@ -121,7 +124,10 @@ __global__ void __launch_bounds__(THREADS) multi_confmaps_kernel(
         if (live) list[n * ich + c + __popc(m & ((1u << lane) - 1u))] = make_float2(px, py);
         c += __popc(m);
       }
-      if (lane == 0) count[n] = c;
+      if (lane == 0) {
+        count[n] = c;
+        if (stats != nullptr && c > 0) atomicAdd(&stats[1], (unsigned long long)c * nx * ny);
+      }
       found |= c > 0;
     }
     if (!__syncthreads_or(found)) continue;
@@ -154,6 +160,7 @@ __global__ void __launch_bounds__(THREADS) multi_confmaps_kernel(
     }
     __syncthreads();  // before the next chunk rewrites the lists, and before the stores
   }
+  if (stats != nullptr && rendered && threadIdx.x == 0) atomicAdd(&stats[0], 1ull);
 
   // 4. Store: row r of the tile is out[b, y0 + r, x0 : x0 + nx, :], nx * N floats.
   const int span = nx * N;
@@ -183,10 +190,13 @@ __global__ void __launch_bounds__(THREADS) multi_confmaps_kernel(
 // out: (B, H, W, N) f32 contiguous, 4-byte aligned. I >= 1. Tile: 2^tw_log2
 // x th pixels (tw_log2 <= 5, 1 <= th <= 32); ich: instances culled at once
 // (1 <= ich <= I). cutoff: the d^2 / denom above which a term is exactly 0.
+// stats: null, or two zeroed counters the kernel adds to: the tiles that
+// rendered a live point, and the terms computed (live points x pixels).
 // Returns a cudaError_t.
 extern "C" int multi_confmaps(const float* points, const float* xv, const float* yv,
                               float* out, int B, int I, int N, int H, int W, int tw_log2,
-                              int th, int ich, float denom, float cutoff, void* stream) {
+                              int th, int ich, float denom, float cutoff,
+                              unsigned long long* stats, void* stream) {
   if ((int64_t)B * H * W * N == 0) return cudaSuccess;
   if (I < 1 || H > 65535 || B > 65535 || (int64_t)W * N > 0x7fffffff - THREADS ||
       (int64_t)I * N * 2 > 0x7fffffff || tw_log2 < 0 || tw_log2 > 5 || th < 1 || th > 32 ||
@@ -205,7 +215,7 @@ extern "C" int multi_confmaps(const float* points, const float* xv, const float*
   const dim3 grid((unsigned)((W + tw - 1) >> tw_log2), (unsigned)((H + th - 1) / th),
                   (unsigned)B);
   multi_confmaps_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      points, xv, yv, out, I, N, H, W, tw_log2, th, ich, denom, cutoff);
+      points, xv, yv, out, I, N, H, W, tw_log2, th, ich, denom, cutoff, stats);
   return cudaGetLastError();
 }
 

@@ -14,11 +14,9 @@
 // where (x_p, y_p) = clamp(rint((src + t_p * disp) / stride)), the line
 // point rounded once (the fused multiply-add XLA emits under jit), the
 // division IEEE, rint half-to-even as jnp.round, and the clamp after the
-// int conversion. For a power-of-two stride the wrapper passes 1 / stride
-// and the kernel multiplies by it: both are the correctly rounded value of
-// the same real quotient, so the bits are the same. A pair whose endpoint
-// is masked or has a non-finite x gets -inf and loads nothing; a
-// non-finite y gives NaN, as the reference's arithmetic does. The output
+// int conversion. A pair whose endpoint is masked or has a non-finite x
+// gets -inf and loads nothing; a non-finite y gives NaN, as the
+// reference's arithmetic does. The output
 // stays the dense (B, E, K, K) matrix: the host's Hungarian match uses the
 // pairs below min_line_scores too. The TPU kernel's one-hot MXU matmul was
 // a workaround for gathers; here each sample is a direct load.
@@ -34,10 +32,10 @@
 // most 512: one pass at the smoke's K = 20). The block stages the edge's K
 // source and K destination peaks, their usability flags and t in shared
 // memory once. Each pair issues its P loads before it reduces them: the
-// load loop is unrolled over a compile-time chunk (8, 16 or 32, the least
-// that holds P; P above 32 loops over chunks of 32) and keeps each channel
-// pair as the loaded word until the chunk's last load is issued, so the
-// loads are in flight together. Index math is 32-bit within an image.
+// load loop is unrolled over a compile-time chunk of 16 points (P above 16
+// loops over chunks) and keeps each channel pair as the loaded word until
+// the chunk's last load is issued, so the loads are in flight together.
+// Index math is 32-bit within an image.
 #include <math.h>
 #include <stdint.h>
 
@@ -48,6 +46,7 @@
 namespace {
 
 constexpr int MAX_THREADS = 512;
+constexpr int CHUNK = 16;  // line points whose loads are issued together
 
 // The (x, y) channel pair: loaded as one word, converted to f32 after
 // every load of a chunk has been issued.
@@ -67,12 +66,12 @@ template <> struct PairOf<__nv_bfloat16> {
 constexpr uint8_t USABLE = 1;  // mask set and x finite
 constexpr uint8_t BAD_Y = 2;   // y not finite
 
-template <typename T, int CHUNK, bool POW2>
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) paf_line_scores_kernel(
     const T* __restrict__ pafs, const float* __restrict__ peaks,
     const uint8_t* __restrict__ mask, const int* __restrict__ edge_inds,
     const float* __restrict__ t, float* __restrict__ out, int Hp, int Wp, int N, int K, int P,
-    float stride, float inv_stride, float max_edge_length, float dist_penalty_weight) {
+    float stride, float max_edge_length, float dist_penalty_weight) {
   extern __shared__ float2 smem[];
   float2* ends = smem;                                     // [2K]: K sources, then K destinations
   float* ts = reinterpret_cast<float*>(ends + 2 * K);      // [P]
@@ -121,8 +120,8 @@ __global__ void __launch_bounds__(MAX_THREADS) paf_line_scores_kernel(
         if (p0 + u < P) {
           const float tp = ts[p0 + u];
           const float lx = __fmaf_rn(tp, vx, s.x), ly = __fmaf_rn(tp, vy, s.y);
-          int x = __float2int_rn(POW2 ? __fmul_rn(lx, inv_stride) : __fdiv_rn(lx, stride));
-          int y = __float2int_rn(POW2 ? __fmul_rn(ly, inv_stride) : __fdiv_rn(ly, stride));
+          int x = __float2int_rn(__fdiv_rn(lx, stride));
+          int y = __float2int_rn(__fdiv_rn(ly, stride));
           x = min(max(x, 0), Wp - 1);
           y = min(max(y, 0), Hp - 1);
           raw[u] = *reinterpret_cast<const typename PairOf<T>::type*>(plane + (y * Wp + x) * C);
@@ -151,14 +150,14 @@ struct Call {
   const float* t;
   float* out;
   int B, Hp, Wp, N, K, E, P;
-  float stride, inv_stride, max_edge_length, dist_penalty_weight;
+  float stride, max_edge_length, dist_penalty_weight;
   size_t smem;
   cudaStream_t stream;
 };
 
-template <typename T, int CHUNK, bool POW2>
+template <typename T>
 cudaError_t launch(const Call& c) {
-  auto kernel = paf_line_scores_kernel<T, CHUNK, POW2>;
+  auto kernel = paf_line_scores_kernel<T>;
   if (c.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
@@ -168,29 +167,19 @@ cudaError_t launch(const Call& c) {
   const int threads = (int)std::min<int64_t>(MAX_THREADS, ((int64_t)c.K * c.K + 31) / 32 * 32);
   kernel<<<dim3((unsigned)c.E, (unsigned)c.B), threads, c.smem, c.stream>>>(
       static_cast<const T*>(c.pafs), c.peaks, c.mask, c.edge_inds, c.t, c.out, c.Hp, c.Wp, c.N,
-      c.K, c.P, c.stride, c.inv_stride, c.max_edge_length, c.dist_penalty_weight);
+      c.K, c.P, c.stride, c.max_edge_length, c.dist_penalty_weight);
   return cudaGetLastError();
-}
-
-// The least unrolled chunk that holds P line points (32 for any P above).
-template <typename T, bool POW2>
-cudaError_t launch_chunk(const Call& c) {
-  if (c.P <= 8) return launch<T, 8, POW2>(c);
-  if (c.P <= 16) return launch<T, 16, POW2>(c);
-  return launch<T, 32, POW2>(c);
 }
 
 }  // namespace
 
 // pafs: (B, Hp, Wp, 2E) contiguous, bf16 (is_bf16=1) or f32, aligned to a
 // channel pair; peaks: (B, N, K, 2) f32; mask: (B, N, K) bool; edge_inds:
-// (E, 2) int32; t: (P,) f32; out: (B, E, K, K) f32. inv_stride: 1 / stride
-// where the stride is a power of two (the kernel then multiplies), else 0
-// (the kernel divides). Returns a cudaError_t.
+// (E, 2) int32; t: (P,) f32; out: (B, E, K, K) f32. Returns a cudaError_t.
 extern "C" int paf_line_scores(const void* pafs, const float* peaks, const uint8_t* mask,
                                const int* edge_inds, const float* t, float* out, int B,
                                int Hp, int Wp, int N, int K, int E, int P, int is_bf16,
-                               float stride, float inv_stride, float max_edge_length,
+                               float stride, float max_edge_length,
                                float dist_penalty_weight, void* stream) {
   if ((int64_t)B * E * K * K == 0) return cudaSuccess;
   if (B > 65535 || P < 0 || (int64_t)K * K > 0x7fffffff ||
@@ -198,11 +187,9 @@ extern "C" int paf_line_scores(const void* pafs, const float* peaks, const uint8
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * K * sizeof(float2) + (size_t)P * sizeof(float) + 2 * K;
   if (smem > 232448) return cudaErrorInvalidConfiguration;
-  const Call c{pafs, peaks, mask, edge_inds, t, out, B, Hp, Wp, N, K, E, P, stride, inv_stride,
+  const Call c{pafs, peaks, mask, edge_inds, t, out, B, Hp, Wp, N, K, E, P, stride,
                max_edge_length, dist_penalty_weight, smem, static_cast<cudaStream_t>(stream)};
-  if (inv_stride != 0.f)
-    return is_bf16 ? launch_chunk<__nv_bfloat16, true>(c) : launch_chunk<float, true>(c);
-  return is_bf16 ? launch_chunk<__nv_bfloat16, false>(c) : launch_chunk<float, false>(c);
+  return is_bf16 ? launch<__nv_bfloat16>(c) : launch<float>(c);
 }
 
 extern "C" const char* paf_line_scores_error_string(int err) {

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,11 +29,11 @@ NMS_SCORES = Kernel(
 )
 PAF_LINE_SCORES = Kernel(
     "paf_line_scores", "paf_line_scores.cu",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p],
 )
 MULTI_CONFMAPS = Kernel(
     "multi_confmaps", "multi_confmaps.cu",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2,
 )
 
 # expf(-x) is exactly 0 in f32 for x above about 103.97 (the last denormal),
@@ -207,6 +206,8 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
                          + ", ".join(name for name, x in args.items() if not x.is_contiguous()))
     if pafs.data_ptr() % (2 * pafs.element_size()):
         raise ValueError("pafs must be aligned to one (x, y) channel pair")
+    if grouped_peaks.data_ptr() % 8:  # the kernel reads each (x, y) as one float2
+        raise ValueError("grouped_peaks must be aligned to one (x, y) pair of 8 bytes")
     out = torch.empty((b, edge_inds.shape[0], k, k), dtype=torch.float32, device=pafs.device)
     if out.numel() == 0:
         return out
@@ -214,17 +215,6 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
         _launch_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, out,
                                 pafs_stride, max_edge_length, dist_penalty_weight)
     return out
-
-
-def stride_reciprocal(stride: float) -> float:
-    """``1 / stride`` where ``stride`` is a power of two, else 0.
-
-    For a power of two (and a normal f32 reciprocal), ``x * f32(1 / stride)``
-    and ``x / stride`` are the correctly rounded value of the same real
-    number, so kernel 3 multiplies instead of dividing and gets the same bits.
-    """
-    return 1.0 / stride if (2.0**-126 <= stride <= 2.0**126
-                            and math.frexp(stride)[0] == 0.5) else 0.0
 
 
 def _launch_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, out,
@@ -236,7 +226,7 @@ def _launch_paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, out
         pafs.data_ptr(), grouped_peaks.data_ptr(), grouped_mask.data_ptr(),
         edge_inds.data_ptr(), t.data_ptr(), out.data_ptr(),
         b, hp, wp, n, k, edge_inds.shape[0], t.shape[0], int(pafs.dtype == torch.bfloat16),
-        float(pafs_stride), stride_reciprocal(float(pafs_stride)), float(max_edge_length),
+        float(pafs_stride), float(max_edge_length),
         float(dist_penalty_weight), torch.cuda.current_stream().cuda_stream,
     )
 
@@ -322,10 +312,11 @@ def confmap_tile(n_nodes: int) -> Tuple[int, int]:
 def confmap_live_points(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
                         sigma: float) -> torch.Tensor:
     """Which points kernel 4's cull keeps in each of its tiles, computed on
-    the host: ``(B, tiles_y, tiles_x, I, N)`` bool. A mirror of the
-    kernel's rule (box of each tile's own grid values, NaN ignored; NaN
-    points dropped; points whose box bound exceeds :data:`CONFMAP_CUTOFF`
-    dropped unless the bound is not finite), for reports and tests."""
+    the host: ``(B, tiles_y, tiles_x, I, N)`` bool. A model of the kernel's
+    rule (box of each tile's own grid values, NaN ignored; NaN points
+    dropped; points whose box bound exceeds :data:`CONFMAP_CUTOFF` dropped
+    unless the bound is not finite): the CPU tests hold it against the JAX
+    package, and the card checks hold the kernel's own counts to it."""
     th, tw = confmap_tile(points.shape[2])
     inf = torch.tensor(float("inf"), device=points.device)
 
@@ -345,13 +336,34 @@ def confmap_live_points(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor
     return ~px.isnan() & ~py.isnan() & ~(bound.isfinite() & (bound > CONFMAP_CUTOFF))
 
 
-def _launch_multi_confmaps(points, xv, yv, out, sigma: float) -> None:
-    """Kernel 4's C entry on checked CUDA tensors, on the current stream."""
+def confmap_cull_counts(points: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
+                        sigma: float) -> Tuple[int, int, int]:
+    """The host model's counts of what kernel 4's cull keeps: the tiles with
+    a live point, the terms computed (live points x the tile's pixels), and
+    the tiles in all. Given a ``stats`` tensor, the kernel counts the first
+    two itself."""
+    live = confmap_live_points(points, xv, yv, sigma)  # (B, tiles_y, tiles_x, I, N)
+    th, tw = confmap_tile(points.shape[2])
+    rows = torch.clamp(yv.shape[0] - th * torch.arange(live.shape[1], device=live.device), max=th)
+    cols = torch.clamp(xv.shape[0] - tw * torch.arange(live.shape[2], device=live.device), max=tw)
+    terms = int((live.sum(dim=(3, 4)) * (rows[:, None] * cols[None, :])).sum())
+    tiles = live.any(dim=(3, 4))
+    return int(tiles.sum()), terms, tiles.numel()
+
+
+def _launch_multi_confmaps(points, xv, yv, out, sigma: float,
+                           stats: Optional[torch.Tensor] = None) -> None:
+    """Kernel 4's C entry on checked CUDA tensors, on the current stream.
+
+    ``stats``: ``None``, or a zeroed ``(2,)`` int64 tensor on the points'
+    device, to which the kernel adds the tiles that rendered a live point
+    and the terms it computed (live points x the tile's pixels).
+    """
     b, n_inst, n_nodes, _ = points.shape
     th, tw = confmap_tile(n_nodes)
     MULTI_CONFMAPS.launch(
         points.data_ptr(), xv.data_ptr(), yv.data_ptr(), out.data_ptr(),
         b, n_inst, n_nodes, yv.shape[0], xv.shape[0], tw.bit_length() - 1, th,
         min(n_inst, max(1, _CONFMAP_LIST // n_nodes)), float(2 * sigma**2), CONFMAP_CUTOFF,
-        torch.cuda.current_stream().cuda_stream,
+        None if stats is None else stats.data_ptr(), torch.cuda.current_stream().cuda_stream,
     )

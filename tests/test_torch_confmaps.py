@@ -23,6 +23,7 @@ from sleap_nn_tpu_torch.ops.kernels import (
     CONFMAP_CUTOFF,
     MULTI_CONFMAPS,
     _plain_multi_confmaps,
+    confmap_cull_counts,
     confmap_live_points,
     confmap_tile,
     multi_confmaps,
@@ -180,6 +181,21 @@ def test_cull_drops_only_points_whose_terms_are_zero(monkeypatch, case):
         assert (terms[b, i, ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw, n] == 0).all()
     if case == "far":
         assert live[1, :, :, 2, 0].all()
+
+
+@pytest.mark.parametrize("case", ["huge_sigma", "all_nan"])
+def test_cull_counts_at_their_ends(case):
+    """``confmap_cull_counts`` (the host model the card holds kernel 4's own
+    counts to): every point live over the whole grid, or none."""
+    pts = _points((2, 3, 2, 2), (70, 50), seed=5)
+    if case == "all_nan":
+        pts[:] = np.nan
+    xv, yv = pgrid(100, 70, 2)  # 50 rows x 35 columns: 2 x 2 tiles of 32 x 32
+    tiles, terms, n_tiles = confmap_cull_counts(torch.from_numpy(pts), xv, yv,
+                                                1e4 if case == "huge_sigma" else 2.0)
+    assert n_tiles == 2 * 2 * 2
+    valid = int(np.isfinite(pts).all(axis=-1).sum())
+    assert (tiles, terms) == ((8, valid * 50 * 35) if case == "huge_sigma" else (0, 0))
 
 
 @pytest.mark.parametrize("n_nodes", [1, 2, 15, 16, 100, 300, 5000])

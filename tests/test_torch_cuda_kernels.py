@@ -29,9 +29,11 @@ from sleap_nn_tpu_torch.ops.kernels import (
     MULTI_CONFMAPS,
     NMS_SCORES,
     PAF_LINE_SCORES,
+    _launch_multi_confmaps,
     _plain_multi_confmaps,
     _plain_nms_scores,
     _plain_paf_line_scores,
+    confmap_cull_counts,
     multi_confmaps,
     nms_scores,
     paf_line_scores,
@@ -164,8 +166,8 @@ def _paf_inputs(seed, b, hp, wp, n_nodes, k, n_edges, stride, device):
     "b,hp,wp,n_nodes,k,n_edges,n_points,stride",
     [(1, 5, 7, 2, 1, 1, 10, 4), (2, 33, 17, 5, 6, 7, 7, 2), (3, 64, 80, 15, 20, 14, 10, 4),
      (1, 40, 40, 4, 9, 3, 1, 8),
-     # K = 40: 1600 pairs, beyond one block's 256 threads; P = 40 and 33: beyond the
-     # largest unrolled chunk of 32; stride 3: the division path
+     # K = 40: 1600 pairs, beyond one block's 512 threads; P = 40 and 33: more than
+     # two unrolled chunks of 16 line points; stride 3
      (2, 48, 40, 6, 40, 5, 10, 4), (2, 30, 30, 5, 7, 4, 40, 4), (2, 33, 29, 5, 8, 4, 10, 3),
      (1, 20, 24, 4, 6, 3, 33, 3), (1, 16, 16, 3, 1, 2, 1, 3)],
 )
@@ -259,6 +261,12 @@ def test_multi_confmaps_kernel_cull_cases(cuda, case):
     assert (want > 0.5).any()
     if case == "all_nan":
         assert (got[0] == 0).all()
+    # The kernel's own count of what its cull kept equals the host model's.
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = torch.empty_like(got)
+    _launch_multi_confmaps(pts, xv, yv, out, sigma, stats)
+    assert torch.equal(out, got)
+    assert tuple(stats.tolist()) == confmap_cull_counts(pts, xv, yv, sigma)[:2]
 
 
 def test_paf_head_output_is_read_in_place(cuda):
@@ -312,6 +320,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         paf_line_scores(pafs, peaks, mask.float(), edges, t, 4, 8.0, 1.0)
     with pytest.raises(ValueError, match="edge_inds"):
         paf_line_scores(pafs, peaks, mask, edges.cpu(), t, 4, 8.0, 1.0)
+    shifted = torch.zeros(peaks.numel() + 1, device=cuda)[1:].view(peaks.shape)
+    shifted.copy_(peaks)  # contiguous, but 4 bytes past an (x, y) pair's alignment
+    with pytest.raises(ValueError, match="grouped_peaks must be aligned"):
+        paf_line_scores(pafs, shifted, mask, edges, t, 4, 8.0, 1.0)
     xv, yv = make_grid_vectors(8, 8, 1, device=cuda)
     with pytest.raises(TypeError):
         multi_confmaps(torch.zeros(1, 1, 1, 2, device=cuda, dtype=torch.float64), xv, yv, 1.0)

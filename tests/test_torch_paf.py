@@ -12,9 +12,8 @@ another order), ``-inf`` placement exact.
 The host half is held against the JAX package's scipy path (its C++
 grouping is switched off), which must give identical instances.
 
-Kernel 3's arithmetic shortcuts are held bit for bit: the multiplication by
-the reciprocal of a power-of-two stride, and ``PAFScorer``'s cached line
-fractions against ``jnp.linspace``.
+``PAFScorer``'s cached line fractions are held bit for bit against
+``jnp.linspace``.
 """
 
 import itertools
@@ -31,11 +30,7 @@ from sleap_nn_tpu.inference import paf_grouping as jpg
 from sleap_nn_tpu.inference import streaming as jstream
 from sleap_nn_tpu_torch.inference import paf_grouping as tpg
 from sleap_nn_tpu_torch.inference import streaming as tstream
-from sleap_nn_tpu_torch.ops.kernels import (
-    _plain_paf_line_scores,
-    paf_line_scores,
-    stride_reciprocal,
-)
+from sleap_nn_tpu_torch.ops.kernels import _plain_paf_line_scores, paf_line_scores
 
 
 def _jax_scores(pafs, peaks, mask, edges, **kw):
@@ -282,28 +277,6 @@ def test_grouping_pool_keeps_submission_order():
             np.testing.assert_array_equal(a, c)
     with pytest.raises(ValueError, match="n_workers"):
         tstream.PafGroupingPool(0, scorer)
-
-
-@pytest.mark.parametrize("stride", [1, 2, 4, 8, 16])
-def test_power_of_two_stride_multiplies_bit_for_bit(stride):
-    """Kernel 3 multiplies by ``f32(1 / stride)`` for a power-of-two stride:
-    the product has the bits of the IEEE quotient, denormals and large
-    magnitudes included."""
-    rng = np.random.default_rng(stride)
-    mags = 10.0 ** rng.uniform(-44, 38, 4000)
-    x = (rng.choice([-1.0, 1.0], mags.size) * mags).astype(np.float32)
-    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
-    x = np.concatenate([x, np.array([0.0, -0.0, tiny, -tiny, 3 * tiny, 1e-39, 2.5e-38,
-                                     3.4e38, -3.4e38, 7.5, 0.5], np.float32)])
-    assert (np.abs(x[:4000]) < np.finfo(np.float32).tiny).sum() > 50  # denormals
-    inv = np.float32(stride_reciprocal(stride))
-    assert inv == np.float32(1.0 / stride)
-    np.testing.assert_array_equal((x * inv).view(np.int32), (x / np.float32(stride)).view(np.int32))
-
-
-@pytest.mark.parametrize("stride", [3, 6, 12, 0.3, 0, -4])
-def test_other_strides_keep_the_division(stride):
-    assert stride_reciprocal(stride) == 0.0
 
 
 @pytest.mark.parametrize("n_points", range(1, 41))

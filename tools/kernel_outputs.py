@@ -3,19 +3,23 @@
 
     python3 tools/kernel_outputs.py --against PATH_TO_OTHER_CHECKOUT
 
-Renders kernel 4 (``multi_confmaps``) and kernel 3 (``paf_line_scores``)
-through their public wrappers on fixed inputs made from seeds at the smoke's
-shapes, once with this checkout's package and once with the other's (each in
-a subprocess of its own, which builds that checkout's kernels), and compares
-the outputs bit for bit. Prints one JSON line with, per case, the count of
-elements whose bits differ and the largest absolute difference; exits 1 if
-any output differs. ``--root DIR --out DIR`` only renders with the package
-under DIR and saves the outputs as ``.npy`` files.
+Makes the inputs once, with this checkout: kernel 4's (``multi_confmaps``)
+are ``chip_smoke.py``'s four cases, and kernel 3's (``paf_line_scores``)
+are the smoke's bottom-up PAFs and grouped peaks of one batch (UNet
+medium_rf, random weights from the smoke's seed), in bf16 and f32 at the
+path's 10 line points, in bf16 at 5 and 32, and in bf16 at stride 3 (no
+power of two). Then each checkout, in a subprocess of its own that builds
+its kernels, renders every case through the public wrappers and times each
+(``chip_smoke.graph_ms``: 20 wrapper calls in a CUDA graph, so the host's
+work is not timed), in the order this, other, this, other. Prints one JSON
+line with, per case, the count of elements whose bits differ and both
+sides' ms; exits 1 if any output differs.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -25,92 +29,111 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-# The smoke's bottom-up skeleton (chip_smoke.TREE).
-TREE = ((0, 1), (1, 2), (0, 3), (3, 4), (0, 5), (5, 6), (0, 7), (7, 8), (0, 9), (9, 10),
-        (2, 11), (2, 12), (4, 13), (4, 14))
 
 
-def confmap_case(seed, n_nodes, far=False):
-    """(4, 6, n_nodes, 2) points over a 1024 x 1024 frame, NaN nodes, two
-    padding instances; ``far`` moves three instances far off the grid."""
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform(0, 1024, (4, 6, n_nodes, 2)).astype(np.float32)
-    pts[rng.random((4, 6, n_nodes)) < 0.2] = np.nan
-    pts[:, 4:] = np.nan
-    if far:
-        pts[:, :3] += np.float32(3072.0)
-    return pts
+def make_inputs(out: Path) -> None:
+    """Save every case's inputs under ``out`` (``cases.json`` and ``.npy``)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+
+    from sleap_nn_tpu_torch.config.model_config import UNetMediumRFConfig
+    from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
+
+    cases = {}
+    rng = np.random.default_rng(0)
+    for name, n_nodes, sigma, kind in cs.confmap_cases():
+        np.save(out / f"{name}.points.npy", cs.confmap_points(rng, n_nodes, kind))
+        cases[name] = {"kernel": "multi_confmaps", "size": cs.TRAIN_IMG, "sigma": 2 * sigma}
+    cfg, model = cs.build_bottomup_model(UNetMediumRFConfig, cs.N_NODES, seed=3,
+                                         frames=cs.smoke_frames()[:2])
+    layer = cs.build_bottomup_layer(cfg, model, "cuda", True, cs.MAX_INST)
+    pafs, gp, mask = cs.paf_inputs(layer, cs.smoke_frames()[:cs.BATCH])
+    scorer = layer.paf_scorer
+    for key, x in (("pafs", pafs.float()), ("peaks", gp), ("mask", mask),
+                   ("edges", torch.tensor(scorer.edge_inds, dtype=torch.int32))):
+        np.save(out / f"paf.{key}.npy", x.cpu().numpy())
+    max_len = scorer.max_edge_length_ratio * max(pafs.shape[1], pafs.shape[2],
+                                                 2 * scorer.n_edges) * scorer.pafs_stride
+    for name, dtype, n_points, stride in (
+            ("paf_bf16", "bfloat16", cs.N_POINTS, scorer.pafs_stride),
+            ("paf_f32", "float32", cs.N_POINTS, scorer.pafs_stride),
+            ("paf_bf16_p5", "bfloat16", 5, scorer.pafs_stride),
+            ("paf_bf16_p32", "bfloat16", 32, scorer.pafs_stride),
+            ("paf_bf16_stride3", "bfloat16", cs.N_POINTS, 3)):
+        np.save(out / f"{name}.t.npy", line_fractions(n_points, "cpu").numpy())
+        cases[name] = {"kernel": "paf_line_scores", "dtype": dtype, "stride": stride,
+                       "max_len": max_len, "weight": scorer.dist_penalty_weight}
+    (out / "cases.json").write_text(json.dumps(cases))
 
 
-def paf_case(seed, b, hp, wp, k, stride):
-    """PAFs (b, hp, wp, 28), peaks (b, 15, k, 2) with half of them on
-    ``.5`` subscript boundaries, NaN and masked slots, and the tree's edges."""
-    rng = np.random.default_rng(seed)
-    pafs = rng.standard_normal((b, hp, wp, 2 * len(TREE)), dtype=np.float32)
-    grid = rng.integers(-2, 2 * max(hp, wp) + 2, (b, 15, k, 2)) * (stride / 2)
-    cont = rng.uniform(-3 * stride, (max(hp, wp) + 3) * stride, (b, 15, k, 2))
-    peaks = np.where(rng.random((b, 15, k, 1)) < 0.5, grid, cont).astype(np.float32)
-    mask = rng.random((b, 15, k)) < 0.8
-    peaks[rng.random((b, 15, k)) < 0.1] = np.nan
-    peaks[0, 0, 0, 1] = np.nan  # y alone NaN
-    mask[0, 0, 0] = True
-    return pafs, peaks, mask, np.array(TREE, np.int32)
-
-
-def render(root: Path, out: Path) -> None:
+def render(root: Path, inputs: Path, out: Path) -> None:
+    """Render and time every case with the package under ``root``."""
     sys.path.insert(0, str(root))
     import torch
 
-    from sleap_nn_tpu_torch.inference.paf_grouping import line_fractions
+    # This checkout's timer, whichever checkout's package renders.
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
     from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
     from sleap_nn_tpu_torch.ops.kernels import multi_confmaps, paf_line_scores
 
     dev = torch.device("cuda")
-    xv, yv = make_grid_vectors(1024, 1024, 2, device=dev)
-    outs = {}
-    for name, n_nodes, sigma, far in (("confmaps_centroid", 1, 10.0, False),
-                                      ("confmaps_bottomup", 15, 5.0, False),
-                                      ("confmaps_far", 15, 5.0, True)):
-        pts = torch.from_numpy(confmap_case(n_nodes, n_nodes, far)).to(dev)
-        outs[name] = multi_confmaps(pts, xv, yv, sigma)
-    for name, dtype, (b, hp, wp, k, stride, n_points) in (
-            ("paf_bf16", torch.bfloat16, (8, 256, 256, 20, 4, 10)),
-            ("paf_f32", torch.float32, (8, 256, 256, 20, 4, 10)),
-            ("paf_stride3_p33", torch.float32, (2, 96, 80, 12, 3, 33))):
-        pafs, peaks, mask, edges = (torch.from_numpy(a).to(dev)
-                                    for a in paf_case(k, b, hp, wp, k, stride))
-        outs[name] = paf_line_scores(pafs.to(dtype), peaks, mask, edges,
-                                     line_fractions(n_points, dev), stride,
-                                     0.25 * max(hp, wp, 28) * stride, 1.0)
-    torch.cuda.synchronize()
-    for name, x in outs.items():
-        np.save(out / f"{name}.npy", x.cpu().numpy())
+
+    def load(name):
+        return torch.from_numpy(np.load(inputs / f"{name}.npy")).to(dev)
+
+    paf = {k: load(f"paf.{k}") for k in ("pafs", "peaks", "mask", "edges")}
+    times = {}
+    for name, c in json.loads((inputs / "cases.json").read_text()).items():
+        if c["kernel"] == "multi_confmaps":
+            pts = load(f"{name}.points")
+            xv, yv = make_grid_vectors(c["size"], c["size"], 2, device=dev)
+            call = lambda: multi_confmaps(pts, xv, yv, c["sigma"])  # noqa: E731
+        else:
+            pafs = paf["pafs"].to(getattr(torch, c["dtype"])).contiguous()
+            t = load(f"{name}.t")
+            call = lambda: paf_line_scores(  # noqa: E731
+                pafs, paf["peaks"], paf["mask"], paf["edges"], t, c["stride"], c["max_len"],
+                c["weight"])
+        np.save(out / f"{name}.npy", call().cpu().numpy())
+        times[name] = cs.graph_ms(call)
+    (out / "times.json").write_text(json.dumps(times))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, help="the other checkout's root")
-    ap.add_argument("--root", type=Path, help="render with the package under this root")
-    ap.add_argument("--out", type=Path, help="where --root saves the outputs")
+    ap.add_argument("--render", nargs=3, type=Path, metavar=("ROOT", "INPUTS", "OUT"),
+                    help="render and time the saved cases with the package under ROOT")
     args = ap.parse_args()
-    if args.root is not None:
-        render(args.root.resolve(), args.out)
+    if args.render is not None:
+        render(*(p.resolve() for p in args.render))
         return 0
-    report = {}
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = {"this": Path(tmp) / "this", "other": Path(tmp) / "other"}
-        for key, root in (("this", ROOT), ("other", args.against.resolve())):
-            dirs[key].mkdir()
-            subprocess.run([sys.executable, __file__, "--root", str(root), "--out",
-                            str(dirs[key])], check=True, timeout=600)
-        for path in sorted(dirs["this"].glob("*.npy")):
-            a, b = np.load(path), np.load(dirs["other"] / path.name)
+        inputs = Path(tmp) / "inputs"
+        inputs.mkdir()
+        make_inputs(inputs)
+        roots = {"this": ROOT, "other": args.against.resolve()}
+        runs = []
+        for i, side in enumerate(("this", "other", "this", "other")):
+            out = Path(tmp) / f"{side}{i}"
+            out.mkdir()
+            subprocess.run([sys.executable, __file__, "--render", str(roots[side]), str(inputs),
+                            str(out)], check=True, timeout=600)
+            runs.append((side, out))
+        report = {}
+        for path in sorted(runs[0][1].glob("*.npy")):
+            a, b = np.load(path), np.load(runs[1][1] / path.name)
             fin = np.isfinite(a) & np.isfinite(b)
             report[path.stem] = {
                 "shape": list(a.shape),
                 "bits_differ": int((a.view(np.int32) != b.view(np.int32)).sum()),
                 "max_abs_diff": float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0,
-                "nonfinite_placement_same": bool(np.array_equal(np.isfinite(a), np.isfinite(b))),
+                **{f"{side}_ms": [json.loads((out / "times.json").read_text())[path.stem]
+                                  for s, out in runs if s == side] for side in roots},
             }
     same = all(r["bits_differ"] == 0 for r in report.values())
     print("kernel_outputs " + json.dumps({"against": str(args.against), "identical": same,
