@@ -53,12 +53,30 @@ Phases, each of which raises on failure (exit code != 0):
    every loss finite, the parameters moved, ``best.ckpt`` loads strictly
    into a fresh model, ``last.ckpt`` reproduces the trainer's outputs
    exactly, and 20 steps on one fixed batch bring the loss below its
-   first value. Prints steps/s, samples/s and the ms of one step by stage.
+   first value. Prints steps/s, samples/s, peak device memory and the ms
+   of one step by stage.
 8. Training on the card against the CPU: a narrow f32 centroid model
    (filters 8, max_stride 8, 128x128 frames), the same parameters and
    batch, augmentation off: the first loss to 1e-5 relative, every
    gradient to 1e-4 of its largest magnitude, the parameters after 3 Adam
    steps to 1e-5 absolute.
+9. Single-instance end to end: ``Predictor.predict`` of a medium_rf
+   single-instance model (15 nodes, confmaps at stride 2, random weights
+   from a seed, bf16) over the same 20 frames, batch 8. Launch counters
+   must read 9 fused-conv calls per batch and 0 for the other kernels;
+   outputs must have the JAX package's keys and shapes, every node found.
+   Prints frames/s and per-stage ms.
+10. Bottom-up training end to end: as phase 7, with the bottom-up model
+    (confmaps sigma 2.5 at stride 2, PAFs sigma 15 at stride 4, 15 nodes,
+    the 14-edge tree). Kernel 4's launches must equal the train steps plus
+    the val batches plus the setup probe, at (4, I, 15, 2) -> (4, 512, 512,
+    15); the render is split into its confmap part (kernel 4, held against
+    its plain version on the path's own points) and its PAF part.
+11. Centered-instance training end to end: as phase 7, with a medium_rf
+    centered-instance model (15 nodes, ``crop_size`` 256) on crops of the
+    same labels, one sample per instance. No kernel may launch.
+12. Training on the card against the CPU, as phase 8, for a narrow model
+    of each of the single-instance, centered-instance and bottom-up types.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -1118,7 +1136,7 @@ def check_bottomup_against_cpu():
 
 
 # --------------------------------------------------------------------------
-# Phase 7: centroid training end to end
+# Phases 7, 10 and 11: training end to end
 # --------------------------------------------------------------------------
 
 
@@ -1143,21 +1161,32 @@ def training_labels(n_frames, img, n_nodes, max_inst, seed):
     return Labels(frames)
 
 
-def training_config(filters, max_stride, img, batch, augment, **trainer):
-    """A centroid training config: UNet (filters_rate 1.5, output stride 2),
-    confmaps sigma 5 at stride 2, Adam lr 1e-4, f32."""
+TRAIN_HEADS = {
+    "centroid": {"confmaps": {"sigma": 5.0, "output_stride": 2}},
+    "single_instance": {"confmaps": {"sigma": 2.5, "output_stride": 2}},
+    "centered_instance": {"confmaps": {"sigma": 2.5, "output_stride": 2}},
+    "bottomup": {"confmaps": {"sigma": 2.5, "output_stride": 2},
+                 "pafs": {"sigma": 15.0, "output_stride": 4}},
+}
+
+
+def training_config(filters, max_stride, img, batch, augment, model_type="centroid",
+                    crop_size=None, **trainer):
+    """A training config: UNet (filters_rate 1.5, output stride 2), the
+    model type's heads of ``TRAIN_HEADS`` (confmaps at stride 2; PAFs sigma
+    15 at stride 4, edges from the skeleton), Adam lr 1e-4, f32."""
     from sleap_nn_tpu_torch.config import TrainingJobConfig
 
     return TrainingJobConfig.from_dict({
         "data_config": {
             "use_augmentations_train": augment,
             "augmentation_config": {"geometric": {}} if augment else None,
-            "preprocessing": {"max_height": img, "max_width": img},
+            "preprocessing": {"max_height": img, "max_width": img, "crop_size": crop_size},
         },
         "model_config": {
             "backbone_config": {"unet": {"filters": filters, "filters_rate": 1.5,
                                          "max_stride": max_stride, "output_stride": 2}},
-            "head_configs": {"centroid": {"confmaps": {"sigma": 5.0, "output_stride": 2}}},
+            "head_configs": {model_type: TRAIN_HEADS[model_type]},
         },
         "trainer_config": {
             "optimizer_name": "Adam", "optimizer": {"lr": 1e-4}, "seed": 0,
@@ -1168,18 +1197,30 @@ def training_config(filters, max_stride, img, batch, augment, **trainer):
 
 
 def train_stage_times(trainer, batch):
-    """ms of one train step by stage, each fenced by synchronize()."""
+    """ms of one train step by stage, each fenced by synchronize(). For a
+    bottom-up model also the render's parts (``render_parts``: preprocess
+    with augmentation, the confmaps through kernel 4, the PAFs, and the
+    PAF render's own peak device memory), with kernel 4 held against its
+    plain version on the path's own points."""
+    import torch
+
+    from sleap_nn_tpu_torch.data.pipeline import preprocess_batch
+    from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride
+    from sleap_nn_tpu_torch.ops.confmaps import generate_multiconfmaps
+    from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
+    from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
+    from sleap_nn_tpu_torch.ops.kernels import _plain_multi_confmaps
     from sleap_nn_tpu_torch.training.losses import compute_loss
     from sleap_nn_tpu_torch.training.model_trainer import sample_weights
 
     times = {}
 
-    def timed(name, fn):
+    def timed(name, fn, into=times):
         sync()
         t0 = time.perf_counter()
         out = fn()
         sync()
-        times[name] = (time.perf_counter() - t0) * 1e3
+        into[name] = (time.perf_counter() - t0) * 1e3
         return out
 
     trainer.model.train()
@@ -1193,11 +1234,43 @@ def train_stage_times(trainer, batch):
         timed("backward", loss.backward)
         timed("optimizer", trainer.optimizer.step)
     times["sum"] = sum(times.values())
+    if trainer.model_type != "bottomup":
+        return times
+
+    ctx, parts = trainer.ctx, {}
+    dbatch = trainer._to_device(batch)
+    edges = torch.tensor(ctx.edge_inds, dtype=torch.long, device=trainer.device)
+    with torch.no_grad():
+        for _ in range(2):  # the second pass is the one kept
+            image, inst, _eff = timed("preprocess", lambda: preprocess_batch(
+                ctx, dbatch["image"], dbatch["instances"], trainer.generator, True), parts)
+            hw = tuple(apply_pad_to_stride(image, ctx.max_stride).shape[1:3])
+            cms = timed("confmaps_kernel4", lambda: generate_multiconfmaps(
+                inst, hw, sigma=ctx.sigma, output_stride=ctx.output_stride), parts)
+            if DEVICE != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
+            pafs = timed("pafs", lambda: generate_pafs(
+                inst, hw, edges, sigma=ctx.pafs_sigma, output_stride=ctx.pafs_output_stride),
+                parts)
+            if DEVICE != "cpu":
+                parts["pafs_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        xv, yv = make_grid_vectors(*hw, ctx.output_stride, device=inst.device)
+        want = _plain_multi_confmaps(inst, xv, yv, ctx.sigma * ctx.output_stride)
+    parts["confmaps_max_abs_err"] = (cms - want).abs().max().item()
+    if not parts["confmaps_max_abs_err"] <= 1e-6:
+        raise AssertionError(f"kernel 4 on the bottom-up training path: {parts}")
+    parts["points"], parts["confmaps"], parts["pafs_shape"] = (
+        list(inst.shape), list(cms.shape), list(pafs.shape))
+    times["render_parts"] = parts
     return times
 
 
-def run_training_end_to_end(kernels):
-    """Phase 7: ``ModelTrainer.train`` of the medium_rf centroid model."""
+def run_training_end_to_end(kernels, model_type="centroid", crop_size=None):
+    """Phases 7, 10 and 11: ``ModelTrainer.train`` of a medium_rf model of
+    ``model_type`` on the synthetic labels. Kernel 4 renders the centroid
+    and bottom-up confmaps, once per train step, val batch and setup probe;
+    the centered-instance model launches no kernel."""
     import tempfile
 
     import torch
@@ -1209,10 +1282,10 @@ def run_training_end_to_end(kernels):
     train = labels.extract(range(TRAIN_FRAMES))
     val = labels.extract(range(TRAIN_FRAMES, TRAIN_FRAMES + VAL_FRAMES))
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True,
-                              max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS,
-                              save_ckpt=True, ckpt_dir=tmp, run_name="centroid",
-                              model_ckpt={"save_last": True})
+        cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=model_type,
+                              crop_size=crop_size, max_epochs=TRAIN_EPOCHS,
+                              train_steps_per_epoch=TRAIN_STEPS, save_ckpt=True, ckpt_dir=tmp,
+                              run_name=model_type, model_ckpt={"save_last": True})
         trainer = ModelTrainer.get_model_trainer_from_config(cfg, [train], [val], device=DEVICE)
         if DEVICE != "cpu":
             torch.cuda.reset_peak_memory_stats()
@@ -1223,11 +1296,13 @@ def run_training_end_to_end(kernels):
         history = trainer.train()
         sync()
         launches = {name: k.launches for name, k in kernels.items()}
-        n_val = len(trainer.val_loader)
+        n_renders = TRAIN_EPOCHS * (TRAIN_STEPS + len(trainer.val_loader)) + 1
         want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
-                "multi_confmaps": TRAIN_EPOCHS * (TRAIN_STEPS + n_val) + 1}
+                "multi_confmaps": n_renders if model_type in ("centroid", "bottomup") else 0}
         if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
-            raise AssertionError(f"training launch counts {launches}, expected {want}")
+            raise AssertionError(f"{model_type} training launch counts {launches}, "
+                                 f"expected {want}")
+        peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
         losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
         assert len(history) == TRAIN_EPOCHS and np.isfinite(losses).all(), history
         moved = {k: (v - start[k]).abs().max().item()
@@ -1237,7 +1312,8 @@ def run_training_end_to_end(kernels):
         ckpts = {}
         for name in ("best.ckpt", "last.ckpt"):
             fresh = Model.from_config("unet", cfg.model_config.backbone_config.unet,
-                                      cfg.model_config.head_configs.centroid, "centroid")
+                                      getattr(cfg.model_config.head_configs, model_type),
+                                      model_type)
             fresh.load_state_dict(ModelTrainer.load_checkpoint_params(
                 trainer.ckpt_dir / name), strict=True)
             ckpts[name] = fresh.to(DEVICE).eval()
@@ -1245,10 +1321,9 @@ def run_training_end_to_end(kernels):
         trainer.model.eval()
         with torch.no_grad():
             x = trainer.render(vbatch, train=False)["image"]
-            ours = trainer.model(x)["CentroidConfmapsHead"]
-            theirs = ckpts["last.ckpt"](x)["CentroidConfmapsHead"]
-        if not torch.equal(ours, theirs):
-            raise AssertionError("last.ckpt does not reproduce the trainer's outputs")
+            ours, theirs = trainer.model(x), ckpts["last.ckpt"](x)
+        if not all(torch.equal(ours[k], theirs[k]) for k in ours):
+            raise AssertionError(f"{model_type}: last.ckpt does not reproduce the trainer's outputs")
         best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
         assert best["best_val_loss"] == min(h["val/loss"] for h in history), best["best_val_loss"]
 
@@ -1263,9 +1338,9 @@ def run_training_end_to_end(kernels):
     fixed_s = time.perf_counter() - t0
     fixed = [v.item() for v in fixed]
     if not fixed[-1] < fixed[0]:
-        raise AssertionError(f"20 steps on one batch did not lower the loss: {fixed}")
+        raise AssertionError(f"{model_type}: 20 steps on one batch did not lower the loss: {fixed}")
     stats = {
-        "launches": launches, "n_batches": want["multi_confmaps"],
+        "model_type": model_type, "launches": launches, "n_batches": n_renders,
         "history": history, "steps_per_sec": history[-1]["train/steps_per_sec"],
         "samples_per_sec": history[-1]["train/samples_per_sec"],
         "steps_per_sec_by_epoch": [h["train/steps_per_sec"] for h in history],
@@ -1274,26 +1349,30 @@ def run_training_end_to_end(kernels):
         "stage_ms": stages,
         "fixed_batch_loss_first_last": [fixed[0], fixed[-1]],
         "params": sum(v.numel() for v in start.values()), "input_shape": trainer._input_shape,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None,
+        "train_samples": len(trainer.train_ds), "val_batches": len(trainer.val_loader),
+        "peak_mem_gib": peak_mem_gib,
     }
-    log("train_end_to_end " + json.dumps(stats))
+    log(("train_end_to_end " if model_type == "centroid" else f"train_{model_type}_end_to_end ")
+        + json.dumps(stats))
     return stats
 
 
 # --------------------------------------------------------------------------
-# Phase 8: training on the card against the CPU
+# Phases 8 and 12: training on the card against the CPU
 # --------------------------------------------------------------------------
 
 
-def check_training_against_cpu():
-    """A narrow f32 centroid model trained 3 steps on the card and on the CPU
-    from the same parameters and batch (augmentation off)."""
+def check_training_against_cpu(model_type="centroid"):
+    """Phases 8 and 12: a narrow f32 model of ``model_type`` trained 3 steps
+    on the card and on the CPU from the same parameters and batch
+    (augmentation off)."""
     import torch
 
     from sleap_nn_tpu_torch.training import ModelTrainer
 
-    labels = training_labels(8, 128, 5, 3, seed=5)
-    cfg = lambda: training_config(8, 8, 128, 4, augment=False)  # noqa: E731
+    labels = training_labels(8, 128, 5, 1 if model_type == "single_instance" else 3, seed=5)
+    cfg = lambda: training_config(8, 8, 128, 4, augment=False, model_type=model_type,  # noqa: E731
+                                  crop_size=64 if model_type == "centered_instance" else None)
     train, val = labels.extract(range(6)), labels.extract(range(6, 8))
     card = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device=DEVICE)
     cpu = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device="cpu")
@@ -1301,7 +1380,7 @@ def check_training_against_cpu():
     cpu.setup()
     card.model.load_state_dict(cpu.model.state_dict(), strict=True)
     batch = next(iter(cpu.train_loader))
-    report = {}
+    report = {"model_type": model_type}
     for step in range(3):
         loss_card, loss_cpu = card.train_step(batch)[0].item(), cpu.train_step(batch)[0].item()
         if step == 0:
@@ -1321,9 +1400,110 @@ def check_training_against_cpu():
     return report
 
 
-def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e2e, bu, cm_rows,
-                   tr):
-    """The ``kernels`` line: one entry per kernel, launches from the two paths' runs."""
+# --------------------------------------------------------------------------
+# Phase 9: single-instance end to end
+# --------------------------------------------------------------------------
+
+SINGLE_KEYS = {"pred_keypoints", "pred_peak_values", "frame_inds", "video_inds", "valid"}
+
+
+def build_single_instance_layer(cfg_cls, n_nodes, seed, device, use_bf16, **cfg_kw):
+    """A single-instance model (confmaps at stride 2) with random weights from
+    ``seed``, initialised as in :func:`build_models`, behind its layer."""
+    import torch
+    from types import SimpleNamespace as ns
+
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.layers import (
+        PostprocessConfig, PreprocessConfig, SingleInstanceLayer)
+    from sleap_nn_tpu_torch.models.model import Model
+
+    cfg = cfg_cls(in_channels=1, output_stride=2, **cfg_kw)
+    torch.manual_seed(seed)
+    model = Model.from_config("unet", cfg, ns(confmaps=ns(
+        part_names=[f"n{i}" for i in range(n_nodes)], sigma=2.5, output_stride=2,
+        loss_weight=None)), "single_instance")
+    random_init(model)
+    return SingleInstanceLayer(
+        TorchBackend(model, None, use_bf16=use_bf16, output_dtype=None, device=device),
+        PreprocessConfig(ensure_grayscale=True, max_stride=cfg.max_stride),
+        PostprocessConfig(peak_threshold=0.2), output_stride=2, device=device)
+
+
+def single_instance_stage_times(layer, frames):
+    """Per-stage ms of one single-instance batch, each stage fenced by synchronize()."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.ops.peaks import find_global_peaks
+
+    images = torch.from_numpy(frames).to(DEVICE)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            x, _eff = timed("preprocess", lambda: preprocess_images(layer.pre, images))
+            cms = timed("unet", lambda: layer.backend(x)[layer.head_name])
+            timed("global_peaks", lambda: find_global_peaks(
+                cms, threshold=layer.post.peak_threshold, refinement=layer.post.refinement,
+                integral_patch_size=layer.post.integral_patch_size))
+    times["sum"] = sum(times.values())
+    return times
+
+
+def run_single_instance_end_to_end(layer, kernels):
+    """Phase 9: ``Predictor.predict`` of the single-instance model over the
+    smoke frames: 9 fused-conv launches per batch and no other kernel; the
+    JAX package's keys and shapes, every node found inside the frame."""
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.providers import VideoProvider
+
+    frames = smoke_frames()
+    n_nodes = len(layer.backend.model.heads[0].part_names)
+    predictor = Predictor(layer, "single_instance", batch_size=BATCH, device=DEVICE)
+    predictor.predict(provider=VideoProvider(ArrayVideo(frames[:BATCH]), batch_size=BATCH),
+                      make_labels=False)  # warm-up: allocator, cuDNN
+    sync()
+    for k in kernels.values():
+        k.launches = 0
+    results = predictor.predict(provider=VideoProvider(ArrayVideo(frames), batch_size=BATCH),
+                                make_labels=False)
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_batches = len(results)
+    want = {"fused_double_conv3x3": 9 * n_batches, "nms_scores": 0, "paf_line_scores": 0,
+            "multi_confmaps": 0}
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"single-instance launch counts {launches}, expected {want}")
+    assert n_batches == -(-N_FRAMES // BATCH), n_batches
+    for i, out in enumerate(results):
+        assert set(out) == SINGLE_KEYS, sorted(out)
+        kp, vals = out["pred_keypoints"], out["pred_peak_values"]
+        assert kp.shape == (BATCH, 1, n_nodes, 2) and kp.dtype == np.float32, kp.shape
+        assert vals.shape == (BATCH, 1, n_nodes), vals.shape
+        # Heads biased to 0.5 put every node above the threshold.
+        assert np.isfinite(kp).all() and (vals >= 0.2).all()
+        assert (np.abs(kp - IMG / 2) <= IMG / 2).all()
+        n_valid = min(BATCH, N_FRAMES - i * BATCH)
+        assert out["valid"].tolist() == [True] * n_valid + [False] * (BATCH - n_valid)
+        assert out["frame_inds"][:n_valid].tolist() == list(range(i * BATCH, i * BATCH + n_valid))
+    stats = dict(predictor.last_stats, launches=launches, n_batches=n_batches,
+                 stage_ms=single_instance_stage_times(layer, frames[:BATCH]))
+    log("single_instance_end_to_end " + json.dumps(stats))
+    return stats
+
+
+def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs):
+    """The ``kernels`` line: one entry per kernel, launches from the paths'
+    runs (``runs``: path name -> the phase's stats, with its ``launches``
+    and ``n_batches``)."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
     nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
@@ -1331,8 +1511,7 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e
     t_ops = sum(r["flops"] / PEAK_BF16 for r in main_path)
     t_bytes = sum(r["bytes"] / PEAK_BYTES for r in main_path)
 
-    runs = {"topdown": e2e, "bottomup": bu, "train": tr}
-    cm_main = next(r for r in cm_rows if r["path"] == "centroid_train")
+    cm_main = next(r for r in cm_rows if r["path"] == "bottomup_train")
 
     def launches(kernel):
         by_path = {path: run["launches"][kernel] for path, run in runs.items()}
@@ -1364,8 +1543,8 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": sum(r["library_ms"] for r in main_path),
             "shapes": "the 18 bf16 calls of one top-down batch (9 centroid UNet @ 8x1024^2, "
-                      "9 instance UNet @ 48x256^2); times summed. The bottom-up UNet's 9 "
-                      "calls have the centroid UNet's shapes",
+                      "9 instance UNet @ 48x256^2); times summed. The bottom-up and "
+                      "single-instance UNets' 9 calls have the centroid UNet's shapes",
         },
         {
             "name": "nms_scores", "route": "cuda",
@@ -1414,14 +1593,16 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e
             "bound_by": cm_main["bound_by"], "library_ms": None,
             "timing": "kernel_ms: 20 launches of the C entry captured in a CUDA graph; "
                       "wrapper_ms: 20 calls of multi_confmaps between events",
-            "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (centroid training "
+            "shapes": f"points {cm_main['points']} -> {cm_main['out']} f32 (bottom-up training "
                       "targets; launches_per_batch counts renders: train steps, val batches "
                       "and the setup probe)",
             "zeros_exact": all(r["zeros_exact"] for r in cm_rows),
+            "train_bottomup_path_max_abs_err":
+                runs["train_bottomup"]["stage_ms"]["render_parts"]["confmaps_max_abs_err"],
             "other_cases": {r["path"]: {k: r[k] for k in ("points", "out", "kernel_ms",
                                                           "wrapper_ms", "plain_ms", "bound_ms",
                                                           "bound_by", "max_abs_err")}
-                            for r in cm_rows[1:]},
+                            for r in cm_rows if r is not cm_main},
         },
     ]}
 
@@ -1500,20 +1681,40 @@ def main() -> int:
     # 8. Training on the card against the CPU.
     check_training_against_cpu()
 
+    # 9. Single-instance end to end through Predictor.predict.
+    si_layer = build_single_instance_layer(UNetMediumRFConfig, N_NODES, seed=6, device=DEVICE,
+                                           use_bf16=True)
+    si = run_single_instance_end_to_end(si_layer, _build.KERNELS)
+
+    # 10. Bottom-up training end to end (kernel 4 at 15 nodes).
+    tr_bu = run_training_end_to_end(_build.KERNELS, "bottomup")
+
+    # 11. Centered-instance training end to end.
+    tr_ci = run_training_end_to_end(_build.KERNELS, "centered_instance", crop_size=CROP)
+
+    # 12. Training of the other model types on the card against the CPU.
+    for model_type in ("single_instance", "centered_instance", "bottomup"):
+        check_training_against_cpu(model_type)
+
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
 
-    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, e2e, bu,
-                             cm_rows, tr)
+    runs = {"topdown": e2e, "bottomup": bu, "single_instance": si, "train": tr,
+            "train_bottomup": tr_bu, "train_centered_instance": tr_ci}
+    summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
+                             runs)
     summary["kernels"][0]["sass_tensor_ops"] = sass
+    training = "; ".join(
+        f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
+        f"(last 5-step epoch), {run['fixed_batch_steps_per_sec']:.2f} steps/s over 20 steps on "
+        f"one batch" for name, run in (("centroid", tr), ("bottom-up", tr_bu),
+                                       ("centered-instance", tr_ci)))
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
-        f"grouping workers); training {tr['steps_per_sec']:.2f} steps/s, "
-        f"{tr['samples_per_sec']:.2f} samples/s (last 5-step epoch), "
-        f"{tr['fixed_batch_steps_per_sec']:.2f} steps/s over 20 steps on one batch; total script "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"grouping workers); single-instance {si['fps']:.2f} frames/s; training: {training}; "
+        f"total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

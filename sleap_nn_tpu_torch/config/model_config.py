@@ -1,6 +1,6 @@
 """Model config schema: a copy of ``sleap_nn_tpu/config/model_config.py``
-(plain data; the port builds the UNet backbone and the centroid,
-centered-instance and bottom-up heads from it)."""
+(plain data; the port builds the UNet backbone and the single-instance,
+centroid, centered-instance and bottom-up heads from it)."""
 
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
 """Training data pipeline: host datasets, the loader and the device render.
 
-Port of ``sleap_nn_tpu/data/pipeline.py`` for centroid models. The host
-side indexes labeled frames, decodes and NaN-pads them (numpy); the render
-function built by :func:`make_render_fn` runs on the training device under
+Port of ``sleap_nn_tpu/data/pipeline.py`` for single-instance, centroid,
+centered-instance and bottom-up models. The host side indexes labeled
+frames, decodes and NaN-pads them (numpy); the render function built by
+:func:`make_render_fn` runs on the training device under
 ``torch.no_grad()``: normalize, channels, sizematch, scale, augment, pad to
-stride, then the centroids and their confidence maps (kernel 4 on CUDA).
+stride, then the model type's targets: confidence maps (the centroid and
+bottom-up maps through kernel 4 on CUDA), instance crops, part affinity
+fields.
 
-Not ported yet: the render and datasets of the other model types (they
-raise ``NotImplementedError``), tiled datasets, the disk cache, negative
-frames and user-centroid samples.
+Not ported yet: the render and datasets of the identity, segmentation and
+tiled model types (they raise ``NotImplementedError``), the disk cache,
+negative frames and user-centroid samples.
 """
 
 from __future__ import annotations
@@ -24,11 +27,31 @@ from sleap_nn_tpu_torch.data.augmentation import (
     apply_intensity_augmentation,
 )
 from sleap_nn_tpu_torch.data.instance_centroids import generate_centroids
+from sleap_nn_tpu_torch.data.instance_cropping import (
+    compute_augmentation_padding,
+    find_instance_crop_size,
+    generate_crops,
+)
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.providers import get_max_instances, process_lf
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_resizer, apply_sizematcher
 from sleap_nn_tpu_torch.io.model import Labels
-from sleap_nn_tpu_torch.ops.confmaps import generate_multiconfmaps
+from sleap_nn_tpu_torch.ops.confmaps import generate_confmaps, generate_multiconfmaps
+from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
+
+# Model types of the JAX package that the port does not train yet, and the
+# ROADMAP.md section 1 item that ports each.
+_UNPORTED_TYPES = {
+    "multi_class_bottomup": 8, "multi_class_topdown": 8,
+    "bottomup_segmentation": 10, "semantic_segmentation": 10,
+    "centered_instance_segmentation": 10,
+}
+
+
+def _unported(what: str, model_type: str) -> NotImplementedError:
+    item = _UNPORTED_TYPES.get(model_type)
+    where = f" (ROADMAP.md section 1, item {item})" if item else ""
+    return NotImplementedError(f"the {what} of {model_type!r} models is not ported yet{where}")
 
 
 @dataclasses.dataclass
@@ -38,16 +61,20 @@ class PipelineContext:
     model_type: str
     n_nodes: int
     max_instances: int
+    edge_inds: Tuple[Tuple[int, int], ...] = ()
     # preprocessing
     ensure_rgb: bool = False
     ensure_grayscale: bool = False
     max_height: Optional[int] = None
     max_width: Optional[int] = None
     scale: float = 1.0
+    crop_size: Optional[int] = None
     max_stride: int = 16
     # heads
     sigma: float = 5.0
     output_stride: int = 2
+    pafs_sigma: float = 15.0
+    pafs_output_stride: int = 4
     anchor_ind: Optional[int] = None
     # augmentation
     use_augmentations: bool = False
@@ -94,14 +121,25 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
 
     The returned ``fn(batch, generator=None)`` takes a dict of tensors on the
     training device (``image`` uint8 ``(B, H, W, C)``, ``instances``
-    ``(B, I, N, 2)``) and returns, under ``torch.no_grad()``, ``image`` (the
-    network input), ``instances``, ``centroids`` ``(B, I, 2)``,
-    ``confmaps`` ``(B, H/s, W/s, 1)`` and ``eff_scale``.
+    ``(B, I, N, 2)``, and ``center_idx`` ``(B,)`` for centered-instance
+    models) and returns, under ``torch.no_grad()``, ``image`` (the network
+    input), ``instances``, ``eff_scale`` and the model type's targets:
+
+    - ``single_instance``: ``confmaps`` of the first instance;
+    - ``centroid``: ``centroids`` ``(B, I, 2)`` and ``confmaps``
+      ``(B, H/s, W/s, 1)`` (kernel 4 on CUDA);
+    - ``centered_instance``: ``image`` is the crop around instance
+      ``center_idx`` at the crop size padded to ``max_stride``; its
+      ``instances`` ``(B, N, 2)``, ``centroids`` ``(B, 2)`` and
+      ``confmaps`` in crop coordinates;
+    - ``bottomup``: ``confmaps`` ``(B, H/s, W/s, N)`` (kernel 4 on CUDA) and
+      ``pafs`` ``(B, H/ps, W/ps, 2E)``.
     """
-    if ctx.model_type != "centroid":
-        raise NotImplementedError(
-            f"the render of {ctx.model_type!r} models is not ported yet (ROADMAP section 1, "
-            "item 4); the port renders centroid targets")
+    if ctx.model_type not in _DATASET_BY_TYPE:
+        raise _unported("render", ctx.model_type)
+    # The edges, copied to each device once: a copy from host memory on
+    # every call would wait for the device's queue.
+    edge_inds: Dict[torch.device, torch.Tensor] = {}
 
     @torch.no_grad()
     def fn(batch: Dict[str, torch.Tensor],
@@ -110,12 +148,41 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
             ctx, batch["image"], batch["instances"], generator, train)
         image = apply_pad_to_stride(image, ctx.max_stride)
         h, w = image.shape[1], image.shape[2]
-        centroids = generate_centroids(instances, ctx.anchor_ind)  # (B, I, 2)
-        confmaps = generate_multiconfmaps(
-            centroids, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride,
-            is_centroids=True)
-        return {"eff_scale": eff_scale, "image": image, "instances": instances,
-                "centroids": centroids, "confmaps": confmaps}
+        out: Dict[str, Any] = {"eff_scale": eff_scale, "image": image, "instances": instances}
+
+        if ctx.model_type == "single_instance":
+            out["confmaps"] = generate_confmaps(
+                instances[:, 0], (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride)
+
+        elif ctx.model_type == "centroid":
+            centroids = generate_centroids(instances, ctx.anchor_ind)  # (B, I, 2)
+            out["centroids"] = centroids
+            out["confmaps"] = generate_multiconfmaps(
+                centroids, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride,
+                is_centroids=True)
+
+        elif ctx.model_type == "centered_instance":
+            rows = torch.arange(image.shape[0], device=image.device)
+            sel = batch["center_idx"].long()
+            centroids = generate_centroids(instances, ctx.anchor_ind)[rows, sel]  # (B, 2)
+            crop_size = int(round(ctx.crop_size * ctx.scale))
+            crop_size += (-crop_size) % ctx.max_stride
+            out["image"], out["instances"], out["centroids"] = generate_crops(
+                image, instances[rows, sel], centroids, crop_size)
+            out["confmaps"] = generate_confmaps(
+                out["instances"], (crop_size, crop_size), sigma=ctx.sigma,
+                output_stride=ctx.output_stride)
+
+        else:  # bottomup
+            out["confmaps"] = generate_multiconfmaps(
+                instances, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride)
+            if image.device not in edge_inds:
+                edge_inds[image.device] = torch.tensor(
+                    ctx.edge_inds, dtype=torch.long, device=image.device).reshape(-1, 2)
+            out["pafs"] = generate_pafs(
+                instances, (h, w), edge_inds[image.device], sigma=ctx.pafs_sigma,
+                output_stride=ctx.pafs_output_stride)
+        return out
 
     return fn
 
@@ -157,7 +224,10 @@ class BaseDataset:
                 if sample is None:
                     continue
                 sample["sample_weight"] = 1.0
-                self.samples.append(sample)
+                self._append_samples(sample)
+
+    def _append_samples(self, sample: Dict[str, Any]):
+        self.samples.append(sample)
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -172,29 +242,55 @@ class BaseDataset:
             batch[key] = np.stack([s[key] for s in samples])
         for key in ("frame_idx", "video_idx", "num_instances"):
             batch[key] = np.asarray([s[key] for s in samples], dtype=np.int32)
+        if "center_idx" in samples[0]:
+            batch["center_idx"] = np.asarray([s["center_idx"] for s in samples], dtype=np.int32)
         batch["sample_weight"] = np.asarray(
             [s.get("sample_weight", 1.0) for s in samples], dtype=np.float32
         )
         return batch
 
 
+class SingleInstanceDataset(BaseDataset):
+    """One sample per labeled frame; the first instance supervised."""
+
+
 class CentroidDataset(BaseDataset):
     """One sample per labeled frame; all centroids supervised."""
 
 
+class BottomUpDataset(BaseDataset):
+    """One sample per labeled frame; confmaps and PAFs."""
+
+
+class CenteredInstanceDataset(BaseDataset):
+    """One sample per (frame, instance), in frame order: the render crops
+    around instance ``center_idx`` of its frame."""
+
+    def _append_samples(self, sample: Dict[str, Any]):
+        for k in range(sample["num_instances"]):
+            self.samples.append(dict(sample, center_idx=k))
+
+
+_DATASET_BY_TYPE = {
+    "single_instance": SingleInstanceDataset,
+    "centroid": CentroidDataset,
+    "centered_instance": CenteredInstanceDataset,
+    "bottomup": BottomUpDataset,
+}
+
+
 def make_dataset(model_type: str, labels_list, ctx: PipelineContext,
                  user_instances_only: bool = True) -> BaseDataset:
-    if model_type != "centroid":
-        raise NotImplementedError(
-            f"the dataset of {model_type!r} models is not ported yet (ROADMAP section 1, "
-            "item 4)")
-    return CentroidDataset(labels_list, ctx, user_instances_only)
+    if model_type not in _DATASET_BY_TYPE:
+        raise _unported("dataset", model_type)
+    return _DATASET_BY_TYPE[model_type](labels_list, ctx, user_instances_only)
 
 
 def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineContext:
     """Static pipeline parameters from a ``TrainingJobConfig`` and labels:
     sizes and strides of the preprocessing and heads, augmentation knobs,
-    the skeleton's symmetric node pairs."""
+    the skeleton's symmetric node pairs and edges, and a centered-instance
+    model's crop size (from the labels where the config sets none)."""
     from sleap_nn_tpu_torch.config.utils import get_backbone_config, get_head_config
 
     pre = cfg.data_config.preprocessing
@@ -213,6 +309,7 @@ def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineCont
         max_height=pre.max_height,
         max_width=pre.max_width,
         scale=pre.scale,
+        crop_size=pre.crop_size,
         max_stride=backbone.max_stride,
         symmetric_inds=tuple(skel.symmetry_inds),
         use_augmentations=cfg.data_config.use_augmentations_train,
@@ -236,6 +333,24 @@ def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineCont
         anchor = getattr(cm, "anchor_part", None)
         if anchor is not None:
             kw["anchor_ind"] = skel.node_names.index(anchor)
+    pafs = getattr(head, "pafs", None)
+    if pafs is not None:
+        kw["pafs_sigma"] = pafs.sigma
+        kw["pafs_output_stride"] = pafs.output_stride
+        kw["edge_inds"] = tuple(skel.edge_inds)
+
+    if model_type == "centered_instance" and not kw["crop_size"]:
+        rot_max, scale_max = 0.0, 1.0
+        if aug is not None and aug.geometric is not None:
+            rot_max = max(abs(aug.geometric.rotation_min), abs(aug.geometric.rotation_max))
+            scale_max = aug.geometric.scale_max
+        padding = compute_augmentation_padding(
+            find_instance_crop_size(labels), rot_max, scale_max
+        ) if cfg.data_config.use_augmentations_train else 0
+        padding += int(pre.crop_padding or 0)  # extra pixels around the instance bbox
+        kw["crop_size"] = find_instance_crop_size(
+            labels, padding=padding, maximum_stride=backbone.max_stride,
+            min_crop_size=pre.min_crop_size)
     return PipelineContext(**kw)
 
 

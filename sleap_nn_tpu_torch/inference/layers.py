@@ -1,7 +1,8 @@
-"""Inference layers: preprocess -> backend -> postprocess, top-down and bottom-up.
+"""Inference layers: preprocess -> backend -> postprocess.
 
-Port of the top-down and bottom-up part of ``sleap_nn_tpu/inference/layers.py``:
-``PreprocessConfig``, ``PostprocessConfig``, ``preprocess_images``,
+Port of the single-instance, top-down and bottom-up part of
+``sleap_nn_tpu/inference/layers.py``: ``PreprocessConfig``,
+``PostprocessConfig``, ``preprocess_images``, ``SingleInstanceLayer``,
 ``CentroidLayer``, ``CenteredInstanceLayer``, ``TopDownLayer`` and
 ``BottomUpLayer``, with the same output keys, shapes and coordinate
 bookkeeping (eff_scale / scale / crop offsets lift coordinates back to the
@@ -128,6 +129,33 @@ class InferenceLayer:
 
     def predict(self, images) -> Dict[str, Any]:
         return self.finalize(self.predict_async(images))
+
+
+class SingleInstanceLayer(InferenceLayer):
+    """Full-frame single-instance confmap peaks: one instance per frame."""
+
+    def __init__(self, backend, pre, post, head_name="SingleInstanceConfmapsHead",
+                 output_stride=2, device="cuda"):
+        super().__init__(backend, pre, post, device)
+        self.head_name = head_name
+        self.output_stride = output_stride
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        post = self.post
+        x, eff_scale = preprocess_images(self.pre, images)
+        cms = self.backend(x)[self.head_name]
+        points, vals = find_global_peaks(
+            cms,
+            threshold=post.peak_threshold,
+            refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size,
+        )
+        # NaN where no peak clears the threshold, in original-image coords.
+        points = points * self.output_stride / (self.pre.scale * eff_scale)
+        out = {"pred_keypoints": points[:, None], "pred_peak_values": vals[:, None]}
+        if post.return_confmaps:
+            out["confmaps"] = cms
+        return out
 
 
 class CentroidLayer(InferenceLayer):

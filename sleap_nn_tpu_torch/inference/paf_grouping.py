@@ -121,11 +121,21 @@ def score_paf_lines_dense(
     max_edge_length = max_edge_length_ratio * max(hp, wp, 2 * n_edges) * pafs_stride
     if t is None:
         t = line_fractions(n_line_points, device=pafs.device)
-    # The kernel takes a dense map. The PAF head's NHWC output already is
-    # one (its conv keeps channels-last memory), so this copies nothing on
-    # the predict path.
-    return paf_line_scores(pafs.contiguous(), grouped_peaks, grouped_mask, edge_inds, t,
+    # The kernel takes dense inputs, pafs aligned to an (x, y) channel pair
+    # and grouped_peaks to 8 bytes; any other layout is copied first. The
+    # predict path's inputs already are such tensors (the PAF head's NHWC
+    # output keeps channels-last memory), so it copies nothing.
+    return paf_line_scores(_dense(pafs, 2 * pafs.element_size()), _dense(grouped_peaks, 8),
+                           _dense(grouped_mask), _dense(edge_inds), _dense(t),
                            pafs_stride, max_edge_length, dist_penalty_weight)
+
+
+def _dense(x: torch.Tensor, align: int = 1) -> torch.Tensor:
+    """``x``, or a fresh dense copy where it is not contiguous or its data
+    does not start on an ``align``-byte boundary."""
+    if x.is_contiguous() and x.data_ptr() % align == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,16 @@ class Head:
 
 
 @dataclass(frozen=True)
+class SingleInstanceConfmapsHead(Head):
+    part_names: Sequence[str] = ()
+    sigma: float = 5.0
+
+    @property
+    def channels(self) -> int:
+        return len(self.part_names)
+
+
+@dataclass(frozen=True)
 class CentroidConfmapsHead(Head):
     anchor_part: Optional[str] = None
     sigma: float = 5.0

@@ -1,9 +1,10 @@
 """Model assembly: backbone + heads.
 
 Port of ``sleap_nn_tpu/models/model.py`` for the UNet backbone and the
-centroid, centered-instance and bottom-up heads: ``get_backbone`` / ``get_head`` and the
-``Model`` that binds each head's 1x1 conv to the decoder feature at that
-head's ``output_stride``, with gray<->RGB input coercion in ``forward``.
+single-instance, centroid, centered-instance and bottom-up heads:
+``get_backbone`` / ``get_head`` and the ``Model`` that binds each head's
+1x1 conv to the decoder feature at that head's ``output_stride``, with
+gray<->RGB input coercion in ``forward``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ from sleap_nn_tpu_torch.models.heads import (
     Head,
     MultiInstanceConfmapsHead,
     PartAffinityFieldsHead,
+    SingleInstanceConfmapsHead,
 )
 from sleap_nn_tpu_torch.models.unet import UNet
 
-MODEL_TYPES = ("centroid", "centered_instance", "bottomup")
+MODEL_TYPES = ("single_instance", "centroid", "centered_instance", "bottomup")
 
 
 def _cfg_get(cfg, key, default=None):
@@ -56,6 +58,9 @@ def get_head(model_type: str, head_config) -> Tuple[Head, ...]:
             PartAffinityFieldsHead(
                 **kw(pafs, ("edges", "sigma", "output_stride", "loss_weight"))),
         )
+    if model_type == "single_instance":
+        return (SingleInstanceConfmapsHead(
+            **kw(leaf, ("part_names", "sigma", "output_stride", "loss_weight"))),)
     if model_type == "centered_instance":
         return (CenteredInstanceConfmapsHead(
             **kw(leaf, ("part_names", "anchor_part", "sigma", "output_stride", "loss_weight"))),)

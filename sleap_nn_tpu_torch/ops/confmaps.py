@@ -33,7 +33,10 @@ def make_multi_confmaps(
     contribute zeros. Returns ``(..., H, W, n_nodes)``.
     """
     lead = points.shape[:-3]
-    out = multi_confmaps(points.reshape(-1, *points.shape[-3:]), xv, yv, sigma)
+    # The kernel takes dense inputs; a view (a node slice, a strided grid)
+    # is copied first. ``reshape`` keeps a view where it can.
+    out = multi_confmaps(points.reshape(-1, *points.shape[-3:]).contiguous(), xv.contiguous(),
+                         yv.contiguous(), sigma)
     return out.reshape(*lead, *out.shape[1:])
 
 

@@ -1,13 +1,14 @@
 """Training orchestration.
 
-Port of ``sleap_nn_tpu/training/model_trainer.py`` for centroid models on
-one device. A train step renders the batch's targets on the device under
-``torch.no_grad()`` (kernel 4 on CUDA), runs the forward and the loss
-under autograd, then ``backward`` and one Adam / AdamW step. PyTorch runs
-eagerly, so where the JAX trainer jits one program per step, the port
-launches the same stages one by one. The model trains with plain
-convolutions (``use_fused=False``), as the JAX trainer does: the fused
-double-conv kernel has no backward.
+Port of ``sleap_nn_tpu/training/model_trainer.py`` for single-instance,
+centroid, centered-instance and bottom-up models on one device. A train
+step renders the batch's targets on the device under ``torch.no_grad()``
+(kernel 4 on CUDA for the centroid and bottom-up confidence maps), runs
+the forward and the loss under autograd, then ``backward`` and one Adam /
+AdamW step. PyTorch runs eagerly, so where the JAX trainer jits one
+program per step, the port launches the same stages one by one. The
+model trains with plain convolutions (``use_fused=False``), as the JAX
+trainer does: the fused double-conv kernel has no backward.
 
 The checkpoint contract: ``best.ckpt`` (and ``last.ckpt`` with
 ``model_ckpt.save_last``) is ``torch.save({"state_dict", "epoch",
@@ -16,8 +17,8 @@ The checkpoint contract: ``best.ckpt`` (and ``last.ckpt`` with
 ``training_log.csv`` holds one row per epoch.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md): model types other than centroid, backbones other than UNet,
-tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
+ROADMAP.md): the identity and segmentation model types, backbones other
+than UNet, tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
 visualization, epoch-end evaluation, negative frames, user centroids,
 amsgrad, ``save_top_k`` above 1, device-trace profilers, more than one
 device, and loading labels or the YAML / ``.slp`` model-dir artifacts.
@@ -54,7 +55,7 @@ from sleap_nn_tpu_torch.data.pipeline import (
 from sleap_nn_tpu_torch.data.providers import get_max_height_width
 from sleap_nn_tpu_torch.inference.backends import resolve_device
 from sleap_nn_tpu_torch.io.model import Labels
-from sleap_nn_tpu_torch.models.model import Model
+from sleap_nn_tpu_torch.models.model import MODEL_TYPES, Model
 from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
@@ -64,7 +65,7 @@ from sleap_nn_tpu_torch.training.callbacks import (
 from sleap_nn_tpu_torch.training.losses import compute_loss
 from sleap_nn_tpu_torch.training.schedulers import make_scheduler
 
-_BATCH_TENSORS = ("image", "instances", "batch_mask", "sample_weight")
+_BATCH_TENSORS = ("image", "instances", "center_idx", "batch_mask", "sample_weight")
 
 
 def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -120,7 +121,8 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
     cm = getattr(get_head_config(cfg), "confmaps", None)
     devices = tc.trainer_devices
     checks = [
-        (model_type != "centroid", f"model type {model_type!r} (centroid is ported)"),
+        (model_type not in MODEL_TYPES,
+         f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"),
         (backbone_type != "unet", f"backbone {backbone_type!r} (unet is ported)"),
         (dc.preprocessing.tiling is not None and dc.preprocessing.tiling.enabled, "tiling"),
         (str(dc.data_pipeline_fw).endswith("cache_img_disk"), "the disk cache"),
@@ -166,8 +168,8 @@ class ModelTrainer:
         missing = _unsupported(config, self.model_type, self.backbone_type)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 4 and 7): "
-                + "; ".join(missing))
+                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7, 8, 10 "
+                "and 11): " + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
         self.current_epoch = 0
@@ -218,13 +220,26 @@ class ModelTrainer:
                 ]
                 train_labels = [s[0] for s in split]
                 val_labels = [s[1] for s in split]
+        if get_model_type_from_cfg(config) == "single_instance":
+            # A single-instance target would blend the instances of a
+            # multi-animal frame, so such labels are refused.
+            for split_name, split in (("train", train_labels), ("val", val_labels)):
+                for labels in split:
+                    for lf in labels.labeled_frames:
+                        if len(lf.user_instances) > 1:
+                            raise ValueError(
+                                "single_instance training requires at most one instance per "
+                                f"frame; found {len(lf.user_instances)} user instances on "
+                                f"{split_name} frame {lf.frame_idx}. Use a topdown or bottomup "
+                                "pipeline for multi-animal data.")
         trainer = cls(config, train_labels, val_labels, device=device)
         trainer._infer_config()
         return trainer
 
     def _infer_config(self):
         """Fill the derived config: preprocessing max dims, strides, head
-        part names, the pipeline context and the skeleton record."""
+        part names and PAF edges, the pipeline context, the crop size and
+        the skeleton record."""
         labels = self.train_labels[0]
         skel = labels.skeleton
         head = get_head_config(self.config)
@@ -237,12 +252,17 @@ class ModelTrainer:
         cm = getattr(head, "confmaps", None)
         if cm is not None and hasattr(cm, "part_names") and cm.part_names is None:
             cm.part_names = list(skel.node_names)
+        pafs = getattr(head, "pafs", None)
+        if pafs is not None and pafs.edges is None:
+            pafs.edges = [list(e) for e in skel.edge_names]
         merged = Labels(
             labeled_frames=[lf for L in self.train_labels for lf in L.labeled_frames],
             videos=[v for L in self.train_labels for v in L.videos],
             skeletons=[s for L in self.train_labels for s in L.skeletons],
         )
         self.ctx = build_pipeline_context(self.config, merged, self.model_type)
+        if self.ctx.crop_size is not None:
+            pre.crop_size = self.ctx.crop_size
         self.config.data_config.skeletons = [
             {
                 "nodes": [{"name": n} for n in skel.node_names],

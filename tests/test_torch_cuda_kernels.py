@@ -15,7 +15,9 @@ and subscripts are computed alike), with -inf and NaN placement exact; the
 multi-instance confmaps to 1e-6 absolute (outputs <= 1; ``expf`` and
 ATen's ``exp`` may differ by ulps), and in the cull cases with zeros placed
 exactly. NaN in the fused conv's input: NaN placement exact, the tolerance
-on the rest.
+on the rest. The public functions given layouts the kernels refuse (views,
+misaligned starts) copy them first: the PAF scores equal the dense call's
+bit for bit, the maps the plain version's to 1e-6.
 """
 
 import numpy as np
@@ -329,3 +331,74 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         multi_confmaps(torch.zeros(1, 1, 1, 2, device=cuda, dtype=torch.float64), xv, yv, 1.0)
     with pytest.raises(ValueError, match="xv"):
         multi_confmaps(torch.zeros(1, 1, 1, 2, device=cuda), xv.cpu(), yv, 1.0)
+
+
+def _off_by(x: torch.Tensor, elements: int = 1) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts ``elements`` elements past
+    an aligned allocation."""
+    flat = torch.zeros(x.numel() + elements, dtype=x.dtype, device=x.device)[elements:]
+    return flat.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_paf_lines_dense_copies_the_layouts_the_kernel_refuses(cuda, dtype):
+    """Views the JAX function takes: non-contiguous peaks and mask, peaks 4
+    bytes off 8-byte alignment, and PAFs off channel-pair alignment. Each
+    gives the dense call's scores bit for bit, and the kernel's wrapper
+    still refuses it when called directly."""
+    from sleap_nn_tpu_torch.inference.paf_grouping import score_paf_lines_dense
+
+    pafs, peaks, mask, edges = _paf_inputs(11, 2, 24, 20, 4, 6, 3, 4, cuda)
+    pafs = pafs.to(dtype)
+    t = line_fractions(10, cuda)
+    kw = dict(n_line_points=10, pafs_stride=4)
+    dense = score_paf_lines_dense(pafs, peaks, mask, edges, **kw)
+    max_len = 0.25 * max(24, 20, 2 * 3) * 4
+    want = _plain_paf_line_scores(pafs, peaks, mask, edges, t, 4, max_len, 1.0)
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(dense[fin], want[fin], rtol=0, atol=1e-5)
+    strided = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    views = {
+        "non-contiguous peaks and mask": (pafs, strided(peaks), strided(mask)),
+        "peaks off 8-byte alignment": (pafs, _off_by(peaks), mask),
+        "pafs off channel-pair alignment": (_off_by(pafs), peaks, mask),
+    }
+    for name, (p, g, m) in views.items():
+        assert not (g.is_contiguous() and m.is_contiguous() and g.data_ptr() % 8 == 0
+                    and p.data_ptr() % (2 * p.element_size()) == 0), name
+        before = PAF_LINE_SCORES.launches
+        got = score_paf_lines_dense(p, g, m, edges, **kw)
+        torch.cuda.synchronize()
+        assert PAF_LINE_SCORES.launches == before + 1, name
+        assert torch.equal(got.nan_to_num(), dense.nan_to_num()), name
+        assert torch.equal(got.isnan(), dense.isnan()), name
+        with pytest.raises(ValueError, match="contiguous|aligned"):
+            paf_line_scores(p, g, m, edges, t, 4, max_len, 1.0)
+
+
+def test_make_multi_confmaps_copies_a_node_slice(cuda):
+    """A node slice ``pts[..., :5, :]`` and a strided grid, with and without
+    leading axes: the maps of the dense copy, held against the plain
+    version; the kernel's wrapper still refuses the slice."""
+    from sleap_nn_tpu_torch.ops.confmaps import make_multi_confmaps
+
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(-4, 140, (2, 3, 4, 8, 2)).astype(np.float32)
+    pts[rng.random((2, 3, 4, 8)) < 0.2] = np.nan
+    pts = torch.from_numpy(pts).to(cuda)
+    xv_all, yv = make_grid_vectors(96, 2 * 136, 2, device=cuda)
+    xv = xv_all[::2]  # a strided grid: 0, 4, 8, ...
+    for lead in (True, False):
+        sl = (pts if lead else pts[0])[..., :5, :]
+        assert not sl.is_contiguous() and not xv.is_contiguous()
+        before = MULTI_CONFMAPS.launches
+        got = make_multi_confmaps(sl, xv, yv, 5.0)
+        torch.cuda.synchronize()
+        assert MULTI_CONFMAPS.launches == before + 1
+        want = _plain_multi_confmaps(sl.reshape(-1, 4, 5, 2).contiguous(), xv.contiguous(), yv,
+                                     5.0)
+        assert got.shape == (*sl.shape[:-3], 48, 68, 5)
+        torch.testing.assert_close(got.reshape(want.shape), want, rtol=0, atol=1e-6)
+        assert want.max().item() > 0.5
+    with pytest.raises(ValueError, match="contiguous"):
+        multi_confmaps(pts[0][..., :5, :], xv.contiguous(), yv, 5.0)

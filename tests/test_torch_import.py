@@ -41,7 +41,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.config.training_job_config",
             "sleap_nn_tpu_torch.data.augmentation",
             "sleap_nn_tpu_torch.data.pipeline",
+            "sleap_nn_tpu_torch.data.instance_cropping",
             "sleap_nn_tpu_torch.ops.confmaps",
+            "sleap_nn_tpu_torch.ops.edge_maps",
             "sleap_nn_tpu_torch.training.model_trainer",
             "sleap_nn_tpu_torch.train"} <= set(mods)
     code = (

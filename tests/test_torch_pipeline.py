@@ -61,8 +61,21 @@ def make_labels(io, n_frames=12, hw=(64, 64), n_nodes=3, max_inst=3, seed=0,
     return io.Labels(lfs)
 
 
-def cfg_dict(augment=False, anchor=None, batch=4, **trainer):
-    """A centroid training config as a plain dict (both packages' schema)."""
+def head_configs(model_type="centroid", anchor=None):
+    """The head config of one model type (confmaps sigma 2.5 at stride 2;
+    PAFs sigma 5 at stride 4), as a plain dict."""
+    cm = {"sigma": 2.5, "output_stride": 2}
+    return {
+        "single_instance": {"confmaps": cm},
+        "centroid": {"confmaps": {"anchor_part": anchor, **cm}},
+        "centered_instance": {"confmaps": {"anchor_part": anchor, **cm}},
+        "bottomup": {"confmaps": cm, "pafs": {"sigma": 5.0, "output_stride": 4}},
+    }[model_type]
+
+
+def cfg_dict(augment=False, anchor=None, batch=4, model_type="centroid", **trainer):
+    """A training config as a plain dict (both packages' schema); a centroid
+    model unless ``model_type`` names another."""
     d = {
         "data_config": {
             "validation_fraction": 0.25,
@@ -72,8 +85,7 @@ def cfg_dict(augment=False, anchor=None, batch=4, **trainer):
         "model_config": {
             "backbone_config": {"unet": {"filters": 8, "filters_rate": 1.5, "max_stride": 8,
                                          "output_stride": 2}},
-            "head_configs": {"centroid": {"confmaps": {"anchor_part": anchor, "sigma": 2.5,
-                                                       "output_stride": 2}}},
+            "head_configs": {model_type: head_configs(model_type, anchor)},
         },
         "trainer_config": {
             "max_epochs": 2, "train_steps_per_epoch": 2, "save_ckpt": False, "seed": 7,
@@ -202,7 +214,8 @@ def test_make_render_fn_sizematch_and_scale():
 
 def test_other_model_types_raise():
     _, _, _, pctx, _, _ = _datasets()
-    with pytest.raises(NotImplementedError):
-        ppipe.make_render_fn(dataclasses.replace(pctx, model_type="bottomup"), train=True)
-    with pytest.raises(NotImplementedError):
-        ppipe.make_dataset("centered_instance", [], pctx)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ppipe.make_render_fn(dataclasses.replace(pctx, model_type="multi_class_bottomup"),
+                             train=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ppipe.make_dataset("centered_instance_segmentation", [], pctx)

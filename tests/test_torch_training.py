@@ -150,24 +150,36 @@ def test_other_losses_match():
 @pytest.mark.parametrize("ohkm", [None, {"online_mining": True, "hard_to_easy_ratio": 1.5,
                                           "min_hard_keypoints": 1, "max_hard_keypoints": None,
                                           "loss_scale": 5.0}])
-@pytest.mark.parametrize("head", ["centroid", "multi"])
+@pytest.mark.parametrize("head", ["centroid", "multi", "single", "bottomup"])
 def test_compute_loss_and_diagnostics_match(head, ohkm):
     c = 1 if head == "centroid" else 3
     gt, pr = _maps((3, 8, 8, c), 4)
+    names = ("a", "b", "c")
     if head == "centroid":
-        jh, ph = jheads.CentroidConfmapsHead(output_stride=2), pheads.CentroidConfmapsHead(
-            output_stride=2)
+        jh, ph = [jheads.CentroidConfmapsHead(output_stride=2)], [pheads.CentroidConfmapsHead(
+            output_stride=2)]
+    elif head == "single":
+        jh = [jheads.SingleInstanceConfmapsHead(part_names=names, loss_weight=2.0)]
+        ph = [pheads.SingleInstanceConfmapsHead(part_names=names, loss_weight=2.0)]
     else:
-        names = ("a", "b", "c")
-        jh = jheads.MultiInstanceConfmapsHead(part_names=names, loss_weight=0.5)
-        ph = pheads.MultiInstanceConfmapsHead(part_names=names, loss_weight=0.5)
+        jh = [jheads.MultiInstanceConfmapsHead(part_names=names, loss_weight=0.5)]
+        ph = [pheads.MultiInstanceConfmapsHead(part_names=names, loss_weight=0.5)]
+    preds, targets = {jh[0].name: pr}, {"confmaps": gt}
+    if head == "bottomup":  # confmaps and PAFs, each at its own weight
+        edges = (("a", "b"), ("b", "c"))
+        jh.append(jheads.PartAffinityFieldsHead(edges=edges, loss_weight=3.0))
+        ph.append(pheads.PartAffinityFieldsHead(edges=edges, loss_weight=3.0))
+        gt_p, pr_p = _maps((3, 4, 4, 4), 5)
+        preds[jh[1].name], targets["pafs"] = pr_p * 2 - 1, gt_p * 2 - 1
     mask = np.asarray([True, False, True])
-    want, wparts = jl.compute_loss({jh.name: jnp.asarray(pr)}, {"confmaps": jnp.asarray(gt)},
-                                   [jh], jnp.asarray(mask), ohkm)
-    got, gparts = pl.compute_loss({ph.name: _t(pr)}, {"confmaps": _t(gt)}, [ph], _t(mask), ohkm)
+    want, wparts = jl.compute_loss({k: jnp.asarray(v) for k, v in preds.items()},
+                                   {k: jnp.asarray(v) for k, v in targets.items()},
+                                   jh, jnp.asarray(mask), ohkm)
+    got, gparts = pl.compute_loss({k: _t(v) for k, v in preds.items()},
+                                  {k: _t(v) for k, v in targets.items()}, ph, _t(mask), ohkm)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
-    assert set(gparts) == set(wparts) == {jh.name, "confmap_loss_fg", "confmap_loss_bg",
-                                          "confmap_fg_frac"}
+    assert set(gparts) == set(wparts) == {h.name for h in jh} | {
+        "confmap_loss_fg", "confmap_loss_bg", "confmap_fg_frac"}
     for k in wparts:
         np.testing.assert_allclose(gparts[k].item(), float(wparts[k]), rtol=1e-5, err_msg=k)
 
@@ -386,7 +398,7 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"model_config": {"head_configs": {"centroid": None, "bottomup": {}}}},
+    {"model_config": {"head_configs": {"centroid": None, "multi_class_bottomup": {}}}},
     {"trainer_config": {"resume_ckpt_path": "x.ckpt"}},
     {"trainer_config": {"use_wandb": True}},
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
