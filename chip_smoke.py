@@ -77,6 +77,28 @@ Phases, each of which raises on failure (exit code != 0):
     same labels, one sample per instance. No kernel may launch.
 12. Training on the card against the CPU, as phase 8, for a narrow model
     of each of the single-instance, centered-instance and bottom-up types.
+13. Predict from model directories: phases 7, 10 and 11 train into dirs
+    under one temporary directory (each must hold ``initial_config.yaml``,
+    ``training_config.yaml``, ``best.ckpt`` and ``training_log.csv``).
+    ``run.predict`` (``load_model`` -> ``Predictor.from_model_paths`` ->
+    ``Labels``) runs the top-down pair (dirs of phases 7 + 11) and the
+    bottom-up model (phase 10, grouping on the fetch thread) over in-memory
+    ``Labels`` of the same 20 frames, bf16, batch 8, no output file. The
+    loaded weights must equal ``best.ckpt`` bit for bit; launch counters
+    must read 18 + 1 (top-down) and 9 + 1 + 1 (bottom-up) per batch; the
+    ``Labels`` must hold exactly the instances of the raw outputs of
+    ``run.predict(make_labels=False)``, on every frame. The 10-step models'
+    maps sit near 0, so the peak threshold is -1e9 (every local maximum is
+    a peak). Prints frames/s, a 3-batch smoke figure.
+14. Model dirs on the card against the CPU: a narrow (filters 8, 128x128)
+    top-down pair and bottom-up model trained 3 steps on the CPU into dirs
+    (their weights then conditioned as in the CPU tests of the model dirs
+    and saved by the trainer), predicted through ``run.predict`` on the
+    card and on the CPU in f32: counts, validity and NaN placement exact,
+    keypoints to 1e-4 px, peak values to 1e-5.
+
+The card machine has no h5py, so the script writes no ``.slp`` file (the
+CPU tests hold ``.slp`` files to the JAX package's).
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -100,6 +122,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1266,13 +1289,15 @@ def train_stage_times(trainer, batch):
     return times
 
 
-def run_training_end_to_end(kernels, model_type="centroid", crop_size=None):
-    """Phases 7, 10 and 11: ``ModelTrainer.train`` of a medium_rf model of
-    ``model_type`` on the synthetic labels. Kernel 4 renders the centroid
-    and bottom-up confmaps, once per train step, val batch and setup probe;
-    the centered-instance model launches no kernel."""
-    import tempfile
+MODEL_DIR_FILES = {"initial_config.yaml", "training_config.yaml", "best.ckpt", "training_log.csv"}
 
+
+def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None):
+    """Phases 7, 10 and 11: ``ModelTrainer.train`` of a medium_rf model of
+    ``model_type`` on the synthetic labels, into the model dir
+    ``root/<model_type>`` (which phase 13 predicts from). Kernel 4 renders
+    the centroid and bottom-up confmaps, once per train step, val batch and
+    setup probe; the centered-instance model launches no kernel."""
     import torch
 
     from sleap_nn_tpu_torch.models.model import Model
@@ -1281,51 +1306,54 @@ def run_training_end_to_end(kernels, model_type="centroid", crop_size=None):
     labels = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
     train = labels.extract(range(TRAIN_FRAMES))
     val = labels.extract(range(TRAIN_FRAMES, TRAIN_FRAMES + VAL_FRAMES))
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=model_type,
-                              crop_size=crop_size, max_epochs=TRAIN_EPOCHS,
-                              train_steps_per_epoch=TRAIN_STEPS, save_ckpt=True, ckpt_dir=tmp,
-                              run_name=model_type, model_ckpt={"save_last": True})
-        trainer = ModelTrainer.get_model_trainer_from_config(cfg, [train], [val], device=DEVICE)
-        if DEVICE != "cpu":
-            torch.cuda.reset_peak_memory_stats()
-        for k in kernels.values():
-            k.launches = 0
-        trainer.setup()
-        start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-        history = trainer.train()
-        sync()
-        launches = {name: k.launches for name, k in kernels.items()}
-        n_renders = TRAIN_EPOCHS * (TRAIN_STEPS + len(trainer.val_loader)) + 1
-        want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
-                "multi_confmaps": n_renders if model_type in ("centroid", "bottomup") else 0}
-        if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
-            raise AssertionError(f"{model_type} training launch counts {launches}, "
-                                 f"expected {want}")
-        peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
-        losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
-        assert len(history) == TRAIN_EPOCHS and np.isfinite(losses).all(), history
-        moved = {k: (v - start[k]).abs().max().item()
-                 for k, v in trainer.model.state_dict().items()}
-        assert all(d > 0 for d in moved.values()), moved
-        # best.ckpt loads strictly; last.ckpt gives the trainer's outputs exactly.
-        ckpts = {}
-        for name in ("best.ckpt", "last.ckpt"):
-            fresh = Model.from_config("unet", cfg.model_config.backbone_config.unet,
-                                      getattr(cfg.model_config.head_configs, model_type),
-                                      model_type)
-            fresh.load_state_dict(ModelTrainer.load_checkpoint_params(
-                trainer.ckpt_dir / name), strict=True)
-            ckpts[name] = fresh.to(DEVICE).eval()
-        vbatch = next(iter(trainer.val_loader))
-        trainer.model.eval()
-        with torch.no_grad():
-            x = trainer.render(vbatch, train=False)["image"]
-            ours, theirs = trainer.model(x), ckpts["last.ckpt"](x)
-        if not all(torch.equal(ours[k], theirs[k]) for k in ours):
-            raise AssertionError(f"{model_type}: last.ckpt does not reproduce the trainer's outputs")
-        best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
-        assert best["best_val_loss"] == min(h["val/loss"] for h in history), best["best_val_loss"]
+    cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=model_type,
+                          crop_size=crop_size, max_epochs=TRAIN_EPOCHS,
+                          train_steps_per_epoch=TRAIN_STEPS, save_ckpt=True,
+                          ckpt_dir=str(root), run_name=model_type,
+                          model_ckpt={"save_last": True})
+    trainer = ModelTrainer.get_model_trainer_from_config(cfg, [train], [val], device=DEVICE)
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    trainer.setup()
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    history = trainer.train()
+    sync()
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_renders = TRAIN_EPOCHS * (TRAIN_STEPS + len(trainer.val_loader)) + 1
+    want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
+            "multi_confmaps": n_renders if model_type in ("centroid", "bottomup") else 0}
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"{model_type} training launch counts {launches}, "
+                             f"expected {want}")
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
+    losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
+    assert len(history) == TRAIN_EPOCHS and np.isfinite(losses).all(), history
+    moved = {k: (v - start[k]).abs().max().item()
+             for k, v in trainer.model.state_dict().items()}
+    assert all(d > 0 for d in moved.values()), moved
+    # best.ckpt loads strictly; last.ckpt gives the trainer's outputs exactly.
+    ckpts = {}
+    for name in ("best.ckpt", "last.ckpt"):
+        fresh = Model.from_config("unet", cfg.model_config.backbone_config.unet,
+                                  getattr(cfg.model_config.head_configs, model_type),
+                                  model_type)
+        fresh.load_state_dict(ModelTrainer.load_checkpoint_params(
+            trainer.ckpt_dir / name), strict=True)
+        ckpts[name] = fresh.to(DEVICE).eval()
+    vbatch = next(iter(trainer.val_loader))
+    trainer.model.eval()
+    with torch.no_grad():
+        x = trainer.render(vbatch, train=False)["image"]
+        ours, theirs = trainer.model(x), ckpts["last.ckpt"](x)
+    if not all(torch.equal(ours[k], theirs[k]) for k in ours):
+        raise AssertionError(f"{model_type}: last.ckpt does not reproduce the trainer's outputs")
+    best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
+    assert best["best_val_loss"] == min(h["val/loss"] for h in history), best["best_val_loss"]
+    files = {p.name for p in trainer.ckpt_dir.iterdir()}
+    if not MODEL_DIR_FILES <= files:
+        raise AssertionError(f"{model_type}: the model dir holds {sorted(files)}")
 
     batch = next(iter(trainer.train_loader))
     stages = train_stage_times(trainer, batch)
@@ -1350,7 +1378,8 @@ def run_training_end_to_end(kernels, model_type="centroid", crop_size=None):
         "fixed_batch_loss_first_last": [fixed[0], fixed[-1]],
         "params": sum(v.numel() for v in start.values()), "input_shape": trainer._input_shape,
         "train_samples": len(trainer.train_ds), "val_batches": len(trainer.val_loader),
-        "peak_mem_gib": peak_mem_gib,
+        "peak_mem_gib": peak_mem_gib, "model_dir": str(trainer.ckpt_dir),
+        "model_dir_files": sorted(files),
     }
     log(("train_end_to_end " if model_type == "centroid" else f"train_{model_type}_end_to_end ")
         + json.dumps(stats))
@@ -1498,6 +1527,238 @@ def run_single_instance_end_to_end(layer, kernels):
                  stage_ms=single_instance_stage_times(layer, frames[:BATCH]))
     log("single_instance_end_to_end " + json.dumps(stats))
     return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 13: predict from the model directories of phases 7, 10 and 11
+# --------------------------------------------------------------------------
+
+# The phase-13 models trained 10 steps from Xavier init: their maps sit near
+# 0, so every local maximum counts as a peak (and, bottom-up, every scored
+# line may link two peaks) for every frame to yield instances. Each
+# bottom-up confmap channel keeps an offset of its own, so the top 200
+# local maxima of a frame can all fall in channels that no edge joins:
+# the bottom-up run keeps 2000, of which each node's best 20 are grouped.
+DIR_PEAK_THRESHOLD, DIR_MIN_LINE, DIR_MAX_PEAKS = -1e9, -1e9, 2000
+
+
+def frame_labels(frames):
+    """In-memory ``Labels`` of empty frames over ``frames``: what
+    ``run.predict`` predicts on."""
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
+
+    video = ArrayVideo(frames)
+    return Labels([LabeledFrame(video, i) for i in range(len(frames))], videos=[video])
+
+
+def labels_hold_outputs(labels, results, model_type):
+    """The ``Labels`` of a run hold exactly the instances of the raw batch
+    outputs (the non-NaN, valid ones), frame by frame; returns their count."""
+    want = {}
+    for out in results:
+        for i in np.flatnonzero(out["valid"]):
+            if model_type == "topdown":
+                keep = out["instance_valid"][i]
+                pts, vals = out["pred_keypoints"][i][keep], out["pred_peak_values"][i][keep]
+            else:
+                pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
+            found = ~np.isnan(pts).all(axis=(1, 2))
+            if found.any():
+                want[int(out["frame_inds"][i])] = (pts[found], vals[found])
+    got = {lf.frame_idx: lf for lf in labels.labeled_frames}
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for idx, (pts, vals) in want.items():
+        insts = got[idx].instances
+        assert np.array_equal(np.stack([x.points for x in insts]), pts.astype(np.float64),
+                              equal_nan=True), idx
+        assert np.array_equal(np.stack([x.point_scores for x in insts]),
+                              np.nan_to_num(vals.astype(np.float64))), idx
+    return sum(len(lf) for lf in labels.labeled_frames)
+
+
+def run_model_dir_predict(kernels, dirs, model_type):
+    """Phase 13: ``run.predict`` over in-memory Labels of the smoke frames
+    from trained model dirs (bf16, batch 8, no output file)."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.loaders import load_model
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    for d in dirs:  # the loader's weights are the checkpoint's, bit for bit
+        loaded = load_model(d).model.state_dict()
+        best = ModelTrainer.load_checkpoint_params(d / "best.ckpt")
+        assert set(loaded) == set(best)
+        if not all(torch.equal(loaded[k], best[k]) for k in best):
+            raise AssertionError(f"{d}: loaded weights differ from best.ckpt")
+    frames = smoke_frames()
+    kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, peak_threshold=DIR_PEAK_THRESHOLD,
+              max_instances=MAX_INST, output_path=None)
+    if model_type == "bottomup":
+        kw.update(min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS, paf_workers=0)
+    predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
+    sync()
+    for k in kernels.values():
+        k.launches = 0
+    labels = predict(frame_labels(frames), dirs, **kw)
+    sync()
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_batches = -(-N_FRAMES // BATCH)
+    per_batch = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1)}[model_type]
+    want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                    (n * n_batches for n in per_batch)), multi_confmaps=0)
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"{model_type} from dirs: launch counts {launches}, "
+                             f"expected {want}")
+    results = predict(frame_labels(frames), dirs, make_labels=False, **kw)
+    n_inst = labels_hold_outputs(labels, results, model_type)
+    per_frame = [len(lf) for lf in labels.labeled_frames]
+    if len(labels.labeled_frames) != N_FRAMES:
+        raise AssertionError(f"{model_type} from dirs: instances on "
+                             f"{len(labels.labeled_frames)} of {N_FRAMES} frames: {per_frame}")
+    stats = dict(labels.provenance["stats"], launches=launches, n_batches=n_batches,
+                 instances=n_inst, instances_per_frame=per_frame,
+                 peak_threshold=DIR_PEAK_THRESHOLD,
+                 model_dirs=[str(d) for d in dirs])
+    log(f"model_dir_{model_type}_predict " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 14: narrow model dirs trained on the CPU, predicted on the card and the CPU
+# --------------------------------------------------------------------------
+
+
+def blob_labels(n, img, n_nodes, max_inst, seed):
+    """Black uint8 frames with bright Gaussian blobs, and labels of 1..max_inst
+    instances of ``n_nodes`` nodes around them."""
+    from sleap_nn_tpu_torch.io.model import Instance, LabeledFrame, Labels, Skeleton
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:img, :img]
+    frames = np.zeros((n, img, img, 1), np.float32)
+    centers = [rng.uniform(0.2 * img, 0.8 * img, (int(rng.integers(1, max_inst + 1)), 2))
+               for _ in range(n)]
+    for f, xy in enumerate(centers):
+        for cx, cy in xy:
+            frames[f, ..., 0] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 4.0 ** 2))
+    video = ArrayVideo((np.clip(frames, 0, 1) * 255).astype(np.uint8))
+    skel = Skeleton([f"n{i}" for i in range(n_nodes)], edges=bottomup_edges(n_nodes))
+    return Labels([LabeledFrame(video, f, [Instance(c + rng.normal(0, 4, (n_nodes, 2)), skel)
+                                           for c in xy]) for f, xy in enumerate(centers)])
+
+
+def condition_weights(model, frames):
+    """Zero every bias and move each confmap head channel onto [0, 1] over
+    the frames, as the CPU tests of the model dirs condition a bottom-up or
+    orbax-loaded head. Away from the blobs every feature is then exactly 0
+    on either device, so no float-noise tie between the card and the CPU
+    decides a peak, and integral refinement divides by a patch mass well
+    away from 0 (a map that swings negative can sum to nearly 0 over a
+    patch, and the refined point then moves by hundreds of pixels on
+    float noise)."""
+    import torch
+
+    heads = {"CentroidConfmapsHead", "CenteredInstanceConfmapsHead", "MultiInstanceConfmapsHead"}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+        model.eval()
+        out = model(torch.from_numpy(frames / np.float32(255.0)))
+        for layer in model.head_layers:
+            for head, conv in ((h, m[0]) for h, m in layer.items() if h in heads):
+                maps = out[head].numpy()
+                top, bottom = maps.max(axis=(0, 1, 2)), maps.min(axis=(0, 1, 2))
+                conv.weight.div_(torch.from_numpy(top - bottom)[:, None, None, None])
+                conv.bias.copy_(torch.from_numpy(-bottom / (top - bottom)))
+
+
+def check_model_dirs_against_cpu(root):
+    """Phase 14: narrow (filters 8, 128x128) top-down and bottom-up models
+    trained 3 steps on the CPU into dirs (weights then conditioned and saved
+    by the trainer), predicted through ``run.predict`` on the card and on the
+    CPU in f32. Counts, validity and NaN placement exact; each frame's
+    instances, in canonical order, with keypoints to 1e-4 px and peak
+    values and instance scores to 1e-5. Top-down keeps every centroid above
+    0.5 (``max_instances`` 64, above any frame's count), so no near-tie at
+    the cut decides which instances a frame holds."""
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    labels = blob_labels(10, 128, 5, 3, seed=14)
+    frames = labels.video.frames
+    dirs = {}
+    for model_type in ("centroid", "centered_instance", "bottomup"):
+        cfg = training_config(8, 16, 128, 4, augment=False, model_type=model_type,
+                              crop_size=64 if model_type == "centered_instance" else None,
+                              max_epochs=1, train_steps_per_epoch=3, save_ckpt=True,
+                              ckpt_dir=str(root / "narrow"), run_name=model_type)
+        trainer = ModelTrainer.get_model_trainer_from_config(
+            cfg, [labels.extract(range(8))], [labels.extract(range(8, 10))], device="cpu")
+        trainer.train()
+        condition_weights(trainer.model, frames)
+        trainer.save_checkpoint("best.ckpt")
+        dirs[model_type] = trainer.ckpt_dir
+    report = {}
+    for name, paths, kw in (
+            ("topdown", [dirs["centroid"], dirs["centered_instance"]],
+             {"max_instances": 64, "peak_threshold": 0.5}),
+            ("bottomup", [dirs["bottomup"]], {"min_line_scores": -0.5})):
+        runs = [predict(frame_labels(frames), paths, batch_size=4, make_labels=False,
+                        device=device, **kw) for device in (DEVICE, "cpu")]
+        report[name] = compare_outputs(*runs)
+        report[name]["most_in_a_frame"] = max(
+            len(frame_instances(out, i)[0]) for out in runs[1] for i in np.flatnonzero(out["valid"]))
+        if report[name]["instances"] < len(frames) or report[name]["most_in_a_frame"] >= 64:
+            raise AssertionError(f"phase 14 {name}: too few instances {report[name]}")
+    log("model_dirs_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+def frame_instances(out, i):
+    """Row ``i`` of a batch output as per-instance arrays, in a canonical
+    order (by keypoint position): near-equal peak values may rank two
+    instances either way on two devices."""
+    if "instance_valid" in out:  # top-down
+        keep = out["instance_valid"][i]
+        arrays = [out[k][i][keep] for k in ("pred_keypoints", "pred_peak_values",
+                                            "pred_centroids", "centroid_vals")]
+    else:
+        arrays = [np.asarray(out[k][i]) for k in ("pred_keypoints", "pred_peak_values",
+                                                   "pred_instance_scores")]
+    key = [tuple(np.round(np.nan_to_num(kp, nan=-1.0), 2).ravel()) for kp in arrays[0]]
+    order = sorted(range(len(key)), key=key.__getitem__)
+    return [a[order] for a in arrays]
+
+
+def compare_outputs(got, want):
+    """Batch outputs of the card (``got``) against the CPU's: keys, frame
+    indices, validity, instance counts and NaN placement exact; each frame's
+    instances, in canonical order, with keypoints and centroids to 1e-4 and
+    values to 1e-5. Returns the largest differences and the instance
+    count."""
+    assert len(got) == len(want)
+    err = {"keypoints_max_abs_err": 0.0, "values_max_abs_err": 0.0, "instances": 0}
+    for g_out, w_out in zip(got, want):
+        assert set(g_out) == set(w_out), (sorted(g_out), sorted(w_out))
+        for key in ("frame_inds", "video_inds", "valid"):
+            assert np.array_equal(g_out[key], w_out[key]), key
+        for i in np.flatnonzero(w_out["valid"]):
+            g_arrays, w_arrays = frame_instances(g_out, i), frame_instances(w_out, i)
+            err["instances"] += len(w_arrays[0])
+            for j, (g, w) in enumerate(zip(g_arrays, w_arrays)):
+                assert g.shape == w.shape, (int(i), j, g.shape, w.shape)
+                assert np.array_equal(np.isnan(g), np.isnan(w)), (int(i), j)
+                which = "keypoints" if j in (0, 2) and g.ndim >= 2 else "values"
+                diff = float(np.nanmax(np.abs(g - w), initial=0.0))
+                err[f"{which}_max_abs_err"] = max(err[f"{which}_max_abs_err"], diff)
+    if err["keypoints_max_abs_err"] > 1e-4 or err["values_max_abs_err"] > 1e-5:
+        raise AssertionError(f"card vs CPU from model dirs: {err}")
+    return err
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs):
@@ -1675,8 +1936,10 @@ def main() -> int:
     check_against_cpu()
     check_bottomup_against_cpu()
 
-    # 7. Centroid training end to end.
-    tr = run_training_end_to_end(_build.KERNELS)
+    # 7. Centroid training end to end, into a model dir that phase 13 loads.
+    runs_dir = tempfile.TemporaryDirectory()
+    root = Path(runs_dir.name)
+    tr = run_training_end_to_end(_build.KERNELS, root)
 
     # 8. Training on the card against the CPU.
     check_training_against_cpu()
@@ -1687,21 +1950,31 @@ def main() -> int:
     si = run_single_instance_end_to_end(si_layer, _build.KERNELS)
 
     # 10. Bottom-up training end to end (kernel 4 at 15 nodes).
-    tr_bu = run_training_end_to_end(_build.KERNELS, "bottomup")
+    tr_bu = run_training_end_to_end(_build.KERNELS, root, "bottomup")
 
     # 11. Centered-instance training end to end.
-    tr_ci = run_training_end_to_end(_build.KERNELS, "centered_instance", crop_size=CROP)
+    tr_ci = run_training_end_to_end(_build.KERNELS, root, "centered_instance", crop_size=CROP)
 
     # 12. Training of the other model types on the card against the CPU.
     for model_type in ("single_instance", "centered_instance", "bottomup"):
         check_training_against_cpu(model_type)
+
+    # 13. run.predict from the model dirs of phases 7 + 11 and of phase 10.
+    dir_td = run_model_dir_predict(_build.KERNELS, [root / "centroid", root / "centered_instance"],
+                                   "topdown")
+    dir_bu = run_model_dir_predict(_build.KERNELS, [root / "bottomup"], "bottomup")
+
+    # 14. Narrow model dirs trained on the CPU, predicted on the card and the CPU.
+    check_model_dirs_against_cpu(root)
+    runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
 
     runs = {"topdown": e2e, "bottomup": bu, "single_instance": si, "train": tr,
-            "train_bottomup": tr_bu, "train_centered_instance": tr_ci}
+            "train_bottomup": tr_bu, "train_centered_instance": tr_ci,
+            "model_dir_topdown": dir_td, "model_dir_bottomup": dir_bu}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs)
     summary["kernels"][0]["sass_tensor_ops"] = sass
@@ -1713,7 +1986,10 @@ def main() -> int:
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
-        f"grouping workers); single-instance {si['fps']:.2f} frames/s; training: {training}; "
+        f"grouping workers); single-instance {si['fps']:.2f} frames/s; from model dirs "
+        f"(run.predict, bf16, peak_threshold {DIR_PEAK_THRESHOLD:g}, a 3-batch smoke figure): "
+        f"top-down {dir_td['fps']:.2f} frames/s ({dir_td['instances']} instances), bottom-up "
+        f"{dir_bu['fps']:.2f} frames/s ({dir_bu['instances']} instances); training: {training}; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -5,16 +5,18 @@ and public names (``sleap_nn_tpu/x/y.py`` -> ``sleap_nn_tpu_torch/x/y.py``)
 and keeps its layouts at public functions (NHWC maps, ``(x, y)`` points,
 the same output dict keys and NaN / -1 / 0 padding of invalid slots).
 
-It imports torch, numpy, scipy and the standard library (PyYAML only
-inside the functions that read or write YAML). Each Pallas kernel of the
-JAX package has a hand-written CUDA C++ counterpart in ``csrc/``, built
-with nvcc at first use (``ops/_build.py``) and launched for CUDA tensors;
-CPU tensors take the kernel's plain PyTorch version.
+Each Pallas kernel of the JAX package has a hand-written CUDA C++
+counterpart in ``csrc/``, built with nvcc at first use (``ops/_build.py``)
+and launched for CUDA tensors; CPU tensors take the kernel's plain
+PyTorch version.
 
-Ported so far: top-down and bottom-up inference
-(``inference.predictor.Predictor.predict`` with ``make_labels=False``)
-and centroid-model training (``training.ModelTrainer``,
-``train.run_training``) on in-memory labels.
+It imports torch, numpy, scipy and the standard library (PyYAML, h5py
+and orbax only inside the functions that read or write YAML, ``.slp``
+files or a JAX trainer's checkpoint). Ported so far: training of the
+single-instance, centroid, centered-instance and bottom-up models on
+in-memory labels into a model directory (``train.run_training``), and
+inference from model directories (``inference.run.predict``,
+``Predictor.from_model_paths``) to ``Labels`` and ``.slp`` files.
 """
 
 __version__ = "0.1.0"

@@ -11,10 +11,11 @@ from sleap_nn_tpu_torch.config.utils import (
     get_backbone_type_from_cfg,
     get_head_config,
     get_model_type_from_cfg,
+    resolve_model_dir,
 )
 
 __all__ = [
     "TrainingJobConfig", "apply_overrides", "check_output_strides", "from_dict",
     "get_backbone_config", "get_backbone_type_from_cfg", "get_head_config",
-    "get_model_type_from_cfg", "to_dict", "verify_training_cfg",
+    "get_model_type_from_cfg", "resolve_model_dir", "to_dict", "verify_training_cfg",
 ]

@@ -1,7 +1,8 @@
-"""Config utilities (port of ``sleap_nn_tpu/config/utils.py``; resolving a
-model directory waits for the model-loading slice)."""
+"""Config utilities (port of ``sleap_nn_tpu/config/utils.py``)."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 from sleap_nn_tpu_torch.config.training_job_config import TrainingJobConfig
 
@@ -44,3 +45,19 @@ def check_output_strides(cfg: TrainingJobConfig) -> TrainingJobConfig:
             if s % backbone_cfg.output_stride != 0 or (s & (s - 1)) != 0:
                 raise ValueError(f"Head output strides must be powers of two; got {s}.")
     return cfg
+
+
+def resolve_model_dir(path) -> Path:
+    """The model directory of ``path``: the directory itself, or the one
+    holding a file of it (a ``*.ckpt`` file or orbax directory, a
+    ``training_config.yaml``, ...). A SLEAP v1 directory
+    (``training_config.json`` + ``best_model.h5``) resolves too, so that
+    its loader can refuse it by name."""
+    p = Path(path)
+    if p.is_file() or (p.is_dir() and p.suffix.lower() == ".ckpt"):
+        p = p.parent
+    if (p / "training_config.yaml").exists():
+        return p
+    if (p / "training_config.json").exists() and (p / "best_model.h5").exists():
+        return p
+    raise FileNotFoundError(f"No training_config.yaml under {path}")

@@ -1,10 +1,13 @@
-"""Predictor: providers -> layer -> per-batch numpy outputs.
+"""Predictor: providers -> layer -> per-batch numpy outputs -> Labels.
 
-Port of ``Predictor.predict`` of ``sleap_nn_tpu/inference/predictor.py``
-for a layer built by the caller (the top-down or bottom-up layer of this
-package), with ``make_labels=False``. Building from model directories
-(``from_model_paths``) and ``.slp`` output (``to_labels``) are not ported
-yet.
+Port of ``sleap_nn_tpu/inference/predictor.py`` for the single-instance,
+top-down (centroid + centered-instance) and bottom-up models:
+``from_model_paths`` builds the layer from trained model directories,
+``predict`` runs it over a frame source and, with ``make_labels=True``,
+``to_labels`` turns the per-batch outputs into ``Labels`` of
+``PredictedInstance``s (through the instance filters). The other model
+types and the knobs of features the port lacks raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Pipeline on a CUDA device: the main thread decodes (through the
 provider's prefetch thread), copies each batch from pinned host memory on
@@ -23,26 +26,98 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from sleap_nn_tpu_torch.inference.backends import resolve_device
-from sleap_nn_tpu_torch.inference.layers import to_host
-from sleap_nn_tpu_torch.inference.providers import VideoProvider
+from sleap_nn_tpu_torch.config import get_head_config
+from sleap_nn_tpu_torch.inference.backends import TorchBackend, resolve_device
+from sleap_nn_tpu_torch.inference.filters import FilterPipeline
+from sleap_nn_tpu_torch.inference.layers import (
+    BottomUpLayer,
+    CenteredInstanceLayer,
+    CentroidLayer,
+    PostprocessConfig,
+    PreprocessConfig,
+    SingleInstanceLayer,
+    TopDownLayer,
+    to_host,
+)
+from sleap_nn_tpu_torch.inference.loaders import LoadedModel, load_model
+from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
+from sleap_nn_tpu_torch.inference.providers import LabelsProvider, VideoProvider
 from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
+from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, PredictedInstance, Skeleton
+from sleap_nn_tpu_torch.io.video import rgb_to_gray_uint8
+
+# Knobs of the JAX ``from_model_paths`` whose features the port lacks:
+# name -> (the value that asks for nothing, why another value raises).
+_SEGMENTATION = "segmentation is not ported (ROADMAP.md section 1, item 10)"
+UNPORTED_KNOBS = {
+    "host_resize": (False, "host_resize resizes with cv2, which the port does not use "
+                           "(ROADMAP.md section 1, item 3)"),
+    "data_parallel": (False, "data-parallel inference over several cards is not ported "
+                             "(ROADMAP.md section 1, item 13)"),
+    "packed_level0": (None, "packed_level0 selects the JAX package's space-to-depth TPU "
+                            "layout (ops/packed_conv.py), which the port has no copy of"),
+    "centroid_only": (False, "centroid-only inference is not ported (ROADMAP.md section 1, "
+                             "item 2)"),
+    "anchor_part": (None, "ground-truth centroids (a lone centered-instance model) are not "
+                          "ported (ROADMAP.md section 1, item 10)"),
+    "backbone_ckpt_path": (None, "swapping backbone or head weights is not ported "
+                                 "(ROADMAP.md section 1, item 2)"),
+    "head_ckpt_path": (None, "swapping backbone or head weights is not ported "
+                             "(ROADMAP.md section 1, item 2)"),
+    **{name: (default, _SEGMENTATION) for name, default in (
+        ("merge_fragments", False), ("merge_method", "greedy"), ("min_mask_area", 0),
+        ("fg_threshold", 0.5), ("center_nms_kernel", 3), ("distance_gate_alpha", None),
+        ("mask_cleanup", True), ("mask_cleanup_radius", 0), ("merge_dilate", 1),
+        ("merge_w_valley", 1.0), ("merge_w_offset", 0.25),
+        ("merge_thresholds", (0.85, 0.6, 0.4)), ("full_res_masks", False),
+        ("mask_output", "mask"), ("polygon_epsilon", 0.01))},
+}
 
 
-def rgb_to_gray_uint8(frames: np.ndarray) -> np.ndarray:
-    """ITU-601 luma on a uint8 batch, (B, H, W, 3) -> (B, H, W, 1).
+def refuse_unported(knobs: Dict[str, Any], table: Dict[str, tuple], where: str) -> None:
+    """Raise for a knob of ``table`` set to anything but its no-op value, and
+    for a name that is not a knob at all."""
+    for name, value in knobs.items():
+        if name not in table:
+            raise TypeError(f"{where}() got an unexpected keyword argument {name!r}")
+        default, why = table[name]
+        same = value == default
+        if not (same if isinstance(same, bool) else bool(np.all(same))):
+            raise NotImplementedError(f"{where}({name}={value!r}): {why}")
 
-    Bit-identical to ``cv2.cvtColor(..., COLOR_RGB2GRAY)``, which the JAX
-    package calls: 15-bit fixed-point weights, rounded half up.
-    """
-    f = frames.astype(np.uint32)
-    luma = (f[..., 0] * 9798 + f[..., 1] * 19235 + f[..., 2] * 3735 + (1 << 14)) >> 15
-    return luma.astype(np.uint8)[..., None]
+
+def _pre_config(loaded: LoadedModel) -> PreprocessConfig:
+    """The layer's preprocessing from a model's training config. A
+    one-channel model converts RGB to gray on the host unless it asked for
+    RGB."""
+    pre = loaded.config.data_config.preprocessing
+    backbone = loaded.backbone_config
+    ensure_grayscale = pre.ensure_grayscale
+    if getattr(backbone, "in_channels", None) == 1 and not pre.ensure_rgb:
+        ensure_grayscale = True
+    return PreprocessConfig(
+        ensure_rgb=pre.ensure_rgb,
+        ensure_grayscale=ensure_grayscale,
+        max_height=pre.max_height,
+        max_width=pre.max_width,
+        scale=pre.scale,
+        max_stride=backbone.max_stride,
+    )
+
+
+def _crop_size(m: LoadedModel, crop_size: Optional[int], pre: PreprocessConfig) -> int:
+    """The stage-2 crop: the override or the config's, scaled, rounded up
+    to the max stride."""
+    cs = crop_size or m.config.data_config.preprocessing.crop_size
+    if cs is None:
+        raise ValueError("crop_size not set in centered-instance config.")
+    cs = int(round(cs * pre.scale))
+    return cs + (-cs) % pre.max_stride
 
 
 class Predictor:
@@ -50,10 +125,12 @@ class Predictor:
 
     ``paf_workers``: for a bottom-up layer, the number of worker processes
     that group PAF scores into instances (0 groups on the fetch thread).
+    ``filters``: an optional ``FilterConfig`` applied to each frame's
+    instances by ``to_labels``.
     """
 
     def __init__(self, layer, model_type: str, skeleton=None, models: Sequence = (),
-                 batch_size: int = 4, device="cuda", paf_workers: int = 0):
+                 batch_size: int = 4, device="cuda", paf_workers: int = 0, filters=None):
         self.device = resolve_device(device)
         if layer.device != self.device:
             raise ValueError(f"layer runs on {layer.device}, predictor on {self.device}")
@@ -63,19 +140,179 @@ class Predictor:
         self.models = list(models)
         self.batch_size = batch_size
         self.paf_workers = paf_workers
+        self.filters = filters
+        # Set by run.predict: frames are written as each batch completes.
+        self.stream_writer = None
+        self.progress_callback = None
+        self.prefetch_batches: Optional[int] = None
         # A grayscale model gets its frames converted on the host, before
         # the copy to the device (3x fewer bytes).
         pre = getattr(getattr(layer, "centroid_layer", layer), "pre", None)
         self._host_grayscale = bool(pre and pre.ensure_grayscale)
         self.last_stats: Dict[str, float] = {}
 
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def from_model_paths(cls, model_paths: Sequence[Union[str, Path]], **kwargs) -> "Predictor":
+        """A predictor from 1-2 model dirs; see ``_build_from_model_paths``."""
+        return cls._build_from_model_paths(model_paths, **kwargs)
+
+    @classmethod
+    def _build_from_model_paths(
+        cls,
+        model_paths: Sequence[Union[str, Path]],
+        peak_threshold: float = 0.2,
+        refinement: str = "integral",
+        integral_patch_size: int = 5,
+        max_instances: Optional[int] = None,
+        batch_size: int = 4,
+        use_bf16: bool = False,
+        max_peaks: int = 200,
+        k_per_node: int = 20,
+        min_line_scores: float = 0.25,
+        crop_size: Optional[int] = None,
+        return_confmaps: bool = False,
+        return_paf_graph: bool = False,
+        filters=None,
+        paf_workers: int = 0,
+        centroid_peak_threshold: Optional[float] = None,
+        input_scale: Optional[float] = None,
+        max_height: Optional[int] = None,
+        max_width: Optional[int] = None,
+        ensure_rgb: Optional[bool] = None,
+        ensure_grayscale: Optional[bool] = None,
+        max_edge_length_ratio: float = 0.25,
+        dist_penalty_weight: float = 1.0,
+        n_points: int = 10,
+        min_instance_peaks: float = 0,
+        device="cuda",
+        **unported,
+    ) -> "Predictor":
+        """Load the model dirs and build the layer of their type set:
+        ``{single_instance}``, ``{centroid, centered_instance}`` (top-down)
+        or ``{bottomup}``. The preprocessing overrides trump each model's
+        training config. The layers run on ``device`` (the card unless
+        ``"cpu"``); the fused double-conv kernel runs there on a card."""
+        refuse_unported(unported, UNPORTED_KNOBS, "from_model_paths")
+        device = resolve_device(device)
+        loaded = [load_model(p) for p in model_paths]
+        for m in loaded:
+            p = m.config.data_config.preprocessing
+            if input_scale is not None:
+                p.scale = float(input_scale)
+            if max_height is not None:
+                p.max_height = int(max_height)
+            if max_width is not None:
+                p.max_width = int(max_width)
+            if ensure_rgb is not None:
+                p.ensure_rgb = bool(ensure_rgb)
+            if ensure_grayscale is not None:
+                p.ensure_grayscale = bool(ensure_grayscale)
+        by_type: Dict[str, LoadedModel] = {}
+        for m in loaded:
+            if m.model_type in by_type:
+                raise ValueError(
+                    f"Duplicate model type {m.model_type!r} in model_paths; "
+                    "pass at most one checkpoint per model type."
+                )
+            by_type[m.model_type] = m
+        types = set(by_type)
+
+        def post_for() -> PostprocessConfig:
+            return PostprocessConfig(
+                peak_threshold=peak_threshold,
+                refinement=refinement,
+                integral_patch_size=integral_patch_size,
+                max_instances=max_instances,
+                max_peaks=max_peaks,
+                k_per_node=k_per_node,
+                min_line_scores=min_line_scores,
+                return_confmaps=return_confmaps,
+                return_paf_graph=return_paf_graph,
+            )
+
+        def backend_for(m: LoadedModel) -> TorchBackend:
+            return TorchBackend(m.model, m.params, use_bf16=use_bf16, device=device)
+
+        def skeleton_for(m: LoadedModel) -> Skeleton:
+            return Skeleton(nodes=m.skeleton_nodes, edges=m.skeleton_edges)
+
+        def make(layer, model_type, m):
+            return cls(layer, model_type, skeleton_for(m), loaded, batch_size, device=device,
+                       paf_workers=paf_workers, filters=filters)
+
+        if types == {"single_instance"}:
+            m = by_type["single_instance"]
+            layer = SingleInstanceLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
+            return make(layer, "single_instance", m)
+
+        if types == {"centroid", "centered_instance"}:
+            mc, mi = by_type["centroid"], by_type["centered_instance"]
+            post_c = post_for()
+            post_c.max_instances = max_instances or 20
+            if centroid_peak_threshold is not None:
+                post_c.peak_threshold = centroid_peak_threshold
+            centroid_layer = CentroidLayer(
+                backend_for(mc), _pre_config(mc), post_c,
+                output_stride=get_head_config(mc.config).confmaps.output_stride, device=device)
+            inst_pre = _pre_config(mi)
+            instance_layer = CenteredInstanceLayer(
+                backend_for(mi), inst_pre, post_for(),
+                output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
+            layer = TopDownLayer(centroid_layer, instance_layer,
+                                 max_instances=max_instances or 20,
+                                 crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
+            return make(layer, "topdown", mi)
+
+        if types == {"bottomup"}:
+            m = by_type["bottomup"]
+            head = get_head_config(m.config)
+            scorer = PAFScorer(
+                part_names=head.confmaps.part_names,
+                edges=[tuple(e) for e in head.pafs.edges],
+                pafs_stride=head.pafs.output_stride,
+                max_edge_length_ratio=max_edge_length_ratio,
+                dist_penalty_weight=dist_penalty_weight,
+                n_points=n_points,
+                min_instance_peaks=min_instance_peaks,
+                min_line_scores=min_line_scores,
+                k_per_node=k_per_node,
+            )
+            layer = BottomUpLayer(backend_for(m), _pre_config(m), post_for(), paf_scorer=scorer,
+                                  cm_output_stride=head.confmaps.output_stride, device=device)
+            return make(layer, "bottomup", m)
+
+        if types == {"centroid"}:
+            why = "centroid-only inference is not ported (ROADMAP.md section 1, item 2)"
+        elif types == {"centered_instance"}:
+            why = ("a lone centered-instance model predicts from ground-truth centroids, "
+                   "which are not ported (ROADMAP.md section 1, item 10)")
+        else:
+            raise ValueError(f"Unsupported model type combination: {sorted(types)}")
+        raise NotImplementedError(why)
+
+    # -- prediction -----------------------------------------------------------
     def _make_provider(self, data, frames=None):
+        prefetch = {"prefetch": int(self.prefetch_batches)} if self.prefetch_batches else {}
+        is_slp = isinstance(data, (str, Path)) and str(data).endswith(".slp")
+        if (isinstance(data, Labels) or is_slp) and frames is not None:
+            raise ValueError("frames selects frames of a video; a Labels source predicts its "
+                             "labeled frames (scope it with run.predict's frame options)")
+        if isinstance(data, Labels):
+            return LabelsProvider(data, batch_size=self.batch_size, **prefetch)
         if isinstance(data, (str, Path)):
+            if is_slp:
+                from sleap_nn_tpu_torch.io.slp import load_slp
+
+                return LabelsProvider(load_slp(data), batch_size=self.batch_size, **prefetch)
             raise NotImplementedError(
-                "reading a video or .slp file needs the io slice, not ported yet; "
-                "pass an object with __len__ and get_frame(idx, fmt), or a provider")
+                f"reading the video file {str(data)!r} needs the media video backends, which "
+                "are not ported (ROADMAP.md section 1, item 3); pass a Labels, a .slp path or "
+                "an object with __len__ and get_frame(idx, fmt)")
         return VideoProvider(data, batch_size=self.batch_size, frames=frames,
-                             out_format="gray" if self._host_grayscale else None)
+                             out_format="gray" if self._host_grayscale else None, **prefetch)
 
     def _send(self, frames: np.ndarray, h2d) -> torch.Tensor:
         """Host frames -> device, through pinned memory on the copy stream."""
@@ -114,18 +351,19 @@ class Predictor:
         return done, host
 
     def predict(self, data=None, frames: Optional[Sequence[int]] = None,
-                make_labels: bool = True, provider=None) -> List[Dict[str, Any]]:
-        """Run inference over a frame source; returns the per-batch output dicts.
+                make_labels: bool = True, provider=None):
+        """Run inference over a frame source: a ``Labels``, a ``.slp`` path or
+        a video (an object with ``__len__`` and ``get_frame(idx, fmt)``).
 
-        Each dict holds the layer's outputs as numpy plus ``frame_inds``,
-        ``video_inds`` and ``valid`` (False on the padded rows of a short
-        last batch).
+        With ``make_labels`` returns ``Labels``; else the per-batch output
+        dicts, each holding the layer's outputs as numpy plus
+        ``frame_inds``, ``video_inds`` and ``valid`` (False on the padded
+        rows of a short last batch).
         """
-        if make_labels:
-            raise NotImplementedError(
-                "Labels output (Predictor.to_labels, .slp writing) is not ported yet; "
-                "pass make_labels=False")
         provider = provider or self._make_provider(data, frames)
+        videos = self._provider_videos(provider)
+        writer = self.stream_writer
+        stream_frames: List[LabeledFrame] = []
         cuda = self.device.type == "cuda"
         h2d = torch.cuda.Stream(self.device) if cuda else None
         d2h = torch.cuda.Stream(self.device) if cuda else None
@@ -147,6 +385,12 @@ class Predictor:
             out["valid"] = batch.valid
             n_frames += int(batch.valid.sum())
             results.append(out)
+            if writer is not None:
+                frames_out = self._frames_from_out(out, videos)
+                writer.add_frames(frames_out)
+                stream_frames.extend(frames_out)
+            if self.progress_callback is not None:
+                self.progress_callback(n_frames)
 
         def fetcher():
             # One consumer, so results keep submission order.
@@ -203,4 +447,93 @@ class Predictor:
             "elapsed_s": elapsed,
             "fps": n_frames / elapsed if elapsed > 0 else 0.0,
         }
-        return results
+        if not make_labels:
+            return results
+        return self.to_labels(
+            results, video=provider.video if isinstance(provider, VideoProvider) else None,
+            labels_src=provider.labels if isinstance(provider, LabelsProvider) else None,
+            precomputed_frames=stream_frames if writer is not None else None)
+
+    # -- conversion -------------------------------------------------------------
+    @staticmethod
+    def _provider_videos(provider) -> List:
+        """The videos a provider's ``video_inds`` index."""
+        if isinstance(provider, LabelsProvider):
+            return list(provider.labels.videos)
+        video = getattr(provider, "video", None)
+        return [video] if video is not None else []
+
+    def to_labels(self, results: List[Dict], video=None, labels_src=None,
+                  precomputed_frames: Optional[List[LabeledFrame]] = None) -> Labels:
+        """Batch outputs -> ``Labels`` of ``PredictedInstance``s, in frame
+        order, with the run's provenance. ``video_inds`` index the videos of
+        ``labels_src``, else ``[video]``; ``precomputed_frames`` are the
+        frames a stream writer already converted."""
+        videos = labels_src.videos if labels_src is not None else (
+            [video] if video is not None else [])
+        if precomputed_frames is not None:
+            lfs = list(precomputed_frames)
+        else:
+            lfs = []
+            for out in results:
+                lfs.extend(self._frames_from_out(out, videos))
+        labels = Labels(labeled_frames=lfs, videos=[v for v in videos if v is not None])
+        from sleap_nn_tpu_torch.inference.provenance import build_inference_provenance
+
+        labels.provenance = build_inference_provenance(
+            [m.model_dir for m in self.models], stats=self.last_stats or None)
+        return labels
+
+    def _frames_from_out(self, out: Dict, videos: Sequence) -> List[LabeledFrame]:
+        """One batch output dict -> its ``LabeledFrame``s, in frame order.
+        Padded rows (``valid`` False) and frames left without an instance
+        give no frame."""
+        skel = self.skeleton
+        lfs: List[LabeledFrame] = []
+        for i in range(len(out["frame_inds"])):
+            if not out["valid"][i]:
+                continue
+            vid = videos[out["video_inds"][i]] if videos else None
+            instances = []
+            if self.model_type == "single_instance":
+                pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
+                for k in range(pts.shape[0]):
+                    if not np.all(np.isnan(pts[k])):
+                        instances.append(self._make_instance(pts[k], vals[k], skel))
+            elif self.model_type == "topdown":
+                pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
+                valid = out["instance_valid"][i]
+                for k in range(pts.shape[0]):
+                    if valid[k] and not np.all(np.isnan(pts[k])):
+                        instances.append(self._make_instance(pts[k], vals[k], skel))
+            elif self.model_type == "bottomup":
+                pts_list, vals_list = out["pred_keypoints"][i], out["pred_peak_values"][i]
+                scores = out["pred_instance_scores"][i]
+                for k in range(len(pts_list)):
+                    if not np.all(np.isnan(pts_list[k])):
+                        instances.append(self._make_instance(
+                            pts_list[k], vals_list[k], skel, score=float(scores[k])))
+            else:
+                raise NotImplementedError(
+                    f"Labels output of model type {self.model_type!r} is not ported")
+            if self.filters is not None and self.filters.enabled():
+                instances = FilterPipeline(self.filters).apply(instances)
+            if instances:
+                lfs.append(LabeledFrame(video=vid, frame_idx=int(out["frame_inds"][i]),
+                                        instances=instances))
+        return lfs
+
+    @staticmethod
+    def _make_instance(pts, vals, skel, score=None) -> PredictedInstance:
+        """Points and peak values -> a ``PredictedInstance``; the score is
+        the mean peak value of the found nodes unless given."""
+        vals = np.nan_to_num(np.asarray(vals, dtype=np.float64))
+        visible = ~np.isnan(np.asarray(pts)[:, 0])
+        if score is None:
+            score = float(vals[visible].mean()) if visible.any() else 0.0
+        return PredictedInstance(
+            points=np.asarray(pts, dtype=np.float64),
+            skeleton=skel,
+            point_scores=vals,
+            score=score,
+        )

@@ -1,13 +1,14 @@
 """In-memory labels data model.
 
-Port of the training subset of ``sleap_nn_tpu/io/model.py``: ``Skeleton``
-(nodes / edges / symmetries), ``Track``, ``Instance`` /
+Port of ``sleap_nn_tpu/io/model.py``: ``Skeleton`` (nodes / edges /
+symmetries), ``SuggestionFrame``, ``Track``, ``Instance`` /
 ``PredictedInstance``, ``PredictedCentroid`` / ``UserCentroid``,
-``LabeledFrame`` and the ``Labels`` container with its splits. A video is
-duck-typed, as the port's ``VideoProvider`` takes it: ``video[frame_idx]``
-returns an ``(H, W)`` or ``(H, W, C)`` uint8 frame and ``video.shape`` is
-``(n_frames, H, W, C)`` (or None). Saving to ``.slp`` waits for the I/O
-slice.
+``PredictedROI``, ``LabeledFrame`` and the ``Labels`` container with its
+splits, edits and ``save`` (``io/slp.py``). ``SegmentationMask`` is not
+ported: its resize calls cv2 (ROADMAP.md section 1, item 10). A video is
+an ``io.video.Video`` or any object with ``video[frame_idx]`` returning an
+``(H, W, C)`` uint8 frame and ``video.shape`` as ``(n_frames, H, W, C)``
+(or None).
 """
 
 from __future__ import annotations
@@ -111,8 +112,21 @@ class Skeleton:
             and self.edge_inds == other.edge_inds
         )
 
+    def matches(self, other: "Skeleton") -> bool:
+        return self == other
+
     def __repr__(self) -> str:
         return f"Skeleton(name={self.name!r}, nodes={self.node_names}, edges={self.edge_inds})"
+
+
+@dataclass
+class SuggestionFrame:
+    """A frame suggested for labeling or prediction: a (video, frame_idx)
+    pointer with a grouping id, stored in the ``.slp`` ``suggestions_json``."""
+
+    video: object = None
+    frame_idx: int = 0
+    group: int = 0
 
 
 @dataclass
@@ -130,7 +144,9 @@ class Instance:
     """A user-labeled pose instance.
 
     ``points`` is an ``(n_nodes, 2) float64`` array in image (x, y) coords;
-    invisible/missing nodes are NaN. ``visible`` tracks explicit visibility.
+    invisible/missing nodes are NaN. ``visible`` tracks explicit visibility,
+    ``complete`` the ``.slp`` per-point flag; ``from_predicted`` is the
+    prediction a user instance was made from.
     """
 
     def __init__(
@@ -139,6 +155,8 @@ class Instance:
         skeleton: Skeleton,
         track: Optional[Track] = None,
         visible: Optional[np.ndarray] = None,
+        complete: Optional[np.ndarray] = None,
+        from_predicted: Optional["PredictedInstance"] = None,
     ):
         if isinstance(points, dict):
             arr = np.full((len(skeleton), 2), np.nan, dtype=np.float64)
@@ -151,6 +169,10 @@ class Instance:
         if visible is None:
             visible = ~np.isnan(self.points[:, 0])
         self.visible = np.asarray(visible, dtype=bool)
+        if complete is None:
+            complete = np.zeros(len(skeleton), dtype=bool)
+        self.complete = np.asarray(complete, dtype=bool)
+        self.from_predicted = from_predicted
 
     def numpy(self, invisible_as_nan: bool = True) -> np.ndarray:
         pts = self.points.astype(np.float64).copy()
@@ -164,6 +186,24 @@ class Instance:
 
     def is_empty(self) -> bool:
         return bool(np.all(np.isnan(self.numpy())))
+
+    def centroid(self, anchor: Optional[str] = None) -> np.ndarray:
+        """The ``anchor`` node where it is visible, else the mean of the visible nodes."""
+        pts = self.numpy()
+        if anchor is not None:
+            idx = self.skeleton.index(anchor)
+            if not np.isnan(pts[idx]).any():
+                return pts[idx]
+        return np.nanmean(pts, axis=0)
+
+    def bounding_box(self) -> np.ndarray:
+        """``[x0, y0, x1, y1]`` over the visible points (NaN if none)."""
+        pts = self.numpy()
+        if np.all(np.isnan(pts)):
+            return np.full(4, np.nan)
+        return np.array(
+            [np.nanmin(pts[:, 0]), np.nanmin(pts[:, 1]), np.nanmax(pts[:, 0]), np.nanmax(pts[:, 1])]
+        )
 
     def __len__(self) -> int:
         return len(self.skeleton)
@@ -192,6 +232,25 @@ class PredictedInstance(Instance):
         self.score = float(score)
         self.tracking_score = float(tracking_score) if tracking_score is not None else 0.0
 
+    @classmethod
+    def from_numpy(
+        cls,
+        points: np.ndarray,
+        point_scores: np.ndarray,
+        skeleton: Skeleton,
+        score: float = 0.0,
+        track: Optional[Track] = None,
+        tracking_score: float = 0.0,
+    ) -> "PredictedInstance":
+        return cls(points=points, skeleton=skeleton, point_scores=point_scores, score=score,
+                   track=track, tracking_score=tracking_score)
+
+    def __repr__(self) -> str:
+        return (
+            f"PredictedInstance(n_visible={self.n_visible}, score={self.score:.3f}, "
+            f"track={self.track.name if self.track else None})"
+        )
+
 
 class PredictedCentroid:
     """A predicted instance center point (centroid-only output)."""
@@ -210,19 +269,48 @@ class UserCentroid(PredictedCentroid):
         super().__init__(point, score=1.0, track=track)
 
 
+class PredictedROI:
+    """A predicted closed polygon in image pixel coords (a simplified mask outline)."""
+
+    def __init__(self, points: np.ndarray, score: float = 0.0,
+                 track: Optional[Track] = None):
+        self.points = np.asarray(points, dtype=np.float64).reshape(-1, 2)
+        self.score = float(score)
+        self.track = track
+
+    @property
+    def area(self) -> float:
+        """Shoelace polygon area (px^2)."""
+        x, y = self.points[:, 0], self.points[:, 1]
+        return float(0.5 * abs(np.dot(x, np.roll(y, 1)) - np.dot(y, np.roll(x, 1))))
+
+    def __len__(self) -> int:
+        return len(self.points)
+
+
 class LabeledFrame:
     """All instances labeled/predicted on one frame of one video."""
 
     def __init__(self, video, frame_idx: int, instances: Optional[List[Instance]] = None,
+                 rois: Optional[List[PredictedROI]] = None,
                  centroids: Optional[List[PredictedCentroid]] = None):
         self.video = video
         self.frame_idx = int(frame_idx)
         self.instances: List[Instance] = list(instances or [])
+        self.rois: List[PredictedROI] = list(rois or [])
         self.centroids: List[PredictedCentroid] = list(centroids or [])
 
     @property
     def user_instances(self) -> List[Instance]:
         return [i for i in self.instances if not isinstance(i, PredictedInstance)]
+
+    @property
+    def predicted_instances(self) -> List[PredictedInstance]:
+        return [i for i in self.instances if isinstance(i, PredictedInstance)]
+
+    @property
+    def has_predicted_instances(self) -> bool:
+        return len(self.predicted_instances) > 0
 
     @property
     def user_centroids(self) -> List[UserCentroid]:
@@ -235,6 +323,15 @@ class LabeledFrame:
     @property
     def image(self) -> np.ndarray:
         return self.video[self.frame_idx]
+
+    def numpy(self) -> np.ndarray:
+        """Stack instance points to ``(n_instances, n_nodes, 2)``."""
+        if not self.instances:
+            return np.zeros((0, 0, 2))
+        return np.stack([i.numpy() for i in self.instances])
+
+    def remove_predictions(self):
+        self.instances = self.user_instances
 
     def __len__(self) -> int:
         return len(self.instances)
@@ -261,13 +358,20 @@ class Labels:
         skeletons: Optional[List[Skeleton]] = None,
         tracks: Optional[List[Track]] = None,
         provenance: Optional[dict] = None,
+        suggestions: Optional[List[SuggestionFrame]] = None,
     ):
         self.labeled_frames: List[LabeledFrame] = list(labeled_frames or [])
         self.videos = list(videos or [])
         self.skeletons = list(skeletons or [])
         self.tracks = list(tracks or [])
         self.provenance = dict(provenance or {})
+        self.suggestions: List[SuggestionFrame] = list(suggestions or [])
         self._update_from_frames()
+
+    @property
+    def negative_frames(self) -> List[LabeledFrame]:
+        """User-confirmed negative frames: labeled, with no instance."""
+        return [lf for lf in self.labeled_frames if is_negative_frame(lf)]
 
     def _update_from_frames(self):
         for lf in self.labeled_frames:
@@ -285,8 +389,25 @@ class Labels:
     def __iter__(self) -> Iterator[LabeledFrame]:
         return iter(self.labeled_frames)
 
-    def __getitem__(self, key: int) -> LabeledFrame:
-        return self.labeled_frames[key]
+    def __getitem__(self, key) -> Union[LabeledFrame, List[LabeledFrame]]:
+        """A frame by position, a list of frames by slice, or the frame of
+        a ``(video, frame_idx)`` pair."""
+        if isinstance(key, (int, slice)):
+            return self.labeled_frames[key]
+        if isinstance(key, tuple) and len(key) == 2:
+            found = self.find(*key)
+            if not found:
+                raise KeyError(key)
+            return found[0]
+        raise KeyError(key)
+
+    def append(self, lf: LabeledFrame):
+        self.labeled_frames.append(lf)
+        self._update_from_frames()
+
+    def extend(self, lfs: Sequence[LabeledFrame]):
+        self.labeled_frames.extend(lfs)
+        self._update_from_frames()
 
     @property
     def skeleton(self) -> Skeleton:
@@ -299,6 +420,57 @@ class Labels:
         if not self.videos:
             raise ValueError("Labels has no videos.")
         return self.videos[0]
+
+    def find(self, video, frame_idx: Optional[int] = None) -> List[LabeledFrame]:
+        return [lf for lf in self.labeled_frames
+                if lf.video is video and (frame_idx is None or lf.frame_idx == frame_idx)]
+
+    @property
+    def user_labeled_frames(self) -> List[LabeledFrame]:
+        return [lf for lf in self.labeled_frames if lf.has_user_instances]
+
+    def instances(self) -> Iterator[Instance]:
+        for lf in self.labeled_frames:
+            yield from lf.instances
+
+    def remove_predictions(self):
+        """Drop every predicted instance, then the frames left empty."""
+        for lf in self.labeled_frames:
+            lf.remove_predictions()
+        self.labeled_frames = [lf for lf in self.labeled_frames if len(lf) > 0]
+
+    def clean(
+        self,
+        frames: bool = True,
+        empty_instances: bool = False,
+        skeletons: bool = False,
+        tracks: bool = False,
+        videos: bool = False,
+    ):
+        """Remove empty frames / instances and unused objects."""
+        if empty_instances:
+            for lf in self.labeled_frames:
+                lf.instances = [i for i in lf.instances if not i.is_empty()]
+        if frames:
+            self.labeled_frames = [lf for lf in self.labeled_frames if len(lf) > 0]
+        if tracks:
+            used = {i.track for i in self.instances() if i.track is not None}
+            self.tracks = [t for t in self.tracks if t in used]
+        if skeletons:
+            used = [i.skeleton for i in self.instances()]
+            self.skeletons = [s for s in self.skeletons if any(s is u for u in used)]
+        if videos:
+            used = {id(lf.video) for lf in self.labeled_frames}
+            self.videos = [v for v in self.videos if id(v) in used]
+
+    def split(self, n: Union[int, float], seed: Optional[int] = None) -> Tuple["Labels", "Labels"]:
+        """Random split into (first, rest). ``n`` is a count or a fraction."""
+        rng = np.random.default_rng(seed)
+        idxs = rng.permutation(len(self.labeled_frames))
+        if isinstance(n, float):
+            n = max(int(round(n * len(idxs))), 1)
+        n = min(n, len(idxs))
+        return self.extract(sorted(idxs[:n].tolist())), self.extract(sorted(idxs[n:].tolist()))
 
     def extract(self, inds: Sequence[int]) -> "Labels":
         lfs = [self.labeled_frames[i] for i in inds]
@@ -352,6 +524,12 @@ class Labels:
         if n_test is not None:
             out.append(self.extract([user[i] for i in test_i]))
         return tuple(out)
+
+    def save(self, path, embed: bool = False):
+        """Write a ``.slp`` file (needs h5py)."""
+        from sleap_nn_tpu_torch.io.slp import save_slp
+
+        save_slp(path, self, embed=embed)
 
     def __repr__(self) -> str:
         return (

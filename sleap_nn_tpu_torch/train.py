@@ -1,7 +1,8 @@
 """Training entry point (port of ``run_training`` in ``sleap_nn_tpu/train.py``).
 
+The model directory it writes loads with ``inference.loaders.load_model``.
 The post-training prediction and evaluation of each split wait for the
-``.slp`` I/O and model-loading slices.
+evaluation module (ROADMAP.md section 1, item 5).
 """
 
 from __future__ import annotations

@@ -10,22 +10,29 @@ program per step, the port launches the same stages one by one. The
 model trains with plain convolutions (``use_fused=False``), as the JAX
 trainer does: the fused double-conv kernel has no backward.
 
-The checkpoint contract: ``best.ckpt`` (and ``last.ckpt`` with
-``model_ckpt.save_last``) is ``torch.save({"state_dict", "epoch",
-"best_val_loss"})`` with the model's ``state_dict`` keys under the
-``model.`` prefix of the reference's Lightning checkpoints, and
-``training_log.csv`` holds one row per epoch.
+The model directory: ``initial_config.yaml`` (the config as the caller
+gave it), ``training_config.yaml`` (the config the trainer filled in: max
+dims, strides, part names, PAF edges, crop size, skeleton, run name,
+parameter count), ``best.ckpt`` (and ``last.ckpt`` with
+``model_ckpt.save_last``) and ``training_log.csv`` (one row per epoch).
+A checkpoint is ``torch.save({"state_dict", "epoch", "best_val_loss"})``
+with the model's ``state_dict`` keys under the ``model.`` prefix of the
+reference's Lightning checkpoints. ``inference.loaders.load_model`` reads
+the directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
 ROADMAP.md): the identity and segmentation model types, backbones other
 than UNet, tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
 visualization, epoch-end evaluation, negative frames, user centroids,
 amsgrad, ``save_top_k`` above 1, device-trace profilers, more than one
-device, and loading labels or the YAML / ``.slp`` model-dir artifacts.
+device, loading labels from paths, and the ``labels_{train,val}_gt_*.slp``
+files of the model directory (writing them needs h5py, which the card
+machine lacks; ROADMAP.md section 1, item 1).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -177,6 +184,7 @@ class ModelTrainer:
         self.callbacks: List[Callback] = []
         self.history: List[Dict] = []
         self.best_val_loss = math.inf
+        self.initial_config: Optional[TrainingJobConfig] = None  # set by from_config
         self._setup_done = False
 
     # -- construction -------------------------------------------------------
@@ -197,6 +205,7 @@ class ModelTrainer:
         trainer seed, as the JAX trainer splits them.
         """
         verify_training_cfg(config)
+        initial = copy.deepcopy(config)
         if train_labels is None:
             raise NotImplementedError(
                 "loading labels from data_config.train_labels_path waits for the .slp I/O "
@@ -233,6 +242,7 @@ class ModelTrainer:
                                 f"{split_name} frame {lf.frame_idx}. Use a topdown or bottomup "
                                 "pipeline for multi-animal data.")
         trainer = cls(config, train_labels, val_labels, device=device)
+        trainer.initial_config = initial
         trainer._infer_config()
         return trainer
 
@@ -337,8 +347,9 @@ class ModelTrainer:
 
     def _setup_ckpt_dir(self):
         """``<ckpt_dir>/<run_name>``, suffixed -1, -2, ... when it exists and
-        is not empty. The YAML configs and ``.slp`` splits the JAX trainer
-        also writes there wait for the I/O slice."""
+        is not empty, with ``initial_config.yaml`` and
+        ``training_config.yaml``. The ``.slp`` splits the JAX trainer also
+        writes there are not ported (ROADMAP.md section 1, item 1)."""
         tc = self.config.trainer_config
         run_name = tc.run_name
         if not run_name:
@@ -353,6 +364,9 @@ class ModelTrainer:
             tc.run_name = ckpt_dir.name
         self.ckpt_dir = ckpt_dir
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if self.initial_config is not None:
+            self.initial_config.save_yaml(self.ckpt_dir / "initial_config.yaml")
+        self.config.save_yaml(self.ckpt_dir / "training_config.yaml")
 
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, name: str = "best.ckpt"):

@@ -1,6 +1,8 @@
 """The port stands alone: it imports without JAX and names nothing of the
-JAX package (nor does chip_smoke.py). Nor does it need networkx, cv2 or
-PyYAML at import time, which the GPU machine may not have."""
+JAX package (nor does chip_smoke.py). It never imports networkx or cv2,
+and imports PyYAML, h5py and orbax only inside the functions that read or
+write YAML, ``.slp`` files or a JAX trainer's checkpoint: the GPU machine
+has no h5py and no orbax."""
 
 import ast
 import os
@@ -12,9 +14,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx", "cv2")
-# Blocked while importing every port module; a function may import it lazily.
-LAZY = ("yaml",)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sleap_nn_tpu", "networkx", "cv2")
+# Blocked while importing every port module; only a function body may import it.
+LAZY = ("yaml", "h5py", "orbax")
 
 
 def _port_modules():
@@ -24,8 +26,15 @@ def _port_modules():
         yield ".".join(parts)
 
 
-def _imported_roots(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imported_roots(path: Path, outside_functions: bool = False):
+    """The modules ``path`` imports; with ``outside_functions``, only those
+    imported outside every function body (at import time)."""
+    tree = ast.parse(path.read_text(), str(path))
+    if outside_functions:
+        for fn in [n for n in ast.walk(tree)
+                   if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]:
+            fn.body = []
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
@@ -45,7 +54,15 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.ops.confmaps",
             "sleap_nn_tpu_torch.ops.edge_maps",
             "sleap_nn_tpu_torch.training.model_trainer",
-            "sleap_nn_tpu_torch.train"} <= set(mods)
+            "sleap_nn_tpu_torch.train",
+            "sleap_nn_tpu_torch.inference.loaders",
+            "sleap_nn_tpu_torch.inference.filters",
+            "sleap_nn_tpu_torch.inference.provenance",
+            "sleap_nn_tpu_torch.inference.writer",
+            "sleap_nn_tpu_torch.inference.run",
+            "sleap_nn_tpu_torch.io.png",
+            "sleap_nn_tpu_torch.io.slp",
+            "sleap_nn_tpu_torch.io.video"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"
@@ -66,3 +83,6 @@ def test_every_port_module_imports_with_jax_blocked():
 def test_no_jax_or_jax_package_imports(path):
     bad = [m for m in _imported_roots(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+    eager = [m for m in _imported_roots(path, outside_functions=True)
+             if m.split(".")[0] in LAZY]
+    assert not eager, f"{path.name} imports {eager} outside a function"

@@ -33,6 +33,7 @@ from sleap_nn_tpu_torch.inference import layers as tl
 from sleap_nn_tpu_torch.inference.backends import TorchBackend
 from sleap_nn_tpu_torch.inference.predictor import Predictor
 from sleap_nn_tpu_torch.inference.providers import VideoProvider
+from sleap_nn_tpu_torch.io.model import Skeleton
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 
@@ -156,6 +157,19 @@ def test_predictor_matches_jax_with_tail_batch(layers):
 
 
 def test_predictor_refuses_labels_output(layers):
-    _, _, tlayer = layers
-    with pytest.raises(NotImplementedError, match="make_labels=False"):
-        Predictor(tlayer, "topdown", device="cpu").predict(ArrayVideo(blob_frames(1)))
+    """Labels output is ported for the top-down model: ``predict`` returns
+    the instances of its raw outputs. A model type whose Labels output is
+    not ported still refuses it."""
+    frames, _, tlayer = layers
+    video = ArrayVideo(frames[:3])
+    skeleton = Skeleton([f"n{i}" for i in range(N_NODES)])
+    pred = Predictor(tlayer, "topdown", skeleton, device="cpu")
+    raw = pred.predict(video, make_labels=False)[0]
+    labels = pred.predict(video)
+    want = [raw["pred_keypoints"][i][raw["instance_valid"][i]] for i in range(3)]
+    assert [lf.frame_idx for lf in labels] == [i for i in range(3) if len(want[i])]
+    for lf in labels:
+        np.testing.assert_array_equal(np.stack([inst.points for inst in lf.instances]),
+                                      want[lf.frame_idx])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Predictor(tlayer, "centroid", skeleton, device="cpu").predict(video)
