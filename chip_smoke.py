@@ -84,18 +84,21 @@ Phases, each of which raises on failure (exit code != 0):
     ``Labels``) runs the top-down pair (dirs of phases 7 + 11) and the
     bottom-up model (phase 10, grouping on the fetch thread) over in-memory
     ``Labels`` of the same 20 frames, bf16, batch 8, no output file. The
-    loaded weights must equal ``best.ckpt`` bit for bit; launch counters
-    must read 18 + 1 (top-down) and 9 + 1 + 1 (bottom-up) per batch; the
-    ``Labels`` must hold exactly the instances of the raw outputs of
-    ``run.predict(make_labels=False)``, on every frame. The 10-step models'
-    maps sit near 0, so the peak threshold is -1e9 (every local maximum is
-    a peak). Prints frames/s, a 3-batch smoke figure.
+    loaded weights must equal the ``state_dict`` saved in ``best.ckpt``
+    bit for bit; launch counters must read 18 + 1 (top-down) and 9 + 1 + 1
+    (bottom-up) per batch of that run. One ``Predictor.from_model_paths``
+    then predicts the frames with ``make_labels=False`` and ``True``: its
+    ``Labels``, and ``run.predict``'s, must hold exactly the instances of
+    its raw outputs, on every frame. The 10-step models' maps sit near 0,
+    so the peak threshold is -1e9 (every local maximum is a peak). Prints
+    frames/s, a 3-batch smoke figure.
 14. Model dirs on the card against the CPU: a narrow (filters 8, 128x128)
     top-down pair and bottom-up model trained 3 steps on the CPU into dirs
     (their weights then conditioned as in the CPU tests of the model dirs
     and saved by the trainer), predicted through ``run.predict`` on the
     card and on the CPU in f32: counts, validity and NaN placement exact,
-    keypoints to 1e-4 px, peak values to 1e-5.
+    keypoints to 1e-4 px, peak values to 1e-5. ``tools/model_dir_divergence.py``
+    runs the same dirs as trained and reports where the two devices part.
 
 The card machine has no h5py, so the script writes no ``.slp`` file (the
 CPU tests hold ``.slp`` files to the JAX package's).
@@ -1578,29 +1581,32 @@ def labels_hold_outputs(labels, results, model_type):
 
 def run_model_dir_predict(kernels, dirs, model_type):
     """Phase 13: ``run.predict`` over in-memory Labels of the smoke frames
-    from trained model dirs (bf16, batch 8, no output file)."""
+    from trained model dirs (bf16, batch 8, no output file), the counted
+    run; then one ``Predictor.from_model_paths`` predicts the same frames
+    to raw outputs and to ``Labels``, which must hold the same instances."""
     import torch
 
     from sleap_nn_tpu_torch.inference.loaders import load_model
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
     from sleap_nn_tpu_torch.inference.run import predict
-    from sleap_nn_tpu_torch.training import ModelTrainer
 
-    for d in dirs:  # the loader's weights are the checkpoint's, bit for bit
+    for d in dirs:  # the loader's weights are the checkpoint file's, bit for bit
         loaded = load_model(d).model.state_dict()
-        best = ModelTrainer.load_checkpoint_params(d / "best.ckpt")
-        assert set(loaded) == set(best)
-        if not all(torch.equal(loaded[k], best[k]) for k in best):
+        saved = torch.load(d / "best.ckpt", map_location="cpu", weights_only=True)["state_dict"]
+        best = {k.removeprefix("model."): v for k, v in saved.items()}
+        assert set(loaded) == set(best) and len(best) == len(saved)
+        if not all(torch.equal(loaded[k].cpu(), best[k]) for k in best):
             raise AssertionError(f"{d}: loaded weights differ from best.ckpt")
     frames = smoke_frames()
     kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, peak_threshold=DIR_PEAK_THRESHOLD,
-              max_instances=MAX_INST, output_path=None)
+              max_instances=MAX_INST)
     if model_type == "bottomup":
         kw.update(min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS, paf_workers=0)
     predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
     sync()
     for k in kernels.values():
         k.launches = 0
-    labels = predict(frame_labels(frames), dirs, **kw)
+    labels = predict(frame_labels(frames), dirs, output_path=None, **kw)
     sync()
     launches = {name: k.launches for name, k in kernels.items()}
     n_batches = -(-N_FRAMES // BATCH)
@@ -1610,15 +1616,19 @@ def run_model_dir_predict(kernels, dirs, model_type):
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
         raise AssertionError(f"{model_type} from dirs: launch counts {launches}, "
                              f"expected {want}")
-    results = predict(frame_labels(frames), dirs, make_labels=False, **kw)
-    n_inst = labels_hold_outputs(labels, results, model_type)
+    predictor = Predictor.from_model_paths(dirs, **kw)
+    results = predictor.predict(frame_labels(frames), make_labels=False)
+    same_labels = predictor.predict(frame_labels(frames), make_labels=True)
+    n_inst = labels_hold_outputs(same_labels, results, model_type)
+    if labels_hold_outputs(labels, results, model_type) != n_inst:
+        raise AssertionError(f"{model_type} from dirs: run.predict's Labels differ")
     per_frame = [len(lf) for lf in labels.labeled_frames]
     if len(labels.labeled_frames) != N_FRAMES:
         raise AssertionError(f"{model_type} from dirs: instances on "
                              f"{len(labels.labeled_frames)} of {N_FRAMES} frames: {per_frame}")
     stats = dict(labels.provenance["stats"], launches=launches, n_batches=n_batches,
                  instances=n_inst, instances_per_frame=per_frame,
-                 peak_threshold=DIR_PEAK_THRESHOLD,
+                 peak_threshold=DIR_PEAK_THRESHOLD, backend=labels.provenance["backend"],
                  model_dirs=[str(d) for d in dirs])
     log(f"model_dir_{model_type}_predict " + json.dumps(stats))
     return stats
@@ -1653,10 +1663,12 @@ def condition_weights(model, frames):
     the frames, as the CPU tests of the model dirs condition a bottom-up or
     orbax-loaded head. Away from the blobs every feature is then exactly 0
     on either device, so no float-noise tie between the card and the CPU
-    decides a peak, and integral refinement divides by a patch mass well
-    away from 0 (a map that swings negative can sum to nearly 0 over a
-    patch, and the refined point then moves by hundreds of pixels on
-    float noise)."""
+    decides a peak, and every refinement patch holds positive mass. As
+    trained, the top-down maps reach no peak above 0.2; with every local
+    maximum counted, patches whose mass nearly cancels (|mass| down to
+    1.4% of the absolute mass) move refined points by up to 0.0076 px
+    between f32 and f64 on the CPU alone, past this phase's 1e-4 px bound
+    (``tools/model_dir_divergence.py``; PERF.md, PR 7)."""
     import torch
 
     heads = {"CentroidConfmapsHead", "CenteredInstanceConfmapsHead", "MultiInstanceConfmapsHead"}
@@ -1674,20 +1686,23 @@ def condition_weights(model, frames):
                 conv.bias.copy_(torch.from_numpy(-bottom / (top - bottom)))
 
 
-def check_model_dirs_against_cpu(root):
-    """Phase 14: narrow (filters 8, 128x128) top-down and bottom-up models
-    trained 3 steps on the CPU into dirs (weights then conditioned and saved
-    by the trainer), predicted through ``run.predict`` on the card and on the
-    CPU in f32. Counts, validity and NaN placement exact; each frame's
-    instances, in canonical order, with keypoints to 1e-4 px and peak
-    values and instance scores to 1e-5. Top-down keeps every centroid above
-    0.5 (``max_instances`` 64, above any frame's count), so no near-tie at
-    the cut decides which instances a frame holds."""
-    from sleap_nn_tpu_torch.inference.run import predict
+# Phase 14's runs: name, the model types of its dirs, run.predict's knobs.
+# Top-down keeps every centroid above 0.5 (max_instances 64, above any
+# frame's count), so no near-tie at the cut decides which instances a
+# frame holds.
+NARROW_RUNS = (("topdown", ("centroid", "centered_instance"),
+                {"max_instances": 64, "peak_threshold": 0.5}),
+               ("bottomup", ("bottomup",), {"min_line_scores": -0.5}))
+
+
+def train_narrow_dirs(root, condition=True):
+    """Phase 14's labels and its narrow (filters 8, 128x128) centroid,
+    centered-instance and bottom-up dirs, each trained 3 steps on the CPU
+    under ``root/narrow``; with ``condition``, the weights are then
+    conditioned (``condition_weights``) and saved by the trainer."""
     from sleap_nn_tpu_torch.training import ModelTrainer
 
     labels = blob_labels(10, 128, 5, 3, seed=14)
-    frames = labels.video.frames
     dirs = {}
     for model_type in ("centroid", "centered_instance", "bottomup"):
         cfg = training_config(8, 16, 128, 4, augment=False, model_type=model_type,
@@ -1697,14 +1712,27 @@ def check_model_dirs_against_cpu(root):
         trainer = ModelTrainer.get_model_trainer_from_config(
             cfg, [labels.extract(range(8))], [labels.extract(range(8, 10))], device="cpu")
         trainer.train()
-        condition_weights(trainer.model, frames)
-        trainer.save_checkpoint("best.ckpt")
+        if condition:
+            condition_weights(trainer.model, labels.video.frames)
+            trainer.save_checkpoint("best.ckpt")
         dirs[model_type] = trainer.ckpt_dir
+    return labels, dirs
+
+
+def check_model_dirs_against_cpu(root):
+    """Phase 14: the narrow dirs of ``train_narrow_dirs``, conditioned,
+    predicted through ``run.predict`` on the card and on the CPU in f32.
+    Counts, validity and NaN placement exact; each frame's instances, in
+    canonical order, with keypoints to 1e-4 px and peak values and instance
+    scores to 1e-5. ``tools/model_dir_divergence.py`` shows why the weights
+    are conditioned (PERF.md, PR 7)."""
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    labels, dirs = train_narrow_dirs(root)
+    frames = labels.video.frames
     report = {}
-    for name, paths, kw in (
-            ("topdown", [dirs["centroid"], dirs["centered_instance"]],
-             {"max_instances": 64, "peak_threshold": 0.5}),
-            ("bottomup", [dirs["bottomup"]], {"min_line_scores": -0.5})):
+    for name, types, kw in NARROW_RUNS:
+        paths = [dirs[t] for t in types]
         runs = [predict(frame_labels(frames), paths, batch_size=4, make_labels=False,
                         device=device, **kw) for device in (DEVICE, "cpu")]
         report[name] = compare_outputs(*runs)

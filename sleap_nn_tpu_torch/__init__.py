@@ -10,9 +10,10 @@ counterpart in ``csrc/``, built with nvcc at first use (``ops/_build.py``)
 and launched for CUDA tensors; CPU tensors take the kernel's plain
 PyTorch version.
 
-It imports torch, numpy, scipy and the standard library (PyYAML, h5py
-and orbax only inside the functions that read or write YAML, ``.slp``
-files or a JAX trainer's checkpoint). Ported so far: training of the
+It imports torch, numpy, scipy and the standard library (PyYAML and h5py
+only inside the functions that read or write YAML or ``.slp`` files); a
+JAX trainer's orbax checkpoints are converted by ``tools/orbax_to_torch.py``
+outside the package. Ported so far: training of the
 single-instance, centroid, centered-instance and bottom-up models on
 in-memory labels into a model directory (``train.run_training``), and
 inference from model directories (``inference.run.predict``,

@@ -49,7 +49,7 @@ def check_output_strides(cfg: TrainingJobConfig) -> TrainingJobConfig:
 
 def resolve_model_dir(path) -> Path:
     """The model directory of ``path``: the directory itself, or the one
-    holding a file of it (a ``*.ckpt`` file or orbax directory, a
+    holding a file of it (a ``*.ckpt`` file or a JAX orbax directory, a
     ``training_config.yaml``, ...). A SLEAP v1 directory
     (``training_config.json`` + ``best_model.h5``) resolves too, so that
     its loader can refuse it by name."""

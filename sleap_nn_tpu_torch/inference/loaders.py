@@ -3,13 +3,13 @@
 Port of ``sleap_nn_tpu/inference/loaders.py``: resolve the directory,
 read ``training_config.yaml``, rebuild the model and load its checkpoint.
 The checkpoint is the explicit ``.ckpt`` path when one is given, else
-``best.ckpt``, else ``last.ckpt``. It is either the port's own
-``torch.save`` file (the model's ``state_dict`` under ``model.``, as the
-reference's Lightning checkpoints hold it), loaded with ``strict=True``, or
-the JAX trainer's orbax directory, whose flax params go through
-``weights.flax_to_torch_state`` (orbax is imported only for such a
-directory). SLEAP v1 directories are not ported (ROADMAP.md section 1,
-item 9).
+``best.ckpt``, else ``last.ckpt``: the port's own ``torch.save`` file
+(the model's ``state_dict`` under ``model.``, as the reference's Lightning
+checkpoints hold it), loaded with ``strict=True``. A JAX trainer's
+checkpoint is an orbax directory; reading it needs orbax, which imports
+JAX, so the port refuses it and ``tools/orbax_to_torch.py`` converts such
+a model dir into one the port loads. SLEAP v1 directories are not ported
+(ROADMAP.md section 1, item 9).
 """
 
 from __future__ import annotations
@@ -63,19 +63,29 @@ def unported_model_type(model_type: str, backbone_type: str = "unet") -> Optiona
     return None
 
 
-def load_checkpoint_state(ckpt: Path, model: Model) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``model`` held by a checkpoint: a torch file
-    (keys under ``model.``) or a JAX trainer's orbax directory."""
+def load_checkpoint_state(ckpt: Path) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` held by a torch checkpoint (keys under
+    ``model.``). A JAX trainer's orbax directory raises, naming the tool
+    that converts it."""
     if ckpt.is_dir():
-        import orbax.checkpoint as ocp
-
-        from sleap_nn_tpu_torch.weights import flax_to_torch_state
-
-        state = ocp.PyTreeCheckpointer().restore(str(ckpt.absolute()))
-        return flax_to_torch_state(state["params"], model)
+        raise ValueError(
+            f"{ckpt} is a JAX trainer's orbax checkpoint; the port reads torch checkpoints "
+            "only. Convert the model dir with: python3 tools/orbax_to_torch.py "
+            f"{ckpt.parent} OUT_DIR")
     from sleap_nn_tpu_torch.training.model_trainer import ModelTrainer
 
     return ModelTrainer.load_checkpoint_params(ckpt)
+
+
+def build_model(config: TrainingJobConfig, model_dir: Path) -> Tuple[str, Model]:
+    """``(model_type, model)`` of a training config, with random weights;
+    a model the port cannot build raises ``NotImplementedError``."""
+    model_type = get_model_type_from_cfg(config)
+    why = unported_model_type(model_type, get_backbone_type_from_cfg(config))
+    if why:
+        raise NotImplementedError(f"{model_dir}: {why}")
+    return model_type, Model.from_config(
+        "unet", get_backbone_config(config), get_head_config(config), model_type)
 
 
 def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) -> LoadedModel:
@@ -92,19 +102,14 @@ def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) 
             f"{model_dir} is a SLEAP v1 model directory; importing it is not ported "
             "(ROADMAP.md section 1, item 9)")
     config = TrainingJobConfig.load_yaml(model_dir / "training_config.yaml")
-    model_type = get_model_type_from_cfg(config)
-    why = unported_model_type(model_type, get_backbone_type_from_cfg(config))
-    if why:
-        raise NotImplementedError(f"{model_dir}: {why}")
-    model = Model.from_config(
-        "unet", get_backbone_config(config), get_head_config(config), model_type)
+    model_type, model = build_model(config, model_dir)
     if params_override is not None:
         params = dict(params_override)
     else:
         ckpt = explicit_ckpt or model_dir / "best.ckpt"
         if not ckpt.exists():
             ckpt = model_dir / "last.ckpt"
-        params = load_checkpoint_state(ckpt, model)
+        params = load_checkpoint_state(ckpt)
     model.load_state_dict(params, strict=True)
     model.eval()
 

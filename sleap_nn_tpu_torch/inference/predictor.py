@@ -144,7 +144,6 @@ class Predictor:
         # Set by run.predict: frames are written as each batch completes.
         self.stream_writer = None
         self.progress_callback = None
-        self.prefetch_batches: Optional[int] = None
         # A grayscale model gets its frames converted on the host, before
         # the copy to the device (3x fewer bytes).
         pre = getattr(getattr(layer, "centroid_layer", layer), "pre", None)
@@ -295,24 +294,24 @@ class Predictor:
 
     # -- prediction -----------------------------------------------------------
     def _make_provider(self, data, frames=None):
-        prefetch = {"prefetch": int(self.prefetch_batches)} if self.prefetch_batches else {}
         is_slp = isinstance(data, (str, Path)) and str(data).endswith(".slp")
         if (isinstance(data, Labels) or is_slp) and frames is not None:
             raise ValueError("frames selects frames of a video; a Labels source predicts its "
-                             "labeled frames (scope it with run.predict's frame options)")
+                             "labeled frames (run.predict's only_suggested_frames predicts "
+                             "its suggestions)")
         if isinstance(data, Labels):
-            return LabelsProvider(data, batch_size=self.batch_size, **prefetch)
+            return LabelsProvider(data, batch_size=self.batch_size)
         if isinstance(data, (str, Path)):
             if is_slp:
                 from sleap_nn_tpu_torch.io.slp import load_slp
 
-                return LabelsProvider(load_slp(data), batch_size=self.batch_size, **prefetch)
+                return LabelsProvider(load_slp(data), batch_size=self.batch_size)
             raise NotImplementedError(
                 f"reading the video file {str(data)!r} needs the media video backends, which "
                 "are not ported (ROADMAP.md section 1, item 3); pass a Labels, a .slp path or "
                 "an object with __len__ and get_frame(idx, fmt)")
         return VideoProvider(data, batch_size=self.batch_size, frames=frames,
-                             out_format="gray" if self._host_grayscale else None, **prefetch)
+                             out_format="gray" if self._host_grayscale else None)
 
     def _send(self, frames: np.ndarray, h2d) -> torch.Tensor:
         """Host frames -> device, through pinned memory on the copy stream."""
@@ -481,7 +480,8 @@ class Predictor:
         from sleap_nn_tpu_torch.inference.provenance import build_inference_provenance
 
         labels.provenance = build_inference_provenance(
-            [m.model_dir for m in self.models], stats=self.last_stats or None)
+            [m.model_dir for m in self.models], stats=self.last_stats or None,
+            backend=self.device.type)
         return labels
 
     def _frames_from_out(self, out: Dict, videos: Sequence) -> List[LabeledFrame]:

@@ -74,12 +74,14 @@ def build_inference_provenance(
     device: Optional[str] = None,
     cli_args: Optional[Dict[str, Any]] = None,
     include_system_info: bool = True,
+    backend: Optional[str] = None,
 ) -> Dict:
     """The provenance dict stored on predicted Labels.
 
     ``model_dirs`` / ``stats`` / ``extra`` are the predictor's call (its
     per-run stats land under ``"stats"``); ``run.predict`` adds the run's
-    lineage through the keywords.
+    lineage through the keywords. ``backend`` is the type of the device
+    the run used (``"cuda"`` or ``"cpu"``), None when not told.
     """
     prov: Dict[str, Any] = {}
 
@@ -95,7 +97,7 @@ def build_inference_provenance(
     prov["torch_version"] = torch.__version__
     prov["platform"] = platform.platform()
     prov["python"] = sys.version.split()[0]
-    prov["backend"] = "cuda" if torch.cuda.is_available() else "cpu"
+    prov["backend"] = backend
     prov["timestamp"] = time.strftime("%Y-%m-%dT%H:%M:%S")
 
     # Model lineage: absolute POSIX paths + training-config hashes.

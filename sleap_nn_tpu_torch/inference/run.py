@@ -7,9 +7,10 @@ a port ``Labels``, a ``.slp`` path or an in-memory video; the run goes
 through ``Predictor.from_model_paths`` on ``device`` (the card unless
 ``"cpu"``). What the port lacks raises ``NotImplementedError`` naming its
 ROADMAP.md item: video files by name (item 3), tracking (item 6),
-exported model dirs, SAM masks, profiling and output formats other than
-``slp`` (item 13), and the ``from_model_paths`` knobs listed in
-``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are refused:
+exported model dirs, SAM masks, profiling, output formats other than
+``slp`` and the JAX ``predict``'s source-scoping and output options (item
+13, with the command line that sets them), and the ``from_model_paths``
+knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are refused:
 ``fetch_remote_data`` needs the network and stays out of the port.
 """
 
@@ -37,6 +38,12 @@ UNPORTED_RUN_KNOBS = {
     "profile_dir": (None, f"profiling a predict run is not ported {_ITEM13}"),
     "headers": (None, "remote inputs need the network; fetch_remote_data is not ported"),
     "stream_mode": (None, "remote inputs need the network; fetch_remote_data is not ported"),
+    **{name: (default, f"the predict() option {name} is not ported {_ITEM13}")
+       for name, default in (("video_path_map", None), ("video_index", None),
+                             ("exclude_user_labeled", False), ("only_labeled_frames", False),
+                             ("only_predicted_frames", False), ("no_empty_frames", False),
+                             ("queue_maxsize", None), ("restore_source_videos", False),
+                             ("video_dataset", None), ("video_input_format", "channels_last"))},
     **{name: (default, f"SAM prompted segmentation is not ported {_ITEM13}")
        for name, default in (("mask_backend", None), ("sam_model_id", "facebook/sam-vit-huge"),
                              ("sam_prompt_mode", "pose"), ("sam_anchor_ind", None),
@@ -73,18 +80,12 @@ def predict(
     min_line_scores: float = 0.25,
     paf_workers: int = 0,
     embed: bool = False,
-    video_path_map: Optional[str] = None,
     device: Optional[str] = None,
     crop_size: Optional[int] = None,
     output_format: Union[str, Sequence[str]] = "slp",
     filters=None,
-    no_empty_frames: bool = False,
     only_suggested_frames: bool = False,
-    exclude_user_labeled: bool = False,
-    only_labeled_frames: bool = False,
-    only_predicted_frames: bool = False,
     centroid_peak_threshold: Optional[float] = None,
-    video_index: Optional[int] = None,
     make_labels: bool = True,
     input_scale: Optional[float] = None,
     max_height: Optional[int] = None,
@@ -97,11 +98,7 @@ def predict(
     min_instance_peaks: float = 0,
     stream_to_file: Optional[Union[str, Path]] = None,
     write_interval: Optional[int] = None,
-    video_dataset: Optional[str] = None,
-    video_input_format: str = "channels_last",
-    queue_maxsize: Optional[int] = None,
     progress_callback=None,
-    restore_source_videos: bool = False,
     **unported,
 ):
     """Run inference on a labels or video source with one or two trained
@@ -130,69 +127,13 @@ def predict(
     if isinstance(data_path, (str, Path)) and is_remote_url(str(data_path)):
         raise NotImplementedError(
             f"{data_path}: remote inputs need the network; fetch_remote_data is not ported")
-    if video_dataset is not None and isinstance(data_path, (str, Path)):
-        from sleap_nn_tpu_torch.io.video import HDF5VideoBackend, Video
-
-        data_path = Video(filename=str(data_path), backend=HDF5VideoBackend(
-            str(data_path), dataset=video_dataset, input_format=video_input_format))
     if isinstance(data_path, (str, Path)) and not str(data_path).endswith(".slp"):
         raise NotImplementedError(
             f"reading the video file {str(data_path)!r} needs the media video backends, which "
             "are not ported (ROADMAP.md section 1, item 3)")
 
-    if video_path_map:
-        # Remap .slp video paths ('old=new,...') for labels files moved
-        # between machines.
-        labels = _as_labels(data_path)
-        mapping = dict(pair.split("=", 1) for pair in str(video_path_map).split(","))
-        for vid in labels.videos:
-            fn = str(vid.filename)
-            for old, new in mapping.items():
-                if fn == old or fn.startswith(old):
-                    vid.filename = fn.replace(old, new, 1)
-                    vid.backend = None  # reopen lazily at the new path
-                    break
-        data_path = labels
-
-    if video_index is not None:
-        # Scope a multi-video source to one video.
-        labels = _as_labels(data_path)
-        if not 0 <= video_index < len(labels.videos):
-            raise ValueError(
-                f"video_index {video_index} out of range: the source has "
-                f"{len(labels.videos)} video(s)."
-            )
-        target = labels.videos[video_index]
-        data_path = Labels(
-            labeled_frames=[lf for lf in labels.labeled_frames if lf.video is target],
-            videos=[target],
-            skeletons=labels.skeletons,
-            suggestions=[s_ for s_ in labels.suggestions if s_.video is target],
-            provenance=dict(labels.provenance),
-        )
-
-    if exclude_user_labeled:
-        labels = _as_labels(data_path)
-        data_path = Labels(
-            labeled_frames=[lf for lf in labels.labeled_frames if not lf.has_user_instances],
-            videos=labels.videos, skeletons=labels.skeletons, suggestions=labels.suggestions)
-
-    if only_labeled_frames or only_predicted_frames:
-        labels = _as_labels(data_path)
-        keep = [
-            lf for lf in labels.labeled_frames
-            if (not only_labeled_frames or lf.has_user_instances)
-            and (not only_predicted_frames or lf.has_predicted_instances)
-        ]
-        data_path = Labels(labeled_frames=keep, videos=labels.videos,
-                           skeletons=labels.skeletons, suggestions=labels.suggestions)
-
     frame_selection_method = (
-        "suggested" if only_suggested_frames
-        else "labeled" if only_labeled_frames
-        else "list" if frames
-        else "all"
-    )
+        "suggested" if only_suggested_frames else "list" if frames else "all")
     if only_suggested_frames:
         # Predict the suggested frames (which may be unlabeled).
         labels = _as_labels(data_path)
@@ -235,18 +176,11 @@ def predict(
         min_instance_peaks=min_instance_peaks,
         device=device or "cuda",
     )
-    if queue_maxsize:
-        # queue_maxsize counts frames; providers prefetch whole batches.
-        predictor.prefetch_batches = max(1, int(queue_maxsize) // max(1, predictor.batch_size))
     predictor.progress_callback = progress_callback
     stream_writer = None
     if make_labels and stream_to_file is not None:
         # Frames flush to a temp .slp during prediction; atomic rename at
-        # the end. Dropping empty frames rewrites frames after the run.
-        if no_empty_frames:
-            raise ValueError(
-                "stream_to_file streams frames as they are predicted and cannot be combined "
-                "with no_empty_frames (which rewrites frames after the full run).")
+        # the end.
         from sleap_nn_tpu_torch.inference.writer import IncrementalLabelsWriter
 
         stream_writer = IncrementalLabelsWriter(stream_to_file,
@@ -276,24 +210,14 @@ def predict(
         },
         device=device,
         include_system_info=False,  # the predictor's provenance has the versions
+        backend=predictor.device.type,
     )
     result.provenance = merge_provenance(dict(result.provenance or {}), run_prov,
                                          overwrite=False)
-    if no_empty_frames:
-        result.labeled_frames = [lf for lf in result.labeled_frames if lf.instances]
     if stream_writer is not None:
         stream_writer.provenance = dict(result.provenance)
         stream_writer.finalize()
         predictor.stream_writer = None
-    if restore_source_videos and not embed:
-        # On a non-embedding save, point at the pre-embedding source videos.
-        for idx, vid in enumerate(list(result.videos)):
-            src = getattr(vid, "source_video", None)
-            if src is not None:
-                result.videos[idx] = src
-                for lf in result.labeled_frames:
-                    if lf.video is vid:
-                        lf.video = src
     if output_path is not None:
         save_predictions(result, output_path, embed=embed)
     return result

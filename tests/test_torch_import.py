@@ -1,8 +1,9 @@
 """The port stands alone: it imports without JAX and names nothing of the
-JAX package (nor does chip_smoke.py). It never imports networkx or cv2,
-and imports PyYAML, h5py and orbax only inside the functions that read or
-write YAML, ``.slp`` files or a JAX trainer's checkpoint: the GPU machine
-has no h5py and no orbax."""
+JAX package (nor does chip_smoke.py). It never imports networkx, cv2 or
+orbax (which imports JAX; ``tools/orbax_to_torch.py`` converts a JAX
+trainer's checkpoints), and imports PyYAML and h5py only inside the
+functions that read or write YAML or ``.slp`` files: the GPU machine has
+no h5py."""
 
 import ast
 import os
@@ -14,9 +15,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sleap_nn_tpu", "networkx", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx", "cv2")
 # Blocked while importing every port module; only a function body may import it.
-LAZY = ("yaml", "h5py", "orbax")
+LAZY = ("yaml", "h5py")
 
 
 def _port_modules():

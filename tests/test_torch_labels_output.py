@@ -140,6 +140,8 @@ def test_to_labels_matches_jax(model_type, seed):
     assert len(got.labeled_frames) <= n_valid
     assert set(got.provenance) == {RENAME.get(k, k) for k in want.provenance}
     assert got.provenance["models"] == want.provenance["models"] == []
+    # The device the predictor ran on, not whether the machine has a card.
+    assert got.provenance["backend"] == "cpu"
 
 
 def test_to_labels_of_one_video_and_of_no_video():
@@ -345,6 +347,8 @@ def test_provenance_matches_jax_by_key(tmp_path):
     assert {k: got[k] for k in same} == {k: want[k] for k in same}
     assert {"torch_version", "cuda_version", "accelerator", "device_count"} <= \
         set(got["system_info"])
+    assert got["backend"] is None
+    assert pprov.build_inference_provenance(backend="cuda")["backend"] == "cuda"
     got_t = pprov.build_tracking_only_provenance(labels, tmp_path / "in.slp", t0, t1, {"a": 1},
                                                  5)
     want_t = jprov.build_tracking_only_provenance(jlabels, tmp_path / "in.slp", t0, t1,

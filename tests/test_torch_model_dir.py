@@ -18,13 +18,16 @@ code); against the JAX package's ``load_model`` +
 ``Predictor.from_model_paths`` on the same dirs they match with the
 tolerances of those tests: validity and counts exact, NaN placed exactly,
 keypoints and values to 1e-4 (top-down, single-instance) and 1e-5
-(bottom-up, with the JAX package's scipy grouping). A JAX-trained orbax
-dir loads in the port (through ``weights.flax_to_torch_state``) and
-predicts what the JAX package predicts.
+(bottom-up, with the JAX package's scipy grouping). The port refuses a
+JAX-trained orbax dir by name; ``tools/orbax_to_torch.py`` converts it
+(through ``weights.flax_to_torch_state``) into a dir that the port loads
+and that predicts what the JAX package predicts on the orbax dir.
 """
 
 import copy
+import importlib.util
 import shutil
+from pathlib import Path
 from types import SimpleNamespace as ns
 
 import jax
@@ -392,6 +395,14 @@ def test_run_predict_writes_a_slp_the_jax_package_reads(dirs, tmp_path):
     assert back.provenance["model_type"] == "topdown"
 
 
+def _orbax_to_torch():
+    path = Path(__file__).resolve().parent.parent / "tools" / "orbax_to_torch.py"
+    spec = importlib.util.spec_from_file_location("orbax_to_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
     pytest.importorskip("orbax.checkpoint")
     import jax.numpy as jnp
@@ -417,11 +428,24 @@ def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
     run = jt.ckpt_dir
     assert (run / "best.ckpt").is_dir()
 
-    loaded = load_model(run)
-    want_state = load_model(run).params
-    assert all(torch.equal(loaded.model.state_dict()[k], want_state[k]) for k in want_state)
+    with pytest.raises(ValueError, match="tools/orbax_to_torch.py"):
+        load_model(run)
+
+    converted = _orbax_to_torch().convert(run, tmp_path / "converted")
+    assert {p.name for p in converted.iterdir()} >= {"training_config.yaml", "best.ckpt"}
+    loaded = load_model(converted)
+    want_state = ModelTrainer.load_checkpoint_params(converted / "best.ckpt")
+    assert set(loaded.model.state_dict()) == set(want_state)
+    assert all(torch.equal(loaded.model.state_dict()[k], v) for k, v in want_state.items())
+    # The JAX package's torch-checkpoint importer reads the converted file
+    # back to the orbax dir's flax params.
+    back = jax.tree_util.tree_leaves_with_path(jax_load_model(converted).params)
+    orig = dict(jax.tree_util.tree_leaves_with_path(params))
+    assert len(back) == len(orig)
+    for path, leaf in back:
+        np.testing.assert_array_equal(np.asarray(leaf), orig[path])
     video = _video()
-    got = prun.predict(video, [run], batch_size=4, device="cpu", make_labels=False)
+    got = prun.predict(video, [converted], batch_size=4, device="cpu", make_labels=False)
     want = JaxPredictor.from_model_paths([run], batch_size=4).predict(
         video, provider=JaxVideoProvider(video, batch_size=4), make_labels=False)
     _assert_same(got, want, atol=1e-4)
@@ -478,6 +502,16 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"host_resize": True}, "item 3"),
     ({"data_path": "clip.mp4"}, "item 3"),
     ({"data_path": "https://example.com/a.slp"}, "fetch_remote_data"),
+    ({"video_path_map": "a=b"}, "item 13"),
+    ({"video_index": 0}, "item 13"),
+    ({"exclude_user_labeled": True}, "item 13"),
+    ({"only_labeled_frames": True}, "item 13"),
+    ({"only_predicted_frames": True}, "item 13"),
+    ({"no_empty_frames": True}, "item 13"),
+    ({"queue_maxsize": 8}, "item 13"),
+    ({"restore_source_videos": True}, "item 13"),
+    ({"video_dataset": "frames"}, "item 13"),
+    ({"video_input_format": "channels_first"}, "item 13"),
 ])
 def test_run_predict_refuses_unported_features(dirs, kwargs, match):
     kwargs = {"data_path": _video(), **kwargs}
@@ -511,9 +545,13 @@ def test_run_predict_streams_to_file_and_scopes_labels(dirs, tmp_path):
     back = load_slp(tmp_path / "s.slp")
     assert [lf.frame_idx for lf in back] == [lf.frame_idx for lf in streamed]
     assert seen[-1] == N_FRAMES and back.provenance["model_type"] == "single_instance"
-    only_user = prun.predict(labels, paths, batch_size=4, device="cpu",
-                             only_labeled_frames=True)
-    assert {lf.frame_idx for lf in only_user} <= {1, 3, 5}
+    # The JAX predict's other scoping options are refused, never ignored.
+    with pytest.raises(NotImplementedError, match="only_labeled_frames"):
+        prun.predict(labels, paths, batch_size=4, device="cpu", only_labeled_frames=True)
+    # At their no-op values they are accepted.
+    quiet = prun.predict(labels, paths, batch_size=4, device="cpu",
+                         **{k: v for k, (v, _) in prun.UNPORTED_RUN_KNOBS.items()})
+    assert [lf.frame_idx for lf in quiet] == [lf.frame_idx for lf in streamed]
     suggested = prun.predict(labels, paths, batch_size=4, device="cpu",
                              only_suggested_frames=True)
     assert [lf.frame_idx for lf in suggested] == [5]
