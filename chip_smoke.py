@@ -54,7 +54,13 @@ Phases, each of which raises on failure (exit code != 0):
    into a fresh model, ``last.ckpt`` reproduces the trainer's outputs
    exactly, and 20 steps on one fixed batch bring the loss below its
    first value. Prints steps/s, samples/s, peak device memory and the ms
-   of one step by stage.
+   of one step by stage. The epoch-end evaluation runs after each epoch:
+   it renders the val batches again (kernel 4) and finds their centroid
+   peaks on the f32 maps (kernel 2), so each adds one launch per val batch
+   and epoch; every epoch's logs must hold ``val/dist.avg`` and
+   ``val/detection.f1``; on one val batch the peaks through kernel 2 must
+   equal those through its plain version exactly. Prints the evaluation's
+   seconds per epoch.
 8. Training on the card against the CPU: a narrow f32 centroid model
    (filters 8, max_stride 8, 128x128 frames), the same parameters and
    batch, augmentation off: the first loss to 1e-5 relative, every
@@ -74,7 +80,9 @@ Phases, each of which raises on failure (exit code != 0):
     its plain version on the path's own points) and its PAF part.
 11. Centered-instance training end to end: as phase 7, with a medium_rf
     centered-instance model (15 nodes, ``crop_size`` 256) on crops of the
-    same labels, one sample per instance. No kernel may launch.
+    same labels, one sample per instance, and the epoch-end evaluation
+    (``val/mOKS`` and ``val/dist.avg`` in every epoch's logs). No kernel
+    may launch.
 12. Training on the card against the CPU, as phase 8, for a narrow model
     of each of the single-instance, centered-instance and bottom-up types.
 13. Predict from model directories: phases 7, 10 and 11 train into dirs
@@ -99,6 +107,22 @@ Phases, each of which raises on failure (exit code != 0):
     card and on the CPU in f32: counts, validity and NaN placement exact,
     keypoints to 1e-4 px, peak values to 1e-5. ``tools/model_dir_divergence.py``
     runs the same dirs as trained and reports where the two devices part.
+15. Tracked predict from model directories: ``run.predict(tracking=True)``
+    from phase 13's dirs over the same 20 frames and knobs, with the
+    default tracker (launch counters as in phase 13) and with the Kalman
+    tracker (6 identities, single-break repair). Every instance carries a
+    track, the Kalman run at most 6; each run's tracks equal those of
+    ``run_tracker`` on a deep copy of the same path's untracked ``Labels``,
+    and provenance holds each run's tracking knobs. Prints frames/s of the
+    predict loop and tracking ms per frame, with the card's name and power
+    limit.
+16. Tracking and evaluation, the card against the CPU: phase 14's narrow
+    dirs predict a 24-frame clip of two blob animals on straight paths 64
+    px apart with tracking on (each frame's best 2 instances, centroids
+    tracked by distance) on both devices: the same track for
+    every instance (keypoints to 1e-4 px), and ``run_evaluation`` against
+    the clip's ground truth the same (``mOKS`` to 1e-6, ``dist.avg`` to
+    1e-4 px, detection counts exact); the metrics file round-trips.
 
 The card machine has no h5py, so the script writes no ``.slp`` file (the
 CPU tests hold ``.slp`` files to the JAX package's).
@@ -1294,17 +1318,59 @@ def train_stage_times(trainer, batch):
 
 MODEL_DIR_FILES = {"initial_config.yaml", "training_config.yaml", "best.ckpt", "training_log.csv"}
 
+# The epoch-end evaluation of phases 7 and 11. The models train 5-10 steps
+# from Xavier init, so their maps sit near 0 and their peaks lie anywhere:
+# every local maximum counts as a peak (as in phase 13), and a centroid
+# peak matches a ground-truth centroid at any distance, so that the
+# evaluation always has pairs to score. It checks the path, not accuracy.
+EVAL_PEAK_THRESHOLD, EVAL_MATCH_THRESHOLD = -1e9, 1e4
+EVAL_KEYS = {"centroid": {"val/dist.avg", "val/detection.f1"},
+             "centered_instance": {"val/mOKS", "val/dist.avg"}}
 
-def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None):
+
+def check_eval_peaks(cms):
+    """Phase 7: the epoch-end evaluation's centroid peaks
+    (``find_local_peaks(..., "integral", max_peaks=20)``) on one val batch's
+    f32 maps, through kernel 2 and through its plain version: equal
+    exactly (points, values, channels and validity)."""
+    import torch
+
+    from sleap_nn_tpu_torch.ops import kernels, peaks
+
+    assert cms.dtype == torch.float32, cms.dtype
+    got = peaks.find_local_peaks(cms, EVAL_PEAK_THRESHOLD, "integral", max_peaks=20)
+    real = peaks.nms_scores
+    peaks.nms_scores = kernels._plain_nms_scores
+    try:
+        want = peaks.find_local_peaks(cms, EVAL_PEAK_THRESHOLD, "integral", max_peaks=20)
+    finally:
+        peaks.nms_scores = real
+    for g, w in zip(got, want):
+        same_nan = torch.equal(torch.isnan(g), torch.isnan(w)) if g.is_floating_point() else True
+        if not (same_nan and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))):
+            raise AssertionError("epoch-end eval peaks: kernel 2 and its plain version differ")
+    return {"maps": list(cms.shape), "dtype": "float32", "peaks": int(got[3].sum()),
+            "equal_to_plain": True}
+
+
+def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None,
+                            evaluate=False):
     """Phases 7, 10 and 11: ``ModelTrainer.train`` of a medium_rf model of
     ``model_type`` on the synthetic labels, into the model dir
     ``root/<model_type>`` (which phase 13 predicts from). Kernel 4 renders
     the centroid and bottom-up confmaps, once per train step, val batch and
-    setup probe; the centered-instance model launches no kernel."""
+    setup probe; the centered-instance model launches no kernel. With
+    ``evaluate``, the epoch-end evaluation runs every epoch (``eval.enabled``,
+    ``frequency`` 1, peaks and matching as ``EVAL_PEAK_THRESHOLD`` and
+    ``EVAL_MATCH_THRESHOLD`` say): for a
+    centroid model it renders each val batch again (kernel 4) and finds its
+    peaks (kernel 2, on f32 maps); its ``val/*`` keys must be in every
+    epoch's logs, and its seconds per epoch are printed."""
     import torch
 
     from sleap_nn_tpu_torch.models.model import Model
     from sleap_nn_tpu_torch.training import ModelTrainer
+    from sleap_nn_tpu_torch.training.callbacks import EpochEndEvaluationCallback
 
     labels = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
     train = labels.extract(range(TRAIN_FRAMES))
@@ -1313,26 +1379,57 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
                           crop_size=crop_size, max_epochs=TRAIN_EPOCHS,
                           train_steps_per_epoch=TRAIN_STEPS, save_ckpt=True,
                           ckpt_dir=str(root), run_name=model_type,
-                          model_ckpt={"save_last": True})
+                          model_ckpt={"save_last": True},
+                          eval={"enabled": evaluate, "frequency": 1,
+                                "match_threshold": EVAL_MATCH_THRESHOLD})
     trainer = ModelTrainer.get_model_trainer_from_config(cfg, [train], [val], device=DEVICE)
     if DEVICE != "cpu":
         torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
     trainer.setup()
+    eval_s = []
+    if evaluate:
+        eval_cb = next(cb for cb in trainer.callbacks
+                       if isinstance(cb, EpochEndEvaluationCallback))
+        eval_cb.peak_threshold = EVAL_PEAK_THRESHOLD
+        inner = eval_cb._evaluate
+
+        def timed_evaluate(tr):
+            sync()
+            t0 = time.perf_counter()
+            out = inner(tr)
+            sync()
+            eval_s.append(time.perf_counter() - t0)
+            return out
+
+        eval_cb._evaluate = timed_evaluate
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     history = trainer.train()
     sync()
     launches = {name: k.launches for name, k in kernels.items()}
-    n_renders = TRAIN_EPOCHS * (TRAIN_STEPS + len(trainer.val_loader)) + 1
-    want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
-            "multi_confmaps": n_renders if model_type in ("centroid", "bottomup") else 0}
+    n_val = len(trainer.val_loader)
+    n_renders = TRAIN_EPOCHS * (TRAIN_STEPS + n_val) + 1
+    eval_renders = TRAIN_EPOCHS * n_val if evaluate else 0
+    centroid_eval = eval_renders if model_type == "centroid" else 0
+    want = {"fused_double_conv3x3": 0, "nms_scores": centroid_eval, "paf_line_scores": 0,
+            "multi_confmaps": n_renders + centroid_eval
+            if model_type in ("centroid", "bottomup") else 0}
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
         raise AssertionError(f"{model_type} training launch counts {launches}, "
                              f"expected {want}")
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
     losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
     assert len(history) == TRAIN_EPOCHS and np.isfinite(losses).all(), history
+    if evaluate:
+        keys = EVAL_KEYS[model_type]
+        missing = [sorted(keys - set(h)) for h in history]
+        if any(missing) or len(eval_s) != TRAIN_EPOCHS:
+            raise AssertionError(f"{model_type} epoch-end evaluation: keys missing {missing}, "
+                                 f"{len(eval_s)} evaluations in {TRAIN_EPOCHS} epochs")
+        log(f"epoch_end_eval {model_type}: " + json.dumps({
+            "seconds_per_epoch": eval_s, "val_batches": n_val,
+            "logs": [{k: h[k] for k in sorted(keys)} for h in history]}))
     moved = {k: (v - start[k]).abs().max().item()
              for k, v in trainer.model.state_dict().items()}
     assert all(d > 0 for d in moved.values()), moved
@@ -1352,6 +1449,8 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
         ours, theirs = trainer.model(x), ckpts["last.ckpt"](x)
     if not all(torch.equal(ours[k], theirs[k]) for k in ours):
         raise AssertionError(f"{model_type}: last.ckpt does not reproduce the trainer's outputs")
+    eval_peaks = (check_eval_peaks(ours["CentroidConfmapsHead"])
+                  if evaluate and model_type == "centroid" else None)
     best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
     assert best["best_val_loss"] == min(h["val/loss"] for h in history), best["best_val_loss"]
     files = {p.name for p in trainer.ckpt_dir.iterdir()}
@@ -1380,9 +1479,10 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
         "stage_ms": stages,
         "fixed_batch_loss_first_last": [fixed[0], fixed[-1]],
         "params": sum(v.numel() for v in start.values()), "input_shape": trainer._input_shape,
-        "train_samples": len(trainer.train_ds), "val_batches": len(trainer.val_loader),
+        "train_samples": len(trainer.train_ds), "val_batches": n_val,
         "peak_mem_gib": peak_mem_gib, "model_dir": str(trainer.ckpt_dir),
-        "model_dir_files": sorted(files),
+        "model_dir_files": sorted(files), "eval_seconds_per_epoch": eval_s,
+        "eval_renders": eval_renders, "eval_peaks": eval_peaks,
     }
     log(("train_end_to_end " if model_type == "centroid" else f"train_{model_type}_end_to_end ")
         + json.dumps(stats))
@@ -1719,16 +1819,15 @@ def train_narrow_dirs(root, condition=True):
     return labels, dirs
 
 
-def check_model_dirs_against_cpu(root):
-    """Phase 14: the narrow dirs of ``train_narrow_dirs``, conditioned,
-    predicted through ``run.predict`` on the card and on the CPU in f32.
-    Counts, validity and NaN placement exact; each frame's instances, in
-    canonical order, with keypoints to 1e-4 px and peak values and instance
-    scores to 1e-5. ``tools/model_dir_divergence.py`` shows why the weights
-    are conditioned (PERF.md, PR 7)."""
+def check_model_dirs_against_cpu(labels, dirs):
+    """Phase 14: the narrow dirs of ``train_narrow_dirs`` (its ``labels`` and
+    ``dirs``), conditioned, predicted through ``run.predict`` on the card and
+    on the CPU in f32. Counts, validity and NaN placement exact; each
+    frame's instances, in canonical order, with keypoints to 1e-4 px and
+    peak values and instance scores to 1e-5. ``tools/model_dir_divergence.py``
+    shows why the weights are conditioned (PERF.md, PR 7)."""
     from sleap_nn_tpu_torch.inference.run import predict
 
-    labels, dirs = train_narrow_dirs(root)
     frames = labels.video.frames
     report = {}
     for name, types, kw in NARROW_RUNS:
@@ -1784,6 +1883,205 @@ def compare_outputs(got, want):
     if err["keypoints_max_abs_err"] > 1e-4 or err["values_max_abs_err"] > 1e-5:
         raise AssertionError(f"card vs CPU from model dirs: {err}")
     return err
+
+
+# --------------------------------------------------------------------------
+# Phase 15: tracked predict from the model directories of phase 13
+# --------------------------------------------------------------------------
+
+# Phase 15's second run: the Kalman tracker at the smoke's instance count.
+# ``post_connect_single_breaks`` needs ``target_instance_count``.
+KALMAN_TRACKING = {"use_kalman": True, "tracking_target_instance_count": MAX_INST,
+                   "target_instance_count": MAX_INST, "post_connect_single_breaks": True}
+
+
+def track_rows(labels):
+    """Per frame (in order): its frame index and each instance's track name."""
+    return [(lf.frame_idx, [i.track.name if i.track is not None else None for i in lf.instances])
+            for lf in labels.labeled_frames]
+
+
+def run_tracked_predict(kernels, dirs, model_type, card):
+    """Phase 15: ``run.predict`` with ``tracking=True`` over phase 13's frames
+    and knobs from trained model dirs: once with the default tracker (the
+    counted run) and once with ``KALMAN_TRACKING``. Every instance carries a
+    track, the Kalman run holds at most ``MAX_INST`` tracks, and each run's
+    tracks equal those of ``run_tracker`` applied here to a deep copy of the
+    same path's untracked ``Labels`` (``tracking=False``); the launches per
+    batch are phase 13's; provenance records the knobs of a tracked run.
+    Prints frames/s of the predict loop and tracking ms per frame."""
+    import copy
+
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.tracking import run_tracker
+
+    frames = smoke_frames()
+    kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, peak_threshold=DIR_PEAK_THRESHOLD,
+              max_instances=MAX_INST)
+    if model_type == "bottomup":
+        kw.update(min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS, paf_workers=0)
+    predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
+    untracked = predict(frame_labels(frames), dirs, **kw)
+    sync()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    tracked = predict(frame_labels(frames), dirs, tracking=True, **kw)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_batches = -(-N_FRAMES // BATCH)
+    per_batch = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1)}[model_type]
+    want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                    (n * n_batches for n in per_batch)), multi_confmaps=0)
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"tracked {model_type}: launch counts {launches}, expected {want}")
+    kalman = predict(frame_labels(frames), dirs, tracking=True, **KALMAN_TRACKING, **kw)
+
+    stats = {"launches": launches, "n_batches": n_batches, "card": card}
+    for name, labels, knobs in (("default", tracked, {}), ("kalman", kalman, KALMAN_TRACKING)):
+        rows = track_rows(labels)
+        if any(t is None for _, names in rows for t in names):
+            raise AssertionError(f"tracked {model_type} ({name}): an instance has no track")
+        if len(labels.labeled_frames) != N_FRAMES:
+            raise AssertionError(f"tracked {model_type} ({name}): "
+                                 f"{len(labels.labeled_frames)} frames")
+        again = copy.deepcopy(untracked)
+        t0 = time.perf_counter()
+        run_tracker(again, **knobs)
+        track_s = time.perf_counter() - t0
+        if track_rows(again) != rows:
+            raise AssertionError(f"tracked {model_type} ({name}): the tracks differ from "
+                                 "run_tracker's on the untracked Labels")
+        for lf, ref in zip(labels.labeled_frames, untracked.labeled_frames):
+            if not all(np.array_equal(i.points, j.points, equal_nan=True)
+                       for i, j in zip(lf.instances, ref.instances)):
+                raise AssertionError(f"tracked {model_type} ({name}): points differ")
+        if labels.provenance.get("tracking_config", {}) != knobs:
+            raise AssertionError(f"tracked {model_type} ({name}): provenance "
+                                 f"{labels.provenance.get('tracking_config')}")
+        stats[name] = {"tracks": len(labels.tracks),
+                       "instances": sum(len(lf) for lf in labels.labeled_frames),
+                       "tracking_ms_per_frame": track_s * 1e3 / N_FRAMES,
+                       "tracking_config": labels.provenance.get("tracking_config", {})}
+    if stats["kalman"]["tracks"] > MAX_INST:
+        raise AssertionError(f"tracked {model_type}: the Kalman run holds "
+                             f"{stats['kalman']['tracks']} tracks")
+    stats["fps"] = tracked.provenance["stats"]["fps"]
+    stats["run_predict_s"] = total_s
+    log(f"tracked_{model_type}_predict " + json.dumps(stats))
+    log(f"tracked {model_type}: predict loop {stats['fps']:.2f} frames/s; tracking "
+        f"{stats['default']['tracking_ms_per_frame']:.3f} ms/frame (default), "
+        f"{stats['kalman']['tracking_ms_per_frame']:.3f} ms/frame (Kalman) | {card}")
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 16: tracking and evaluation of narrow dirs, the card against the CPU
+# --------------------------------------------------------------------------
+
+TRACK_CLIP_FRAMES = 24
+# The 3-step narrow models find dozens of centroids of similar value on a
+# frame: phase 16 keeps each frame's best 2 instances (the gap to the
+# third is about 0.03 in peak value, far above the devices' 1e-6) and
+# tracks centroids by distance, which no float noise can tie.
+TRACK_KNOBS = {"max_instances": 2, "tracking": True, "features": "centroids",
+               "scoring_method": "euclidean_dist"}
+
+
+def moving_blob_clip(n_frames, img, n_nodes, seed):
+    """Phase 16's clip: two of phase 14's blob animals on straight paths
+    (one from (24, 32) 2 px a frame right, one from (104, 96) 2 px a frame
+    left, 64 px apart in y), the second one dimmer so that no two peaks
+    tie, and their ground-truth ``Labels``: each animal's nodes at fixed
+    offsets (a seeded draw) from its center."""
+    from sleap_nn_tpu_torch.io.model import Instance, LabeledFrame, Labels, Skeleton
+
+    rng = np.random.default_rng(seed)
+    offsets = rng.normal(0, 4, (2, n_nodes, 2))
+    yy, xx = np.mgrid[:img, :img]
+    frames = np.zeros((n_frames, img, img, 1), np.float32)
+    centers = np.array([[[24.0 + 2 * t, 32.0], [104.0 - 2 * t, 96.0]] for t in range(n_frames)])
+    for t in range(n_frames):
+        for (cx, cy), amp in zip(centers[t], (1.0, 0.8)):
+            frames[t, ..., 0] += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 4.0 ** 2))
+    video = ArrayVideo((np.clip(frames, 0, 1) * 255).astype(np.uint8))
+    skel = Skeleton([f"n{i}" for i in range(n_nodes)], edges=bottomup_edges(n_nodes))
+    gt = Labels([LabeledFrame(video, t, [Instance(centers[t, k] + offsets[k], skel)
+                                         for k in range(2)]) for t in range(n_frames)])
+    return video, gt
+
+
+def same_metric(a, b, tol):
+    """``a`` and ``b`` within ``tol``, or both NaN (no matched pair)."""
+    return (np.isnan(a) and np.isnan(b)) or abs(a - b) <= tol
+
+
+def check_tracking_against_cpu(dirs, tmp):
+    """Phase 16: phase 14's narrow dirs predict ``moving_blob_clip`` with
+    ``TRACK_KNOBS`` on the card and on the CPU: every instance's track the
+    same on both (instances keyed by track, keypoints to 1e-4 px);
+    ``run_evaluation`` against the clip's ground truth the same on both
+    (``mOKS`` to 1e-6, ``dist.avg`` to 1e-4 px, the centroid mode's
+    detection counts exact); the card's metrics survive ``save_metrics_npz``
+    -> ``load_metrics``."""
+    from sleap_nn_tpu_torch.evaluation import load_metrics, run_evaluation, save_metrics_npz
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
+
+    video, gt = moving_blob_clip(TRACK_CLIP_FRAMES, 128, 5, seed=16)
+    report = {}
+    for name, types, kw in NARROW_RUNS:
+        paths = [dirs[t] for t in types]
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            src = Labels([LabeledFrame(video, t) for t in range(TRACK_CLIP_FRAMES)],
+                         videos=[video])
+            runs[device] = predict(src, paths, batch_size=4, device=device,
+                                   **{**kw, **TRACK_KNOBS})
+        card, cpu = runs[DEVICE], runs["cpu"]
+        err, n_inst = 0.0, 0
+        assert [lf.frame_idx for lf in card] == [lf.frame_idx for lf in cpu]
+        for a, b in zip(card.labeled_frames, cpu.labeled_frames):
+            by_track = [{i.track.name: i.points for i in lf.instances} for lf in (a, b)]
+            if sorted(by_track[0]) != sorted(by_track[1]) or len(by_track[1]) != len(b):
+                raise AssertionError(f"phase 16 {name}: frame {b.frame_idx} tracks "
+                                     f"{sorted(by_track[0])} on the card, "
+                                     f"{sorted(by_track[1])} on the CPU")
+            for t, pts in by_track[1].items():
+                assert np.array_equal(np.isnan(by_track[0][t]), np.isnan(pts)), (name, t)
+                err = max(err, float(np.nanmax(np.abs(by_track[0][t] - pts), initial=0.0)))
+            n_inst += len(b)
+        if err > 1e-4 or n_inst < TRACK_CLIP_FRAMES:
+            raise AssertionError(f"phase 16 {name}: keypoints {err} px apart, "
+                                 f"{n_inst} instances")
+        metrics = {d: (run_evaluation(gt, runs[d]), run_evaluation(gt, runs[d],
+                                                                    match_method="centroid"))
+                   for d in runs}
+        (m_card, c_card), (m_cpu, c_cpu) = metrics[DEVICE], metrics["cpu"]
+        pairs = {"mOKS": (m_card["mOKS"]["mOKS"], m_cpu["mOKS"]["mOKS"], 1e-6),
+                 "dist.avg": (m_card["distance_metrics"]["avg"],
+                              m_cpu["distance_metrics"]["avg"], 1e-4)}
+        diffs = {k: abs(a - b) for k, (a, b, _) in pairs.items()}
+        counts = [{k: c["detection_metrics"][k] for k in ("n_tp", "n_fp", "n_fn")}
+                  for c in (c_card, c_cpu)]
+        if not (all(same_metric(a, b, tol) for a, b, tol in pairs.values())
+                and counts[0] == counts[1]):
+            raise AssertionError(f"phase 16 {name}: metrics differ {diffs} {counts}")
+        path = Path(tmp) / f"metrics.{name}.npz"
+        save_metrics_npz(m_card, path)
+        back = load_metrics(path)
+        if not (same_metric(back["mOKS.mOKS"], m_card["mOKS"]["mOKS"], 0)
+                and same_metric(back["distance_metrics"]["avg"],
+                                m_card["distance_metrics"]["avg"], 0)):
+            raise AssertionError(f"phase 16 {name}: the metrics file does not round-trip")
+        report[name] = {"instances": n_inst, "tracks": len(card.tracks),
+                        "keypoints_max_abs_err": err, "metric_diffs": diffs,
+                        "mOKS": m_card["mOKS"]["mOKS"],
+                        "dist_avg": m_card["distance_metrics"]["avg"],
+                        "detection_counts": counts[0]}
+    log("tracking_eval_card_vs_cpu " + json.dumps(report))
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -1850,6 +2148,8 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
             "shapes": "(8, 512, 512, 1) bf16, k=3",
             "bottomup": {k: nms_bu[k] for k in ("x", "kernel_ms", "wrapper_ms", "plain_ms",
                                                  "bound_ms", "bound_by", "n_peaks")},
+            "centroid_eval": {"launches": runs["train"]["eval_renders"],
+                              **runs["train"]["eval_peaks"]},
         },
         {
             "name": "paf_line_scores", "route": "cuda",
@@ -1964,10 +2264,11 @@ def main() -> int:
     check_against_cpu()
     check_bottomup_against_cpu()
 
-    # 7. Centroid training end to end, into a model dir that phase 13 loads.
+    # 7. Centroid training end to end, into a model dir that phase 13 loads,
+    # with the epoch-end evaluation.
     runs_dir = tempfile.TemporaryDirectory()
     root = Path(runs_dir.name)
-    tr = run_training_end_to_end(_build.KERNELS, root)
+    tr = run_training_end_to_end(_build.KERNELS, root, evaluate=True)
 
     # 8. Training on the card against the CPU.
     check_training_against_cpu()
@@ -1981,7 +2282,8 @@ def main() -> int:
     tr_bu = run_training_end_to_end(_build.KERNELS, root, "bottomup")
 
     # 11. Centered-instance training end to end.
-    tr_ci = run_training_end_to_end(_build.KERNELS, root, "centered_instance", crop_size=CROP)
+    tr_ci = run_training_end_to_end(_build.KERNELS, root, "centered_instance", crop_size=CROP,
+                                    evaluate=True)
 
     # 12. Training of the other model types on the card against the CPU.
     for model_type in ("single_instance", "centered_instance", "bottomup"):
@@ -1993,7 +2295,21 @@ def main() -> int:
     dir_bu = run_model_dir_predict(_build.KERNELS, [root / "bottomup"], "bottomup")
 
     # 14. Narrow model dirs trained on the CPU, predicted on the card and the CPU.
-    check_model_dirs_against_cpu(root)
+    narrow_labels, narrow_dirs = train_narrow_dirs(root)
+    check_model_dirs_against_cpu(narrow_labels, narrow_dirs)
+
+    # 15. Tracked run.predict from the model dirs of phase 13.
+    t_phase = time.perf_counter()
+    tracked_td = run_tracked_predict(_build.KERNELS, [root / "centroid",
+                                                      root / "centered_instance"],
+                                     "topdown", smi)
+    tracked_bu = run_tracked_predict(_build.KERNELS, [root / "bottomup"], "bottomup", smi)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+    # 16. Tracking and evaluation of the narrow dirs, the card against the CPU.
+    t_phase = time.perf_counter()
+    check_tracking_against_cpu(narrow_dirs, root)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -2002,7 +2318,8 @@ def main() -> int:
 
     runs = {"topdown": e2e, "bottomup": bu, "single_instance": si, "train": tr,
             "train_bottomup": tr_bu, "train_centered_instance": tr_ci,
-            "model_dir_topdown": dir_td, "model_dir_bottomup": dir_bu}
+            "model_dir_topdown": dir_td, "model_dir_bottomup": dir_bu,
+            "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs)
     summary["kernels"][0]["sass_tensor_ops"] = sass

@@ -3,10 +3,7 @@
 Port of ``sleap_nn_tpu/inference/filters.py``: node-count and confidence
 filters and overlapping-instance suppression (greedy bbox-IoU or OKS NMS),
 applied to each frame's predicted instances before they become
-``LabeledFrame``s. The OKS, IoU and bbox helpers are this module's own
-copies of the JAX package's ``evaluation.compute_oks`` and
-``tracking.utils.compute_iou`` / ``get_bbox``, which the port has not
-ported as modules yet (ROADMAP.md section 1, items 5 and 6).
+``LabeledFrame``s.
 """
 
 from __future__ import annotations
@@ -16,7 +13,9 @@ from typing import List, Optional
 
 import numpy as np
 
+from sleap_nn_tpu_torch.evaluation import compute_oks
 from sleap_nn_tpu_torch.io.model import PredictedInstance
+from sleap_nn_tpu_torch.tracking.utils import compute_iou, get_bbox
 
 
 @dataclasses.dataclass
@@ -47,37 +46,6 @@ class FilterConfig:
         )
 
 
-def _bbox(inst) -> np.ndarray:
-    pts = inst.numpy()
-    return np.array(
-        [np.nanmin(pts[:, 0]), np.nanmin(pts[:, 1]), np.nanmax(pts[:, 0]), np.nanmax(pts[:, 1])]
-    )
-
-
-def _iou(a: np.ndarray, b: np.ndarray) -> float:
-    """IoU of ``[x0, y0, x1, y1]`` boxes."""
-    ax0, ay0, ax1, ay1 = a
-    bx0, by0, bx1, by1 = b
-    ix0, iy0 = max(ax0, bx0), max(ay0, by0)
-    ix1, iy1 = min(ax1, bx1), min(ay1, by1)
-    iw, ih = max(0.0, ix1 - ix0), max(0.0, iy1 - iy0)
-    inter = iw * ih
-    union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - inter
-    return float(inter / union) if union > 0 else 0.0
-
-
-def _oks(points_gt: np.ndarray, points_pr: np.ndarray, stddev: float = 0.025) -> float:
-    """Object keypoint similarity of two ``(n_nodes, 2)`` instances, with
-    cocoeval's normalization and the ground truth's bbox area as scale."""
-    area = np.prod(np.nanmax(points_gt, axis=0) - np.nanmin(points_gt, axis=0))
-    distance = ((points_gt - points_pr) ** 2).sum(axis=-1)
-    norm = (2 * stddev) ** 2 * 2 * (area + np.spacing(1))
-    distance = np.where(np.any(np.isnan(points_pr), axis=-1), np.inf, distance)
-    missing_gt = np.any(np.isnan(points_gt), axis=-1)
-    ks = np.where(missing_gt, 0.0, np.exp(-(distance / norm)))
-    return float(np.sum(ks) / np.sum((~missing_gt).astype("float32")))
-
-
 def apply_node_confidence_filter(
     inst: PredictedInstance, min_confidence: float
 ) -> PredictedInstance:
@@ -103,9 +71,9 @@ def suppress_overlapping(
         ok = True
         for kept in keep:
             if method == "iou":
-                sim = _iou(_bbox(cand), _bbox(kept))
+                sim = compute_iou(get_bbox(cand), get_bbox(kept))
             else:
-                sim = _oks(kept.numpy(), cand.numpy())
+                sim = compute_oks(kept.numpy()[None], cand.numpy()[None])[0, 0]
             if sim > threshold:
                 ok = False
                 break

@@ -22,6 +22,7 @@ runs in a process pool instead, and results keep submission order.
 from __future__ import annotations
 
 import contextlib
+import logging
 import queue
 import threading
 import time
@@ -50,6 +51,8 @@ from sleap_nn_tpu_torch.inference.providers import LabelsProvider, VideoProvider
 from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, PredictedInstance, Skeleton
 from sleap_nn_tpu_torch.io.video import rgb_to_gray_uint8
+
+logger = logging.getLogger("sleap_nn_tpu_torch")
 
 # Knobs of the JAX ``from_model_paths`` whose features the port lacks:
 # name -> (the value that asks for nothing, why another value raises).
@@ -141,9 +144,11 @@ class Predictor:
         self.batch_size = batch_size
         self.paf_workers = paf_workers
         self.filters = filters
-        # Set by run.predict: frames are written as each batch completes.
+        # Set by run.predict: frames are written as each batch completes;
+        # whether the Labels will be tracked (for the run's summary line).
         self.stream_writer = None
         self.progress_callback = None
+        self.tracking_active = False
         # A grayscale model gets its frames converted on the host, before
         # the copy to the device (3x fewer bytes).
         pre = getattr(getattr(layer, "centroid_layer", layer), "pre", None)
@@ -447,11 +452,26 @@ class Predictor:
             "fps": n_frames / elapsed if elapsed > 0 else 0.0,
         }
         if not make_labels:
+            self._log_inference_summary()
             return results
-        return self.to_labels(
+        labels = self.to_labels(
             results, video=provider.video if isinstance(provider, VideoProvider) else None,
             labels_src=provider.labels if isinstance(provider, LabelsProvider) else None,
             precomputed_frames=stream_frames if writer is not None else None)
+        self._log_inference_summary(sum(len(lf.instances) for lf in labels.labeled_frames))
+        return labels
+
+    def _log_inference_summary(self, n_instances: Optional[int] = None) -> None:
+        """One log line after a run: frames, instances, time, frames/s and
+        whether the Labels will be tracked."""
+        s = self.last_stats
+        parts = [f"frames={s['n_frames']}"]
+        if n_instances is not None:
+            mean = n_instances / s["n_frames"] if s["n_frames"] else 0.0
+            parts.append(f"instances={n_instances} ({mean:.2f}/frame)")
+        parts += [f"elapsed={s['elapsed_s']:.1f}s", f"throughput={s['fps']:.1f} fps",
+                  f"tracking={self.tracking_active}"]
+        logger.info("Inference complete | " + " | ".join(parts))
 
     # -- conversion -------------------------------------------------------------
     @staticmethod

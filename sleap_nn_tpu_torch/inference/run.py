@@ -5,9 +5,11 @@ Port of ``predict`` and ``save_predictions`` of
 ``Labels`` out, optionally written to a ``.slp`` file (h5py). The source is
 a port ``Labels``, a ``.slp`` path or an in-memory video; the run goes
 through ``Predictor.from_model_paths`` on ``device`` (the card unless
-``"cpu"``). What the port lacks raises ``NotImplementedError`` naming its
-ROADMAP.md item: video files by name (item 3), tracking (item 6),
-exported model dirs, SAM masks, profiling, output formats other than
+``"cpu"``). With ``tracking=True`` (or a ``tracker``) the predicted
+``Labels`` are tracked on the host (``tracking.run_tracker``, its knobs
+passed as keyword arguments). What the port lacks raises
+``NotImplementedError`` naming its ROADMAP.md item: video files by name
+(item 3), exported model dirs, SAM masks, profiling, output formats other than
 ``slp`` and the JAX ``predict``'s source-scoping and output options (item
 13, with the command line that sets them), and the ``from_model_paths``
 knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are refused:
@@ -16,12 +18,14 @@ knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
 
 from __future__ import annotations
 
+import inspect
 import re
 from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 from sleap_nn_tpu_torch.inference.predictor import UNPORTED_KNOBS, Predictor, refuse_unported
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
+from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
 
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
 _ITEM13 = "(ROADMAP.md section 1, item 13)"
@@ -30,8 +34,6 @@ _ITEM13 = "(ROADMAP.md section 1, item 13)"
 # value that asks for nothing, why another value raises).
 UNPORTED_RUN_KNOBS = {
     **UNPORTED_KNOBS,
-    "tracking": (False, "tracking is not ported (ROADMAP.md section 1, item 6)"),
-    "tracker": (None, "tracking is not ported (ROADMAP.md section 1, item 6)"),
     "centroid_output": ("instance", "centroid records come from centroid-only inference, "
                                     "which is not ported (ROADMAP.md section 1, item 2)"),
     "runtime": ("auto", f"exported model dirs are not ported {_ITEM13}"),
@@ -55,6 +57,24 @@ UNPORTED_RUN_KNOBS = {
 def is_remote_url(path: str) -> bool:
     """True for ``scheme://`` inputs, False for local paths (``C:\\...`` too)."""
     return bool(_URL_RE.match(path)) and "://" in path
+
+
+def _validate_tracker_kwargs(kwargs: Dict) -> None:
+    """Reject keyword arguments that are neither ``predict()`` parameters
+    nor tracking knobs: the knobs of ``run_tracker`` and
+    ``Tracker.from_config``, read from their signatures. Without this a
+    typo'd parameter would be dropped in silence whenever tracking is off."""
+    allowed = set()
+    for fn in (run_tracker, Tracker.from_config):
+        for name, p in inspect.signature(fn).parameters.items():
+            if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY):
+                allowed.add(name)
+    allowed.discard("labels")
+    unknown = sorted(set(kwargs) - allowed)
+    if unknown:
+        raise TypeError(
+            f"predict() got unexpected keyword arguments {unknown} "
+            "(not recognized as tracking knobs either).")
 
 
 def _as_labels(data) -> Labels:
@@ -99,7 +119,9 @@ def predict(
     stream_to_file: Optional[Union[str, Path]] = None,
     write_interval: Optional[int] = None,
     progress_callback=None,
-    **unported,
+    tracking: bool = False,
+    tracker=None,
+    **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
     models (``model_paths``: single-instance, the centroid +
@@ -107,16 +129,28 @@ def predict(
 
     Returns ``Labels`` (and writes ``output_path`` if given), or the
     per-batch output dicts with ``make_labels=False``. ``device`` is the
-    card unless ``"cpu"``. Keyword arguments beyond these are the JAX
-    package's knobs of unported features (``UNPORTED_RUN_KNOBS``): each
-    raises unless it holds its no-op value. Any other name would be a
-    tracking knob of the JAX package; tracking is not ported (item 6).
+    card unless ``"cpu"``. ``tracking`` tracks the ``Labels`` with
+    ``run_tracker`` and the other keyword arguments as its knobs
+    (``features`` and ``scoring_method`` left unset give centroids and
+    euclidean distances for a one-node skeleton); a ``tracker`` object's
+    ``track_labels`` is used instead when given. Keyword arguments that
+    are the JAX package's knobs of unported features
+    (``UNPORTED_RUN_KNOBS``) raise unless they hold their no-op value;
+    a name that is neither raises ``TypeError``.
     """
-    unknown = sorted(set(unported) - set(UNPORTED_RUN_KNOBS))
-    if unknown:
-        raise NotImplementedError(
-            f"predict() got keyword arguments {unknown}: they are not predict() parameters "
-            "of the port, and tracking knobs are not ported (ROADMAP.md section 1, item 6)")
+    unported = {k: tracker_kwargs.pop(k) for k in list(tracker_kwargs)
+                if k in UNPORTED_RUN_KNOBS}
+    _validate_tracker_kwargs(tracker_kwargs)
+    tracks = bool(tracking or tracker is not None)
+    centroid_output = unported.get("centroid_output", "instance")
+    if centroid_output != "instance" and tracks:
+        # The tracker operates on PredictedInstance records, which centroid
+        # records are not.
+        raise ValueError(
+            "Tracking is incompatible with centroid_output="
+            f"{centroid_output!r}: tracking operates on PredictedInstance, "
+            "not centroid records. Use centroid_output='instance' (the "
+            "default) for tracking.")
     refuse_unported(unported, UNPORTED_RUN_KNOBS, "predict")
     formats = {output_format} if isinstance(output_format, str) else set(output_format)
     if formats != {"slp"}:
@@ -177,10 +211,17 @@ def predict(
         device=device or "cuda",
     )
     predictor.progress_callback = progress_callback
+    predictor.tracking_active = tracks
     stream_writer = None
     if make_labels and stream_to_file is not None:
         # Frames flush to a temp .slp during prediction; atomic rename at
-        # the end.
+        # the end. Tracking rewrites frames after the whole run, so the
+        # two do not combine.
+        if tracks:
+            raise ValueError(
+                "stream_to_file streams frames as they are predicted and "
+                "cannot be combined with tracking or no_empty_frames "
+                "(those rewrite frames after the full run).")
         from sleap_nn_tpu_torch.inference.writer import IncrementalLabelsWriter
 
         stream_writer = IncrementalLabelsWriter(stream_to_file,
@@ -189,6 +230,15 @@ def predict(
     result = predictor.predict(data_path, frames=frames, make_labels=make_labels)
     if not make_labels:
         return result
+    if tracker is not None:
+        result = tracker.track_labels(result)
+    elif tracking:
+        if "features" not in tracker_kwargs and len(predictor.skeleton.nodes) == 1:
+            tracker_kwargs["features"] = "centroids"
+        if "scoring_method" not in tracker_kwargs \
+                and tracker_kwargs.get("features") == "centroids":
+            tracker_kwargs["scoring_method"] = "euclidean_dist"
+        result = run_tracker(result, **tracker_kwargs)
 
     from sleap_nn_tpu_torch.inference.provenance import (
         build_inference_provenance,
@@ -208,6 +258,7 @@ def predict(
             "refinement": refinement,
             "max_instances": max_instances,
         },
+        tracking_params=tracker_kwargs if tracks else None,
         device=device,
         include_system_info=False,  # the predictor's provenance has the versions
         backend=predictor.device.type,

@@ -23,7 +23,7 @@ the directory back; so does the JAX package's ``load_model``.
 What the port does not train yet raises ``NotImplementedError`` (listed in
 ROADMAP.md): the identity and segmentation model types, backbones other
 than UNet, tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
-visualization, epoch-end evaluation, negative frames, user centroids,
+visualization, negative frames, user centroids,
 amsgrad, ``save_top_k`` above 1, device-trace profilers, more than one
 device, loading labels from paths, and the ``labels_{train,val}_gt_*.slp``
 files of the model directory (writing them needs h5py, which the card
@@ -67,6 +67,7 @@ from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
     EarlyStopping,
+    EpochEndEvaluationCallback,
     ProgressCallback,
 )
 from sleap_nn_tpu_torch.training.losses import compute_loss
@@ -140,7 +141,6 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
-        (tc.eval is not None and bool(tc.eval.enabled), "epoch-end evaluation"),
         (bool(dc.use_negative_frames), "negative frames"),
         (getattr(cm, "centroid_source", None) == "user", "user centroids"),
         (bool(getattr(tc.optimizer, "amsgrad", False)), "amsgrad"),
@@ -343,6 +343,11 @@ class ModelTrainer:
         es = tc.early_stopping
         if es is not None and es.stop_training_on_plateau:
             self.callbacks.append(EarlyStopping(min_delta=es.min_delta, patience=es.patience))
+        if tc.eval is not None and tc.eval.enabled:
+            # Ahead of the CSV logger, so that the eval keys land in the row.
+            self.callbacks.insert(0, EpochEndEvaluationCallback(
+                self, frequency=tc.eval.frequency, oks_stddev=tc.eval.oks_stddev,
+                match_threshold=tc.eval.match_threshold))
         self._setup_done = True
 
     def _setup_ckpt_dir(self):

@@ -492,8 +492,8 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"tracking": True}, "item 6"),
-    ({"max_tracks": 2}, "item 6"),
+    ({"tracking": True, "features": "masks"}, "item 10"),
+    ({"tracking": True, "scoring_method": "mask_iou"}, "item 10"),
     ({"output_format": "analysis_h5"}, "item 13"),
     ({"mask_backend": "sam"}, "item 13"),
     ({"runtime": "onnx"}, "item 13"),

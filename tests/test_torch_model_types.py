@@ -224,3 +224,53 @@ def test_train_on_cpu_writes_a_loadable_checkpoint(model_type, tmp_path):
     fresh.load_state_dict(ModelTrainer.load_checkpoint_params(tmp_path / "run" / "best.ckpt"),
                           strict=True)
     assert [h.name for h in fresh.heads] == [h.name for h in trainer.model.heads]
+
+
+# --- epoch-end evaluation ----------------------------------------------------
+
+
+def _eval_callback(trainer):
+    return next(cb for cb in trainer.callbacks if type(cb).__name__ == "EpochEndEvaluationCallback")
+
+
+def _assert_logs_close(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("model_type", ("single_instance", "centered_instance", "centroid",
+                                        "bottomup"))
+def test_epoch_end_eval_matches_jax(model_type):
+    """3 steps with ``eval.enabled``: the epoch's ``val/*`` logs match the
+    JAX trainer's. Then, with 1 added to the confmap head's bias in both
+    (maps near 1, so every node has a well-conditioned peak), the callback
+    of each package gives the same metrics on the same weights."""
+    jt, pt = _trainers(model_type, eval={"enabled": True}, max_epochs=1,
+                       train_steps_per_epoch=3)
+    jt.train()
+    pt.train()
+    keys = lambda h: {k: v for k, v in h.items()  # noqa: E731
+                      if k.startswith("val/") and k != "val/loss" and "confmap" not in k}
+    want, got = keys(jt.history[-1]), keys(pt.history[-1])
+    expected = {"single_instance": {"val/mOKS", "val/dist.avg"},
+                "centered_instance": {"val/mOKS", "val/dist.avg"},
+                "centroid": {"val/dist.avg", "val/detection.f1"}, "bottomup": set()}[model_type]
+    # After 3 steps no centroid peak clears 0.2, so there is no distance yet.
+    assert expected - ({"val/dist.avg"} if model_type == "centroid" else set()) <= set(want)
+    _assert_logs_close(got, want)
+    pt.model.train()
+    _eval_callback(pt)._evaluate(pt)
+    assert pt.model.training and torch.is_grad_enabled()  # the mode is restored
+
+    head = next(h.name for h in pt.model.heads if "Confmaps" in h.name)
+    with torch.no_grad():
+        next(layer[head][0] for layer in pt.model.head_layers if head in layer).bias.add_(1.0)
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(jt.params))
+    params["params"][head]["head_conv"]["bias"] = params["params"][head]["head_conv"]["bias"] + 1
+    jt.params = params
+    want, got = _eval_callback(jt)._evaluate(jt), _eval_callback(pt)._evaluate(pt)
+    assert set(want) == expected
+    _assert_logs_close(got, want)
+    if model_type != "bottomup":
+        assert np.isfinite(want["val/dist.avg"])

@@ -404,7 +404,7 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
     {"trainer_config": {"optimizer": {"amsgrad": True}}},
     {"trainer_config": {"trainer_devices": 2}},
-    {"trainer_config": {"eval": {"enabled": True}}},
+    {"trainer_config": {"visualize_preds_during_training": True}},
     {"data_config": {"use_negative_frames": True}},
     {"data_config": {"preprocessing": {"tiling": {"enabled": True, "tile_size": 32}}}},
     {"model_config": {"pretrained_backbone_weights": "a/b"}},
