@@ -123,6 +123,31 @@ Phases, each of which raises on failure (exit code != 0):
     every instance (keypoints to 1e-4 px), and ``run_evaluation`` against
     the clip's ground truth the same (``mOKS`` to 1e-6, ``dist.avg`` to
     1e-4 px, detection counts exact); the metrics file round-trips.
+17. Multi-class bottom-up training end to end: as phase 10, with an
+    identity model (confmaps sigma 2.5 at stride 2, class maps sigma 5 at
+    stride 2, 15 nodes) on phase 7's labels, each instance one of 6
+    ``Track``s, distinct within its frame. Kernel 4's launches must equal
+    the train steps plus the val batches plus the setup probe; the render
+    is split into its confmap part (kernel 4, held against its plain
+    version) and its class-map part (plain per-instance confmaps, then the
+    max over each class's instances), with the class-map render's peak
+    device memory.
+18. Multi-class centered-instance training end to end: phase 11 with the
+    classes: a class-vectors head (1 dense layer of 64 units on the
+    globally max-pooled bottleneck) beside the confmaps, on 256x256 crops,
+    with the epoch-end evaluation; ``class_accuracy`` must be in every
+    epoch's logs. No kernel may launch.
+19. Identity models from model directories: ``run.predict`` from phase
+    17's dir (multi-class bottom-up: 9 + 1 launches per batch) and from
+    phase 7's centroid dir with phase 18's (multi-class top-down: 18 + 1)
+    over phase 13's 20 frames, bf16, batch 8. ``Labels`` must hold exactly
+    the raw outputs' instances, each with the ``Track`` of its class, and
+    no frame may hold two instances of one track. Then narrow identity
+    dirs trained on the CPU predict phase 14's frames on the card and on
+    the CPU in f32: validity and NaN placement exact, keypoints to 1e-4 px,
+    class probabilities to 1e-5, and the class assignments equal on every
+    frame whose rows all clear the bf16 step between their best and
+    second-best class probability (the frames left out are counted).
 
 The card machine has no h5py, so the script writes no ``.slp`` file (the
 CPU tests hold ``.slp`` files to the JAX package's).
@@ -168,6 +193,7 @@ MAX_PEAKS, K_PER_NODE, N_POINTS, MIN_LINE = 200, 20, 10, 0.25  # the JAX package
 DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu" and small sizes, then calls the phases
 # Phase 7: frames (train + val), their size, batch, epochs x steps, lr.
 TRAIN_FRAMES, VAL_FRAMES, TRAIN_IMG, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_STEPS = 20, 4, 1024, 4, 2, 5
+N_CLASSES = 6  # identity models: one track per animal of a full frame
 
 
 def sync() -> None:
@@ -1217,7 +1243,27 @@ TRAIN_HEADS = {
     "centered_instance": {"confmaps": {"sigma": 2.5, "output_stride": 2}},
     "bottomup": {"confmaps": {"sigma": 2.5, "output_stride": 2},
                  "pafs": {"sigma": 15.0, "output_stride": 4}},
+    "multi_class_bottomup": {"confmaps": {"sigma": 2.5, "output_stride": 2},
+                             "class_maps": {"sigma": 5.0, "output_stride": 2}},
+    "multi_class_topdown": {"confmaps": {"sigma": 2.5, "output_stride": 2},
+                            "class_vectors": {"num_fc_layers": 1, "num_fc_units": 64,
+                                              "global_pool": True}},
 }
+
+
+def with_tracks(labels, n_classes, seed):
+    """``labels`` with each instance given one of ``n_classes`` tracks
+    (``id0``, ``id1``, ...), distinct within its frame, from a seed of its
+    own (the labels' points are untouched)."""
+    from sleap_nn_tpu_torch.io.model import Track
+
+    rng = np.random.default_rng(seed)
+    tracks = [Track(name=f"id{c}") for c in range(n_classes)]
+    for lf in labels.labeled_frames:
+        for inst, c in zip(lf.instances, rng.permutation(n_classes)):
+            inst.track = tracks[c]
+    labels.tracks = tracks
+    return labels
 
 
 def training_config(filters, max_stride, img, batch, augment, model_type="centroid",
@@ -1251,9 +1297,12 @@ def train_stage_times(trainer, batch):
     bottom-up model also the render's parts (``render_parts``: preprocess
     with augmentation, the confmaps through kernel 4, the PAFs, and the
     PAF render's own peak device memory), with kernel 4 held against its
-    plain version on the path's own points."""
+    plain version on the path's own points; for a multi-class bottom-up
+    model the class maps and their render's peak memory in place of the
+    PAFs."""
     import torch
 
+    from sleap_nn_tpu_torch.data.identity import generate_class_maps
     from sleap_nn_tpu_torch.data.pipeline import preprocess_batch
     from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride
     from sleap_nn_tpu_torch.ops.confmaps import generate_multiconfmaps
@@ -1284,7 +1333,7 @@ def train_stage_times(trainer, batch):
         timed("backward", loss.backward)
         timed("optimizer", trainer.optimizer.step)
     times["sum"] = sum(times.values())
-    if trainer.model_type != "bottomup":
+    if trainer.model_type not in ("bottomup", "multi_class_bottomup"):
         return times
 
     ctx, parts = trainer.ctx, {}
@@ -1300,18 +1349,25 @@ def train_stage_times(trainer, batch):
             if DEVICE != "cpu":
                 torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated() if DEVICE != "cpu" else 0
-            pafs = timed("pafs", lambda: generate_pafs(
-                inst, hw, edges, sigma=ctx.pafs_sigma, output_stride=ctx.pafs_output_stride),
-                parts)
+            if trainer.model_type == "bottomup":
+                name = "pafs"
+                second = timed(name, lambda: generate_pafs(
+                    inst, hw, edges, sigma=ctx.pafs_sigma,
+                    output_stride=ctx.pafs_output_stride), parts)
+            else:
+                name = "class_maps"
+                second = timed(name, lambda: generate_class_maps(
+                    inst, hw, dbatch["track_ids"], ctx.n_classes, sigma=ctx.class_maps_sigma,
+                    output_stride=ctx.class_maps_output_stride), parts)
             if DEVICE != "cpu":
-                parts["pafs_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                parts[f"{name}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
         xv, yv = make_grid_vectors(*hw, ctx.output_stride, device=inst.device)
         want = _plain_multi_confmaps(inst, xv, yv, ctx.sigma * ctx.output_stride)
     parts["confmaps_max_abs_err"] = (cms - want).abs().max().item()
     if not parts["confmaps_max_abs_err"] <= 1e-6:
         raise AssertionError(f"kernel 4 on the bottom-up training path: {parts}")
-    parts["points"], parts["confmaps"], parts["pafs_shape"] = (
-        list(inst.shape), list(cms.shape), list(pafs.shape))
+    parts["points"], parts["confmaps"], parts[f"{name}_shape"] = (
+        list(inst.shape), list(cms.shape), list(second.shape))
     times["render_parts"] = parts
     return times
 
@@ -1325,7 +1381,8 @@ MODEL_DIR_FILES = {"initial_config.yaml", "training_config.yaml", "best.ckpt", "
 # evaluation always has pairs to score. It checks the path, not accuracy.
 EVAL_PEAK_THRESHOLD, EVAL_MATCH_THRESHOLD = -1e9, 1e4
 EVAL_KEYS = {"centroid": {"val/dist.avg", "val/detection.f1"},
-             "centered_instance": {"val/mOKS", "val/dist.avg"}}
+             "centered_instance": {"val/mOKS", "val/dist.avg"},
+             "multi_class_topdown": {"val/mOKS", "val/dist.avg"}}
 
 
 def check_eval_peaks(cms):
@@ -1355,11 +1412,13 @@ def check_eval_peaks(cms):
 
 def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None,
                             evaluate=False):
-    """Phases 7, 10 and 11: ``ModelTrainer.train`` of a medium_rf model of
-    ``model_type`` on the synthetic labels, into the model dir
-    ``root/<model_type>`` (which phase 13 predicts from). Kernel 4 renders
-    the centroid and bottom-up confmaps, once per train step, val batch and
-    setup probe; the centered-instance model launches no kernel. With
+    """Phases 7, 10, 11, 17 and 18: ``ModelTrainer.train`` of a medium_rf
+    model of ``model_type`` on the synthetic labels (with ``N_CLASSES``
+    tracks for an identity model), into the model dir
+    ``root/<model_type>`` (which phases 13 and 19 predict from). Kernel 4
+    renders the centroid and (multi-class) bottom-up confmaps, once per
+    train step, val batch and setup probe; the crop models launch no
+    kernel. With
     ``evaluate``, the epoch-end evaluation runs every epoch (``eval.enabled``,
     ``frequency`` 1, peaks and matching as ``EVAL_PEAK_THRESHOLD`` and
     ``EVAL_MATCH_THRESHOLD`` say): for a
@@ -1373,6 +1432,8 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
     from sleap_nn_tpu_torch.training.callbacks import EpochEndEvaluationCallback
 
     labels = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
+    if model_type.startswith("multi_class"):
+        labels = with_tracks(labels, N_CLASSES, seed=17)
     train = labels.extract(range(TRAIN_FRAMES))
     val = labels.extract(range(TRAIN_FRAMES, TRAIN_FRAMES + VAL_FRAMES))
     cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=model_type,
@@ -1414,7 +1475,7 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
     centroid_eval = eval_renders if model_type == "centroid" else 0
     want = {"fused_double_conv3x3": 0, "nms_scores": centroid_eval, "paf_line_scores": 0,
             "multi_confmaps": n_renders + centroid_eval
-            if model_type in ("centroid", "bottomup") else 0}
+            if model_type in ("centroid", "bottomup", "multi_class_bottomup") else 0}
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
         raise AssertionError(f"{model_type} training launch counts {launches}, "
                              f"expected {want}")
@@ -1430,6 +1491,12 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
         log(f"epoch_end_eval {model_type}: " + json.dumps({
             "seconds_per_epoch": eval_s, "val_batches": n_val,
             "logs": [{k: h[k] for k in sorted(keys)} for h in history]}))
+    if model_type == "multi_class_topdown":
+        accuracy = [{k: h.get(k) for k in ("train/class_accuracy", "val/class_accuracy")}
+                    for h in history]
+        if any(v is None for a in accuracy for v in a.values()):
+            raise AssertionError(f"{model_type}: class_accuracy missing from the logs {accuracy}")
+        log(f"class_accuracy {model_type}: " + json.dumps(accuracy))
     moved = {k: (v - start[k]).abs().max().item()
              for k, v in trainer.model.state_dict().items()}
     assert all(d > 0 for d in moved.values()), moved
@@ -1654,36 +1721,61 @@ def frame_labels(frames):
     return Labels([LabeledFrame(video, i) for i in range(len(frames))], videos=[video])
 
 
-def labels_hold_outputs(labels, results, model_type):
+def instance_classes(out, i, model_type):
+    """Row ``i``'s class index of each of its instances (as ``to_labels``
+    keeps them), or None for a model without classes."""
+    if model_type == "multi_class_topdown":
+        return out["pred_class_inds"][i][out["instance_valid"][i]]
+    if model_type == "multi_class_bottomup":  # one row per class
+        return np.arange(out["pred_keypoints"].shape[1])
+    return None
+
+
+def labels_hold_outputs(labels, results, model_type, class_names=None):
     """The ``Labels`` of a run hold exactly the instances of the raw batch
-    outputs (the non-NaN, valid ones), frame by frame; returns their count."""
+    outputs (the non-NaN, valid ones), frame by frame, and for an identity
+    model each with the ``Track`` named after its class (``class_names``),
+    no track twice in a frame; returns their count."""
     want = {}
     for out in results:
         for i in np.flatnonzero(out["valid"]):
-            if model_type == "topdown":
+            if model_type in ("topdown", "multi_class_topdown"):
                 keep = out["instance_valid"][i]
                 pts, vals = out["pred_keypoints"][i][keep], out["pred_peak_values"][i][keep]
             else:
                 pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
             found = ~np.isnan(pts).all(axis=(1, 2))
+            classes = instance_classes(out, i, model_type)
+            names = None if classes is None else [
+                class_names[c] if c >= 0 else None for c in classes[found]]
             if found.any():
-                want[int(out["frame_inds"][i])] = (pts[found], vals[found])
+                want[int(out["frame_inds"][i])] = (pts[found], vals[found], names)
     got = {lf.frame_idx: lf for lf in labels.labeled_frames}
     assert sorted(got) == sorted(want), (sorted(got), sorted(want))
-    for idx, (pts, vals) in want.items():
+    for idx, (pts, vals, names) in want.items():
         insts = got[idx].instances
         assert np.array_equal(np.stack([x.points for x in insts]), pts.astype(np.float64),
                               equal_nan=True), idx
         assert np.array_equal(np.stack([x.point_scores for x in insts]),
                               np.nan_to_num(vals.astype(np.float64))), idx
+        if names is not None:
+            tracks = [x.track.name if x.track is not None else None for x in insts]
+            if tracks != names or len(set(tracks) - {None}) != len(tracks) - tracks.count(None):
+                raise AssertionError(f"frame {idx}: tracks {tracks}, classes {names}")
     return sum(len(lf) for lf in labels.labeled_frames)
 
 
+# Launches per predict batch of each path: fused conv, NMS, PAF line scores.
+PREDICT_LAUNCHES = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1),
+                    "multi_class_topdown": (18, 1, 0), "multi_class_bottomup": (9, 1, 0)}
+
+
 def run_model_dir_predict(kernels, dirs, model_type):
-    """Phase 13: ``run.predict`` over in-memory Labels of the smoke frames
-    from trained model dirs (bf16, batch 8, no output file), the counted
-    run; then one ``Predictor.from_model_paths`` predicts the same frames
-    to raw outputs and to ``Labels``, which must hold the same instances."""
+    """Phases 13 and 19: ``run.predict`` over in-memory Labels of the smoke
+    frames from trained model dirs (bf16, batch 8, no output file), the
+    counted run; then one ``Predictor.from_model_paths`` predicts the same
+    frames to raw outputs and to ``Labels``, which must hold the same
+    instances (an identity model's with the tracks of their classes)."""
     import torch
 
     from sleap_nn_tpu_torch.inference.loaders import load_model
@@ -1710,7 +1802,7 @@ def run_model_dir_predict(kernels, dirs, model_type):
     sync()
     launches = {name: k.launches for name, k in kernels.items()}
     n_batches = -(-N_FRAMES // BATCH)
-    per_batch = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1)}[model_type]
+    per_batch = PREDICT_LAUNCHES[model_type]
     want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
                     (n * n_batches for n in per_batch)), multi_confmaps=0)
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
@@ -1719,8 +1811,9 @@ def run_model_dir_predict(kernels, dirs, model_type):
     predictor = Predictor.from_model_paths(dirs, **kw)
     results = predictor.predict(frame_labels(frames), make_labels=False)
     same_labels = predictor.predict(frame_labels(frames), make_labels=True)
-    n_inst = labels_hold_outputs(same_labels, results, model_type)
-    if labels_hold_outputs(labels, results, model_type) != n_inst:
+    names = predictor.class_names
+    n_inst = labels_hold_outputs(same_labels, results, model_type, names)
+    if labels_hold_outputs(labels, results, model_type, names) != n_inst:
         raise AssertionError(f"{model_type} from dirs: run.predict's Labels differ")
     per_frame = [len(lf) for lf in labels.labeled_frames]
     if len(labels.labeled_frames) != N_FRAMES:
@@ -1730,6 +1823,9 @@ def run_model_dir_predict(kernels, dirs, model_type):
                  instances=n_inst, instances_per_frame=per_frame,
                  peak_threshold=DIR_PEAK_THRESHOLD, backend=labels.provenance["backend"],
                  model_dirs=[str(d) for d in dirs])
+    if names is not None:
+        stats["tracks"] = [t.name for t in labels.tracks]
+        stats["tracked_instances"] = sum(i.track is not None for lf in labels for i in lf)
     log(f"model_dir_{model_type}_predict " + json.dumps(stats))
     return stats
 
@@ -2085,6 +2181,164 @@ def check_tracking_against_cpu(dirs, tmp):
 
 
 # --------------------------------------------------------------------------
+# Phase 19: identity models from model dirs; narrow identity dirs, card against CPU
+# --------------------------------------------------------------------------
+
+# The narrow identity runs: name, the model types of its dirs, the
+# predictor's knobs. Phase 14's centroid model finds about 45 centroids
+# above 0.5 a frame, and a Hungarian match of 45 rows to 3 classes turns on
+# small differences between rows: top-down keeps each frame's best 3
+# centroids (the gaps between the 3rd and 4th value are 1e-4 and more,
+# against the devices' 1e-6). The conditioned bottom-up maps peak near 1
+# on the blobs.
+NARROW_ID_RUNS = (("multi_class_topdown", ("centroid", "multi_class_topdown"),
+                   {"max_instances": 3, "peak_threshold": 0.5}),
+                  ("multi_class_bottomup", ("multi_class_bottomup",), {"peak_threshold": 0.5}))
+NARROW_CLASSES = 3
+# The 3-step class heads' outputs sit near uniform (rows of 0.29, 0.49,
+# 0.21): their logits (and class-map pre-activations) are scaled by this
+# much, so that most rows clear the bf16 margin the check asks for.
+CLASS_HEAD_GAIN = 10.0
+
+
+def train_narrow_identity_dirs(root, centroid_dir):
+    """Phase 19's labels (phase 14's blob labels, each instance one of
+    ``NARROW_CLASSES`` tracks) and its narrow multi-class dirs, each trained
+    3 steps on the CPU under ``root/narrow_id``, conditioned as phase 14's
+    and saved by the trainer, with the class heads' gain raised
+    (``CLASS_HEAD_GAIN``); the top-down pair takes phase 14's centroid
+    dir."""
+    import torch
+
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    labels = with_tracks(blob_labels(10, 128, 5, 3, seed=14), NARROW_CLASSES, seed=19)
+    dirs = {"centroid": centroid_dir}
+    for model_type in ("multi_class_bottomup", "multi_class_topdown"):
+        cfg = training_config(8, 16, 128, 4, augment=False, model_type=model_type,
+                              crop_size=64 if model_type == "multi_class_topdown" else None,
+                              max_epochs=1, train_steps_per_epoch=3, save_ckpt=True,
+                              ckpt_dir=str(root / "narrow_id"), run_name=model_type)
+        trainer = ModelTrainer.get_model_trainer_from_config(
+            cfg, [labels.extract(range(8))], [labels.extract(range(8, 10))], device="cpu")
+        trainer.train()
+        condition_weights(trainer.model, labels.video.frames)
+        with torch.no_grad():
+            for layer in trainer.model.head_layers:
+                for head, module in layer.items():
+                    if head == "ClassVectorsHead":
+                        module.weight.mul_(CLASS_HEAD_GAIN)
+                    elif head == "ClassMapsHead":
+                        module[0].weight.mul_(CLASS_HEAD_GAIN)
+        trainer.save_checkpoint("best.ckpt")
+        dirs[model_type] = trainer.ckpt_dir
+    return labels, dirs
+
+
+def class_margin_ok(probs):
+    """Per row of class probabilities: whether its best clears its second
+    best by more than bf16's step at the best's magnitude."""
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    return np.array([b - a > bf16_ulp(float(b)) for a, b in top2.reshape(-1, 2)],
+                    dtype=bool).reshape(top2.shape[:-1])
+
+
+def _sorted_peaks(dev, i):
+    """Sample ``i``'s valid peaks of a multi-class bottom-up device output,
+    ordered by (channel, rough y, rough x): the same peaks, whatever order
+    near-equal values gave them."""
+    v = dev["valid"][i]
+    rough = dev["rough"][i][v]
+    order = np.lexsort((rough[:, 0], rough[:, 1], dev["channels"][i][v]))
+    return {k: dev[k][i][v][order] for k in ("rough", "channels", "points", "peak_class_probs")}
+
+
+def _identity_rows(fin, i):
+    """Sample ``i`` of a multi-class top-down output: its valid rows in
+    canonical order (by keypoints), as keypoints, class probabilities and
+    class indices."""
+    keep = fin["instance_valid"][i]
+    kp = fin["pred_keypoints"][i][keep]
+    key = [tuple(np.round(np.nan_to_num(k, nan=-1.0), 2).ravel()) for k in kp]
+    order = sorted(range(len(key)), key=key.__getitem__)
+    return (kp[order], fin["class_probs"][i][keep][order],
+            fin["pred_class_inds"][i][keep][order])
+
+
+def check_identity_dirs_against_cpu(labels, dirs):
+    """Phase 19's narrow check: the dirs of ``train_narrow_identity_dirs``
+    predict ``labels``' frames through their ``Predictor.from_model_paths``
+    layers on the card and on the CPU, f32, batch 4. Validity, peak
+    positions and NaN placement exact; keypoints to 1e-4 px, class
+    probabilities to 1e-5; the class assignment equal wherever every row
+    of one Hungarian match clears the bf16 step between its best and
+    second-best class probability: a frame's instances (top-down), a
+    (frame, node)'s peaks (bottom-up). Counts the rows under that margin
+    and the matches they leave out."""
+    from sleap_nn_tpu_torch.inference.layers import to_host
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+
+    frames = labels.video.frames
+    report = {}
+    for name, types, kw in NARROW_ID_RUNS:
+        paths = [dirs[t] for t in types]
+        layers = {d: Predictor.from_model_paths(paths, batch_size=4, device=d, **kw).layer
+                  for d in (DEVICE, "cpu")}
+        r = {"rows": 0, "rows_under_margin": 0, "matches": 0, "matches_left_out": 0,
+             "keypoints_max_abs_err": 0.0, "probs_max_abs_err": 0.0}
+        for start in range(0, len(frames), 4):
+            chunk = frames[start:start + 4]
+            dev = {d: to_host(layer.predict_async(chunk)) for d, layer in layers.items()}
+            fin = {d: layers[d].postprocess_host(dict(dev[d])) for d in layers}
+            g_dev, w_dev, g_fin, w_fin = dev[DEVICE], dev["cpu"], fin[DEVICE], fin["cpu"]
+            for i in range(len(chunk)):
+                if name == "multi_class_bottomup":
+                    g, w = _sorted_peaks(g_dev, i), _sorted_peaks(w_dev, i)
+                    for k in ("rough", "channels"):
+                        if not np.array_equal(g[k], w[k], equal_nan=True):
+                            raise AssertionError(f"phase 19 {name}: frame {start + i} peaks differ")
+                    g_probs, probs = g["peak_class_probs"], w["peak_class_probs"]
+                    # One match per node: its peaks, and its column of the
+                    # output, whose NaN placement is the node's assignment.
+                    matches = [(w["channels"] == n, (slice(None), n))
+                               for n in np.unique(w["channels"])]
+                    g_kp, w_kp = g_fin["pred_keypoints"][i], w_fin["pred_keypoints"][i]
+                    g_cls, w_cls = np.isnan(g_kp), np.isnan(w_kp)
+                else:  # one match per frame: its instances' class indices
+                    g_kp, g_probs, g_cls = _identity_rows(g_fin, i)
+                    w_kp, probs, w_cls = _identity_rows(w_fin, i)
+                    if g_kp.shape != w_kp.shape:
+                        raise AssertionError(f"phase 19 {name}: frame {start + i} holds "
+                                             f"{len(g_kp)} / {len(w_kp)} instances")
+                    matches = [(np.ones(len(probs), bool), slice(None))]
+                ok = class_margin_ok(probs) if len(probs) else np.zeros(0, bool)
+                r["rows"] += len(probs)
+                r["rows_under_margin"] += int((~ok).sum())
+                if len(probs):
+                    r["probs_max_abs_err"] = max(r["probs_max_abs_err"],
+                                                 float(np.abs(g_probs - probs).max()))
+                for rows, cols in matches:
+                    r["matches"] += 1
+                    if not ok[rows].all():
+                        r["matches_left_out"] += 1
+                        continue
+                    gk, wk = g_kp[cols], w_kp[cols]
+                    if not (np.array_equal(g_cls[cols], w_cls[cols])
+                            and np.array_equal(np.isnan(gk), np.isnan(wk))):
+                        raise AssertionError(f"phase 19 {name}: frame {start + i}: the class "
+                                             "assignments differ")
+                    r["keypoints_max_abs_err"] = max(
+                        r["keypoints_max_abs_err"], float(np.nanmax(np.abs(gk - wk), initial=0)))
+        if r["keypoints_max_abs_err"] > 1e-4 or r["probs_max_abs_err"] > 1e-5:
+            raise AssertionError(f"phase 19 {name}: card vs CPU {r}")
+        if r["rows"] < len(frames) or r["matches_left_out"] > r["matches"] // 2:
+            raise AssertionError(f"phase 19 {name}: too little compared {r}")
+        report[name] = r
+    log("identity_dirs_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs):
@@ -2310,6 +2564,29 @@ def main() -> int:
     t_phase = time.perf_counter()
     check_tracking_against_cpu(narrow_dirs, root)
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    # 17. Multi-class bottom-up training end to end (kernel 4, class maps).
+    t_phase = time.perf_counter()
+    tr_mbu = run_training_end_to_end(_build.KERNELS, root, "multi_class_bottomup")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+    # 18. Multi-class centered-instance training end to end (class vectors).
+    t_phase = time.perf_counter()
+    tr_mtd = run_training_end_to_end(_build.KERNELS, root, "multi_class_topdown",
+                                     crop_size=CROP, evaluate=True)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+    # 19. run.predict of the identity models from their dirs; narrow
+    # identity dirs on the card against the CPU.
+    t_phase = time.perf_counter()
+    dir_mbu = run_model_dir_predict(_build.KERNELS, [root / "multi_class_bottomup"],
+                                    "multi_class_bottomup")
+    dir_mtd = run_model_dir_predict(_build.KERNELS, [root / "centroid",
+                                                     root / "multi_class_topdown"],
+                                    "multi_class_topdown")
+    id_labels, id_dirs = train_narrow_identity_dirs(root, narrow_dirs["centroid"])
+    check_identity_dirs_against_cpu(id_labels, id_dirs)
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -2319,7 +2596,9 @@ def main() -> int:
     runs = {"topdown": e2e, "bottomup": bu, "single_instance": si, "train": tr,
             "train_bottomup": tr_bu, "train_centered_instance": tr_ci,
             "model_dir_topdown": dir_td, "model_dir_bottomup": dir_bu,
-            "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu}
+            "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu,
+            "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
+            "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs)
     summary["kernels"][0]["sass_tensor_ops"] = sass
@@ -2327,14 +2606,19 @@ def main() -> int:
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
         f"(last 5-step epoch), {run['fixed_batch_steps_per_sec']:.2f} steps/s over 20 steps on "
         f"one batch" for name, run in (("centroid", tr), ("bottom-up", tr_bu),
-                                       ("centered-instance", tr_ci)))
+                                       ("centered-instance", tr_ci),
+                                       ("multi-class bottom-up", tr_mbu),
+                                       ("multi-class centered-instance", tr_mtd)))
     log(f"e2e: top-down {e2e['fps']:.2f} frames/s over {e2e['n_frames']} frames "
         f"({e2e['instances']} instances); bottom-up {bu['fps']:.2f} frames/s "
         f"({bu['instances']} instances; {bu['paf_workers_2']['fps']:.2f} frames/s with 2 "
         f"grouping workers); single-instance {si['fps']:.2f} frames/s; from model dirs "
         f"(run.predict, bf16, peak_threshold {DIR_PEAK_THRESHOLD:g}, a 3-batch smoke figure): "
         f"top-down {dir_td['fps']:.2f} frames/s ({dir_td['instances']} instances), bottom-up "
-        f"{dir_bu['fps']:.2f} frames/s ({dir_bu['instances']} instances); training: {training}; "
+        f"{dir_bu['fps']:.2f} frames/s ({dir_bu['instances']} instances), multi-class bottom-up "
+        f"{dir_mbu['fps']:.2f} frames/s ({dir_mbu['instances']} instances), multi-class "
+        f"top-down {dir_mtd['fps']:.2f} frames/s ({dir_mtd['instances']} instances); "
+        f"training: {training}; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,18 @@
 """Training data pipeline: host datasets, the loader and the device render.
 
 Port of ``sleap_nn_tpu/data/pipeline.py`` for single-instance, centroid,
-centered-instance and bottom-up models. The host side indexes labeled
+centered-instance, bottom-up and identity (multi-class bottom-up and
+top-down) models. The host side indexes labeled
 frames, decodes and NaN-pads them (numpy); the render function built by
 :func:`make_render_fn` runs on the training device under
 ``torch.no_grad()``: normalize, channels, sizematch, scale, augment, pad to
 stride, then the model type's targets: confidence maps (the centroid and
 bottom-up maps through kernel 4 on CUDA), instance crops, part affinity
-fields.
+fields, class maps and class vectors.
 
-Not ported yet: the render and datasets of the identity, segmentation and
-tiled model types (they raise ``NotImplementedError``), the disk cache,
-negative frames and user-centroid samples.
+Not ported yet: the render and datasets of the segmentation and tiled
+model types (they raise ``NotImplementedError``), the disk cache, negative
+frames and user-centroid samples.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from sleap_nn_tpu_torch.data.augmentation import (
     apply_geometric_augmentation,
     apply_intensity_augmentation,
 )
+from sleap_nn_tpu_torch.data.identity import generate_class_maps, make_class_vectors
 from sleap_nn_tpu_torch.data.instance_centroids import generate_centroids
 from sleap_nn_tpu_torch.data.instance_cropping import (
     compute_augmentation_padding,
@@ -42,10 +44,11 @@ from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
 # Model types of the JAX package that the port does not train yet, and the
 # ROADMAP.md section 1 item that ports each.
 _UNPORTED_TYPES = {
-    "multi_class_bottomup": 8, "multi_class_topdown": 8,
     "bottomup_segmentation": 10, "semantic_segmentation": 10,
     "centered_instance_segmentation": 10,
 }
+# Model types trained on crops around one instance.
+CROP_TYPES = ("centered_instance", "multi_class_topdown")
 
 
 def _unported(what: str, model_type: str) -> NotImplementedError:
@@ -62,6 +65,7 @@ class PipelineContext:
     n_nodes: int
     max_instances: int
     edge_inds: Tuple[Tuple[int, int], ...] = ()
+    n_classes: int = 0
     # preprocessing
     ensure_rgb: bool = False
     ensure_grayscale: bool = False
@@ -75,6 +79,8 @@ class PipelineContext:
     output_stride: int = 2
     pafs_sigma: float = 15.0
     pafs_output_stride: int = 4
+    class_maps_sigma: float = 5.0
+    class_maps_output_stride: int = 2
     anchor_ind: Optional[int] = None
     # augmentation
     use_augmentations: bool = False
@@ -121,9 +127,10 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
 
     The returned ``fn(batch, generator=None)`` takes a dict of tensors on the
     training device (``image`` uint8 ``(B, H, W, C)``, ``instances``
-    ``(B, I, N, 2)``, and ``center_idx`` ``(B,)`` for centered-instance
-    models) and returns, under ``torch.no_grad()``, ``image`` (the network
-    input), ``instances``, ``eff_scale`` and the model type's targets:
+    ``(B, I, N, 2)``, ``center_idx`` ``(B,)`` for crop models and
+    ``track_ids`` ``(B, I)`` for identity models) and returns, under
+    ``torch.no_grad()``, ``image`` (the network input), ``instances``,
+    ``eff_scale`` and the model type's targets:
 
     - ``single_instance``: ``confmaps`` of the first instance;
     - ``centroid``: ``centroids`` ``(B, I, 2)`` and ``confmaps``
@@ -133,7 +140,13 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
       ``instances`` ``(B, N, 2)``, ``centroids`` ``(B, 2)`` and
       ``confmaps`` in crop coordinates;
     - ``bottomup``: ``confmaps`` ``(B, H/s, W/s, N)`` (kernel 4 on CUDA) and
-      ``pafs`` ``(B, H/ps, W/ps, 2E)``.
+      ``pafs`` ``(B, H/ps, W/ps, 2E)``;
+    - ``multi_class_topdown``: as ``centered_instance``, and
+      ``class_vectors`` ``(B, n_classes)`` of the cropped instance's track;
+    - ``multi_class_bottomup``: ``confmaps`` as ``bottomup`` and
+      ``class_maps`` ``(B, H/cs, W/cs, n_classes)`` (plain per-instance
+      confmaps at the class maps' sigma and stride, then the max over each
+      class's instances).
     """
     if ctx.model_type not in _DATASET_BY_TYPE:
         raise _unported("render", ctx.model_type)
@@ -161,7 +174,7 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
                 centroids, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride,
                 is_centroids=True)
 
-        elif ctx.model_type == "centered_instance":
+        elif ctx.model_type in CROP_TYPES:
             rows = torch.arange(image.shape[0], device=image.device)
             sel = batch["center_idx"].long()
             centroids = generate_centroids(instances, ctx.anchor_ind)[rows, sel]  # (B, 2)
@@ -172,6 +185,16 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
             out["confmaps"] = generate_confmaps(
                 out["instances"], (crop_size, crop_size), sigma=ctx.sigma,
                 output_stride=ctx.output_stride)
+            if ctx.model_type == "multi_class_topdown":
+                out["class_vectors"] = make_class_vectors(
+                    batch["track_ids"][rows, sel], ctx.n_classes)
+
+        elif ctx.model_type == "multi_class_bottomup":
+            out["confmaps"] = generate_multiconfmaps(
+                instances, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride)
+            out["class_maps"] = generate_class_maps(
+                instances, (h, w), batch["track_ids"], ctx.n_classes,
+                sigma=ctx.class_maps_sigma, output_stride=ctx.class_maps_output_stride)
 
         else:  # bottomup
             out["confmaps"] = generate_multiconfmaps(
@@ -262,6 +285,10 @@ class BottomUpDataset(BaseDataset):
     """One sample per labeled frame; confmaps and PAFs."""
 
 
+class BottomUpMultiClassDataset(BaseDataset):
+    """One sample per labeled frame; confmaps and class maps."""
+
+
 class CenteredInstanceDataset(BaseDataset):
     """One sample per (frame, instance), in frame order: the render crops
     around instance ``center_idx`` of its frame."""
@@ -271,11 +298,18 @@ class CenteredInstanceDataset(BaseDataset):
             self.samples.append(dict(sample, center_idx=k))
 
 
+class TopDownCenteredInstanceMultiClassDataset(CenteredInstanceDataset):
+    """Centered-instance samples; the render adds class vectors from the
+    instances' track ids."""
+
+
 _DATASET_BY_TYPE = {
     "single_instance": SingleInstanceDataset,
     "centroid": CentroidDataset,
     "centered_instance": CenteredInstanceDataset,
     "bottomup": BottomUpDataset,
+    "multi_class_bottomup": BottomUpMultiClassDataset,
+    "multi_class_topdown": TopDownCenteredInstanceMultiClassDataset,
 }
 
 
@@ -289,8 +323,9 @@ def make_dataset(model_type: str, labels_list, ctx: PipelineContext,
 def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineContext:
     """Static pipeline parameters from a ``TrainingJobConfig`` and labels:
     sizes and strides of the preprocessing and heads, augmentation knobs,
-    the skeleton's symmetric node pairs and edges, and a centered-instance
-    model's crop size (from the labels where the config sets none)."""
+    the skeleton's symmetric node pairs and edges, an identity model's
+    class count (its classes, else the labels' tracks) and a crop model's
+    crop size (from the labels where the config sets none)."""
     from sleap_nn_tpu_torch.config.utils import get_backbone_config, get_head_config
 
     pre = cfg.data_config.preprocessing
@@ -338,8 +373,16 @@ def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineCont
         kw["pafs_sigma"] = pafs.sigma
         kw["pafs_output_stride"] = pafs.output_stride
         kw["edge_inds"] = tuple(skel.edge_inds)
+    cmaps = getattr(head, "class_maps", None)
+    if cmaps is not None:
+        kw["class_maps_sigma"] = cmaps.sigma
+        kw["class_maps_output_stride"] = cmaps.output_stride
+        kw["n_classes"] = len(cmaps.classes or labels.tracks)
+    cvec = getattr(head, "class_vectors", None)
+    if cvec is not None:
+        kw["n_classes"] = len(cvec.classes or labels.tracks)
 
-    if model_type == "centered_instance" and not kw["crop_size"]:
+    if model_type in CROP_TYPES and not kw["crop_size"]:
         rot_max, scale_max = 0.0, 1.0
         if aug is not None and aug.geometric is not None:
             rot_max = max(abs(aug.geometric.rotation_min), abs(aug.geometric.rotation_max))

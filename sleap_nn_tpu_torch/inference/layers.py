@@ -1,19 +1,21 @@
 """Inference layers: preprocess -> backend -> postprocess.
 
-Port of the single-instance, top-down and bottom-up part of
+Port of the single-instance, top-down, bottom-up and identity part of
 ``sleap_nn_tpu/inference/layers.py``: ``PreprocessConfig``,
 ``PostprocessConfig``, ``preprocess_images``, ``SingleInstanceLayer``,
-``CentroidLayer``, ``CenteredInstanceLayer``, ``TopDownLayer`` and
-``BottomUpLayer``, with the same output keys, shapes and coordinate
-bookkeeping (eff_scale / scale / crop offsets lift coordinates back to the
-original image).
+``CentroidLayer``, ``CenteredInstanceLayer``, ``TopDownLayer``,
+``BottomUpLayer``, ``BottomUpMultiClassLayer`` and
+``TopDownMultiClassLayer``, with the same output keys, shapes and
+coordinate bookkeeping (eff_scale / scale / crop offsets lift coordinates
+back to the original image).
 
 PyTorch runs eagerly, so the JAX package's ``jit_layer`` has no
 counterpart. ``predict_async`` enqueues a batch's device work and returns
 device tensors without waiting; ``finalize`` copies them to numpy and runs
 the layer's host step, ``postprocess_host`` (the identity for top-down, the
-PAF grouping for bottom-up), which the predictor calls on the numpy it
-fetched itself.
+PAF grouping for bottom-up, the Hungarian class assignment for the
+identity layers), which the predictor calls on the numpy it fetched
+itself.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import torch
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_sizematcher, resize_image
 from sleap_nn_tpu_torch.inference.backends import resolve_device
+from sleap_nn_tpu_torch.inference.identity import (
+    get_class_inds_from_vectors,
+    group_and_assemble,
+)
 from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
 from sleap_nn_tpu_torch.inference.streaming import group_batch_host
 from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
@@ -198,7 +204,8 @@ class CenteredInstanceLayer(InferenceLayer):
     """Stage-2 per-crop confmap peaks.
 
     ``predict_on_crops`` takes crops in the SCALED image space; peaks come
-    back in crop coordinates, callers add the crop offsets.
+    back in crop coordinates, callers add the crop offsets. It also returns
+    the backend's outputs, for the heads beside the confmaps.
     """
 
     def __init__(self, backend, pre, post, head_name="CenteredInstanceConfmapsHead",
@@ -208,14 +215,14 @@ class CenteredInstanceLayer(InferenceLayer):
         self.output_stride = output_stride
 
     def predict_on_crops(self, crops: torch.Tensor):
-        cms = self.backend(crops)[self.head_name]
+        preds = self.backend(crops)
         points, vals = find_global_peaks(
-            cms,
+            preds[self.head_name],
             threshold=self.post.peak_threshold,
             refinement=self.post.refinement,
             integral_patch_size=self.post.integral_patch_size,
         )
-        return points * self.output_stride, vals
+        return points * self.output_stride, vals, preds
 
 
 class TopDownLayer(InferenceLayer):
@@ -245,7 +252,7 @@ class TopDownLayer(InferenceLayer):
         bboxes = make_centered_bboxes(flat_c, crop, crop)
         sample_inds = torch.arange(b, device=self.device).repeat_interleave(k)
         crops = crop_bboxes(images_scaled, bboxes, sample_inds, crop, crop)
-        peaks, vals = self.instance_layer.predict_on_crops(crops)  # crop coords
+        peaks, vals, preds = self.instance_layer.predict_on_crops(crops)  # crop coords
         # Integer-floored bbox top-left, as crop_bboxes takes it.
         half = crop // 2
         top_left = torch.trunc(flat_c - (crop - 1) / 2.0 + half) - half
@@ -254,7 +261,11 @@ class TopDownLayer(InferenceLayer):
         vals = vals.reshape(b, k, -1)
         peaks = torch.where(valid[..., None, None], peaks, torch.full_like(peaks, float("nan")))
         vals = torch.where(valid[..., None], vals, torch.zeros_like(vals))
-        return peaks, vals
+        return peaks, vals, self._crop_extras(preds, b, k)
+
+    def _crop_extras(self, preds: Dict[str, torch.Tensor], b: int, k: int) -> Dict[str, Any]:
+        """Outputs of the instance model beside its peaks, per (frame, crop)."""
+        return {}
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         c, inst, k = self.centroid_layer, self.instance_layer, self.max_instances
@@ -265,14 +276,48 @@ class TopDownLayer(InferenceLayer):
         ratio = (inst.pre.scale * eff2) / (c.pre.scale * cres["eff_scale"])
         valid = cres["centroid_valid"][:, :k]
         cent2 = torch.nan_to_num(cres["centroids_scaled"][:, :k] * ratio, nan=-1e6)
-        peaks, vals = self._stage2(x2, cent2, valid)
+        peaks, vals, extras = self._stage2(x2, cent2, valid)
         return {
             "pred_keypoints": peaks / (inst.pre.scale * eff2),
             "pred_peak_values": vals,
             "pred_centroids": cres["pred_centroids"][:, :k],
             "centroid_vals": cres["centroid_vals"][:, :k],
             "instance_valid": valid,
+            **extras,
         }
+
+
+class TopDownMultiClassLayer(TopDownLayer):
+    """Top-down whose instance model also classifies each crop.
+
+    Stage 2 returns the class-vectors head's output as ``class_probs``
+    ``(B, K, n_classes)``. The host step gives each frame's valid instances
+    distinct classes by Hungarian matching on their class vectors:
+    ``pred_class_inds`` (-1 where none) and ``pred_class_scores``.
+    """
+
+    def __init__(self, centroid_layer: CentroidLayer, instance_layer: CenteredInstanceLayer,
+                 max_instances: int = 20, crop_size: int = 160, n_classes: int = 0,
+                 class_head: str = "ClassVectorsHead", device="cuda"):
+        super().__init__(centroid_layer, instance_layer, max_instances, crop_size, device)
+        self.n_classes = n_classes
+        self.class_head = class_head
+
+    def _crop_extras(self, preds, b, k):
+        return {"class_probs": preds[self.class_head].reshape(b, k, -1)}
+
+    def postprocess_host(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        probs = host["class_probs"]
+        class_inds = np.full(probs.shape[:2], -1, dtype=np.int64)
+        class_scores = np.full(probs.shape[:2], np.nan, dtype=np.float32)
+        for i in range(probs.shape[0]):
+            rows = np.nonzero(host["instance_valid"][i])[0]
+            if len(rows):
+                class_inds[i, rows], class_scores[i, rows] = get_class_inds_from_vectors(
+                    probs[i][rows])
+        host["pred_class_inds"] = class_inds
+        host["pred_class_scores"] = class_scores
+        return host
 
 
 class BottomUpLayer(InferenceLayer):
@@ -342,3 +387,77 @@ class BottomUpLayer(InferenceLayer):
             self.host_payload(host), self.paf_scorer, self.post.max_instances,
             return_paf_graph=self.post.return_paf_graph,
         )
+
+
+class BottomUpMultiClassLayer(InferenceLayer):
+    """Multi-instance confmaps + class maps -> one instance per class.
+
+    Device: preprocess, UNet, local peaks over all node channels (with
+    their unrefined positions), and each peak's class probabilities
+    gathered from the class maps at its rounded (half to even), clipped
+    class-map position: the host receives ``(B, K, n_classes)``, never the
+    maps. Host (:meth:`postprocess_host`): Hungarian matching of peaks to
+    classes per (sample, node), in the reference's scan order.
+    """
+
+    def __init__(self, backend, pre, post, n_nodes: int, n_classes: int,
+                 cm_head="MultiInstanceConfmapsHead", class_head="ClassMapsHead",
+                 cm_output_stride=2, class_maps_output_stride=2, device="cuda"):
+        super().__init__(backend, pre, post, device)
+        self.n_nodes = n_nodes
+        self.n_classes = n_classes
+        self.cm_head = cm_head
+        self.class_head = class_head
+        self.cm_output_stride = cm_output_stride
+        self.class_maps_output_stride = class_maps_output_stride
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        post = self.post
+        x, eff_scale = preprocess_images(self.pre, images)
+        preds = self.backend(x)
+        class_maps = preds[self.class_head]
+        points, vals, channels, valid, rough = find_local_peaks(
+            preds[self.cm_head],
+            threshold=post.peak_threshold,
+            refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size,
+            max_peaks=post.max_peaks,
+            return_rough=True,
+        )
+        # Class-map grid coordinates. A 0-dim tensor divisor: ATen's CUDA
+        # division by a Python scalar multiplies by its reciprocal.
+        stride = torch.tensor(float(self.class_maps_output_stride), device=points.device)
+        grid = points * self.cm_output_stride / stride
+        b, h, w, _ = class_maps.shape
+        xy = torch.round(torch.nan_to_num(grid)).long()
+        cols, rows = xy[..., 0].clamp(0, w - 1), xy[..., 1].clamp(0, h - 1)
+        samples = torch.arange(b, device=points.device)[:, None].expand_as(cols)
+        return {
+            "points": grid,
+            "rough": rough,  # confmap grid, for the scan order of ties
+            "vals": vals,
+            "channels": channels,
+            "valid": valid,
+            "peak_class_probs": class_maps[samples, rows, cols],  # (B, K, n_classes)
+            "eff_scale": eff_scale,
+        }
+
+    def postprocess_host(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        b, k = host["vals"].shape
+        valid = host["valid"].reshape(-1)
+        grouped_pts, grouped_vals, class_probs = group_and_assemble(
+            host["points"].reshape(-1, 2)[valid],
+            host["vals"].reshape(-1)[valid],
+            np.repeat(np.arange(b), k)[valid],
+            host["channels"].reshape(-1)[valid],
+            host["peak_class_probs"].reshape(b * k, -1)[valid],
+            b, self.n_classes, self.n_nodes,
+            sort_keys=host["rough"].reshape(-1, 2)[valid],
+        )
+        eff_scale = float(np.reshape(host["eff_scale"], -1)[0])
+        lift = self.class_maps_output_stride / (self.pre.scale * eff_scale)
+        return {
+            "pred_keypoints": grouped_pts * lift,
+            "pred_peak_values": grouped_vals,
+            "pred_class_probs": class_probs,
+        }

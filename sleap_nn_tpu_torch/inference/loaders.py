@@ -28,6 +28,7 @@ from sleap_nn_tpu_torch.config import (
     get_model_type_from_cfg,
     resolve_model_dir,
 )
+from sleap_nn_tpu_torch.data.pipeline import CROP_TYPES
 from sleap_nn_tpu_torch.models.model import MODEL_TYPES, Model
 
 
@@ -56,8 +57,6 @@ def unported_model_type(model_type: str, backbone_type: str = "unet") -> Optiona
     """Why a model of this type cannot be built by the port yet, or None."""
     if backbone_type != "unet":
         return f"backbone {backbone_type!r} is not ported (ROADMAP.md section 1, item 11)"
-    if model_type.startswith("multi_class"):
-        return f"model type {model_type!r} is not ported (ROADMAP.md section 1, item 8)"
     if model_type not in MODEL_TYPES:
         return f"model type {model_type!r} is not ported (ROADMAP.md section 1, item 10)"
     return None
@@ -77,6 +76,18 @@ def load_checkpoint_state(ckpt: Path) -> Dict[str, torch.Tensor]:
     return ModelTrainer.load_checkpoint_params(ckpt)
 
 
+def model_input_hw(config: TrainingJobConfig) -> Optional[Tuple[int, int]]:
+    """The network input's (height, width) for a crop model (the crop size,
+    scaled and rounded up to the max stride, as the trainer renders it);
+    None for a model of full frames."""
+    pre = config.data_config.preprocessing
+    if get_model_type_from_cfg(config) not in CROP_TYPES or not pre.crop_size:
+        return None
+    size = int(round(pre.crop_size * pre.scale))
+    size += (-size) % get_backbone_config(config).max_stride
+    return size, size
+
+
 def build_model(config: TrainingJobConfig, model_dir: Path) -> Tuple[str, Model]:
     """``(model_type, model)`` of a training config, with random weights;
     a model the port cannot build raises ``NotImplementedError``."""
@@ -85,7 +96,8 @@ def build_model(config: TrainingJobConfig, model_dir: Path) -> Tuple[str, Model]
     if why:
         raise NotImplementedError(f"{model_dir}: {why}")
     return model_type, Model.from_config(
-        "unet", get_backbone_config(config), get_head_config(config), model_type)
+        "unet", get_backbone_config(config), get_head_config(config), model_type,
+        input_hw=model_input_hw(config))
 
 
 def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) -> LoadedModel:

@@ -1,11 +1,13 @@
 """Predictor: providers -> layer -> per-batch numpy outputs -> Labels.
 
 Port of ``sleap_nn_tpu/inference/predictor.py`` for the single-instance,
-top-down (centroid + centered-instance) and bottom-up models:
+top-down (centroid + centered-instance), bottom-up and identity
+(multi-class bottom-up; centroid + multi-class top-down) models:
 ``from_model_paths`` builds the layer from trained model directories,
 ``predict`` runs it over a frame source and, with ``make_labels=True``,
 ``to_labels`` turns the per-batch outputs into ``Labels`` of
-``PredictedInstance``s (through the instance filters). The other model
+``PredictedInstance``s (through the instance filters; an identity model's
+instances carry one ``Track`` per class). The other model
 types and the knobs of features the port lacks raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
@@ -37,19 +39,27 @@ from sleap_nn_tpu_torch.inference.backends import TorchBackend, resolve_device
 from sleap_nn_tpu_torch.inference.filters import FilterPipeline
 from sleap_nn_tpu_torch.inference.layers import (
     BottomUpLayer,
+    BottomUpMultiClassLayer,
     CenteredInstanceLayer,
     CentroidLayer,
     PostprocessConfig,
     PreprocessConfig,
     SingleInstanceLayer,
     TopDownLayer,
+    TopDownMultiClassLayer,
     to_host,
 )
 from sleap_nn_tpu_torch.inference.loaders import LoadedModel, load_model
 from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
 from sleap_nn_tpu_torch.inference.providers import LabelsProvider, VideoProvider
 from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
-from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, PredictedInstance, Skeleton
+from sleap_nn_tpu_torch.io.model import (
+    LabeledFrame,
+    Labels,
+    PredictedInstance,
+    Skeleton,
+    Track,
+)
 from sleap_nn_tpu_torch.io.video import rgb_to_gray_uint8
 
 logger = logging.getLogger("sleap_nn_tpu_torch")
@@ -129,7 +139,8 @@ class Predictor:
     ``paf_workers``: for a bottom-up layer, the number of worker processes
     that group PAF scores into instances (0 groups on the fetch thread).
     ``filters``: an optional ``FilterConfig`` applied to each frame's
-    instances by ``to_labels``.
+    instances by ``to_labels``. ``class_names``: an identity model's class
+    names, which name the ``Track`` of each class.
     """
 
     def __init__(self, layer, model_type: str, skeleton=None, models: Sequence = (),
@@ -144,6 +155,8 @@ class Predictor:
         self.batch_size = batch_size
         self.paf_workers = paf_workers
         self.filters = filters
+        self.class_names: Optional[List[str]] = None
+        self._class_tracks: Dict[int, Track] = {}
         # Set by run.predict: frames are written as each batch completes;
         # whether the Labels will be tracked (for the run's summary line).
         self.stream_writer = None
@@ -196,7 +209,9 @@ class Predictor:
         ``{single_instance}``, ``{centroid, centered_instance}`` (top-down)
         or ``{bottomup}``. The preprocessing overrides trump each model's
         training config. The layers run on ``device`` (the card unless
-        ``"cpu"``); the fused double-conv kernel runs there on a card."""
+        ``"cpu"``); the fused double-conv kernel runs there on a card.
+        Identity models: ``{multi_class_bottomup}`` and ``{centroid,
+        multi_class_topdown}``."""
         refuse_unported(unported, UNPORTED_KNOBS, "from_model_paths")
         device = resolve_device(device)
         loaded = [load_model(p) for p in model_paths]
@@ -241,19 +256,16 @@ class Predictor:
         def skeleton_for(m: LoadedModel) -> Skeleton:
             return Skeleton(nodes=m.skeleton_nodes, edges=m.skeleton_edges)
 
-        def make(layer, model_type, m):
-            return cls(layer, model_type, skeleton_for(m), loaded, batch_size, device=device,
-                       paf_workers=paf_workers, filters=filters)
+        def make(layer, model_type, m, class_names=None):
+            p = cls(layer, model_type, skeleton_for(m), loaded, batch_size, device=device,
+                    paf_workers=paf_workers, filters=filters)
+            p.class_names = class_names
+            return p
 
-        if types == {"single_instance"}:
-            m = by_type["single_instance"]
-            layer = SingleInstanceLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
-            return make(layer, "single_instance", m)
-
-        if types == {"centroid", "centered_instance"}:
-            mc, mi = by_type["centroid"], by_type["centered_instance"]
+        def topdown_stages(mi):
+            """The centroid layer and the centered-instance layer of ``mi``,
+            with its crop size."""
+            mc = by_type["centroid"]
             post_c = post_for()
             post_c.max_instances = max_instances or 20
             if centroid_peak_threshold is not None:
@@ -265,10 +277,37 @@ class Predictor:
             instance_layer = CenteredInstanceLayer(
                 backend_for(mi), inst_pre, post_for(),
                 output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
-            layer = TopDownLayer(centroid_layer, instance_layer,
-                                 max_instances=max_instances or 20,
-                                 crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
-            return make(layer, "topdown", mi)
+            return dict(centroid_layer=centroid_layer, instance_layer=instance_layer,
+                        max_instances=max_instances or 20,
+                        crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
+
+        if types == {"single_instance"}:
+            m = by_type["single_instance"]
+            layer = SingleInstanceLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
+            return make(layer, "single_instance", m)
+
+        if types == {"centroid", "centered_instance"}:
+            mi = by_type["centered_instance"]
+            return make(TopDownLayer(**topdown_stages(mi)), "topdown", mi)
+
+        if types == {"centroid", "multi_class_topdown"}:
+            mi = by_type["multi_class_topdown"]
+            classes = list(get_head_config(mi.config).class_vectors.classes)
+            layer = TopDownMultiClassLayer(**topdown_stages(mi), n_classes=len(classes))
+            return make(layer, "multi_class_topdown", mi, classes)
+
+        if types == {"multi_class_bottomup"}:
+            m = by_type["multi_class_bottomup"]
+            head = get_head_config(m.config)
+            classes = list(head.class_maps.classes)
+            layer = BottomUpMultiClassLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                n_nodes=len(head.confmaps.part_names), n_classes=len(classes),
+                cm_output_stride=head.confmaps.output_stride,
+                class_maps_output_stride=head.class_maps.output_stride, device=device)
+            return make(layer, "multi_class_bottomup", m, classes)
 
         if types == {"bottomup"}:
             m = by_type["bottomup"]
@@ -497,6 +536,8 @@ class Predictor:
             for out in results:
                 lfs.extend(self._frames_from_out(out, videos))
         labels = Labels(labeled_frames=lfs, videos=[v for v in videos if v is not None])
+        if self._class_tracks:
+            labels.tracks = list(self._class_tracks.values())
         from sleap_nn_tpu_torch.inference.provenance import build_inference_provenance
 
         labels.provenance = build_inference_provenance(
@@ -533,6 +574,28 @@ class Predictor:
                     if not np.all(np.isnan(pts_list[k])):
                         instances.append(self._make_instance(
                             pts_list[k], vals_list[k], skel, score=float(scores[k])))
+            elif self.model_type == "multi_class_bottomup":
+                # One row per class: its instance, if any of its nodes was found.
+                pts = out["pred_keypoints"][i]
+                vals = np.nan_to_num(out["pred_peak_values"][i])
+                probs = out["pred_class_probs"][i]
+                for k in range(pts.shape[0]):
+                    if not np.all(np.isnan(pts[k])):
+                        inst = self._make_instance(pts[k], vals[k], skel)
+                        inst.track = self._class_track(k)
+                        inst.tracking_score = float(np.nanmean(probs[k]))
+                        instances.append(inst)
+            elif self.model_type == "multi_class_topdown":
+                pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
+                valid = out["instance_valid"][i]
+                cls_inds, cls_scores = out["pred_class_inds"][i], out["pred_class_scores"][i]
+                for k in range(pts.shape[0]):
+                    if valid[k] and not np.all(np.isnan(pts[k])):
+                        inst = self._make_instance(pts[k], vals[k], skel)
+                        if cls_inds[k] >= 0:
+                            inst.track = self._class_track(int(cls_inds[k]))
+                            inst.tracking_score = float(np.nan_to_num(cls_scores[k]))
+                        instances.append(inst)
             else:
                 raise NotImplementedError(
                     f"Labels output of model type {self.model_type!r} is not ported")
@@ -542,6 +605,15 @@ class Predictor:
                 lfs.append(LabeledFrame(video=vid, frame_idx=int(out["frame_inds"][i]),
                                         instances=instances))
         return lfs
+
+    def _class_track(self, class_idx: int) -> Track:
+        """The ``Track`` of an identity class (one per class and predictor),
+        named after the class, or its index where the class has no name."""
+        if class_idx not in self._class_tracks:
+            names = self.class_names
+            name = names[class_idx] if names and class_idx < len(names) else str(class_idx)
+            self._class_tracks[class_idx] = Track(name=name)
+        return self._class_tracks[class_idx]
 
     @staticmethod
     def _make_instance(pts, vals, skel, score=None) -> PredictedInstance:

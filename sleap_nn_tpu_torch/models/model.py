@@ -1,15 +1,16 @@
 """Model assembly: backbone + heads.
 
 Port of ``sleap_nn_tpu/models/model.py`` for the UNet backbone and the
-single-instance, centroid, centered-instance and bottom-up heads:
-``get_backbone`` / ``get_head`` and the ``Model`` that binds each head's
-1x1 conv to the decoder feature at that head's ``output_stride``, with
-gray<->RGB input coercion in ``forward``.
+single-instance, centroid, centered-instance, bottom-up and identity
+(multi-class) heads: ``get_backbone`` / ``get_head`` and the ``Model``
+that binds each head's 1x1 conv to the decoder feature at that head's
+``output_stride`` (a class-vectors head to the backbone's
+``intermediate_feat``), with gray<->RGB input coercion in ``forward``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,6 +18,8 @@ from torch import nn
 from sleap_nn_tpu_torch.models.heads import (
     CenteredInstanceConfmapsHead,
     CentroidConfmapsHead,
+    ClassMapsHead,
+    ClassVectorsHead,
     Head,
     MultiInstanceConfmapsHead,
     PartAffinityFieldsHead,
@@ -24,7 +27,8 @@ from sleap_nn_tpu_torch.models.heads import (
 )
 from sleap_nn_tpu_torch.models.unet import UNet
 
-MODEL_TYPES = ("single_instance", "centroid", "centered_instance", "bottomup")
+MODEL_TYPES = ("single_instance", "centroid", "centered_instance", "bottomup",
+               "multi_class_bottomup", "multi_class_topdown")
 
 
 def _cfg_get(cfg, key, default=None):
@@ -67,6 +71,21 @@ def get_head(model_type: str, head_config) -> Tuple[Head, ...]:
     if model_type == "centroid":
         return (CentroidConfmapsHead(
             **kw(leaf, ("anchor_part", "sigma", "output_stride", "loss_weight"))),)
+    if model_type == "multi_class_bottomup":
+        cmaps = _cfg_get(head_config, "class_maps")
+        return (
+            MultiInstanceConfmapsHead(
+                **kw(leaf, ("part_names", "sigma", "output_stride", "loss_weight"))),
+            ClassMapsHead(**kw(cmaps, ("classes", "sigma", "output_stride", "loss_weight"))),
+        )
+    if model_type == "multi_class_topdown":
+        cv = _cfg_get(head_config, "class_vectors")
+        return (
+            CenteredInstanceConfmapsHead(
+                **kw(leaf, ("part_names", "anchor_part", "sigma", "output_stride", "loss_weight"))),
+            ClassVectorsHead(**kw(cv, ("classes", "num_fc_layers", "num_fc_units", "global_pool",
+                                       "output_stride", "loss_weight"))),
+        )
     raise ValueError(
         f"{model_type} is not a ported model type. Choose one of {MODEL_TYPES}."
     )
@@ -79,33 +98,56 @@ def rgb_to_grayscale(x: torch.Tensor) -> torch.Tensor:
 
 
 class Model(nn.Module):
-    """Backbone + heads; NHWC input, dict of NHWC head outputs."""
+    """Backbone + heads; NHWC input, dict of NHWC head outputs (a
+    class-vectors head gives ``(B, n_classes)``).
 
-    def __init__(self, backbone: nn.Module, heads: Tuple[Head, ...], in_channels: int = 1):
+    ``input_hw``: the network input's (height, width). Only a class-vectors
+    head without ``global_pool`` needs it: its first dense layer takes the
+    flattened ``intermediate_feat``, whose size follows from the input's.
+    """
+
+    def __init__(self, backbone: nn.Module, heads: Tuple[Head, ...], in_channels: int = 1,
+                 input_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.backbone = backbone
         self.heads = tuple(heads)
         self.in_channels = in_channels
         stride_to_filters = backbone.stride_to_filters
+        layers = []
         for head in self.heads:
+            if isinstance(head, ClassVectorsHead):
+                # Binds to the bottleneck feature, not a decoder stride.
+                layers.append(head.make_layer(self._class_vector_features(head, input_hw)))
+                continue
             if head.output_stride not in stride_to_filters:
                 raise ValueError(
                     f"Head '{head.name}' needs a feature at output_stride "
                     f"{head.output_stride}, but the backbone produces strides "
                     f"{sorted(stride_to_filters)}."
                 )
-        self.head_layers = nn.ModuleList(
-            nn.ModuleDict({head.name: head.make_layer(stride_to_filters[head.output_stride])})
-            for head in self.heads
-        )
+            layers.append(nn.ModuleDict(
+                {head.name: head.make_layer(stride_to_filters[head.output_stride])}))
+        self.head_layers = nn.ModuleList(layers)
+
+    def _class_vector_features(self, head: ClassVectorsHead,
+                               input_hw: Optional[Tuple[int, int]]) -> int:
+        stride = self.backbone.max_stride
+        channels = self.backbone.bottleneck_channels
+        if head.global_pool:
+            return channels
+        if input_hw is None:
+            raise ValueError("a ClassVectorsHead without global_pool needs the model's input_hw "
+                             "(its dense input is the flattened bottleneck feature)")
+        return (input_hw[0] // stride) * (input_hw[1] // stride) * channels
 
     @classmethod
     def from_config(cls, backbone_type: str, backbone_config, head_configs,
-                    model_type: str) -> "Model":
+                    model_type: str, input_hw: Optional[Tuple[int, int]] = None) -> "Model":
         return cls(
             backbone=get_backbone(backbone_type, backbone_config),
             heads=get_head(model_type, head_configs),
             in_channels=_cfg_get(backbone_config, "in_channels", 1),
+            input_hw=input_hw,
         )
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -120,7 +162,12 @@ class Model(nn.Module):
         for head, layer in zip(self.heads, self.head_layers):
             if not backbone_outputs["outputs"]:
                 feature = backbone_outputs["middle_output"]
+            elif isinstance(head, ClassVectorsHead):
+                feature = backbone_outputs["intermediate_feat"]
             else:
                 feature = backbone_outputs["outputs"][strides.index(head.output_stride)]
-            outputs[head.name] = layer[head.name](feature)
+            if isinstance(head, ClassVectorsHead):
+                outputs[head.name] = layer(feature)
+            else:
+                outputs[head.name] = layer[head.name](feature)
         return outputs

@@ -91,6 +91,8 @@ class UNet(nn.Module):
                     kernel_size=kernel_size, pool=False,
                     prefix=f"stack{i}_enc{mid_name}_middle_contract"))
                 c = self._decoder_in_channels()
+            # The decoder's input (``middle_output``, ``intermediate_feat``).
+            self.bottleneck_channels = c
             skips = enc.block_channels[::-1] + ([stem_channels] if stem_blocks > 0 else [])
             self.decoders.append(Decoder(
                 c, skips, filters, up_blocks, down_blocks, filters_rate,

@@ -126,8 +126,8 @@ class EpochEndEvaluationCallback(Callback):
     Renders each val batch without augmentation, runs the model under
     ``torch.no_grad()`` in eval mode (and restores the mode), finds peaks
     on the confidence maps (global peaks with integral refinement for the
-    single-instance and centered-instance models; local peaks, at most 20,
-    for the centroid model) and adds ``val/mOKS``, ``val/dist.avg`` and,
+    single-instance, centered-instance and multi-class top-down models;
+    local peaks, at most 20, for the centroid model) and adds ``val/mOKS``, ``val/dist.avg`` and,
     for the centroid model, ``val/detection.f1`` to the epoch logs (and so
     to the CSV row). Other model types add nothing. A failure is printed,
     never raised: evaluation must not stop training.
@@ -151,7 +151,8 @@ class EpochEndEvaluationCallback(Callback):
 
     def _evaluate(self, trainer) -> Dict:
         mtype = trainer.model_type
-        if mtype not in ("single_instance", "centered_instance", "centroid"):
+        if mtype not in ("single_instance", "centered_instance", "multi_class_topdown",
+                         "centroid"):
             return {}
         cm_head = next(h for h in trainer.model.heads if "Confmaps" in h.name)
         stride = cm_head.output_stride

@@ -1,9 +1,10 @@
 """Training orchestration.
 
 Port of ``sleap_nn_tpu/training/model_trainer.py`` for single-instance,
-centroid, centered-instance and bottom-up models on one device. A train
-step renders the batch's targets on the device under ``torch.no_grad()``
-(kernel 4 on CUDA for the centroid and bottom-up confidence maps), runs
+centroid, centered-instance, bottom-up and identity (multi-class
+bottom-up and top-down) models on one device. A train step renders the
+batch's targets on the device under ``torch.no_grad()`` (kernel 4 on
+CUDA for the centroid and bottom-up confidence maps), runs
 the forward and the loss under autograd, then ``backward`` and one Adam /
 AdamW step. PyTorch runs eagerly, so where the JAX trainer jits one
 program per step, the port launches the same stages one by one. The
@@ -12,8 +13,8 @@ trainer does: the fused double-conv kernel has no backward.
 
 The model directory: ``initial_config.yaml`` (the config as the caller
 gave it), ``training_config.yaml`` (the config the trainer filled in: max
-dims, strides, part names, PAF edges, crop size, skeleton, run name,
-parameter count), ``best.ckpt`` (and ``last.ckpt`` with
+dims, strides, part names, PAF edges, classes, crop size, skeleton, run
+name, parameter count), ``best.ckpt`` (and ``last.ckpt`` with
 ``model_ckpt.save_last``) and ``training_log.csv`` (one row per epoch).
 A checkpoint is ``torch.save({"state_dict", "epoch", "best_val_loss"})``
 with the model's ``state_dict`` keys under the ``model.`` prefix of the
@@ -21,9 +22,10 @@ reference's Lightning checkpoints. ``inference.loaders.load_model`` reads
 the directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md): the identity and segmentation model types, backbones other
-than UNet, tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
-visualization, negative frames, user centroids,
+ROADMAP.md): the segmentation model types, backbones other than UNet,
+tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
+visualization, negative frames (a crop model leaves them out with a
+warning, as the JAX trainer does), user centroids,
 amsgrad, ``save_top_k`` above 1, device-trace profilers, more than one
 device, loading labels from paths, and the ``labels_{train,val}_gt_*.slp``
 files of the model directory (writing them needs h5py, which the card
@@ -37,6 +39,7 @@ import dataclasses
 import math
 import os
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -54,6 +57,7 @@ from sleap_nn_tpu_torch.config import (
     verify_training_cfg,
 )
 from sleap_nn_tpu_torch.data.pipeline import (
+    CROP_TYPES,
     Loader,
     build_pipeline_context,
     make_dataset,
@@ -73,16 +77,19 @@ from sleap_nn_tpu_torch.training.callbacks import (
 from sleap_nn_tpu_torch.training.losses import compute_loss
 from sleap_nn_tpu_torch.training.schedulers import make_scheduler
 
-_BATCH_TENSORS = ("image", "instances", "center_idx", "batch_mask", "sample_weight")
+_BATCH_TENSORS = ("image", "instances", "center_idx", "track_ids", "batch_mask",
+                  "sample_weight")
 
 
 def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Xavier-uniform conv and transposed-conv weights, zero biases, in place.
+    """Xavier-uniform conv, transposed-conv and dense weights, zero biases,
+    in place.
 
-    The JAX package's rule on its HWIO kernels: ``fan_in = kh * kw * in``,
-    ``fan_out = out``, limit ``sqrt(6 / (fan_in + fan_out))``. (PyTorch's
-    ``xavier_uniform_`` on OIHW weights would count ``out * kh * kw`` as
-    ``fan_out``.) ``generator`` lives on the weights' device.
+    The JAX package's rule on its HWIO and (in, out) kernels: ``fan_in = kh
+    * kw * in`` (``in`` for a dense layer), ``fan_out = out``, limit
+    ``sqrt(6 / (fan_in + fan_out))``. (PyTorch's ``xavier_uniform_`` on
+    OIHW weights would count ``out * kh * kw`` as ``fan_out``.)
+    ``generator`` lives on the weights' device.
     """
     with torch.no_grad():
         for m in model.modules():
@@ -90,6 +97,8 @@ def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Modul
                 c_in, c_out, kh, kw = m.weight.shape
             elif isinstance(m, nn.Conv2d):  # (out, in, kh, kw)
                 c_out, c_in, kh, kw = m.weight.shape
+            elif isinstance(m, nn.Linear):  # (out, in)
+                (c_out, c_in), kh, kw = m.weight.shape, 1, 1
             else:
                 continue
             limit = math.sqrt(6.0 / (kh * kw * c_in + c_out))
@@ -141,7 +150,7 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
-        (bool(dc.use_negative_frames), "negative frames"),
+        (bool(dc.use_negative_frames) and model_type not in CROP_TYPES, "negative frames"),
         (getattr(cm, "centroid_source", None) == "user", "user centroids"),
         (bool(getattr(tc.optimizer, "amsgrad", False)), "amsgrad"),
         (int(tc.model_ckpt.save_top_k or 1) > 1, "save_top_k > 1"),
@@ -175,8 +184,8 @@ class ModelTrainer:
         missing = _unsupported(config, self.model_type, self.backbone_type)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7, 8, 10 "
-                "and 11): " + "; ".join(missing))
+                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7, 10 and "
+                "11): " + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
         self.current_epoch = 0
@@ -248,8 +257,8 @@ class ModelTrainer:
 
     def _infer_config(self):
         """Fill the derived config: preprocessing max dims, strides, head
-        part names and PAF edges, the pipeline context, the crop size and
-        the skeleton record."""
+        part names, PAF edges and classes (the track names), the pipeline
+        context, the crop size and the skeleton record."""
         labels = self.train_labels[0]
         skel = labels.skeleton
         head = get_head_config(self.config)
@@ -265,6 +274,10 @@ class ModelTrainer:
         pafs = getattr(head, "pafs", None)
         if pafs is not None and pafs.edges is None:
             pafs.edges = [list(e) for e in skel.edge_names]
+        for leaf_name in ("class_maps", "class_vectors"):
+            leaf = getattr(head, leaf_name, None)
+            if leaf is not None and leaf.classes is None:
+                leaf.classes = [t.name for t in labels.tracks]
         merged = Labels(
             labeled_frames=[lf for L in self.train_labels for lf in L.labeled_frames],
             videos=[v for L in self.train_labels for v in L.videos],
@@ -298,6 +311,15 @@ class ModelTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
+        if cfg.data_config.use_negative_frames and self.model_type in CROP_TYPES:
+            # A crop has no frame-level sample to attach a negative to.
+            warnings.warn(
+                f"use_negative_frames is enabled but model_type="
+                f"'{self.model_type}' operates at instance-crop level and "
+                f"does not support frame-level negatives. Negative frames "
+                f"will be disabled.",
+                stacklevel=2,
+            )
         user_only = cfg.data_config.user_instances_only
         self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx, user_only)
         val_ctx = dataclasses.replace(self.ctx, use_augmentations=False)
@@ -316,18 +338,19 @@ class ModelTrainer:
             prefetch=max(2, int(tc.val_data_loader.num_workers or 0)),
         )
 
-        self.model = Model.from_config(
-            self.backbone_type, get_backbone_config(cfg), get_head_config(cfg), self.model_type)
-        xavier_init_params(self.model, torch.Generator().manual_seed(seed))
-        self.model.to(self.device)
-        cfg.model_config.total_params = int(sum(p.numel() for p in self.model.parameters()))
-
         self._renders = {True: make_render_fn(self.ctx, train=True),
                          False: make_render_fn(self.ctx, train=False)}
         # The probe: one val sample through the render gives the network's
         # input shape (and checks the render before the first step).
         probe = self.render(self.val_ds.make_batch([0]), train=False)
         self._input_shape = tuple(probe["image"].shape)
+
+        self.model = Model.from_config(
+            self.backbone_type, get_backbone_config(cfg), get_head_config(cfg), self.model_type,
+            input_hw=self._input_shape[1:3])
+        xavier_init_params(self.model, torch.Generator().manual_seed(seed))
+        self.model.to(self.device)
+        cfg.model_config.total_params = int(sum(p.numel() for p in self.model.parameters()))
 
         self.optimizer = make_optimizer(self.model.parameters(), tc.optimizer_name,
                                         tc.optimizer.lr)

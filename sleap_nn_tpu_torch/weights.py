@@ -9,6 +9,9 @@ which maps to one flax leaf; the leaf is transposed back to torch layout:
 - conv kernels: flax HWIO -> torch OIHW;
 - transposed-conv kernels: flax (kh, kw, in, out), spatially flipped ->
   torch (in, out, kh, kw);
+- dense kernels (the class-vectors head: ``pre_classification{j}_fc`` <->
+  ``ClassVectorsHead/fc{j}``, ``ClassVectorsHead`` <->
+  ``ClassVectorsHead/logits``): flax (in, out) -> torch (out, in);
 - biases as they are.
 
 The key -> flax path rules are this module's own copy of the importer's.
@@ -40,7 +43,8 @@ _BACKBONE_PATTERNS = (
 def flax_path_for(torch_key: str) -> Tuple[Tuple[str, ...], str]:
     """Map one ``state_dict`` key to (flax tree path, leaf kind).
 
-    Leaf kind is ``conv_kernel``, ``trans_conv_kernel`` or ``bias``.
+    Leaf kind is ``conv_kernel``, ``trans_conv_kernel``, ``dense_kernel``
+    or ``bias``.
     """
     parts = torch_key.split(".")
     if parts[0] == "model":
@@ -59,7 +63,14 @@ def flax_path_for(torch_key: str) -> Tuple[Tuple[str, ...], str]:
                 return path + ("kernel",), kind
         raise KeyError(f"unrecognized backbone block {parts[-2]!r} in {torch_key!r}")
     if parts[0] == "head_layers":
-        path = (parts[2], "head_conv")
+        name = parts[2]
+        fc = re.match(r"^pre_classification(\d+)_fc$", name)
+        if fc or (name == "ClassVectorsHead" and len(parts) == 4):
+            path = ("ClassVectorsHead", f"fc{fc.group(1)}" if fc else "logits")
+            if leaf == "bias":
+                return path + ("bias",), "bias"
+            return path + ("kernel",), "dense_kernel"
+        path = (name, "head_conv")
         if leaf == "bias":
             return path + ("bias",), "bias"
         return path + ("kernel",), "conv_kernel"
@@ -73,6 +84,8 @@ def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "trans_conv_kernel":
         return value[::-1, ::-1].transpose(2, 3, 0, 1)  # un-flip, -> (in, out, kh, kw)
+    if kind == "dense_kernel":
+        return value.T  # (in, out) -> (out, in)
     raise KeyError(kind)
 
 

@@ -70,7 +70,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.tracking.kalman",
             "sleap_nn_tpu_torch.tracking.tracker",
             "sleap_nn_tpu_torch.tracking.utils",
-            "sleap_nn_tpu_torch.training.callbacks"} <= set(mods)
+            "sleap_nn_tpu_torch.training.callbacks",
+            "sleap_nn_tpu_torch.inference.identity",
+            "sleap_nn_tpu_torch.data.identity"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"

@@ -240,7 +240,7 @@ def test_load_model_refuses_what_is_not_ported(tmp_path):
     (v1 / "best_model.h5").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="item 9"):
         load_model(v1)
-    for head, item in (({"multi_class_bottomup": {}}, "item 8"),
+    for head, item in (({"semantic_segmentation": {}}, "item 10"),
                        ({"bottomup_segmentation": {}}, "item 10")):
         d = tmp_path / next(iter(head))
         d.mkdir()

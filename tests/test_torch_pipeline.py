@@ -214,8 +214,8 @@ def test_make_render_fn_sizematch_and_scale():
 
 def test_other_model_types_raise():
     _, _, _, pctx, _, _ = _datasets()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ppipe.make_render_fn(dataclasses.replace(pctx, model_type="multi_class_bottomup"),
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ppipe.make_render_fn(dataclasses.replace(pctx, model_type="bottomup_segmentation"),
                              train=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         ppipe.make_dataset("centered_instance_segmentation", [], pctx)

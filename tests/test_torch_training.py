@@ -398,7 +398,7 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"model_config": {"head_configs": {"centroid": None, "multi_class_bottomup": {}}}},
+    {"model_config": {"head_configs": {"centroid": None, "bottomup_segmentation": {}}}},
     {"trainer_config": {"resume_ckpt_path": "x.ckpt"}},
     {"trainer_config": {"use_wandb": True}},
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
