@@ -148,9 +148,38 @@ Phases, each of which raises on failure (exit code != 0):
     class probabilities to 1e-5, and the class assignments equal on every
     frame whose rows all clear the bf16 step between their best and
     second-best class probability (the frames left out are counted).
+20. Predict from video files: phase 4's 20 frames written into an MJPG
+    ``.avi`` (OpenCV's own encoder) and a 100-frame 320x560 MJPG clip cut
+    from them (the size of the reference's published ``small_robot.mp4``
+    rows, predicted at that size), and, where cv2 lists FFmpeg, an
+    ``mp4v`` ``.mp4`` of the 20 frames (top-down only). ``run.predict``
+    reads each by name, bf16, batch 8 at 1024 and 4 at 320x560, peak
+    threshold -1e9: the top-down pair of phases 7 + 11, the bottom-up dir
+    of phase 10 and phase 7's centroid dir (``centroid_only``,
+    ``centroid_output="both"``) on both clips, the identity dirs of phases
+    17 and 7 + 18 on the 1024 clip. Launch counters per batch must read
+    18 + 1 (top-down), 9 + 1 + 1 (bottom-up), 9 + 1 (centroid-only and
+    multi-class bottom-up) and 18 + 1 (multi-class top-down). Each path's
+    ``Labels`` from the file must equal, bit for bit, those of the same
+    dirs on the clip decoded into memory through the port's ``Video``
+    first; the centroid-only ones hold one ``PredictedCentroid`` per
+    one-node instance. Prints cv2's version and whether it lists FFmpeg,
+    and per path frames/s from the file beside frames/s from memory and
+    the provider thread's decode ms per frame, with the card's name and
+    power limit.
+21. Video files, the card against the CPU: phase 14's narrow dirs on a
+    24-frame MJPG clip of phase 16's animals, ``run.predict`` in f32 on
+    both devices (centroid thresholds above the near-ties of these weak
+    models' maps) (counts, validity and NaN placement exact, keypoints to
+    1e-4 px, peak values to 1e-5): top-down with ``host_resize`` at
+    ``input_scale`` 0.5 (the frames each side copies to the device equal,
+    at 64x64), centroid-only, and the centroid model with its head swapped
+    in (``head_ckpt_path``) from a second narrow centroid dir, the first
+    trained 3 steps more from another seed on other labels; a pair given
+    that one-model source raises ``ValueError`` as in the JAX package.
 
-The card machine has no h5py, so the script writes no ``.slp`` file (the
-CPU tests hold ``.slp`` files to the JAX package's).
+The card machine has no h5py, so the script writes no ``.slp`` or analysis
+HDF5 file (the CPU tests hold those files to the JAX package's).
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -1766,7 +1795,7 @@ def labels_hold_outputs(labels, results, model_type, class_names=None):
 
 
 # Launches per predict batch of each path: fused conv, NMS, PAF line scores.
-PREDICT_LAUNCHES = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1),
+PREDICT_LAUNCHES = {"topdown": (18, 1, 0), "bottomup": (9, 1, 1), "centroid": (9, 1, 0),
                     "multi_class_topdown": (18, 1, 0), "multi_class_bottomup": (9, 1, 0)}
 
 
@@ -1947,6 +1976,9 @@ def frame_instances(out, i):
         keep = out["instance_valid"][i]
         arrays = [out[k][i][keep] for k in ("pred_keypoints", "pred_peak_values",
                                             "pred_centroids", "centroid_vals")]
+    elif "pred_keypoints" not in out:  # centroid-only: each centroid a one-node instance
+        keep = out["centroid_valid"][i]
+        arrays = [out["pred_centroids"][i][keep][:, None], out["centroid_vals"][i][keep][:, None]]
     else:
         arrays = [np.asarray(out[k][i]) for k in ("pred_keypoints", "pred_peak_values",
                                                    "pred_instance_scores")]
@@ -2339,6 +2371,270 @@ def check_identity_dirs_against_cpu(labels, dirs):
 
 
 # --------------------------------------------------------------------------
+# Phase 20: predict from video files at full width
+# --------------------------------------------------------------------------
+
+# Phase 20's clips: phase 4's 20 frames at 1024x1024, and 100 frames of
+# 320x560 (the size of the reference's small_robot.mp4) cut from them,
+# predicted at that size (the dirs' sizematcher would scale them to 1024).
+SMALL_CLIP, SMALL_HW, SMALL_BATCH = 100, (320, 560), 4
+
+
+def cv2_report():
+    """cv2's version and whether its build lists FFmpeg."""
+    import cv2
+
+    info = cv2.getBuildInformation()
+    ffmpeg = any(line.strip().startswith("FFMPEG:") and "YES" in line
+                 for line in info.splitlines())
+    return {"cv2": cv2.__version__, "ffmpeg": ffmpeg}
+
+
+def write_clip(path, frames, fourcc):
+    """One-channel ``frames`` into a video file as three equal channels
+    (OpenCV's own MJPG encoder mis-codes one-channel frames); MJPG through
+    that encoder (no FFmpeg), other codecs through whatever cv2 picks. A
+    clip cv2 cannot write raises."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    args = (cv2.VideoWriter_fourcc(*fourcc), 30.0, (w, h), True)
+    writer = (cv2.VideoWriter(str(path), cv2.CAP_OPENCV_MJPEG, *args) if fourcc == "MJPG"
+              else cv2.VideoWriter(str(path), *args))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2 cannot write {path} ({fourcc})")
+    for f in frames:
+        writer.write(np.ascontiguousarray(np.repeat(f, 3, axis=-1)))
+    writer.release()
+    return path
+
+
+def decode_clip(path):
+    """The clip's frames through the port's ``Video``, in memory."""
+    from sleap_nn_tpu_torch.io.video import Video
+
+    video = Video.from_filename(str(path))
+    return np.stack([video.get_frame(i, fmt="gray") for i in range(len(video))])
+
+
+def decode_ms_per_frame(path, batch):
+    """ms a frame of the provider's decode thread alone: a ``VideoProvider``
+    of the file (one channel, as for the smoke's models) drained with no
+    consumer work."""
+    from sleap_nn_tpu_torch.inference.providers import VideoProvider
+
+    provider = VideoProvider(str(path), batch_size=batch, out_format="gray")
+    t0 = time.perf_counter()
+    n = sum(int(b.valid.sum()) for b in provider)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def labels_equal(a, b):
+    """The same frames, instances (points and scores bit for bit) and
+    centroids, in order."""
+    if [lf.frame_idx for lf in a] != [lf.frame_idx for lf in b]:
+        return False
+    for x, y in zip(a.labeled_frames, b.labeled_frames):
+        if len(x.instances) != len(y.instances) or len(x.centroids) != len(y.centroids):
+            return False
+        for i, j in zip(x.instances, y.instances):
+            if not (np.array_equal(i.points, j.points, equal_nan=True)
+                    and np.array_equal(i.point_scores, j.point_scores) and i.score == j.score):
+                return False
+        for c, d in zip(x.centroids, y.centroids):
+            if not (np.array_equal(c.point, d.point) and c.score == d.score):
+                return False
+    return True
+
+
+# Phase 20's paths: name, the dirs under the phases' root, the launch row
+# of PREDICT_LAUNCHES, run.predict's knobs, whether the 320x560 clip runs.
+VIDEO_RUNS = (
+    ("topdown", ("centroid", "centered_instance"), "topdown", {}, True),
+    ("bottomup", ("bottomup",), "bottomup",
+     {"min_line_scores": DIR_MIN_LINE, "max_peaks": DIR_MAX_PEAKS, "paf_workers": 0}, True),
+    ("centroid_only", ("centroid", "centered_instance"), "centroid",
+     {"centroid_only": True, "centroid_output": "both"}, True),
+    ("multi_class_bottomup", ("multi_class_bottomup",), "multi_class_bottomup", {}, False),
+    ("multi_class_topdown", ("centroid", "multi_class_topdown"), "multi_class_topdown", {},
+     False),
+)
+
+
+def run_video_predict(kernels, root, tmp, smi):
+    """Phase 20: ``run.predict`` from video files at full width, the counted
+    runs. Each path's ``Labels`` from the file must equal those of the same
+    dirs on the clip decoded into memory first; the centroid-only ones hold
+    one ``PredictedCentroid`` per one-node instance. Returns the stats by
+    path and clip."""
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    report = cv2_report()
+    log("video_cv2 " + json.dumps(report))
+    frames = smoke_frames()
+    small = np.stack([frames[i % N_FRAMES][:SMALL_HW[0], :SMALL_HW[1]]
+                      for i in range(SMALL_CLIP)])
+    clips = {"mjpg_1024": (write_clip(tmp / "clip1024.avi", frames, "MJPG"), BATCH, {}),
+             "mjpg_320x560": (write_clip(tmp / "clip320x560.avi", small, "MJPG"), SMALL_BATCH,
+                              {"max_height": SMALL_HW[0], "max_width": SMALL_HW[1]})}
+    if report["ffmpeg"]:
+        clips["mp4v_1024"] = (write_clip(tmp / "clip1024.mp4", frames, "mp4v"), BATCH, {})
+    decoded = {name: decode_clip(path) for name, (path, _, _) in clips.items()}
+    decode_ms = {name: decode_ms_per_frame(path, batch) for name, (path, batch, _) in clips.items()}
+    stats = {}
+    for name, types, launch_row, knobs, small_too in VIDEO_RUNS:
+        for clip, (path, batch, size_kw) in clips.items():
+            if (clip == "mjpg_320x560" and not small_too) or \
+                    (clip == "mp4v_1024" and name != "topdown"):
+                continue
+            kw = dict(batch_size=batch, use_bf16=True, device=DEVICE, max_instances=MAX_INST,
+                      peak_threshold=DIR_PEAK_THRESHOLD, **knobs, **size_kw)
+            dirs = [root / t for t in types]
+            predict(str(path), dirs, frames=list(range(batch)), make_labels=False, **kw)
+            sync()
+            for k in kernels.values():
+                k.launches = 0
+            from_file = predict(str(path), dirs, **kw)
+            sync()
+            launches = {k_name: k.launches for k_name, k in kernels.items()}
+            n_frames = len(decoded[clip])
+            n_batches = -(-n_frames // batch)
+            want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                            (n * n_batches for n in PREDICT_LAUNCHES[launch_row])),
+                        multi_confmaps=0)
+            if DEVICE != "cpu" and launches != want:
+                raise AssertionError(f"phase 20 {name} {clip}: launch counts {launches}, "
+                                     f"expected {want}")
+            in_memory = predict(ArrayVideo(decoded[clip]), dirs, **kw)
+            if not labels_equal(from_file, in_memory):
+                raise AssertionError(f"phase 20 {name} {clip}: Labels from the file differ "
+                                     "from those of the frames decoded into memory")
+            n_inst = sum(len(lf) for lf in from_file)
+            if n_inst == 0:
+                raise AssertionError(f"phase 20 {name} {clip}: no instance")
+            if launch_row == "centroid":
+                for lf in from_file:
+                    if len(lf.centroids) != len(lf.instances) or not all(
+                            len(i.points) == 1 and np.array_equal(i.points[0], c.point)
+                            for i, c in zip(lf.instances, lf.centroids)):
+                        raise AssertionError(f"phase 20 {name} {clip}: frame {lf.frame_idx} "
+                                             "centroids and instances differ")
+            row = {"fps_file": from_file.provenance["stats"]["fps"],
+                   "fps_memory": in_memory.provenance["stats"]["fps"],
+                   "decode_ms_per_frame": decode_ms[clip], "n_frames": n_frames,
+                   "batch": batch, "instances": n_inst, "launches": launches,
+                   "n_batches": n_batches, "device": smi}
+            stats[f"{name}/{clip}"] = row
+            log(f"video_predict {name} {clip} " + json.dumps(row))
+    log("video_containers " + json.dumps(sorted(clips)))
+    return stats
+
+
+# --------------------------------------------------------------------------
+# Phase 21: video files, the card against the CPU
+# --------------------------------------------------------------------------
+
+
+def train_second_centroid_dir(root, first_dir):
+    """The source of phase 21's head swap: ``first_dir``'s centroid model
+    trained 3 steps more from another seed on other labels, then
+    conditioned (``condition_weights``) and saved as a dir of its own. A
+    head trained over another backbone from scratch gives broad flat maps
+    on this one, full of near-ties that the card and the CPU break apart."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.loaders import load_model
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    labels = blob_labels(10, 128, 5, 3, seed=21)
+    cfg = training_config(8, 16, 128, 4, augment=False, max_epochs=1, train_steps_per_epoch=3,
+                          save_ckpt=True, ckpt_dir=str(root / "narrow_b"), run_name="centroid",
+                          seed=21)
+    trainer = ModelTrainer.get_model_trainer_from_config(
+        cfg, [labels.extract(range(8))], [labels.extract(range(8, 10))], device="cpu")
+    trainer.setup()
+    with torch.no_grad():
+        trainer.model.load_state_dict(load_model(first_dir).model.state_dict())
+    trainer.train()
+    condition_weights(trainer.model, labels.video.frames)
+    trainer.save_checkpoint("best.ckpt")
+    return trainer.ckpt_dir
+
+
+def check_video_against_cpu(dirs, second_centroid, tmp):
+    """Phase 21: phase 14's narrow dirs predict a 24-frame MJPG clip of
+    phase 16's blob animals through ``run.predict`` on the card and on the
+    CPU in f32 (``compare_outputs``: counts, validity and NaN placement
+    exact, keypoints to 1e-4 px, values to 1e-5). These weak models' maps
+    hold dozens of local maxima a frame in the tails of their responses,
+    many within 1e-4 of a neighbour, which the two devices break apart (31
+    against 30 instances on a frame at threshold 0.5 on the H100), so each
+    run's centroid threshold sits above every such near-tie. Runs: top-down with
+    ``host_resize`` at ``input_scale`` 0.5 (the frames each side copies to
+    the device must be equal, at half the size), centroid-only, and the
+    centroid model with its head swapped in from ``second_centroid``
+    (``head_ckpt_path``; a one-model source cannot swap the heads of a
+    pair, which raises as in the JAX package)."""
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    video, _ = moving_blob_clip(24, 128, 5, seed=16)
+    path = str(write_clip(tmp / "narrow.avi", video.frames, "MJPG"))
+    pair = [dirs["centroid"], dirs["centered_instance"]]
+    # Centroid thresholds above every near-tie of these maps: on the CPU no
+    # local maximum above them lies within 1e-4 of a neighbour or of the
+    # threshold, and each frame keeps its 1-2 best peaks.
+    runs = (("topdown_host_resize", pair,
+             {"host_resize": True, "input_scale": 0.5, "max_instances": 64,
+              "peak_threshold": 0.5, "centroid_peak_threshold": 0.8}),
+            ("centroid_only", pair, {"centroid_only": True, "peak_threshold": 0.85}),
+            ("centroid_head_swap", pair[:1],
+             {"head_ckpt_path": second_centroid, "peak_threshold": 0.98}))
+    sent = []
+    send = Predictor._send
+
+    def recording_send(self, frames, h2d):
+        sent.append((frames.shape, frames.tobytes()))
+        return send(self, frames, h2d)
+
+    report = {}
+    for name, paths, kw in runs:
+        outs, copies = [], []
+        for device in (DEVICE, "cpu"):
+            sent.clear()
+            Predictor._send = recording_send
+            try:
+                outs.append(predict(path, paths, batch_size=4, make_labels=False,
+                                    device=device, **kw))
+            finally:
+                Predictor._send = send
+            copies.append(list(sent))
+        if copies[0] != copies[1]:
+            raise AssertionError(f"phase 21 {name}: the frames sent to the devices differ")
+        shapes = sorted({shape for shape, _ in copies[0]})
+        if kw.get("host_resize") and shapes != [(4, 64, 64, 1)]:
+            raise AssertionError(f"phase 21 {name}: host-resized frames {shapes}")
+        report[name] = compare_outputs(*outs)
+        report[name]["sent"] = [list(x) for x in shapes]
+        # No frame may reach the cut, where near-equal peaks could rank
+        # either way on the two devices.
+        report[name]["most_in_a_frame"] = most = max(
+            len(frame_instances(out, i)[0]) for out in outs[1] for i in np.flatnonzero(out["valid"]))
+        if report[name]["instances"] == 0 or most >= kw.get("max_instances", MAX_PEAKS):
+            raise AssertionError(f"phase 21 {name}: {report[name]}")
+    try:
+        Predictor.from_model_paths(pair, device="cpu", head_ckpt_path=second_centroid)
+    except ValueError as exc:
+        if "CenteredInstanceConfmapsHead" not in str(exc):
+            raise
+        report["pair_head_swap_refused"] = str(exc)
+    else:
+        raise AssertionError("phase 21: a centroid head swapped onto a pair did not raise")
+    log("video_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs):
@@ -2587,6 +2883,18 @@ def main() -> int:
     id_labels, id_dirs = train_narrow_identity_dirs(root, narrow_dirs["centroid"])
     check_identity_dirs_against_cpu(id_labels, id_dirs)
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # 20. run.predict from video files at full width.
+    t_phase = time.perf_counter()
+    video = run_video_predict(_build.KERNELS, root, root, smi)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+    # 21. Video files, the card against the CPU: host_resize, centroid-only,
+    # a head swap.
+    t_phase = time.perf_counter()
+    check_video_against_cpu(narrow_dirs, train_second_centroid_dir(root, narrow_dirs["centroid"]),
+                            root)
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -2598,7 +2906,8 @@ def main() -> int:
             "model_dir_topdown": dir_td, "model_dir_bottomup": dir_bu,
             "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu,
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
-            "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd}
+            "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
+            **{f"video_{path}": row for path, row in video.items()}}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs)
     summary["kernels"][0]["sass_tensor_ops"] = sass
@@ -2618,7 +2927,10 @@ def main() -> int:
         f"{dir_bu['fps']:.2f} frames/s ({dir_bu['instances']} instances), multi-class bottom-up "
         f"{dir_mbu['fps']:.2f} frames/s ({dir_mbu['instances']} instances), multi-class "
         f"top-down {dir_mtd['fps']:.2f} frames/s ({dir_mtd['instances']} instances); "
-        f"training: {training}; "
+        f"from video files (frames/s from the file / from memory, decode ms a frame): "
+        + "; ".join(f"{path} {row['fps_file']:.2f} / {row['fps_memory']:.2f}, "
+                    f"{row['decode_ms_per_frame']:.3f}" for path, row in video.items())
+        + f"; training: {training}; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

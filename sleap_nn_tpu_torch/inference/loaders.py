@@ -43,6 +43,10 @@ class LoadedModel:
     params: Dict[str, torch.Tensor]
     skeleton_nodes: List[str]
     skeleton_edges: List[Tuple[str, str]]
+    # Set by Predictor.from_model_paths(host_resize=True): the scale of the
+    # config, whose resize then runs on the host (crop sizes live in the
+    # scaled space).
+    host_scale: Optional[float] = None
 
     @property
     def head_config(self):

@@ -1,29 +1,35 @@
 """Predictor: providers -> layer -> per-batch numpy outputs -> Labels.
 
 Port of ``sleap_nn_tpu/inference/predictor.py`` for the single-instance,
-top-down (centroid + centered-instance), bottom-up and identity
-(multi-class bottom-up; centroid + multi-class top-down) models:
-``from_model_paths`` builds the layer from trained model directories,
-``predict`` runs it over a frame source and, with ``make_labels=True``,
-``to_labels`` turns the per-batch outputs into ``Labels`` of
-``PredictedInstance``s (through the instance filters; an identity model's
-instances carry one ``Track`` per class). The other model
-types and the knobs of features the port lacks raise
-``NotImplementedError`` naming their ROADMAP.md item.
+centroid-only, top-down (centroid + centered-instance), bottom-up and
+identity (multi-class bottom-up; centroid + multi-class top-down) models:
+``from_model_paths`` builds the layer from trained model directories
+(optionally with another dir's backbone or head weights swapped in),
+``predict`` runs it over a frame source (a ``Labels``, a ``.slp`` or video
+file, or a video object) and, with ``make_labels=True``, ``to_labels``
+turns the per-batch outputs into ``Labels`` of ``PredictedInstance``s
+(through the instance filters; an identity model's instances carry one
+``Track`` per class; a centroid model's frames hold one-node instances,
+``PredictedCentroid`` records or both). The other model types and the
+knobs of features the port lacks raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 
-Pipeline on a CUDA device: the main thread decodes (through the
-provider's prefetch thread), copies each batch from pinned host memory on
-a copy stream and enqueues the layer's device work; a second copy stream
-brings the outputs back into pinned buffers and records an event; a fetch
-thread waits on each event in submission order, converts to numpy and runs
-the layer's host step (``postprocess_host``: the PAF grouping of a
-bottom-up layer). With ``paf_workers > 0`` a bottom-up layer's grouping
+Pipeline on a CUDA device: the provider's thread decodes each batch and
+runs the host step on it (RGB to gray for a grayscale model; with
+``host_resize``, the resize); the main thread copies each batch from
+pinned host memory on a copy stream and enqueues the layer's device work;
+a second copy stream brings the outputs back into pinned buffers and
+records an event; a fetch thread waits on each event in submission order,
+converts to numpy and runs the layer's host step (``postprocess_host``:
+the PAF grouping of a bottom-up layer), then lifts host-resized
+coordinates back. With ``paf_workers > 0`` a bottom-up layer's grouping
 runs in a process pool instead, and results keep submission order.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import queue
 import threading
@@ -56,6 +62,7 @@ from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
 from sleap_nn_tpu_torch.io.model import (
     LabeledFrame,
     Labels,
+    PredictedCentroid,
     PredictedInstance,
     Skeleton,
     Track,
@@ -68,20 +75,12 @@ logger = logging.getLogger("sleap_nn_tpu_torch")
 # name -> (the value that asks for nothing, why another value raises).
 _SEGMENTATION = "segmentation is not ported (ROADMAP.md section 1, item 10)"
 UNPORTED_KNOBS = {
-    "host_resize": (False, "host_resize resizes with cv2, which the port does not use "
-                           "(ROADMAP.md section 1, item 3)"),
     "data_parallel": (False, "data-parallel inference over several cards is not ported "
                              "(ROADMAP.md section 1, item 13)"),
     "packed_level0": (None, "packed_level0 selects the JAX package's space-to-depth TPU "
                             "layout (ops/packed_conv.py), which the port has no copy of"),
-    "centroid_only": (False, "centroid-only inference is not ported (ROADMAP.md section 1, "
-                             "item 2)"),
     "anchor_part": (None, "ground-truth centroids (a lone centered-instance model) are not "
                           "ported (ROADMAP.md section 1, item 10)"),
-    "backbone_ckpt_path": (None, "swapping backbone or head weights is not ported "
-                                 "(ROADMAP.md section 1, item 2)"),
-    "head_ckpt_path": (None, "swapping backbone or head weights is not ported "
-                             "(ROADMAP.md section 1, item 2)"),
     **{name: (default, _SEGMENTATION) for name, default in (
         ("merge_fragments", False), ("merge_method", "greedy"), ("min_mask_area", 0),
         ("fg_threshold", 0.5), ("center_nms_kernel", 3), ("distance_gate_alpha", None),
@@ -124,13 +123,74 @@ def _pre_config(loaded: LoadedModel) -> PreprocessConfig:
 
 
 def _crop_size(m: LoadedModel, crop_size: Optional[int], pre: PreprocessConfig) -> int:
-    """The stage-2 crop: the override or the config's, scaled, rounded up
-    to the max stride."""
+    """The stage-2 crop: the override or the config's, scaled (by the
+    config's scale, also where the host resizes), rounded up to the max
+    stride."""
     cs = crop_size or m.config.data_config.preprocessing.crop_size
     if cs is None:
         raise ValueError("crop_size not set in centered-instance config.")
-    cs = int(round(cs * pre.scale))
+    cs = int(round(cs * (pre.scale if m.host_scale is None else m.host_scale)))
     return cs + (-cs) % pre.max_stride
+
+
+def _subtree(key: str) -> str:
+    """The JAX package's top-level parameter subtree of a ``state_dict``
+    key: ``backbone``, or the head's name (a class-vectors head's dense
+    layers lie under ``ClassVectorsHead``)."""
+    parts = key.split(".")
+    if parts[0] == "backbone":
+        return "backbone"
+    return "ClassVectorsHead" if parts[2].startswith("pre_classification") else parts[2]
+
+
+def _swap_param_subtrees(loaded: Sequence[LoadedModel], backbone_ckpt_path,
+                         head_ckpt_path) -> None:
+    """Replace the backbone / head weights of every loaded model with those
+    of another model dir's checkpoint, in place. "head" is every subtree
+    but the backbone. A subtree the source lacks, or one whose keys or
+    shapes differ, raises ``ValueError`` instead of mixing incompatible
+    weights."""
+    for src_path, which in ((backbone_ckpt_path, "backbone"), (head_ckpt_path, "head")):
+        if src_path is None:
+            continue
+        src = load_model(src_path).params
+        src_trees = {_subtree(k) for k in src}
+        for m in loaded:
+            dst_trees = dict.fromkeys(_subtree(k) for k in m.params)  # in model order
+            names = ["backbone"] if which == "backbone" else [
+                t for t in dst_trees if t != "backbone"]
+            for name in names:
+                if name not in src_trees:
+                    raise ValueError(f"{which}_ckpt_path: source checkpoint has no '{name}' "
+                                     f"subtree (has: {sorted(src_trees)}).")
+                shapes = [{k: tuple(v.shape) for k, v in params.items() if _subtree(k) == name}
+                          for params in (m.params, src)]
+                if shapes[0] != shapes[1]:
+                    raise ValueError(f"{which}_ckpt_path: '{name}' parameter shapes do not "
+                                     "match the target model.")
+                m.params.update({k: v for k, v in src.items() if _subtree(k) == name})
+
+
+# The type sets on full frames whose resize may move to the host.
+_HOST_RESIZE_TYPES = ({"single_instance"}, {"centroid"}, {"centroid", "centered_instance"},
+                      {"bottomup"}, {"multi_class_bottomup"}, {"centroid", "multi_class_topdown"})
+
+
+def _move_resize_to_host(loaded: Sequence[LoadedModel], types) -> Optional[tuple]:
+    """``(scale, max_height, max_width)`` for the host to apply, where the
+    type set qualifies, every model preprocesses alike and there is a
+    resize to do; each model's config then resizes nothing and keeps its
+    scale as ``host_scale``. Else None (the device resizes)."""
+    pres = [m.config.data_config.preprocessing for m in loaded]
+    dims = [(p.scale, p.max_height, p.max_width) for p in pres]
+    if types not in _HOST_RESIZE_TYPES or len(set(dims)) != 1 \
+            or (pres[0].scale == 1.0 and not pres[0].max_height and not pres[0].max_width):
+        return None
+    transform = (float(pres[0].scale or 1.0), pres[0].max_height, pres[0].max_width)
+    for m, p in zip(loaded, pres):
+        m.host_scale = float(p.scale or 1.0)
+        p.scale, p.max_height, p.max_width = 1.0, None, None
+    return transform
 
 
 class Predictor:
@@ -166,13 +226,48 @@ class Predictor:
         # the copy to the device (3x fewer bytes).
         pre = getattr(getattr(layer, "centroid_layer", layer), "pre", None)
         self._host_grayscale = bool(pre and pre.ensure_grayscale)
+        # Set by from_model_paths(host_resize=True): (scale, max_height,
+        # max_width), the resize moved from the device to the host.
+        self._host_transform = None
+        # Set by run.predict: what a centroid model's frames hold
+        # ("instance", "centroid" or "both") and the provider's decode
+        # queue depth in batches (None: the provider's default).
+        self.centroid_output = "instance"
+        self.prefetch_batches: Optional[int] = None
+        # Set by run.predict(only_labeled_frames=True), as in the JAX
+        # package; only ground-truth centroids read it (item 10).
+        self.gt_user_instances_only = False
+        # Set by from_model_paths: its arguments, which per-call overrides
+        # replay (_scoped_postprocess_layer).
+        self._ctor = None
         self.last_stats: Dict[str, float] = {}
 
     # -- construction ---------------------------------------------------------
     @classmethod
     def from_model_paths(cls, model_paths: Sequence[Union[str, Path]], **kwargs) -> "Predictor":
-        """A predictor from 1-2 model dirs; see ``_build_from_model_paths``."""
-        return cls._build_from_model_paths(model_paths, **kwargs)
+        """A predictor from 1-2 model dirs; see ``_build_from_model_paths``.
+        It keeps its arguments, so that a per-call postprocess override
+        builds a layer of its own without changing this predictor."""
+        p = cls._build_from_model_paths(model_paths, **kwargs)
+        p._ctor = (list(model_paths), dict(kwargs))
+        return p
+
+    def _scoped_postprocess_layer(self, **overrides):
+        """A layer of its own with the given ``return_confmaps`` /
+        ``return_paf_graph`` (None: as built), so that concurrent calls on
+        one predictor cannot clobber each other; with no change, the
+        predictor's own layer. It is built anew from the predictor's
+        construction arguments."""
+        current = dict(self._ctor[1]) if self._ctor else {}
+        overrides = {k: v for k, v in overrides.items()
+                     if v is not None and bool(v) != bool(current.get(k, False))}
+        if not overrides:
+            return self.layer
+        if self._ctor is None:
+            raise ValueError("Per-call postprocess overrides need a predictor built via "
+                             "from_model_paths.")
+        paths, kwargs = self._ctor
+        return type(self)._build_from_model_paths(paths, **{**kwargs, **overrides}).layer
 
     @classmethod
     def _build_from_model_paths(
@@ -202,19 +297,31 @@ class Predictor:
         dist_penalty_weight: float = 1.0,
         n_points: int = 10,
         min_instance_peaks: float = 0,
+        host_resize: bool = False,
+        centroid_only: bool = False,
+        backbone_ckpt_path: Optional[Union[str, Path]] = None,
+        head_ckpt_path: Optional[Union[str, Path]] = None,
         device="cuda",
         **unported,
     ) -> "Predictor":
         """Load the model dirs and build the layer of their type set:
-        ``{single_instance}``, ``{centroid, centered_instance}`` (top-down)
-        or ``{bottomup}``. The preprocessing overrides trump each model's
-        training config. The layers run on ``device`` (the card unless
-        ``"cpu"``); the fused double-conv kernel runs there on a card.
-        Identity models: ``{multi_class_bottomup}`` and ``{centroid,
-        multi_class_topdown}``."""
+        ``{single_instance}``, ``{centroid}``, ``{centroid,
+        centered_instance}`` (top-down) or ``{bottomup}``; identity models:
+        ``{multi_class_bottomup}`` and ``{centroid, multi_class_topdown}``.
+
+        ``backbone_ckpt_path`` / ``head_ckpt_path`` swap in the backbone /
+        head weights of another model dir. The preprocessing overrides
+        trump each model's training config. ``centroid_only`` keeps only
+        the centroid model. ``host_resize`` moves the sizematcher and the
+        scale to the host (cv2 ``INTER_AREA``, before the copy to the
+        device), for the keypoint type sets on full frames whose stages
+        preprocess alike. The layers run on ``device`` (the card unless
+        ``"cpu"``); the fused double-conv kernel runs there on a card."""
         refuse_unported(unported, UNPORTED_KNOBS, "from_model_paths")
         device = resolve_device(device)
         loaded = [load_model(p) for p in model_paths]
+        if backbone_ckpt_path or head_ckpt_path:
+            _swap_param_subtrees(loaded, backbone_ckpt_path, head_ckpt_path)
         for m in loaded:
             p = m.config.data_config.preprocessing
             if input_scale is not None:
@@ -227,6 +334,10 @@ class Predictor:
                 p.ensure_rgb = bool(ensure_rgb)
             if ensure_grayscale is not None:
                 p.ensure_grayscale = bool(ensure_grayscale)
+        if centroid_only:
+            loaded = [m for m in loaded if m.model_type == "centroid"]
+            if not loaded:
+                raise ValueError("--centroid-only requires a centroid model.")
         by_type: Dict[str, LoadedModel] = {}
         for m in loaded:
             if m.model_type in by_type:
@@ -236,6 +347,7 @@ class Predictor:
                 )
             by_type[m.model_type] = m
         types = set(by_type)
+        host_transform = _move_resize_to_host(loaded, types) if host_resize else None
 
         def post_for() -> PostprocessConfig:
             return PostprocessConfig(
@@ -256,10 +368,11 @@ class Predictor:
         def skeleton_for(m: LoadedModel) -> Skeleton:
             return Skeleton(nodes=m.skeleton_nodes, edges=m.skeleton_edges)
 
-        def make(layer, model_type, m, class_names=None):
-            p = cls(layer, model_type, skeleton_for(m), loaded, batch_size, device=device,
-                    paf_workers=paf_workers, filters=filters)
+        def make(layer, model_type, m, class_names=None, skeleton=None):
+            p = cls(layer, model_type, skeleton or skeleton_for(m), loaded, batch_size,
+                    device=device, paf_workers=paf_workers, filters=filters)
             p.class_names = class_names
+            p._host_transform = host_transform
             return p
 
         def topdown_stages(mi):
@@ -287,6 +400,13 @@ class Predictor:
                 backend_for(m), _pre_config(m), post_for(),
                 output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
             return make(layer, "single_instance", m)
+
+        if types == {"centroid"}:
+            m = by_type["centroid"]
+            layer = CentroidLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
+            return make(layer, "centroid", m, skeleton=Skeleton(nodes=["centroid"]))
 
         if types == {"centroid", "centered_instance"}:
             mi = by_type["centered_instance"]
@@ -327,35 +447,88 @@ class Predictor:
                                   cm_output_stride=head.confmaps.output_stride, device=device)
             return make(layer, "bottomup", m)
 
-        if types == {"centroid"}:
-            why = "centroid-only inference is not ported (ROADMAP.md section 1, item 2)"
-        elif types == {"centered_instance"}:
-            why = ("a lone centered-instance model predicts from ground-truth centroids, "
-                   "which are not ported (ROADMAP.md section 1, item 10)")
-        else:
-            raise ValueError(f"Unsupported model type combination: {sorted(types)}")
-        raise NotImplementedError(why)
+        if types == {"centered_instance"}:
+            raise NotImplementedError(
+                "a lone centered-instance model predicts from ground-truth centroids, "
+                "which are not ported (ROADMAP.md section 1, item 10)")
+        raise ValueError(f"Unsupported model type combination: {sorted(types)}")
 
     # -- prediction -----------------------------------------------------------
     def _make_provider(self, data, frames=None):
+        """A ``LabelsProvider`` of a ``Labels`` or ``.slp`` path, else a
+        ``VideoProvider`` of a video file by name or a video object, which
+        decodes to one channel for a grayscale model. ``prefetch_batches``
+        sets the decode queue's depth."""
         is_slp = isinstance(data, (str, Path)) and str(data).endswith(".slp")
         if (isinstance(data, Labels) or is_slp) and frames is not None:
             raise ValueError("frames selects frames of a video; a Labels source predicts its "
                              "labeled frames (run.predict's only_suggested_frames predicts "
                              "its suggestions)")
-        if isinstance(data, Labels):
-            return LabelsProvider(data, batch_size=self.batch_size)
-        if isinstance(data, (str, Path)):
-            if is_slp:
-                from sleap_nn_tpu_torch.io.slp import load_slp
+        kw = {"batch_size": self.batch_size}
+        if self.prefetch_batches:
+            kw["prefetch"] = int(self.prefetch_batches)
+        if is_slp:
+            from sleap_nn_tpu_torch.io.slp import load_slp
 
-                return LabelsProvider(load_slp(data), batch_size=self.batch_size)
-            raise NotImplementedError(
-                f"reading the video file {str(data)!r} needs the media video backends, which "
-                "are not ported (ROADMAP.md section 1, item 3); pass a Labels, a .slp path or "
-                "an object with __len__ and get_frame(idx, fmt)")
-        return VideoProvider(data, batch_size=self.batch_size, frames=frames,
-                             out_format="gray" if self._host_grayscale else None)
+            data = load_slp(data)
+        if isinstance(data, Labels):
+            return LabelsProvider(data, **kw)
+        return VideoProvider(str(data) if isinstance(data, Path) else data, frames=frames,
+                             out_format="gray" if self._host_grayscale else None, **kw)
+
+    def _host_step(self, batch):
+        """What the host does to a batch before its copy to the device, on
+        the provider's decode thread: RGB to gray for a grayscale model,
+        then the resize moved to the host. Returns ``(batch, frames,
+        factor)``: coordinates found on ``frames`` divide by ``factor``."""
+        frames = batch.frames
+        if self._host_grayscale and frames.shape[-1] == 3:
+            frames = rgb_to_gray_uint8(frames)
+        factor = 1.0
+        if self._host_transform is not None:
+            frames, factor = self._apply_host_resize(frames)
+        return batch, frames, factor
+
+    def _apply_host_resize(self, frames: np.ndarray):
+        """Sizematcher and scale on the host (cv2 ``INTER_AREA``), rounded as
+        the device's ``apply_sizematcher`` and ``resize_image`` round;
+        returns (frames, the factor that lifts coordinates back)."""
+        import cv2
+
+        scale, mh, mw = self._host_transform
+        b, h, w, c = frames.shape
+        eff = 1.0
+        if (mh or mw) and (h, w) != (mh or h, mw or w):
+            # An unset dimension constrains nothing, as on the device.
+            eff = min((mh or h) / h, (mw or w) / w)
+        th, tw = int(round(h * eff)), int(round(w * eff))
+        th2, tw2 = int(round(th * scale)), int(round(tw * scale))
+        if (th2, tw2) == (h, w):
+            return frames, 1.0
+        out = np.empty((b, th2, tw2, c), dtype=frames.dtype)
+        for i in range(b):
+            r = cv2.resize(frames[i], (tw2, th2), interpolation=cv2.INTER_AREA)
+            out[i] = r[..., None] if r.ndim == 2 else r
+        return out, eff * scale
+
+    @staticmethod
+    def _lift_host_coords(out: Dict, factor: float) -> Dict:
+        """Coordinates found on host-resized frames -> the original frames."""
+        if factor == 1.0:
+            return out
+        for key in ("pred_keypoints", "pred_centroids"):
+            val = out.get(key)
+            if val is None:
+                continue
+            if isinstance(val, list):
+                out[key] = [np.asarray(v) / factor for v in val]
+            else:
+                out[key] = np.asarray(val) / factor
+        graphs = out.get("pred_paf_graph")
+        if graphs is not None:  # its peaks live where the instances do
+            out["pred_paf_graph"] = [(np.asarray(peaks) / factor, e, ep, ls)
+                                     for peaks, e, ep, ls in graphs]
+        return out
 
     def _send(self, frames: np.ndarray, h2d) -> torch.Tensor:
         """Host frames -> device, through pinned memory on the copy stream."""
@@ -394,15 +567,26 @@ class Predictor:
         return done, host
 
     def predict(self, data=None, frames: Optional[Sequence[int]] = None,
-                make_labels: bool = True, provider=None):
-        """Run inference over a frame source: a ``Labels``, a ``.slp`` path or
-        a video (an object with ``__len__`` and ``get_frame(idx, fmt)``).
+                make_labels: bool = True, provider=None,
+                return_confmaps: Optional[bool] = None,
+                return_paf_graph: Optional[bool] = None):
+        """Run inference over a frame source: a ``Labels``, a ``.slp`` path,
+        a video file's path, or a video (an object with ``__len__`` and
+        ``get_frame(idx, fmt)``).
 
         With ``make_labels`` returns ``Labels``; else the per-batch output
         dicts, each holding the layer's outputs as numpy plus
         ``frame_inds``, ``video_inds`` and ``valid`` (False on the padded
-        rows of a short last batch).
+        rows of a short last batch). ``return_confmaps`` /
+        ``return_paf_graph`` override the construction's flags for this
+        call only, on a layer of its own: the predictor is not changed.
         """
+        scoped_layer = self._scoped_postprocess_layer(return_confmaps=return_confmaps,
+                                                      return_paf_graph=return_paf_graph)
+        if scoped_layer is not self.layer:
+            scoped = copy.copy(self)
+            scoped.layer = scoped_layer
+            return scoped.predict(data, frames, make_labels, provider)
         provider = provider or self._make_provider(data, frames)
         videos = self._provider_videos(provider)
         writer = self.stream_writer
@@ -421,8 +605,9 @@ class Predictor:
                                    return_paf_graph=self.layer.post.return_paf_graph)
         pool_batches: List = []  # by submission ordinal
 
-        def emit(out, batch):
+        def emit(out, batch, factor):
             nonlocal n_frames
+            out = self._lift_host_coords(out, factor)
             out["frame_inds"] = batch.frame_inds
             out["video_inds"] = batch.video_inds
             out["valid"] = batch.valid
@@ -444,19 +629,19 @@ class Predictor:
                 if errors:
                     continue  # keep draining so the producer never blocks
                 try:
-                    (done, host), batch = item
+                    (done, host), batch, factor = item
                     if done is not None:
                         done.synchronize()
                     out = {k: (np.array(v.numpy()) if torch.is_tensor(v) else v)
                            for k, v in host.items()}
                     if pool is None:
-                        emit(self.layer.postprocess_host(out), batch)
+                        emit(self.layer.postprocess_host(out), batch, factor)
                         continue
                     pool.submit(len(pool_batches), self.layer.host_payload(out))
-                    pool_batches.append(batch)
+                    pool_batches.append((batch, factor))
                     if len(pool) > 2 * self.paf_workers:  # bound the backlog
                         ordinal, grouped = pool.drain_one()
-                        emit(grouped, pool_batches[ordinal])
+                        emit(grouped, *pool_batches[ordinal])
                 except Exception as e:  # raised again on the main thread
                     errors.append(e)
 
@@ -464,16 +649,13 @@ class Predictor:
         with pool if pool is not None else contextlib.nullcontext():
             thread = threading.Thread(target=fetcher, name="sleap-nn-torch-fetch", daemon=True)
             thread.start()
-            batches = iter(provider)
+            batches = provider.batches(self._host_step)
             try:
-                for batch in batches:
+                for batch, frames_b, factor in batches:
                     if errors:
                         break
-                    frames_b = batch.frames
-                    if self._host_grayscale and frames_b.shape[-1] == 3:
-                        frames_b = rgb_to_gray_uint8(frames_b)
                     out = self.layer.predict_async(self._send(frames_b, h2d))
-                    fetch_q.put((self._fetch_async(out, d2h), batch))
+                    fetch_q.put((self._fetch_async(out, d2h), batch, factor))
             finally:
                 fetch_q.put(None)
                 thread.join()
@@ -483,7 +665,7 @@ class Predictor:
                 raise errors[0]
             if pool is not None:
                 for ordinal, grouped in pool.iter_completed():
-                    emit(grouped, pool_batches[ordinal])
+                    emit(grouped, *pool_batches[ordinal])
         elapsed = time.perf_counter() - t0
         self.last_stats = {
             "n_frames": n_frames,
@@ -561,6 +743,23 @@ class Predictor:
                 for k in range(pts.shape[0]):
                     if not np.all(np.isnan(pts[k])):
                         instances.append(self._make_instance(pts[k], vals[k], skel))
+            elif self.model_type == "centroid":
+                # centroid_output: "instance" gives one-node instances,
+                # "centroid" PredictedCentroid records, "both" both.
+                cents, vals = out["pred_centroids"][i], out["centroid_vals"][i]
+                valid = out["centroid_valid"][i]
+                frame_centroids = []
+                for k in range(cents.shape[0]):
+                    if not valid[k] or np.all(np.isnan(cents[k])):
+                        continue
+                    if self.centroid_output in ("instance", "both"):
+                        instances.append(self._make_instance(cents[k][None], vals[k:k + 1], skel))
+                    if self.centroid_output in ("centroid", "both"):
+                        frame_centroids.append(PredictedCentroid(cents[k], score=float(vals[k])))
+                if frame_centroids:  # kept as found: the instance filters skip such frames
+                    lfs.append(LabeledFrame(video=vid, frame_idx=int(out["frame_inds"][i]),
+                                            instances=instances, centroids=frame_centroids))
+                    continue
             elif self.model_type == "topdown":
                 pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
                 valid = out["instance_valid"][i]

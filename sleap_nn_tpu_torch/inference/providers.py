@@ -1,22 +1,25 @@
 """Inference data providers: batched frames with background prefetch.
 
 Port of ``sleap_nn_tpu/inference/providers.py``: ``Batch``,
-``VideoProvider`` over any object with ``__len__`` and
+``VideoProvider`` over a video file by name (opened with
+``Video.from_filename``) or any object with ``__len__`` and
 ``get_frame(idx, fmt)`` returning ``(H, W, C)`` uint8 (an ``io.video.Video``
 or an in-memory video), and ``LabelsProvider`` over the labeled frames of a
-``Labels``. Opening a media file by name needs the cv2 video backends,
-which are not ported (ROADMAP.md section 1, item 3); neither are the
-ground-truth centroids of the centered-instance-only path (item 10).
+``Labels``. One thread per provider decodes ahead, ``prefetch`` batches
+deep; ``batches(host_step)`` runs a step of the consumer's on each batch on
+that thread too. The ground-truth centroids of the centered-instance-only
+path are not ported (ROADMAP.md section 1, item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
 from sleap_nn_tpu_torch.data.prefetch import PrefetchIterator
+from sleap_nn_tpu_torch.io.video import Video
 
 
 @dataclasses.dataclass
@@ -32,7 +35,25 @@ class Batch:
         return len(self.frame_inds)
 
 
-class VideoProvider:
+class _Provider:
+    """Batches from ``_gen``, decoded ``prefetch`` batches ahead."""
+
+    prefetch: int
+
+    def _gen(self) -> Iterator[Batch]:
+        raise NotImplementedError
+
+    def batches(self, host_step: Optional[Callable] = None) -> Iterator:
+        """The batches, decoded ahead on a thread of their own; with
+        ``host_step``, ``host_step(batch)`` for each, run on that thread."""
+        gen = self._gen() if host_step is None else map(host_step, self._gen())
+        return PrefetchIterator(gen, self.prefetch)
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self.batches()
+
+
+class VideoProvider(_Provider):
     """Batched frames of a video; a short last batch repeats its last frame."""
 
     def __init__(
@@ -45,10 +66,7 @@ class VideoProvider:
         out_format: Optional[str] = None,
     ):
         if isinstance(video, str):
-            raise NotImplementedError(
-                "opening a video file by name needs the media video backends, which are not "
-                "ported (ROADMAP.md section 1, item 3); pass an object with __len__ and "
-                "get_frame(idx, fmt)")
+            video = Video.from_filename(video)
         self.video = video
         self.batch_size = batch_size
         self.frames = list(frames) if frames is not None else list(range(len(video)))
@@ -82,11 +100,9 @@ class VideoProvider:
                 valid=valid,
             )
 
-    def __iter__(self) -> Iterator[Batch]:
-        return PrefetchIterator(self._gen(), self.prefetch)
 
 
-class LabelsProvider:
+class LabelsProvider(_Provider):
     """Batched frames of the labeled frames of a ``Labels`` (``lf.image``);
     a short last batch repeats its last frame."""
 
@@ -130,5 +146,3 @@ class LabelsProvider:
                 valid=valid,
             )
 
-    def __iter__(self) -> Iterator[Batch]:
-        return PrefetchIterator(self._gen(), self.prefetch)

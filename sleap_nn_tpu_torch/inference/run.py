@@ -2,18 +2,22 @@
 
 Port of ``predict`` and ``save_predictions`` of
 ``sleap_nn_tpu/inference/run.py``: trained model dirs in, predicted
-``Labels`` out, optionally written to a ``.slp`` file (h5py). The source is
-a port ``Labels``, a ``.slp`` path or an in-memory video; the run goes
+``Labels`` out, optionally written to a ``.slp`` file and / or SLEAP
+Analysis HDF5 files (h5py). The source is a port ``Labels``, a ``.slp``
+path, a video file's path (media, image, or an HDF5 dataset with
+``video_dataset``) or an in-memory video; the source-scoping options
+(``video_path_map``, ``video_index``, ``exclude_user_labeled``,
+``only_labeled_frames``, ``only_predicted_frames``,
+``only_suggested_frames``) narrow a labels source first. The run goes
 through ``Predictor.from_model_paths`` on ``device`` (the card unless
 ``"cpu"``). With ``tracking=True`` (or a ``tracker``) the predicted
 ``Labels`` are tracked on the host (``tracking.run_tracker``, its knobs
 passed as keyword arguments). What the port lacks raises
-``NotImplementedError`` naming its ROADMAP.md item: video files by name
-(item 3), exported model dirs, SAM masks, profiling, output formats other than
-``slp`` and the JAX ``predict``'s source-scoping and output options (item
-13, with the command line that sets them), and the ``from_model_paths``
-knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are refused:
-``fetch_remote_data`` needs the network and stays out of the port.
+``NotImplementedError`` naming its ROADMAP.md item: exported model dirs,
+SAM masks and profiling (item 13) and the ``from_model_paths`` knobs
+listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
+refused: ``fetch_remote_data`` needs the network and stays out of the
+port.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Sequence, Union
 
 from sleap_nn_tpu_torch.inference.predictor import UNPORTED_KNOBS, Predictor, refuse_unported
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
+from sleap_nn_tpu_torch.io.video import HDF5VideoBackend, Video
 from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
 
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
@@ -34,18 +39,10 @@ _ITEM13 = "(ROADMAP.md section 1, item 13)"
 # value that asks for nothing, why another value raises).
 UNPORTED_RUN_KNOBS = {
     **UNPORTED_KNOBS,
-    "centroid_output": ("instance", "centroid records come from centroid-only inference, "
-                                    "which is not ported (ROADMAP.md section 1, item 2)"),
     "runtime": ("auto", f"exported model dirs are not ported {_ITEM13}"),
     "profile_dir": (None, f"profiling a predict run is not ported {_ITEM13}"),
     "headers": (None, "remote inputs need the network; fetch_remote_data is not ported"),
     "stream_mode": (None, "remote inputs need the network; fetch_remote_data is not ported"),
-    **{name: (default, f"the predict() option {name} is not ported {_ITEM13}")
-       for name, default in (("video_path_map", None), ("video_index", None),
-                             ("exclude_user_labeled", False), ("only_labeled_frames", False),
-                             ("only_predicted_frames", False), ("no_empty_frames", False),
-                             ("queue_maxsize", None), ("restore_source_videos", False),
-                             ("video_dataset", None), ("video_input_format", "channels_last"))},
     **{name: (default, f"SAM prompted segmentation is not ported {_ITEM13}")
        for name, default in (("mask_backend", None), ("sam_model_id", "facebook/sam-vit-huge"),
                              ("sam_prompt_mode", "pose"), ("sam_anchor_ind", None),
@@ -99,13 +96,21 @@ def predict(
     max_peaks: int = 200,
     min_line_scores: float = 0.25,
     paf_workers: int = 0,
+    centroid_only: bool = False,
     embed: bool = False,
+    video_path_map: Optional[str] = None,
     device: Optional[str] = None,
+    host_resize: bool = False,
     crop_size: Optional[int] = None,
     output_format: Union[str, Sequence[str]] = "slp",
     filters=None,
+    no_empty_frames: bool = False,
     only_suggested_frames: bool = False,
+    exclude_user_labeled: bool = False,
+    only_labeled_frames: bool = False,
+    only_predicted_frames: bool = False,
     centroid_peak_threshold: Optional[float] = None,
+    video_index: Optional[int] = None,
     make_labels: bool = True,
     input_scale: Optional[float] = None,
     max_height: Optional[int] = None,
@@ -116,20 +121,31 @@ def predict(
     dist_penalty_weight: float = 1.0,
     n_points: int = 10,
     min_instance_peaks: float = 0,
+    backbone_ckpt_path: Optional[Union[str, Path]] = None,
+    head_ckpt_path: Optional[Union[str, Path]] = None,
+    centroid_output: str = "instance",
     stream_to_file: Optional[Union[str, Path]] = None,
     write_interval: Optional[int] = None,
+    video_dataset: Optional[str] = None,
+    video_input_format: str = "channels_last",
+    queue_maxsize: Optional[int] = None,
     progress_callback=None,
+    restore_source_videos: bool = False,
     tracking: bool = False,
     tracker=None,
     **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
-    models (``model_paths``: single-instance, the centroid +
-    centered-instance pair, or bottom-up).
+    models (``model_paths``: single-instance, centroid, the centroid +
+    centered-instance pair, bottom-up, or an identity model or pair).
 
-    Returns ``Labels`` (and writes ``output_path`` if given), or the
-    per-batch output dicts with ``make_labels=False``. ``device`` is the
-    card unless ``"cpu"``. ``tracking`` tracks the ``Labels`` with
+    Returns ``Labels`` (and writes ``output_path`` if given, as ``.slp``
+    and / or ``analysis_h5`` per ``output_format``), or the per-batch
+    output dicts with ``make_labels=False``. ``device`` is the card unless
+    ``"cpu"``. ``queue_maxsize`` bounds the decode queue, in frames.
+    ``no_empty_frames`` drops frames left without an instance;
+    ``restore_source_videos`` points a non-embedding save at the videos
+    that embedded frames came from. ``tracking`` tracks the ``Labels`` with
     ``run_tracker`` and the other keyword arguments as its knobs
     (``features`` and ``scoring_method`` left unset give centroids and
     euclidean distances for a one-node skeleton); a ``tracker`` object's
@@ -140,34 +156,65 @@ def predict(
     """
     unported = {k: tracker_kwargs.pop(k) for k in list(tracker_kwargs)
                 if k in UNPORTED_RUN_KNOBS}
-    _validate_tracker_kwargs(tracker_kwargs)
-    tracks = bool(tracking or tracker is not None)
-    centroid_output = unported.get("centroid_output", "instance")
-    if centroid_output != "instance" and tracks:
-        # The tracker operates on PredictedInstance records, which centroid
-        # records are not.
-        raise ValueError(
-            "Tracking is incompatible with centroid_output="
-            f"{centroid_output!r}: tracking operates on PredictedInstance, "
-            "not centroid records. Use centroid_output='instance' (the "
-            "default) for tracking.")
     refuse_unported(unported, UNPORTED_RUN_KNOBS, "predict")
-    formats = {output_format} if isinstance(output_format, str) else set(output_format)
-    if formats != {"slp"}:
-        raise NotImplementedError(
-            f"output_format {sorted(formats)}: only 'slp' is ported (the analysis HDF5 export "
-            f"is {_ITEM13[1:-1]})")
-
+    formats = _normalize_output_formats(output_format)
     if isinstance(data_path, (str, Path)) and is_remote_url(str(data_path)):
         raise NotImplementedError(
             f"{data_path}: remote inputs need the network; fetch_remote_data is not ported")
-    if isinstance(data_path, (str, Path)) and not str(data_path).endswith(".slp"):
-        raise NotImplementedError(
-            f"reading the video file {str(data_path)!r} needs the media video backends, which "
-            "are not ported (ROADMAP.md section 1, item 3)")
+
+    if video_dataset is not None and isinstance(data_path, (str, Path)):
+        # Frames of a dataset inside an HDF5 file.
+        data_path = Video(filename=str(data_path), backend=HDF5VideoBackend(
+            str(data_path), dataset=video_dataset, input_format=video_input_format))
+
+    if video_path_map:
+        # Remap the video paths of a labels source ("old=new,..."), for
+        # labels files moved between machines.
+        labels = _as_labels(data_path)
+        mapping = dict(pair.split("=", 1) for pair in str(video_path_map).split(","))
+        for vid in labels.videos:
+            fn = str(vid.filename)
+            for old, new in mapping.items():
+                if fn == old or fn.startswith(old):
+                    vid.filename = fn.replace(old, new, 1)
+                    vid.backend = None  # reopened at the new path
+                    break
+        data_path = labels
+
+    if video_index is not None:
+        # One video of a multi-video labels source, with its suggestions.
+        labels = _as_labels(data_path)
+        if not 0 <= video_index < len(labels.videos):
+            raise ValueError(f"video_index {video_index} out of range: the source has "
+                             f"{len(labels.videos)} video(s).")
+        target = labels.videos[video_index]
+        data_path = Labels(
+            labeled_frames=[lf for lf in labels.labeled_frames if lf.video is target],
+            videos=[target],
+            skeletons=labels.skeletons,
+            suggestions=[s_ for s_ in labels.suggestions if s_.video is target],
+            provenance=dict(labels.provenance),
+        )
+
+    if exclude_user_labeled:
+        # Frames a human labeled are not predicted again.
+        labels = _as_labels(data_path)
+        data_path = Labels(
+            labeled_frames=[lf for lf in labels.labeled_frames if not lf.has_user_instances],
+            videos=labels.videos, skeletons=labels.skeletons, suggestions=labels.suggestions)
+
+    if only_labeled_frames or only_predicted_frames:
+        # The frames that carry user labels, or predictions, already.
+        labels = _as_labels(data_path)
+        keep = [lf for lf in labels.labeled_frames
+                if (not only_labeled_frames or lf.has_user_instances)
+                and (not only_predicted_frames or lf.has_predicted_instances)]
+        data_path = Labels(labeled_frames=keep, videos=labels.videos,
+                           skeletons=labels.skeletons, suggestions=labels.suggestions)
 
     frame_selection_method = (
-        "suggested" if only_suggested_frames else "list" if frames else "all")
+        "suggested" if only_suggested_frames else "labeled" if only_labeled_frames
+        else "list" if frames else "all")
     if only_suggested_frames:
         # Predict the suggested frames (which may be unlabeled).
         labels = _as_labels(data_path)
@@ -185,6 +232,17 @@ def predict(
         )
         frames = None
 
+    _validate_tracker_kwargs(tracker_kwargs)
+    tracks = bool(tracking or tracker is not None)
+    if centroid_output != "instance" and tracks:
+        # The tracker operates on PredictedInstance records, which centroid
+        # records are not.
+        raise ValueError(
+            "Tracking is incompatible with centroid_output="
+            f"{centroid_output!r}: tracking operates on PredictedInstance, "
+            "not centroid records. Use centroid_output='instance' (the "
+            "default) for tracking.")
+
     predictor = Predictor.from_model_paths(
         model_paths,
         peak_threshold=peak_threshold,
@@ -199,6 +257,8 @@ def predict(
         filters=filters,
         paf_workers=paf_workers,
         centroid_peak_threshold=centroid_peak_threshold,
+        host_resize=host_resize,
+        centroid_only=centroid_only,
         input_scale=input_scale,
         max_height=max_height,
         max_width=max_width,
@@ -208,16 +268,25 @@ def predict(
         dist_penalty_weight=dist_penalty_weight,
         n_points=n_points,
         min_instance_peaks=min_instance_peaks,
+        backbone_ckpt_path=backbone_ckpt_path,
+        head_ckpt_path=head_ckpt_path,
         device=device or "cuda",
     )
+    predictor.centroid_output = centroid_output
+    # Only ground-truth centroids read it (item 10): a mixed frame then
+    # gives only its user instances as centroids.
+    predictor.gt_user_instances_only = bool(only_labeled_frames)
+    if queue_maxsize:
+        # Frames -> whole batches of decode queue.
+        predictor.prefetch_batches = max(1, int(queue_maxsize) // max(1, predictor.batch_size))
     predictor.progress_callback = progress_callback
     predictor.tracking_active = tracks
     stream_writer = None
     if make_labels and stream_to_file is not None:
         # Frames flush to a temp .slp during prediction; atomic rename at
-        # the end. Tracking rewrites frames after the whole run, so the
-        # two do not combine.
-        if tracks:
+        # the end. Tracking and no_empty_frames rewrite frames after the
+        # whole run, so they do not combine with it.
+        if tracks or no_empty_frames:
             raise ValueError(
                 "stream_to_file streams frames as they are predicted and "
                 "cannot be combined with tracking or no_empty_frames "
@@ -265,24 +334,46 @@ def predict(
     )
     result.provenance = merge_provenance(dict(result.provenance or {}), run_prov,
                                          overwrite=False)
+    if no_empty_frames:
+        result.labeled_frames = [lf for lf in result.labeled_frames if lf.instances]
     if stream_writer is not None:
         stream_writer.provenance = dict(result.provenance)
         stream_writer.finalize()
         predictor.stream_writer = None
+    if restore_source_videos and not embed:
+        # A non-embedding save points at the videos the embedded frames
+        # came from, where they are recorded.
+        for vid in list(result.videos):
+            src = getattr(vid, "source_video", None)
+            if src is not None:
+                result.videos[result.videos.index(vid)] = src
+                for lf in result.labeled_frames:
+                    if lf.video is vid:
+                        lf.video = src
     if output_path is not None:
-        save_predictions(result, output_path, embed=embed)
+        save_predictions(result, output_path, output_format=formats, embed=embed)
     return result
+
+
+def _normalize_output_formats(output_format) -> set:
+    formats = {output_format} if isinstance(output_format, str) else set(output_format)
+    bad = formats - {"slp", "analysis_h5"}
+    if bad:
+        raise ValueError(
+            f"Unknown output_format {sorted(bad)}; expected 'slp' and/or 'analysis_h5'.")
+    return formats
 
 
 def save_predictions(labels: Labels, output_path, output_format: Union[str, Sequence[str]] = "slp",
                      video_index: Optional[int] = None, embed: bool = False):
-    """Save predictions as ``.slp``. Returns the analysis HDF5 paths written:
-    none, since that export is not ported (item 13, which ``output_format``
-    other than ``slp`` raises for)."""
-    formats = {output_format} if isinstance(output_format, str) else set(output_format)
-    if formats != {"slp"} or video_index is not None:
-        raise NotImplementedError(
-            f"output_format {sorted(formats)} / video_index: the analysis HDF5 export is not "
-            f"ported {_ITEM13}")
-    labels.save(str(output_path), embed=embed)
+    """Save predictions as ``.slp`` and / or SLEAP Analysis HDF5 (one file per
+    video with predictions, or the one of ``video_index``). Returns the
+    analysis HDF5 paths written (none unless ``analysis_h5`` was asked)."""
+    from sleap_nn_tpu_torch.io.analysis import save_analysis_h5_files
+
+    formats = _normalize_output_formats(output_format)
+    if "slp" in formats:
+        labels.save(str(output_path), embed=embed)
+    if "analysis_h5" in formats:
+        return save_analysis_h5_files(labels, output_path, video_index=video_index)
     return []

@@ -1,9 +1,11 @@
 """The port stands alone: it imports without JAX and names nothing of the
 JAX package (nor does chip_smoke.py). It never imports networkx or orbax
 (which imports JAX; ``tools/orbax_to_torch.py`` converts a JAX trainer's
-checkpoints), and imports PyYAML and h5py only inside the functions that
-read or write YAML or ``.slp`` files, and cv2 only inside the flow-shift
-tracker's optical flow: the GPU machine has neither h5py nor cv2."""
+checkpoints), and imports PyYAML, h5py and cv2 only inside function
+bodies: the functions that read or write YAML, ``.slp`` or HDF5 files, and
+those that decode video, resize frames on the host or compute optical
+flow. The GPU machine has PyYAML and cv2 but no h5py, and a module of the
+port must import where any of the three is missing."""
 
 import ast
 import os

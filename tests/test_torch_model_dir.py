@@ -456,13 +456,13 @@ def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value,match", [
-    ("host_resize", True, "item 3"),
+    ("merge_method", "iou", "item 10"),
     ("data_parallel", True, "item 13"),
     ("packed_level0", True, "TPU layout"),
-    ("centroid_only", True, "item 2"),
+    ("min_mask_area", 10, "item 10"),
     ("anchor_part", "n0", "item 10"),
-    ("backbone_ckpt_path", "x.ckpt", "item 2"),
-    ("head_ckpt_path", "x.ckpt", "item 2"),
+    ("center_nms_kernel", 5, "item 10"),
+    ("full_res_masks", True, "item 10"),
     ("merge_fragments", True, "item 10"),
     ("fg_threshold", 0.7, "item 10"),
     ("mask_output", "polygon", "item 10"),
@@ -472,16 +472,16 @@ def test_from_model_paths_refuses_unported_knobs(dirs, knob, value, match):
         Predictor.from_model_paths(_paths(dirs, "single_instance"), device="cpu",
                                    **{knob: value})
     # The knob at its no-op value is accepted.
-    default = {"host_resize": False, "data_parallel": False, "packed_level0": None,
-               "centroid_only": False, "anchor_part": None, "backbone_ckpt_path": None,
-               "head_ckpt_path": None, "merge_fragments": False, "fg_threshold": 0.5,
+    default = {"merge_method": "greedy", "data_parallel": False, "packed_level0": None,
+               "min_mask_area": 0, "anchor_part": None, "center_nms_kernel": 3,
+               "full_res_masks": False, "merge_fragments": False, "fg_threshold": 0.5,
                "mask_output": "mask"}[knob]
     Predictor.from_model_paths(_paths(dirs, "single_instance"), device="cpu",
                                **{knob: default})
 
 
 @pytest.mark.parametrize("types,error,match", [
-    (("centroid",), NotImplementedError, "item 2"),
+    (("centroid", "bottomup"), ValueError, "Unsupported model type combination"),
     (("centered_instance",), NotImplementedError, "item 10"),
     (("single_instance", "single_instance"), ValueError, "Duplicate model type"),
     (("single_instance", "bottomup"), ValueError, "Unsupported model type combination"),
@@ -494,24 +494,24 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
 @pytest.mark.parametrize("kwargs,match", [
     ({"tracking": True, "features": "masks"}, "item 10"),
     ({"tracking": True, "scoring_method": "mask_iou"}, "item 10"),
-    ({"output_format": "analysis_h5"}, "item 13"),
+    ({"sam_model_id": "facebook/sam-vit-base"}, "item 13"),
     ({"mask_backend": "sam"}, "item 13"),
     ({"runtime": "onnx"}, "item 13"),
     ({"profile_dir": "prof"}, "item 13"),
-    ({"centroid_output": "centroid"}, "item 2"),
-    ({"host_resize": True}, "item 3"),
-    ({"data_path": "clip.mp4"}, "item 3"),
+    ({"sam_prompt_mode": "box"}, "item 13"),
+    ({"sam_anchor_ind": 0}, "item 13"),
+    ({"data_path": "s3://bucket/a.slp"}, "fetch_remote_data"),
     ({"data_path": "https://example.com/a.slp"}, "fetch_remote_data"),
-    ({"video_path_map": "a=b"}, "item 13"),
-    ({"video_index": 0}, "item 13"),
-    ({"exclude_user_labeled": True}, "item 13"),
-    ({"only_labeled_frames": True}, "item 13"),
-    ({"only_predicted_frames": True}, "item 13"),
-    ({"no_empty_frames": True}, "item 13"),
-    ({"queue_maxsize": 8}, "item 13"),
-    ({"restore_source_videos": True}, "item 13"),
-    ({"video_dataset": "frames"}, "item 13"),
-    ({"video_input_format": "channels_first"}, "item 13"),
+    ({"sam_disjointify_masks": True}, "item 13"),
+    ({"sam_overlay_path": "overlay.mp4"}, "item 13"),
+    ({"sam_backend": "jax"}, "item 13"),
+    ({"headers": {"Authorization": "x"}}, "fetch_remote_data"),
+    ({"stream_mode": "stream"}, "fetch_remote_data"),
+    ({"data_parallel": True}, "item 13"),
+    ({"anchor_part": "n0"}, "item 10"),
+    ({"min_mask_area": 5}, "item 10"),
+    ({"merge_thresholds": (0.9, 0.5, 0.3)}, "item 10"),
+    ({"polygon_epsilon": 0.05}, "item 10"),
 ])
 def test_run_predict_refuses_unported_features(dirs, kwargs, match):
     kwargs = {"data_path": _video(), **kwargs}
@@ -545,9 +545,9 @@ def test_run_predict_streams_to_file_and_scopes_labels(dirs, tmp_path):
     back = load_slp(tmp_path / "s.slp")
     assert [lf.frame_idx for lf in back] == [lf.frame_idx for lf in streamed]
     assert seen[-1] == N_FRAMES and back.provenance["model_type"] == "single_instance"
-    # The JAX predict's other scoping options are refused, never ignored.
-    with pytest.raises(NotImplementedError, match="only_labeled_frames"):
-        prun.predict(labels, paths, batch_size=4, device="cpu", only_labeled_frames=True)
+    # The JAX predict's options of unported features are refused, never ignored.
+    with pytest.raises(NotImplementedError, match="profile_dir"):
+        prun.predict(labels, paths, batch_size=4, device="cpu", profile_dir="prof")
     # At their no-op values they are accepted.
     quiet = prun.predict(labels, paths, batch_size=4, device="cpu",
                          **{k: v for k, (v, _) in prun.UNPORTED_RUN_KNOBS.items()})

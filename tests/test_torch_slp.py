@@ -321,11 +321,18 @@ def test_hdf5_video_of_raw_frames_matches_jax(tmp_path, input_format):
 
 
 def test_media_videos_are_not_ported():
-    video = pvideo.Video("clip.mp4")
-    assert video.shape is None and video.backend is None
-    for call in (video.open, lambda: video[0], lambda: len(video)):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            call()
+    """Media videos were refused here before the cv2 backends were ported.
+    Now a media file that is not there reads as the JAX package's does: no
+    shape, ``FileNotFoundError`` on a read, and a ``videos_json`` row that
+    round-trips alike."""
+    video, want = pvideo.Video("clip.mp4"), jvideo.Video("clip.mp4")
+    assert video.shape is None and want.shape is None
+    assert type(video.backend).__name__ == type(want.backend).__name__ == "MediaVideoBackend"
+    for call in (lambda v: v[0], len):
+        for v in (video, want):
+            with pytest.raises(FileNotFoundError, match="clip.mp4"):
+                call(v)
     row = {"backend": {"filename": "clip.mp4", "grayscale": True, "bgr": True, "dataset": "",
                        "input_format": ""}}
-    assert pvideo.Video.from_backend_json(row).to_backend_json() == row
+    assert pvideo.Video.from_backend_json(row).to_backend_json() == \
+        jvideo.Video.from_backend_json(row).to_backend_json()

@@ -172,4 +172,4 @@ def test_predictor_refuses_labels_output(layers):
         np.testing.assert_array_equal(np.stack([inst.points for inst in lf.instances]),
                                       want[lf.frame_idx])
     with pytest.raises(NotImplementedError, match="not ported"):
-        Predictor(tlayer, "centroid", skeleton, device="cpu").predict(video)
+        Predictor(tlayer, "bottomup_segmentation", skeleton, device="cpu").predict(video)
