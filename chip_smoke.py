@@ -159,19 +159,25 @@ Phases, each of which raises on failure (exit code != 0):
     ``centroid_output="both"``) on both clips, the identity dirs of phases
     17 and 7 + 18 on the 1024 clip. Launch counters per batch must read
     18 + 1 (top-down), 9 + 1 + 1 (bottom-up), 9 + 1 (centroid-only and
-    multi-class bottom-up) and 18 + 1 (multi-class top-down). Each path's
-    ``Labels`` from the file must equal, bit for bit, those of the same
-    dirs on the clip decoded into memory through the port's ``Video``
-    first; the centroid-only ones hold one ``PredictedCentroid`` per
-    one-node instance. Prints cv2's version and whether it lists FFmpeg,
+    multi-class bottom-up) and 18 + 1 (multi-class top-down). On each
+    path's uncounted first batch, every kernel call at a shape not held
+    before (the 320x560 clip's 4x320x576 centroid UNet among them) is
+    held against its plain version on the same inputs, at phase 3's
+    tolerances. Each path's ``Labels`` from the file must equal, bit for
+    bit, those of the same dirs on the clip decoded into memory through
+    the port's ``Video`` first; the centroid-only ones hold one
+    ``PredictedCentroid`` per one-node instance. Prints cv2's version and whether it lists FFmpeg,
     and per path frames/s from the file beside frames/s from memory and
     the provider thread's decode ms per frame, with the card's name and
     power limit.
 21. Video files, the card against the CPU: phase 14's narrow dirs on a
     24-frame MJPG clip of phase 16's animals, ``run.predict`` in f32 on
-    both devices (centroid thresholds above the near-ties of these weak
-    models' maps) (counts, validity and NaN placement exact, keypoints to
-    1e-4 px, peak values to 1e-5): top-down with ``host_resize`` at
+    both devices (counts, validity and NaN placement exact, keypoints to
+    1e-4 px, peak values to 1e-5), each run at the lowest centroid
+    threshold from 0.5 up that clears the near-ties of these weak
+    models' maps, found on the card's and the CPU's maps with an f64
+    witness (logged with whether the devices agree at 0.5; both f32 maps
+    must lie within 1e-5 of f64): top-down with ``host_resize`` at
     ``input_scale`` 0.5 (the frames each side copies to the device equal,
     at 64x64), centroid-only, and the centroid model with its head swapped
     in (``head_ckpt_path``) from a second narrow centroid dir, the first
@@ -199,6 +205,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -2447,6 +2454,82 @@ def labels_equal(a, b):
     return True
 
 
+# The wrappers of kernels 1-3 as the layers call them: (name, the module
+# that imports the wrapper by name).
+PATH_WRAPPERS = (("fused_double_conv3x3", "sleap_nn_tpu_torch.models.encoder_decoder"),
+                 ("nms_scores", "sleap_nn_tpu_torch.ops.peaks"),
+                 ("paf_line_scores", "sleap_nn_tpu_torch.inference.paf_grouping"))
+
+
+@contextlib.contextmanager
+def recording_kernel_calls(seen, calls):
+    """Within the block, each wrapper of ``PATH_WRAPPERS`` appends to
+    ``calls`` a copy of its inputs, once for each signature (shapes,
+    dtypes and other arguments) not yet in ``seen``."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for name, module in PATH_WRAPPERS:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, name)
+
+        def recorded(*args, _fn=fn, _name=name, **kw):
+            sig = (_name, tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
+                                for a in args), tuple(sorted(kw.items())))
+            if sig not in seen:
+                seen.add(sig)
+                calls.append((_name, [a.clone() if torch.is_tensor(a) else a for a in args],
+                              dict(kw)))
+            return _fn(*args, **kw)
+
+        setattr(mod, name, recorded)
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_recorded_calls(calls):
+    """Each recorded call of ``recording_kernel_calls`` through its wrapper
+    and through its plain version on the same inputs, at phase 3's
+    tolerances: the fused conv to 1 bf16 ulp of the output's largest
+    magnitude (f32: 1e-4 of it), NMS exact, the PAF line scores to 1e-5 on
+    finite scores; -inf and NaN placed alike. Returns a row per call."""
+    import torch
+
+    from sleap_nn_tpu_torch.ops.fused_conv import _plain_double_conv, fused_double_conv3x3
+    from sleap_nn_tpu_torch.ops.kernels import (
+        _plain_nms_scores, _plain_paf_line_scores, nms_scores, paf_line_scores)
+
+    pairs = {"fused_double_conv3x3": (fused_double_conv3x3, _plain_double_conv),
+             "nms_scores": (nms_scores, _plain_nms_scores),
+             "paf_line_scores": (paf_line_scores, _plain_paf_line_scores)}
+    rows = []
+    with torch.inference_mode():
+        for name, args, kw in calls:
+            kernel, plain = pairs[name]
+            got, want = kernel(*args, **kw).float(), plain(*args, **kw).float()
+            sync()
+            fin = torch.isfinite(want)
+            err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+            placed = bool(torch.equal(torch.isneginf(got), torch.isneginf(want))
+                          and torch.equal(torch.isnan(got), torch.isnan(want)))
+            if name == "fused_double_conv3x3":
+                top = want.abs().max().item()
+                tol = bf16_ulp(top) if args[0].dtype == torch.bfloat16 else 1e-4 * top
+            else:
+                tol = 0.0 if name == "nms_scores" else 1e-5
+            rows.append({"kernel": name, "dtype": str(args[0].dtype).split(".")[-1],
+                         "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+                         "max_abs_err": err, "tol": tol, "ok": placed and err <= tol})
+            del got, want
+    return rows
+
+
 # Phase 20's paths: name, the dirs under the phases' root, the launch row
 # of PREDICT_LAUNCHES, run.predict's knobs, whether the 320x560 clip runs.
 VIDEO_RUNS = (
@@ -2481,7 +2564,7 @@ def run_video_predict(kernels, root, tmp, smi):
         clips["mp4v_1024"] = (write_clip(tmp / "clip1024.mp4", frames, "mp4v"), BATCH, {})
     decoded = {name: decode_clip(path) for name, (path, _, _) in clips.items()}
     decode_ms = {name: decode_ms_per_frame(path, batch) for name, (path, batch, _) in clips.items()}
-    stats = {}
+    stats, seen, held = {}, set(), []
     for name, types, launch_row, knobs, small_too in VIDEO_RUNS:
         for clip, (path, batch, size_kw) in clips.items():
             if (clip == "mjpg_320x560" and not small_too) or \
@@ -2490,8 +2573,17 @@ def run_video_predict(kernels, root, tmp, smi):
             kw = dict(batch_size=batch, use_bf16=True, device=DEVICE, max_instances=MAX_INST,
                       peak_threshold=DIR_PEAK_THRESHOLD, **knobs, **size_kw)
             dirs = [root / t for t in types]
-            predict(str(path), dirs, frames=list(range(batch)), make_labels=False, **kw)
+            # The uncounted first batch: each kernel's inputs at each new
+            # shape, held against its plain version.
+            calls = []
+            with recording_kernel_calls(seen, calls):
+                predict(str(path), dirs, frames=list(range(batch)), make_labels=False, **kw)
             sync()
+            rows = check_recorded_calls(calls)
+            del calls
+            for r in rows:
+                log(f"video_path_kernel {name} {clip} " + json.dumps(r))
+            held += rows
             for k in kernels.values():
                 k.launches = 0
             from_file = predict(str(path), dirs, **kw)
@@ -2527,7 +2619,11 @@ def run_video_predict(kernels, root, tmp, smi):
             stats[f"{name}/{clip}"] = row
             log(f"video_predict {name} {clip} " + json.dumps(row))
     log("video_containers " + json.dumps(sorted(clips)))
-    return stats
+    bad = [r for r in held if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 20: kernels disagree with their plain versions at the "
+                             f"paths' shapes: {bad}")
+    return stats, held
 
 
 # --------------------------------------------------------------------------
@@ -2561,35 +2657,119 @@ def train_second_centroid_dir(root, first_dir):
     return trainer.ckpt_dir
 
 
+# Phase 21: each f32 centroid map (card, CPU) must lie within this of the
+# f64 one, else the devices part by more than float noise.
+F64_BOUND = 1e-5
+# Phase 21's first centroid threshold, where the search for one that
+# clears every near-tie starts, and its step.
+TIE_FLOOR, TIE_STEP = 0.5, 0.01
+
+
+def neighbour_max(maps):
+    """The largest of each cell's 8 neighbours in ``(B, H, W)`` maps
+    (cells outside count -inf): a cell above it is a strict 3x3 local
+    maximum, the NMS kernel's rule."""
+    h, w = maps.shape[1:]
+    pad = np.pad(maps, ((0, 0), (1, 1), (1, 1)), constant_values=-np.inf)
+    return np.max([pad[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                   for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx], axis=0)
+
+
+def centroid_near_ties(paths, kw, frames):
+    """The witness behind a phase-21 run's centroid threshold: the centroid
+    maps of ``frames`` (the host frames both devices were sent) on the
+    card and on the CPU in f32, and on the CPU in f64 (the same model and
+    input). With ``d`` the largest difference between the two f32 maps,
+    no cell moves by more than ``d`` from one device to the other, so a
+    local maximum more than ``2 d`` above its neighbours, and more than
+    ``d`` from the threshold, is a peak on both or on neither. The margin
+    is ``4 d`` (at least 1e-6). A near-tie is a strict local maximum above
+    ``TIE_FLOOR`` on any map within the margin of its largest neighbour
+    on any map, or a peak on one f32 map and not on the other. Returns the
+    near-ties (cell and, per map, the value and its largest neighbour),
+    ``d``, each f32 map's largest difference from the f64 one, and the
+    lowest threshold from ``TIE_FLOOR`` up in steps of ``TIE_STEP`` above
+    every near-tie and away from every peak by more than the margin, with
+    the card's peaks above it."""
+    import copy
+
+    import torch
+
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+
+    maps = {}
+    for name, device in (("card", DEVICE), ("cpu", "cpu")):
+        layer = Predictor.from_model_paths(paths, device=device, **kw).layer
+        c = getattr(layer, "centroid_layer", layer)
+        f64 = copy.deepcopy(c.backend.model).to("cpu", torch.float64)
+        parts = {name: [], "f64": []}
+        with torch.no_grad():
+            for i in range(0, len(frames), 4):  # the path's batches
+                x, _ = preprocess_images(c.pre, torch.from_numpy(frames[i:i + 4]).to(device))
+                parts[name].append(c.backend(x)[c.head_name][..., 0].float().cpu().numpy())
+                if name == "cpu":
+                    parts["f64"].append(f64(x.double())[c.head_name][..., 0].numpy())
+        maps.update({k: np.concatenate(v) for k, v in parts.items() if v})
+    d = float(np.abs(maps["card"] - maps["cpu"]).max())
+    margin = max(4 * d, 1e-6)
+    nbr = {k: neighbour_max(m) for k, m in maps.items()}
+    local_max = {k: m > nbr[k] for k, m in maps.items()}
+    peak = {k: local_max[k] & (m > TIE_FLOOR) for k, m in maps.items()}
+    close = np.any([np.abs(m - nbr[k]) <= margin for k, m in maps.items()], axis=0)
+    ties = ((peak["card"] | peak["cpu"] | peak["f64"]) & close) | (peak["card"] != peak["cpu"])
+    tie_top = max((float(maps[k][ties].max()) for k in maps if ties.any()), default=-np.inf)
+    peak_vals = np.concatenate([m[local_max[k] & (m > TIE_FLOOR - margin)]
+                                for k, m in maps.items()])
+    threshold = TIE_FLOOR
+    while tie_top >= threshold - margin or (np.abs(peak_vals - threshold) <= margin).any():
+        threshold = round(threshold + TIE_STEP, 2)
+    rows = [{"frame": int(b), "cell": [int(y), int(x)],
+             **{k: [float(maps[k][b, y, x]), float(nbr[k][b, y, x])] for k in maps},
+             "peak_on": [k for k in maps if peak[k][b, y, x]]}
+            for b, y, x in zip(*np.nonzero(ties))]
+    return {"near_ties": sorted(rows, key=lambda r: -r["cpu"][0])[:20], "n_near_ties": len(rows),
+            "card_vs_cpu": d, "margin": margin,
+            "card_vs_f64": float(np.abs(maps["card"] - maps["f64"]).max()),
+            "cpu_vs_f64": float(np.abs(maps["cpu"] - maps["f64"]).max()),
+            "peaks_at_floor": {k: int(v.sum()) for k, v in peak.items()},
+            "threshold": threshold,
+            "card_peaks_at_threshold": int((local_max["card"] & (maps["card"] > threshold)).sum())}
+
+
 def check_video_against_cpu(dirs, second_centroid, tmp):
     """Phase 21: phase 14's narrow dirs predict a 24-frame MJPG clip of
     phase 16's blob animals through ``run.predict`` on the card and on the
     CPU in f32 (``compare_outputs``: counts, validity and NaN placement
-    exact, keypoints to 1e-4 px, values to 1e-5). These weak models' maps
-    hold dozens of local maxima a frame in the tails of their responses,
-    many within 1e-4 of a neighbour, which the two devices break apart (31
-    against 30 instances on a frame at threshold 0.5 on the H100), so each
-    run's centroid threshold sits above every such near-tie. Runs: top-down with
+    exact, keypoints to 1e-4 px, values to 1e-5). Runs: top-down with
     ``host_resize`` at ``input_scale`` 0.5 (the frames each side copies to
     the device must be equal, at half the size), centroid-only, and the
     centroid model with its head swapped in from ``second_centroid``
     (``head_ckpt_path``; a one-model source cannot swap the heads of a
-    pair, which raises as in the JAX package)."""
+    pair, which raises as in the JAX package).
+
+    These weak models' centroid maps hold dozens of local maxima a frame
+    in the flat tails of their responses, some within float noise of a
+    neighbour, which the two devices may break apart. Each run first runs
+    at centroid threshold ``TIE_FLOOR`` and logs whether the devices agree
+    there, then finds its near-ties (``centroid_near_ties``, on the frames
+    the devices were sent), requires both f32 maps to lie within
+    ``F64_BOUND`` of the f64 one, so that a disagreement there is a tie
+    and not a fault, and runs again at the lowest threshold that clears
+    them, where the devices must agree."""
     from sleap_nn_tpu_torch.inference.predictor import Predictor
     from sleap_nn_tpu_torch.inference.run import predict
 
     video, _ = moving_blob_clip(24, 128, 5, seed=16)
     path = str(write_clip(tmp / "narrow.avi", video.frames, "MJPG"))
     pair = [dirs["centroid"], dirs["centered_instance"]]
-    # Centroid thresholds above every near-tie of these maps: on the CPU no
-    # local maximum above them lies within 1e-4 of a neighbour or of the
-    # threshold, and each frame keeps its 1-2 best peaks.
+    # name, dirs, knobs, the knob that sets the centroid threshold.
     runs = (("topdown_host_resize", pair,
              {"host_resize": True, "input_scale": 0.5, "max_instances": 64,
-              "peak_threshold": 0.5, "centroid_peak_threshold": 0.8}),
-            ("centroid_only", pair, {"centroid_only": True, "peak_threshold": 0.85}),
-            ("centroid_head_swap", pair[:1],
-             {"head_ckpt_path": second_centroid, "peak_threshold": 0.98}))
+              "peak_threshold": 0.5}, "centroid_peak_threshold"),
+            ("centroid_only", pair, {"centroid_only": True}, "peak_threshold"),
+            ("centroid_head_swap", pair[:1], {"head_ckpt_path": second_centroid},
+             "peak_threshold"))
     sent = []
     send = Predictor._send
 
@@ -2597,8 +2777,8 @@ def check_video_against_cpu(dirs, second_centroid, tmp):
         sent.append((frames.shape, frames.tobytes()))
         return send(self, frames, h2d)
 
-    report = {}
-    for name, paths, kw in runs:
+    def run_both(paths, kw):
+        """Both devices' batch outputs and the frames each sent."""
         outs, copies = [], []
         for device in (DEVICE, "cpu"):
             sent.clear()
@@ -2609,13 +2789,32 @@ def check_video_against_cpu(dirs, second_centroid, tmp):
             finally:
                 Predictor._send = send
             copies.append(list(sent))
+        return outs, copies
+
+    report = {}
+    for name, paths, kw, knob in runs:
+        outs, copies = run_both(paths, {**kw, knob: TIE_FLOOR})
+        try:
+            at_floor = compare_outputs(*outs)
+        except AssertionError as exc:
+            at_floor = {"disagree": str(exc)[:300]}
+        frames = np.concatenate([np.frombuffer(b, np.uint8).reshape(shape)
+                                 for shape, b in copies[1]])
+        witness = centroid_near_ties(paths, kw, frames)
+        log(f"video_near_ties {name} " + json.dumps({"at_floor": at_floor, **witness}))
+        if max(witness["card_vs_f64"], witness["cpu_vs_f64"]) > F64_BOUND:
+            raise AssertionError(f"phase 21 {name}: a map parts from the f64 one by more than "
+                                 f"{F64_BOUND:g}: {witness}")
+        kw = {**kw, knob: witness["threshold"]}
+        outs, copies = run_both(paths, kw)
         if copies[0] != copies[1]:
             raise AssertionError(f"phase 21 {name}: the frames sent to the devices differ")
         shapes = sorted({shape for shape, _ in copies[0]})
         if kw.get("host_resize") and shapes != [(4, 64, 64, 1)]:
             raise AssertionError(f"phase 21 {name}: host-resized frames {shapes}")
         report[name] = compare_outputs(*outs)
-        report[name]["sent"] = [list(x) for x in shapes]
+        report[name].update(sent=[list(x) for x in shapes], threshold=witness["threshold"],
+                            n_near_ties=witness["n_near_ties"], at_floor=at_floor)
         # No frame may reach the cut, where near-equal peaks could rank
         # either way on the two devices.
         report[name]["most_in_a_frame"] = most = max(
@@ -2637,10 +2836,12 @@ def check_video_against_cpu(dirs, second_centroid, tmp):
 # --------------------------------------------------------------------------
 
 
-def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs):
+def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
+                   video_held):
     """The ``kernels`` line: one entry per kernel, launches from the paths'
     runs (``runs``: path name -> the phase's stats, with its ``launches``
-    and ``n_batches``)."""
+    and ``n_batches``), and phase 20's checks at its paths' shapes
+    (``video_held``: the rows of ``check_recorded_calls``)."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
     nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
@@ -2652,9 +2853,12 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
 
     def launches(kernel):
         by_path = {path: run["launches"][kernel] for path, run in runs.items()}
+        rows = [r for r in video_held if r["kernel"] == kernel]
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
                 "launches_per_batch": {path: n // runs[path]["n_batches"]
-                                       for path, n in by_path.items()}}
+                                       for path, n in by_path.items()},
+                "video_path_shapes_held": len(rows),
+                "video_path_max_abs_err": max((r["max_abs_err"] for r in rows), default=None)}
 
     return {"kernels": [
         {
@@ -2886,7 +3090,7 @@ def main() -> int:
 
     # 20. run.predict from video files at full width.
     t_phase = time.perf_counter()
-    video = run_video_predict(_build.KERNELS, root, root, smi)
+    video, video_held = run_video_predict(_build.KERNELS, root, root, smi)
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
 
     # 21. Video files, the card against the CPU: host_resize, centroid-only,
@@ -2909,7 +3113,7 @@ def main() -> int:
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
-                             runs)
+                             runs, video_held)
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import logging
 import queue
 import threading
@@ -234,43 +235,11 @@ class Predictor:
         # queue depth in batches (None: the provider's default).
         self.centroid_output = "instance"
         self.prefetch_batches: Optional[int] = None
-        # Set by run.predict(only_labeled_frames=True), as in the JAX
-        # package; only ground-truth centroids read it (item 10).
-        self.gt_user_instances_only = False
-        # Set by from_model_paths: its arguments, which per-call overrides
-        # replay (_scoped_postprocess_layer).
-        self._ctor = None
         self.last_stats: Dict[str, float] = {}
 
     # -- construction ---------------------------------------------------------
     @classmethod
-    def from_model_paths(cls, model_paths: Sequence[Union[str, Path]], **kwargs) -> "Predictor":
-        """A predictor from 1-2 model dirs; see ``_build_from_model_paths``.
-        It keeps its arguments, so that a per-call postprocess override
-        builds a layer of its own without changing this predictor."""
-        p = cls._build_from_model_paths(model_paths, **kwargs)
-        p._ctor = (list(model_paths), dict(kwargs))
-        return p
-
-    def _scoped_postprocess_layer(self, **overrides):
-        """A layer of its own with the given ``return_confmaps`` /
-        ``return_paf_graph`` (None: as built), so that concurrent calls on
-        one predictor cannot clobber each other; with no change, the
-        predictor's own layer. It is built anew from the predictor's
-        construction arguments."""
-        current = dict(self._ctor[1]) if self._ctor else {}
-        overrides = {k: v for k, v in overrides.items()
-                     if v is not None and bool(v) != bool(current.get(k, False))}
-        if not overrides:
-            return self.layer
-        if self._ctor is None:
-            raise ValueError("Per-call postprocess overrides need a predictor built via "
-                             "from_model_paths.")
-        paths, kwargs = self._ctor
-        return type(self)._build_from_model_paths(paths, **{**kwargs, **overrides}).layer
-
-    @classmethod
-    def _build_from_model_paths(
+    def from_model_paths(
         cls,
         model_paths: Sequence[Union[str, Path]],
         peak_threshold: float = 0.2,
@@ -454,6 +423,29 @@ class Predictor:
         raise ValueError(f"Unsupported model type combination: {sorted(types)}")
 
     # -- prediction -----------------------------------------------------------
+    def _scoped_postprocess_layer(self, **overrides):
+        """The layer with the given ``return_confmaps`` /
+        ``return_paf_graph`` (None: as built): a shallow copy of it and of
+        its stage layers, sharing their backends, with post configs of
+        their own; the predictor's own layer when nothing changes. So
+        concurrent calls on one predictor cannot clobber each other."""
+        stages = [n for n in ("centroid_layer", "instance_layer") if hasattr(self.layer, n)]
+        posts = [getattr(self.layer, n).post for n in stages]
+        if hasattr(self.layer, "post"):
+            posts.append(self.layer.post)
+        overrides = {k: bool(v) for k, v in overrides.items()
+                     if v is not None and any(getattr(p, k) != bool(v) for p in posts)}
+        if not overrides:
+            return self.layer
+        scoped = copy.copy(self.layer)
+        for name in stages:
+            stage = copy.copy(getattr(scoped, name))
+            stage.post = dataclasses.replace(stage.post, **overrides)
+            setattr(scoped, name, stage)
+        if hasattr(scoped, "post"):
+            scoped.post = dataclasses.replace(scoped.post, **overrides)
+        return scoped
+
     def _make_provider(self, data, frames=None):
         """A ``LabelsProvider`` of a ``Labels`` or ``.slp`` path, else a
         ``VideoProvider`` of a video file by name or a video object, which

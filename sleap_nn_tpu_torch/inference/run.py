@@ -273,9 +273,8 @@ def predict(
         device=device or "cuda",
     )
     predictor.centroid_output = centroid_output
-    # Only ground-truth centroids read it (item 10): a mixed frame then
-    # gives only its user instances as centroids.
-    predictor.gt_user_instances_only = bool(only_labeled_frames)
+    # Ground-truth centroids (item 10) will need the JAX package's
+    # gt_user_instances_only = only_labeled_frames here.
     if queue_maxsize:
         # Frames -> whole batches of decode queue.
         predictor.prefetch_batches = max(1, int(queue_maxsize) // max(1, predictor.batch_size))

@@ -241,7 +241,6 @@ class ImageVideoBackend:
 
 # The backends whose get_frame decodes to one channel itself (fmt="gray").
 _GRAY_DECODERS = (MediaVideoBackend, HDF5VideoBackend, ImageVideoBackend)
-_MEDIA_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".mjpeg", ".mjpg"}
 _IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff"}
 
 

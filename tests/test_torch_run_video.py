@@ -336,6 +336,31 @@ def test_per_call_overrides_match_jax_and_leave_the_predictor(dirs, scipy_groupi
     assert p._scoped_postprocess_layer(**{flag: False}) is p.layer
 
 
+def test_per_call_override_of_a_top_down_pair_copies_its_stages(dirs, clips):  # noqa: F811
+    paths = _paths(dirs, "topdown")
+    p = Predictor.from_model_paths(paths, device="cpu", batch_size=4)
+    j = JaxPredictor.from_model_paths(paths, batch_size=4)
+    stages = (p.layer.centroid_layer, p.layer.instance_layer)
+    posts = [copy.deepcopy(s.post) for s in stages]
+    scoped = p._scoped_postprocess_layer(return_confmaps=True)
+    for name, stage, post in zip(("centroid_layer", "instance_layer"), stages, posts):
+        copied = getattr(scoped, name)
+        # Its own post config over the same weights: nothing is reloaded.
+        assert copied is not stage and copied.backend is stage.backend
+        assert copied.post.return_confmaps and stage.post == post
+    got = p.predict(clips.avi, make_labels=False, return_confmaps=True)
+    want = j.predict(clips.avi, make_labels=False, return_confmaps=True)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in ("pred_keypoints", "pred_centroids"):
+            np.testing.assert_array_equal(np.isnan(g[key]), np.isnan(w[key]))
+            np.testing.assert_allclose(g[key], w[key], atol=ATOL_POINTS, rtol=0)
+        np.testing.assert_allclose(g["pred_peak_values"], w["pred_peak_values"],
+                                   atol=ATOL_SCORES, rtol=0)
+    assert p.layer.centroid_layer is stages[0] and [s.post for s in stages] == posts
+
+
 # -- the source options and the output ----------------------------------------------
 
 
