@@ -31,7 +31,10 @@ Phases, each of which raises on failure (exit code != 0):
    just before the run, must show both kernels ran (18 and 1 per batch);
    every output must have the JAX package's shapes, with NaN exactly on
    invalid slots. Prints frames/s and per-stage ms.
-5. Bottom-up end to end: ``Predictor.predict`` of a medium_rf bottom-up
+5. Bottom-up end to end (after the native grouping check: the C++ PAF
+   grouping library of ``native/`` must have built, beside the kernels,
+   and loaded; the host grouping of one batch is timed on it and on the
+   scipy fallback): ``Predictor.predict`` of a medium_rf bottom-up
    model (confmaps at stride 2, PAFs at stride 4, 15 nodes, 14 edges,
    bf16) over the same 20 frames, with the PAF grouping on the fetch
    thread and then in 2 worker processes. Launch counters must read 9 / 1
@@ -183,6 +186,24 @@ Phases, each of which raises on failure (exit code != 0):
     in (``head_ckpt_path``) from a second narrow centroid dir, the first
     trained 3 steps more from another seed on other labels; a pair given
     that one-model source raises ``ValueError`` as in the JAX package.
+22. Training from a video file and the trainer options, at full width
+    (UNet medium_rf, 1024x1024, batch 4, a few steps each): labels whose
+    ``Video`` is an MJPG clip written as phase 20 writes its clips (the
+    frames decode through ``MediaVideoBackend``) train a centroid model
+    through ``run_training`` with the post-training evaluation, which
+    predicts every local maximum (threshold -1e9; the models have trained
+    3 steps); each ``metrics.{split}.0.npz`` must equal ``run_evaluation``
+    of the same predictions, and without h5py one warning must name the
+    ``.slp`` files left out (with h5py, the files must be there). Then, on
+    the card: resume for one epoch (parameters equal to ``best.ckpt`` bit
+    for bit before the first step, the epoch count carried on); the
+    backbone taken from phase 7's centroid dir (equal to it; the head
+    not); ``save_top_k=2`` (two epoch-stamped checkpoints); bottom-up
+    training with negative frames (kernel 4 renders their empty maps;
+    their sample weights equal ``negative_loss_weight``); centroid
+    training with frames that carry user centroids only; and AMSGrad, 3
+    steps on the card against the CPU as in phase 8. Kernel 4's launches
+    are counted on each of these trainings.
 
 The card machine has no h5py, so the script writes no ``.slp`` or analysis
 HDF5 file (the CPU tests hold those files to the JAX package's).
@@ -211,6 +232,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1088,6 +1110,59 @@ def bottomup_stage_times(layer, frames):
     return times
 
 
+# The host grouping of a bottom-up batch of 8 on the scipy path, before the
+# native grouping was ported (PERF.md section 5; NVIDIA H100 80GB HBM3,
+# 700.00 W, this script's stage times): median and range of three runs.
+SCIPY_GROUPING_MS = (9.697, 8.080, 10.438)
+
+
+def check_native_grouping(layer, frames, reps=5):
+    """Before phase 5: the C++ grouping library of ``native/`` is built and
+    loaded (else this raises: the card path must not measure the scipy
+    fallback), and ``group_sample`` runs in it. Times the host grouping of
+    one batch (``BottomUpLayer.postprocess_host`` on its fetched scores) on
+    the library and, in the same call, on the scipy fallback; both must
+    find instances."""
+    import os
+
+    import torch
+
+    from sleap_nn_tpu_torch import native
+    from sleap_nn_tpu_torch.inference.layers import to_host
+
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("the native PAF grouping library did not build or load: "
+                             + native.build_log)
+    with torch.inference_mode():
+        host = to_host(layer.predict_async(torch.from_numpy(frames).to(DEVICE)))
+    times, found = {}, {}
+    for path in ("native", "scipy"):
+        if path == "scipy":
+            os.environ["SLEAP_NN_TPU_NO_NATIVE"] = "1"
+        try:
+            assert (native.get_lib() is None) == (path == "scipy")
+            ms = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = layer.postprocess_host(host)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            os.environ.pop("SLEAP_NN_TPU_NO_NATIVE", None)
+        times[path] = ms
+        found[path] = sum(len(k) for k in out["pred_keypoints"])
+    assert native.get_lib() is lib
+    if not found["native"] or not found["scipy"]:
+        raise AssertionError(f"host grouping found no instance: {found}")
+    stats = {"library": str(native.library_path().relative_to(ROOT)), "batch": len(frames),
+             "native_ms": times["native"], "scipy_ms_same_call": times["scipy"],
+             "native_ms_median": float(np.median(times["native"])),
+             "scipy_ms_median_same_call": float(np.median(times["scipy"])),
+             "scipy_ms_before_port": SCIPY_GROUPING_MS, "instances": found}
+    log("native_grouping " + json.dumps(stats))
+    return stats
+
+
 def run_bottomup_end_to_end(layer, kernels):
     """Predict over the smoke frames with the grouping inline, then in 2 workers."""
     from sleap_nn_tpu_torch.inference.predictor import Predictor
@@ -1573,7 +1648,8 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
     if not fixed[-1] < fixed[0]:
         raise AssertionError(f"{model_type}: 20 steps on one batch did not lower the loss: {fixed}")
     stats = {
-        "model_type": model_type, "launches": launches, "n_batches": n_renders,
+        "model_type": model_type, "launches": launches,
+        "n_batches": {"multi_confmaps": n_renders + centroid_eval, "nms_scores": centroid_eval},
         "history": history, "steps_per_sec": history[-1]["train/steps_per_sec"],
         "samples_per_sec": history[-1]["train/samples_per_sec"],
         "steps_per_sec_by_epoch": [h["train/steps_per_sec"] for h in history],
@@ -1597,9 +1673,10 @@ def run_training_end_to_end(kernels, root, model_type="centroid", crop_size=None
 # --------------------------------------------------------------------------
 
 
-def check_training_against_cpu(model_type="centroid"):
-    """Phases 8 and 12: a narrow f32 model of ``model_type`` trained 3 steps
-    on the card and on the CPU from the same parameters and batch
+def check_training_against_cpu(model_type="centroid", **trainer):
+    """Phases 8 and 12 (and phase 22's AMSGrad, through ``trainer``: options
+    of ``trainer_config``): a narrow f32 model of ``model_type`` trained 3
+    steps on the card and on the CPU from the same parameters and batch
     (augmentation off)."""
     import torch
 
@@ -1607,7 +1684,8 @@ def check_training_against_cpu(model_type="centroid"):
 
     labels = training_labels(8, 128, 5, 1 if model_type == "single_instance" else 3, seed=5)
     cfg = lambda: training_config(8, 8, 128, 4, augment=False, model_type=model_type,  # noqa: E731
-                                  crop_size=64 if model_type == "centered_instance" else None)
+                                  crop_size=64 if model_type == "centered_instance" else None,
+                                  **trainer)
     train, val = labels.extract(range(6)), labels.extract(range(6, 8))
     card = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device=DEVICE)
     cpu = ModelTrainer.get_model_trainer_from_config(cfg(), [train], [val], device="cpu")
@@ -1615,7 +1693,7 @@ def check_training_against_cpu(model_type="centroid"):
     cpu.setup()
     card.model.load_state_dict(cpu.model.state_dict(), strict=True)
     batch = next(iter(cpu.train_loader))
-    report = {"model_type": model_type}
+    report = {"model_type": model_type, **trainer}
     for step in range(3):
         loss_card, loss_cpu = card.train_step(batch)[0].item(), cpu.train_step(batch)[0].item()
         if step == 0:
@@ -1631,6 +1709,7 @@ def check_training_against_cpu(model_type="centroid"):
         for a, b in zip(card.model.state_dict().values(), cpu.model.state_dict().values()))
     assert report["param_max_abs_err"] <= 1e-5, report
     report["losses_step3"] = [loss_card, loss_cpu]
+    report["optimizer"] = type(card.optimizer).__name__
     log("train_card_vs_cpu " + json.dumps(report))
     return report
 
@@ -2834,14 +2913,297 @@ def check_video_against_cpu(dirs, second_centroid, tmp):
 
 
 # --------------------------------------------------------------------------
+# Phase 22: training from a video file, and the trainer options
+# --------------------------------------------------------------------------
+
+# Phase 22's clip: frames (the last FILE_VAL validate), train steps per run.
+FILE_FRAMES, FILE_VAL, FILE_STEPS = 12, 4, 3
+# Frames of the option runs (all in the train range) that hold no instance
+# (bottom-up with negatives) or only user centroids (centroid model).
+FILE_NEGATIVES, FILE_USER_CENTROIDS, NEGATIVE_WEIGHT = (1, 3, 5), (0, 2, 6), 0.5
+
+
+def file_labels(clip, seed, negatives=(), user_centroids=()):
+    """``training_labels``' instances (``FILE_FRAMES`` frames at
+    ``TRAIN_IMG``) on the frames of ``clip``, opened by name: frames in
+    ``negatives`` hold no instance, frames in ``user_centroids`` one user
+    centroid per instance (its nodes' mean) and no pose."""
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, UserCentroid
+    from sleap_nn_tpu_torch.io.video import Video
+
+    base = training_labels(FILE_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed)
+    video = Video.from_filename(str(clip))
+    lfs = []
+    for lf in base.labeled_frames:
+        if lf.frame_idx in negatives:
+            lfs.append(LabeledFrame(video, lf.frame_idx, []))
+        elif lf.frame_idx in user_centroids:
+            cents = [UserCentroid(np.nanmean(i.numpy(), axis=0)) for i in lf.instances]
+            lfs.append(LabeledFrame(video, lf.frame_idx, [], centroids=cents))
+        else:
+            lfs.append(LabeledFrame(video, lf.frame_idx, lf.instances))
+    return Labels(lfs, videos=[video], skeletons=base.skeletons)
+
+
+def file_splits(labels):
+    n_train = FILE_FRAMES - FILE_VAL
+    return [labels.extract(range(n_train))], [labels.extract(range(n_train, FILE_FRAMES))]
+
+
+def file_config(root, run_name, model_type="centroid", **trainer):
+    """Phase 22's config: the medium_rf model of phase 7 (no augmentation,
+    gray input), one epoch of ``FILE_STEPS`` steps into ``root``."""
+    kw = dict(max_epochs=1, train_steps_per_epoch=FILE_STEPS, save_ckpt=True,
+              ckpt_dir=str(root), run_name=run_name, model_ckpt={"save_last": True})
+    cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=False, model_type=model_type,
+                          **{**kw, **trainer})
+    cfg.data_config.preprocessing.ensure_grayscale = True
+    return cfg
+
+
+def same_metrics(saved, direct, where):
+    """Every value of ``run_evaluation``'s nested dict equal in the saved
+    metrics (NaN equal to NaN)."""
+    for group, values in direct.items():
+        for key, v in (values.items() if isinstance(values, dict) else [(None, values)]):
+            got = saved[group] if key is None else saved[group][key]
+            a, b = np.asarray(got), np.asarray(v)
+            same = (a.shape == b.shape and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                    if a.dtype.kind in "fiub" else str(got) == str(v))
+            if not same:
+                raise AssertionError(f"{where}: {group}.{key} saved {got!r}, computed {v!r}")
+
+
+def run_counted(kernels, fn):
+    """``fn()`` with every launch counter zeroed first; (result, launches)."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    sync()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def expect_launches(what, launches, **want):
+    want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
+            "multi_confmaps": 0, **want}
+    if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"phase 22 {what}: launch counts {launches}, expected {want}")
+
+
+def run_file_training(kernels, root, centroid_dir):
+    """Phase 22: ``run_training`` from labels on an MJPG clip with the
+    post-training evaluation, then resume, backbone transfer from
+    ``centroid_dir`` (phase 7's), ``save_top_k``, negative frames,
+    user centroids and AMSGrad, each on the card. The post-training
+    predict's kernel calls are held against their plain versions at each
+    shape (``recording_kernel_calls``). Returns the runs' stats by path
+    name (launches and batches, for the ``kernels`` line) and the rows of
+    ``check_recorded_calls``."""
+    import functools
+    import warnings
+
+    import torch
+
+    from sleap_nn_tpu_torch import train as ptrain
+    from sleap_nn_tpu_torch.evaluation import load_metrics, run_evaluation
+    from sleap_nn_tpu_torch.inference import run as prun
+    from sleap_nn_tpu_torch.models.model import param_subtree
+    from sleap_nn_tpu_torch.training import ModelTrainer
+    from sleap_nn_tpu_torch.training.model_trainer import h5py_available
+
+    t_phase = time.perf_counter()
+    out_dir = root / "phase22"
+    clip = write_clip(root / "phase22.avi", training_labels(
+        FILE_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=22).labeled_frames[0].video.frames,
+        "MJPG")
+    labels = file_labels(clip, seed=22)
+    if type(labels.videos[0].backend).__name__ != "MediaVideoBackend":
+        raise AssertionError(f"phase 22: the clip opened as {labels.videos[0].backend}")
+    train, val = file_splits(labels)
+    stats, times = {}, {}
+
+    # run_training with the post-training evaluation; its predictions are
+    # recorded, and every local maximum counts (the model trained 3 steps).
+    preds, real_predict, real_eval = [], prun.predict, ptrain._eval_split
+
+    def recording_predict(labels_gt, *args, **kwargs):
+        out = real_predict(labels_gt, *args, **kwargs)
+        preds.append((labels_gt, out))
+        return out
+
+    prun.predict = recording_predict
+    ptrain._eval_split = functools.partial(real_eval, peak_threshold=EVAL_PEAK_THRESHOLD)
+    # The post-training predict (f32, batch 4) is the first full-width path
+    # of kernel 1's f32 code at these shapes: each kernel call at each new
+    # shape is recorded (a copy of its inputs; the timing includes it) and
+    # held against its plain version below.
+    calls = []
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                recording_kernel_calls(set(), calls):
+            warnings.simplefilter("always")
+            trainer, launches = run_counted(kernels, lambda: ptrain.run_training(
+                file_config(out_dir, "centroid"), train, val, device=DEVICE))
+    finally:
+        prun.predict, ptrain._eval_split = real_predict, real_eval
+    times["run_training_s"] = time.perf_counter() - t0
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("file_train_kernel " + json.dumps(r))
+    bad = [r for r in held if not r["ok"]]
+    if bad or (DEVICE != "cpu" and {r["kernel"] for r in held} != {
+            "fused_double_conv3x3", "nms_scores"}):
+        raise AssertionError(f"phase 22 post-training predict: {len(held)} kernel calls held, "
+                             f"{len(bad)} disagree with their plain versions: {bad}")
+    n_val = len(trainer.val_loader)
+    n_pred = sum(-(-len(gt) // 4) for gt, _ in preds)  # run.predict's batch of 4
+    n_renders = FILE_STEPS + n_val + 1
+    expect_launches("run_training", launches, multi_confmaps=n_renders,
+                    fused_double_conv3x3=9 * n_pred, nms_scores=n_pred)
+    # Renders launch kernel 4, the post-training predict's batches kernels 1 and 2.
+    stats["file_train"] = {"launches": launches, "n_batches": {
+                               "multi_confmaps": n_renders, "fused_double_conv3x3": n_pred,
+                               "nms_scores": n_pred},
+                           "predict_batches": n_pred, "shapes_held": len(held),
+                           "history": trainer.history, "steps_per_sec":
+                           trainer.history[-1]["train/steps_per_sec"]}
+    files = {p.name for p in trainer.ckpt_dir.iterdir()}
+    slp_names = {"labels_train_gt_0.slp", "labels_val_gt_0.slp", "labels_pr.train_0.slp",
+                 "labels_pr.val_0.slp"}
+    slp_warnings = [str(w.message) for w in caught if "h5py" in str(w.message)]
+    if h5py_available():
+        ok = slp_names <= files and not slp_warnings
+    else:
+        ok = (len(slp_warnings) == 1 and all(n in slp_warnings[0] for n in slp_names)
+              and not any(n.endswith(".slp") for n in files))
+    if not ok or len(preds) != 2:
+        raise AssertionError(f"phase 22 model dir: files {sorted(files)}, warnings "
+                             f"{slp_warnings}, {len(preds)} predictions")
+    for split, (gt, pr) in zip(("train", "val"), preds):
+        n_found = sum(len(lf.instances) for lf in pr)
+        direct = run_evaluation(gt, pr, match_method="centroid")
+        same_metrics(load_metrics(trainer.ckpt_dir, split=split), direct, f"metrics.{split}.0")
+        stats["file_train"][f"{split}_predicted_centroids"] = n_found
+    stats["file_train"]["h5py"] = h5py_available()
+    stats["file_train"]["slp_warning"] = slp_warnings[0] if slp_warnings else None
+    stats["file_train"]["model_dir_files"] = sorted(files)
+
+    # Resume for one epoch from best.ckpt.
+    best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
+    cfg = file_config(out_dir, "resume", max_epochs=best["epoch"] + 2,
+                      resume_ckpt_path=str(trainer.ckpt_dir / "best.ckpt"))
+    rt = ModelTrainer.get_model_trainer_from_config(cfg, train, val, device=DEVICE)
+    _, launches = run_counted(kernels, rt.setup)
+    restored = rt.model.state_dict()
+    if not all(torch.equal(restored[k].cpu(), best["state_dict"][f"model.{k}"])
+               for k in restored) or rt.current_epoch != best["epoch"] + 1:
+        raise AssertionError(f"phase 22 resume: parameters or epoch {rt.current_epoch} "
+                             f"not restored from {best['epoch']}")
+    _, more = run_counted(kernels, rt.train)
+    last = torch.load(rt.ckpt_dir / "last.ckpt", weights_only=True)
+    if len(rt.history) != 1 or last["epoch"] != best["epoch"] + 1:
+        raise AssertionError(f"phase 22 resume: {len(rt.history)} epochs, last epoch "
+                             f"{last['epoch']}")
+    launches = {k: launches[k] + more[k] for k in launches}
+    expect_launches("resume", launches, multi_confmaps=FILE_STEPS + n_val + 1)
+    stats["file_resume"] = {"launches": launches, "n_batches": FILE_STEPS + n_val + 1,
+                            "resumed_epoch": rt.current_epoch}
+
+    # The backbone from phase 7's centroid dir.
+    cfg = file_config(out_dir, "transfer")
+    cfg.model_config.pretrained_backbone_weights = str(centroid_dir)
+    tt = ModelTrainer.get_model_trainer_from_config(cfg, train, val, device=DEVICE)
+    _, launches = run_counted(kernels, tt.setup)
+    src = ModelTrainer.load_checkpoint_params(Path(centroid_dir) / "best.ckpt")
+    own = tt.model.state_dict()
+    backbone = [k for k in own if param_subtree(k) == "backbone"]
+    head = [k for k in own if param_subtree(k) != "backbone"]
+    if not (all(torch.equal(own[k].cpu(), src[k]) for k in backbone)
+            and not all(torch.equal(own[k].cpu(), src[k]) for k in head)):
+        raise AssertionError("phase 22 transfer: the backbone is not the source's, or the "
+                             "head is")
+    expect_launches("transfer setup", launches, multi_confmaps=1)
+    stats["file_transfer"] = {"launches": launches, "n_batches": 1,
+                              "backbone_tensors": len(backbone), "head_tensors": len(head)}
+
+    # save_top_k=2 over 3 epochs of one step.
+    cfg = file_config(out_dir, "top_k", max_epochs=3, train_steps_per_epoch=1,
+                      model_ckpt={"save_top_k": 2})
+    kt = ModelTrainer.get_model_trainer_from_config(cfg, train, val, device=DEVICE)
+    _, launches = run_counted(kernels, kt.train)
+    kept = sorted(p.name for p in kt.ckpt_dir.glob("epoch=*.ckpt"))
+    if len(kept) != 2:
+        raise AssertionError(f"phase 22 save_top_k: {kept}")
+    expect_launches("save_top_k", launches, multi_confmaps=3 * (1 + n_val) + 1)
+    stats["file_top_k"] = {"launches": launches, "n_batches": 3 * (1 + n_val) + 1,
+                           "kept": kept}
+
+    # Bottom-up with negative frames; centroid with user centroids only.
+    for path, model_type, kw, extra in (
+            ("file_negatives", "bottomup", {"negatives": FILE_NEGATIVES},
+             {"use_negative_frames": True, "negative_loss_weight": NEGATIVE_WEIGHT}),
+            ("file_user_centroids", "centroid", {"user_centroids": FILE_USER_CENTROIDS}, {})):
+        tr, va = file_splits(file_labels(clip, seed=22, **kw))
+        cfg = file_config(out_dir, path, model_type)
+        for k, v in extra.items():
+            setattr(cfg.data_config, k, v)
+        if path == "file_user_centroids":
+            cfg.model_config.head_configs.centroid.confmaps.centroid_source = "user"
+        ot = ModelTrainer.get_model_trainer_from_config(cfg, tr, va, device=DEVICE)
+        history, launches = run_counted(kernels, ot.train)
+        n_v = len(ot.val_loader)
+        expect_launches(path, launches, multi_confmaps=FILE_STEPS + n_v + 1)
+        frames_of = {s["frame_idx"]: s for s in ot.train_ds.samples}
+        row = {"launches": launches, "n_batches": FILE_STEPS + n_v + 1,
+               "train_samples": len(ot.train_ds),
+               "losses": [history[-1]["train/loss"], history[-1]["val/loss"]]}
+        if path == "file_negatives":
+            weights = [frames_of[f]["sample_weight"] for f in FILE_NEGATIVES]
+            if weights != [NEGATIVE_WEIGHT] * len(FILE_NEGATIVES) or any(
+                    s["sample_weight"] != 1.0 for f, s in frames_of.items()
+                    if f not in FILE_NEGATIVES):
+                raise AssertionError(f"phase 22 negatives: sample weights {weights}")
+            with torch.no_grad():  # their targets through kernel 4: empty
+                neg = ot.render(ot.train_ds.make_batch(
+                    [i for i, s in enumerate(ot.train_ds.samples)
+                     if s["frame_idx"] in FILE_NEGATIVES]), train=False)
+            if neg["confmaps"].any() or neg["pafs"].any():
+                raise AssertionError("phase 22 negatives: a negative's targets are not empty")
+            row["negative_weights"] = weights
+        else:
+            for f in FILE_USER_CENTROIDS:
+                pts = frames_of[f]["instances"][: frames_of[f]["num_instances"]]
+                if not len(pts) or np.isnan(pts).any() or not (pts == pts[:, :1]).all():
+                    raise AssertionError(f"phase 22 user centroids: frame {f} samples {pts}")
+            row["user_centroid_frames"] = list(FILE_USER_CENTROIDS)
+        if not np.isfinite(row["losses"]).all():
+            raise AssertionError(f"phase 22 {path}: losses {row['losses']}")
+        stats[path] = row
+
+    # AMSGrad: 3 steps on the card against the CPU.
+    stats["amsgrad_card_vs_cpu"] = check_training_against_cpu(
+        "centroid", optimizer={"lr": 1e-4, "amsgrad": True})
+    if stats["amsgrad_card_vs_cpu"]["optimizer"] != "AMSGrad":
+        raise AssertionError(f"phase 22 amsgrad: {stats['amsgrad_card_vs_cpu']}")
+    times["phase_s"] = time.perf_counter() - t_phase
+    log("file_training " + json.dumps({"times": times, **{
+        k: v for k, v in stats.items() if k != "amsgrad_card_vs_cpu"}}, default=str))
+    return {k: v for k, v in stats.items() if "launches" in v}, held
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
-                   video_held):
+                   held):
     """The ``kernels`` line: one entry per kernel, launches from the paths'
     runs (``runs``: path name -> the phase's stats, with its ``launches``
-    and ``n_batches``), and phase 20's checks at its paths' shapes
-    (``video_held``: the rows of ``check_recorded_calls``)."""
+    and ``n_batches``, one count or a count per kernel that launched), and
+    the checks at the shapes of other paths (``held``: name -> the rows of
+    ``check_recorded_calls``; phase 20's ``video_path``, phase 22's
+    ``file_train``)."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
     nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
@@ -2851,14 +3213,20 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
 
     cm_main = next(r for r in cm_rows if r["path"] == "bottomup_train")
 
+    def batches(path, kernel):
+        n = runs[path]["n_batches"]
+        return n.get(kernel, 0) if isinstance(n, dict) else n
+
     def launches(kernel):
         by_path = {path: run["launches"][kernel] for path, run in runs.items()}
-        rows = [r for r in video_held if r["kernel"] == kernel]
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
-                "launches_per_batch": {path: n // runs[path]["n_batches"]
-                                       for path, n in by_path.items()},
-                "video_path_shapes_held": len(rows),
-                "video_path_max_abs_err": max((r["max_abs_err"] for r in rows), default=None)}
+        out = {"launches": sum(by_path.values()), "launches_by_path": by_path,
+               "launches_per_batch": {path: n // batches(path, kernel) if n else 0
+                                      for path, n in by_path.items()}}
+        for what, held_rows in held.items():
+            rows = [r for r in held_rows if r["kernel"] == kernel]
+            out[f"{what}_shapes_held"] = len(rows)
+            out[f"{what}_max_abs_err"] = max((r["max_abs_err"] for r in rows), default=None)
+        return out
 
     return {"kernels": [
         {
@@ -2981,9 +3349,19 @@ def main() -> int:
     log(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
-    # 2. Build.
+    # 2. Build: the kernels (nvcc, in parallel) and, beside them, the native
+    # PAF grouping (g++).
+    from sleap_nn_tpu_torch import native
+
+    native_s, t_build = [], time.perf_counter()
+    native_build = threading.Thread(target=lambda: native_s.append(
+        (native.get_lib(), time.perf_counter() - t_build)))
+    native_build.start()
     build_s = _build.build()
-    log(f"build: {build_s:.2f} s for {len(_build.KERNELS)} kernels")
+    native_build.join()
+    log(f"build: {build_s:.2f} s for {len(_build.KERNELS)} kernels; native PAF grouping "
+        f"{'loaded' if native_s[0][0] is not None else 'FAILED'} after {native_s[0][1]:.2f} s "
+        f"({native.library_path().name})")
     for k in _build.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -3011,7 +3389,8 @@ def main() -> int:
     # 4. Top-down end to end through Predictor.predict.
     e2e = run_end_to_end(layer, _build.KERNELS)
 
-    # 5. Bottom-up end to end through Predictor.predict.
+    # 5. Bottom-up end to end through Predictor.predict, grouping natively.
+    native_grouping = check_native_grouping(bu_layer, smoke_frames()[:BATCH])
     bu = run_bottomup_end_to_end(bu_layer, _build.KERNELS)
 
     # 6. Card against CPU on a small input.
@@ -3099,6 +3478,14 @@ def main() -> int:
     check_video_against_cpu(narrow_dirs, train_second_centroid_dir(root, narrow_dirs["centroid"]),
                             root)
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+    # 22. Training from a video file with the post-training evaluation, and
+    # the trainer options (resume, transfer, save_top_k, negative frames,
+    # user centroids, AMSGrad).
+    t_phase = time.perf_counter()
+    file_runs, file_held = run_file_training(_build.KERNELS, root, root / "centroid")
+    phase22_s = time.perf_counter() - t_phase
+    log(f"phase 22: {phase22_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -3111,9 +3498,9 @@ def main() -> int:
             "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu,
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
-            **{f"video_{path}": row for path, row in video.items()}}
+            **{f"video_{path}": row for path, row in video.items()}, **file_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
-                             runs, video_held)
+                             runs, {"video_path": video_held, "file_train": file_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -3134,7 +3521,10 @@ def main() -> int:
         f"from video files (frames/s from the file / from memory, decode ms a frame): "
         + "; ".join(f"{path} {row['fps_file']:.2f} / {row['fps_memory']:.2f}, "
                     f"{row['decode_ms_per_frame']:.3f}" for path, row in video.items())
-        + f"; training: {training}; "
+        + f"; training: {training}; host PAF grouping of a batch of {BATCH}: native "
+        f"{native_grouping['native_ms_median']:.3f} ms, scipy "
+        f"{native_grouping['scipy_ms_median_same_call']:.3f} ms in this call (scipy before the "
+        f"port: {SCIPY_GROUPING_MS[0]} ms); phase 22 {phase22_s:.1f} s; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

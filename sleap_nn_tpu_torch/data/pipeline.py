@@ -10,9 +10,12 @@ stride, then the model type's targets: confidence maps (the centroid and
 bottom-up maps through kernel 4 on CUDA), instance crops, part affinity
 fields, class maps and class vectors.
 
-Not ported yet: the render and datasets of the segmentation and tiled
-model types (they raise ``NotImplementedError``), the disk cache, negative
-frames and user-centroid samples.
+Frame-level datasets take negative frames (labeled frames without an
+instance: all-NaN keypoints, so empty targets, and ``sample_weight`` =
+``negative_loss_weight``) and, for centroid models, user-annotated
+centroids. Not ported yet: the render and datasets of the segmentation
+and tiled model types (they raise ``NotImplementedError``) and the disk
+cache.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from sleap_nn_tpu_torch.data.instance_cropping import (
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.providers import get_max_instances, process_lf
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_resizer, apply_sizematcher
-from sleap_nn_tpu_torch.io.model import Labels
+from sleap_nn_tpu_torch.io.model import Labels, is_negative_frame
 from sleap_nn_tpu_torch.ops.confmaps import generate_confmaps, generate_multiconfmaps
 from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
 
@@ -219,15 +222,27 @@ class BaseDataset:
     """Host-side dataset: index + decode + pad; one item is one frame sample.
 
     Decoded frames are held in memory (the JAX package's ``cache_mode``
-    "memory"; its disk cache, negative frames and user-centroid samples
-    are not ported).
+    "memory"; its disk cache is not ported). ``use_negative_frames`` adds
+    each labeled frame without an instance as a negative: all-NaN
+    keypoints (empty targets) and ``sample_weight`` =
+    ``negative_loss_weight``. ``centroid_from_user`` (centroid models)
+    trains a frame that carries user-annotated centroids on those points,
+    as instances with every node at the centroid.
     """
 
+    # A crop-level dataset (one sample per instance) has no frame-level
+    # sample to attach a negative to, and skips negatives.
+    supports_negative_frames = True
+
     def __init__(self, labels_list: Sequence[Labels], ctx: PipelineContext,
-                 user_instances_only: bool = True):
+                 user_instances_only: bool = True, use_negative_frames: bool = False,
+                 negative_loss_weight: float = 1.0, centroid_from_user: bool = False):
         self.labels_list = list(labels_list)
         self.ctx = ctx
         self.user_instances_only = user_instances_only
+        self.use_negative_frames = use_negative_frames
+        self.negative_loss_weight = negative_loss_weight
+        self.centroid_from_user = centroid_from_user
         self.samples: List[Dict[str, Any]] = []
         self._build_index()
 
@@ -237,6 +252,11 @@ class BaseDataset:
             for lf in labels.labeled_frames:
                 video_idx = next(
                     (i for i, v in enumerate(labels.videos) if v is lf.video), 0)
+                if self.centroid_from_user and lf.user_centroids:
+                    sample = self._make_sample(lf, video_idx, lf.user_centroids)
+                    if sample is not None:
+                        self.samples.append(sample)
+                    continue
                 sample = process_lf(
                     lf,
                     video_idx=video_idx,
@@ -245,9 +265,42 @@ class BaseDataset:
                     track_index=tindex,
                 )
                 if sample is None:
+                    # Only a truly empty labeled frame is a negative; a frame
+                    # whose instances are all empty or out of bounds is skipped.
+                    if (self.use_negative_frames and self.supports_negative_frames
+                            and is_negative_frame(lf)):
+                        neg = self._make_sample(lf, video_idx, [], self.negative_loss_weight)
+                        if neg is not None:
+                            self.samples.append(neg)
                     continue
                 sample["sample_weight"] = 1.0
                 self._append_samples(sample)
+
+    def _make_sample(self, lf, video_idx: int, centroids, weight: float = 1.0):
+        """A frame sample whose instances sit at ``centroids`` (every node at
+        the centroid, so the centroid render gives back the annotated
+        point); with no centroid, a negative with all-NaN keypoints. None
+        where the frame does not decode."""
+        try:
+            img = lf.image
+        except Exception:
+            return None
+        if img.ndim == 2:
+            img = img[..., None]
+        cents = centroids[: self.ctx.max_instances]
+        pts = np.full((self.ctx.max_instances, self.ctx.n_nodes, 2), np.nan, np.float32)
+        for i, c in enumerate(cents):
+            pts[i, :, :] = np.asarray(c.point, np.float32)
+        return {
+            "image": np.ascontiguousarray(img),
+            "instances": pts,
+            "num_instances": len(cents),
+            "frame_idx": int(lf.frame_idx),
+            "video_idx": int(video_idx),
+            "orig_size": np.array(img.shape[:2], np.float32),
+            "track_ids": np.full((self.ctx.max_instances,), -1, np.int32),
+            "sample_weight": float(weight),
+        }
 
     def _append_samples(self, sample: Dict[str, Any]):
         self.samples.append(sample)
@@ -291,7 +344,9 @@ class BottomUpMultiClassDataset(BaseDataset):
 
 class CenteredInstanceDataset(BaseDataset):
     """One sample per (frame, instance), in frame order: the render crops
-    around instance ``center_idx`` of its frame."""
+    around instance ``center_idx`` of its frame. No negatives."""
+
+    supports_negative_frames = False
 
     def _append_samples(self, sample: Dict[str, Any]):
         for k in range(sample["num_instances"]):
@@ -313,11 +368,11 @@ _DATASET_BY_TYPE = {
 }
 
 
-def make_dataset(model_type: str, labels_list, ctx: PipelineContext,
-                 user_instances_only: bool = True) -> BaseDataset:
+def make_dataset(model_type: str, labels_list, ctx: PipelineContext, **kwargs) -> BaseDataset:
+    """The model type's dataset; ``kwargs`` go to :class:`BaseDataset`."""
     if model_type not in _DATASET_BY_TYPE:
         raise _unported("dataset", model_type)
-    return _DATASET_BY_TYPE[model_type](labels_list, ctx, user_instances_only)
+    return _DATASET_BY_TYPE[model_type](labels_list, ctx, **kwargs)
 
 
 def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineContext:

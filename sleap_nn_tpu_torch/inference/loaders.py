@@ -66,18 +66,13 @@ def unported_model_type(model_type: str, backbone_type: str = "unet") -> Optiona
     return None
 
 
-def load_checkpoint_state(ckpt: Path) -> Dict[str, torch.Tensor]:
-    """The model ``state_dict`` held by a torch checkpoint (keys under
-    ``model.``). A JAX trainer's orbax directory raises, naming the tool
-    that converts it."""
-    if ckpt.is_dir():
-        raise ValueError(
-            f"{ckpt} is a JAX trainer's orbax checkpoint; the port reads torch checkpoints "
-            "only. Convert the model dir with: python3 tools/orbax_to_torch.py "
-            f"{ckpt.parent} OUT_DIR")
-    from sleap_nn_tpu_torch.training.model_trainer import ModelTrainer
-
-    return ModelTrainer.load_checkpoint_params(ckpt)
+def orbax_refusal(ckpt: Path) -> ValueError:
+    """The error for a JAX trainer's orbax checkpoint (a directory), naming
+    the tool that converts its model dir."""
+    return ValueError(
+        f"{ckpt} is a JAX trainer's orbax checkpoint; the port reads torch checkpoints "
+        "only. Convert the model dir with: python3 tools/orbax_to_torch.py "
+        f"{ckpt.parent} OUT_DIR")
 
 
 def model_input_hw(config: TrainingJobConfig) -> Optional[Tuple[int, int]]:
@@ -125,7 +120,9 @@ def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) 
         ckpt = explicit_ckpt or model_dir / "best.ckpt"
         if not ckpt.exists():
             ckpt = model_dir / "last.ckpt"
-        params = load_checkpoint_state(ckpt)
+        from sleap_nn_tpu_torch.training.model_trainer import ModelTrainer
+
+        params = ModelTrainer.load_checkpoint_params(ckpt)  # an orbax dir raises
     model.load_state_dict(params, strict=True)
     model.eval()
 

@@ -6,10 +6,10 @@ Port of ``sleap_nn_tpu/inference/paf_grouping.py``:
   ``(B, n_nodes, K, 2)`` with a validity mask, and every src x dst pair of
   every edge is scored at once, ``(B, n_edges, K, K)``. The scoring runs in
   the ``paf_line_scores`` kernel (``ops/kernels.py``) on a CUDA tensor.
-- Host half: per-edge Hungarian matching (scipy) and the greedy union of
-  matches into instances, on the fetched numpy arrays. This is the JAX
-  package's scipy path; its C++ copy of the same grouping
-  (``sleap_nn_tpu/native/paf_group.cpp``) is not ported.
+- Host half: per-edge Hungarian matching and the greedy union of matches
+  into instances, on the fetched numpy arrays. As in the JAX package, the
+  C++ library of ``native/`` runs it in one call per sample; the scipy
+  path below is the fallback where no compiler builds the library.
 
 The edge order comes from this module's own breadth-first walk, which
 gives networkx's order (the JAX package calls networkx, which the GPU
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from sleap_nn_tpu_torch.native import paf_group_sample_native
 from sleap_nn_tpu_torch.ops.kernels import paf_line_scores
 
 
@@ -357,15 +358,43 @@ class PAFScorer:
         )
         return grouped_peaks, grouped_vals, mask, self.score_lines(pafs, grouped_peaks, mask)
 
+    def _min_instance_peaks_int(self) -> int:
+        """``min_instance_peaks`` as a count: a float is a fraction of the
+        node count, as in :func:`assign_connections_to_instances`."""
+        mp = self.min_instance_peaks
+        if isinstance(mp, float):
+            return int(mp * self.n_nodes)
+        return int(mp)
+
     # -- host -------------------------------------------------------------------
     def group_sample(self, grouped_peaks, grouped_vals, scores,
                      return_matches: bool = False):
         """Host: dense scores of one sample -> predicted instance arrays.
 
-        With ``return_matches`` also returns the matched candidate edges as
+        Runs in the C++ library (``native/paf_group.cpp``) where it builds,
+        else on the scipy path below, as the JAX package does. With
+        ``return_matches`` also returns the matched candidate edges as
         ``(edge, src_slot, dst_slot, line_score)`` tuples (the Hungarian
-        result already computed, for ``return_paf_graph`` output).
+        result already computed, for ``return_paf_graph`` output), in the
+        order of the path that ran.
         """
+        native = paf_group_sample_native(
+            np.asarray(scores), self.edge_inds, self.sorted_edge_inds,
+            self.n_nodes, self.min_line_scores, self._min_instance_peaks_int(),
+        )
+        if native is not None:
+            assign, connections, _ = native
+            nodes, slots = np.nonzero(assign >= 0)  # row-major, as a loop over (node, slot)
+            assignments = dict(zip(zip(nodes.tolist(), slots.tolist()),
+                                   assign[nodes, slots].tolist()))
+            inst = make_predicted_instances(
+                np.asarray(grouped_peaks), np.asarray(grouped_vals), connections,
+                assignments, self.edge_inds, self.n_nodes)
+            if return_matches:
+                return inst + ([(e, s, d, sc) for e, lst in connections.items()
+                                for s, d, sc in lst],)
+            return inst
+
         matches = match_candidates_dense(np.asarray(scores), self.min_line_scores)
         connections: Dict[int, List[Tuple[int, int, float]]] = {}
         for e, s, d, sc in matches:

@@ -69,6 +69,7 @@ from sleap_nn_tpu_torch.io.model import (
     Track,
 )
 from sleap_nn_tpu_torch.io.video import rgb_to_gray_uint8
+from sleap_nn_tpu_torch.models.model import swap_subtrees
 
 logger = logging.getLogger("sleap_nn_tpu_torch")
 
@@ -134,16 +135,6 @@ def _crop_size(m: LoadedModel, crop_size: Optional[int], pre: PreprocessConfig) 
     return cs + (-cs) % pre.max_stride
 
 
-def _subtree(key: str) -> str:
-    """The JAX package's top-level parameter subtree of a ``state_dict``
-    key: ``backbone``, or the head's name (a class-vectors head's dense
-    layers lie under ``ClassVectorsHead``)."""
-    parts = key.split(".")
-    if parts[0] == "backbone":
-        return "backbone"
-    return "ClassVectorsHead" if parts[2].startswith("pre_classification") else parts[2]
-
-
 def _swap_param_subtrees(loaded: Sequence[LoadedModel], backbone_ckpt_path,
                          head_ckpt_path) -> None:
     """Replace the backbone / head weights of every loaded model with those
@@ -155,21 +146,13 @@ def _swap_param_subtrees(loaded: Sequence[LoadedModel], backbone_ckpt_path,
         if src_path is None:
             continue
         src = load_model(src_path).params
-        src_trees = {_subtree(k) for k in src}
         for m in loaded:
-            dst_trees = dict.fromkeys(_subtree(k) for k in m.params)  # in model order
-            names = ["backbone"] if which == "backbone" else [
-                t for t in dst_trees if t != "backbone"]
-            for name in names:
-                if name not in src_trees:
-                    raise ValueError(f"{which}_ckpt_path: source checkpoint has no '{name}' "
-                                     f"subtree (has: {sorted(src_trees)}).")
-                shapes = [{k: tuple(v.shape) for k, v in params.items() if _subtree(k) == name}
-                          for params in (m.params, src)]
-                if shapes[0] != shapes[1]:
-                    raise ValueError(f"{which}_ckpt_path: '{name}' parameter shapes do not "
-                                     "match the target model.")
-                m.params.update({k: v for k, v in src.items() if _subtree(k) == name})
+            swap_subtrees(
+                m.params, src, which,
+                missing="{which}_ckpt_path: source checkpoint has no '{name}' subtree "
+                        "(has: {trees}).",
+                mismatch="{which}_ckpt_path: '{name}' parameter shapes do not match the "
+                         "target model.")
 
 
 # The type sets on full frames whose resize may move to the host.

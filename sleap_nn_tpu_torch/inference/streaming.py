@@ -115,6 +115,9 @@ class PafGroupingPool:
     def __enter__(self) -> "PafGroupingPool":
         import multiprocessing
 
+        from sleap_nn_tpu_torch.native import get_lib
+
+        get_lib()  # build the grouping library once, before the workers load it
         self._executor = ProcessPoolExecutor(
             max_workers=self.n_workers,
             mp_context=multiprocessing.get_context("spawn"),

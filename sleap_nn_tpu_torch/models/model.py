@@ -171,3 +171,34 @@ class Model(nn.Module):
             else:
                 outputs[head.name] = layer[head.name](feature)
         return outputs
+
+
+def param_subtree(key: str) -> str:
+    """The JAX package's top-level parameter subtree of a ``state_dict``
+    key: ``backbone``, or the head's name (a class-vectors head's dense
+    layers lie under ``ClassVectorsHead``)."""
+    parts = key.split(".")
+    if parts[0] == "backbone":
+        return "backbone"
+    return "ClassVectorsHead" if parts[2].startswith("pre_classification") else parts[2]
+
+
+def swap_subtrees(own: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], which: str,
+                  missing: str, mismatch: str) -> None:
+    """Replace in the ``state_dict`` ``own``, in place, the backbone
+    (``which="backbone"``) or every other top-level subtree, the heads
+    (``which="head"``), with those of ``src``. A subtree ``src`` lacks
+    raises ``ValueError(missing)``, one whose keys or shapes differ
+    ``ValueError(mismatch)``; both are formatted with ``which``, the
+    subtree's ``name`` and the source's sorted ``trees``."""
+    src_trees = sorted({param_subtree(k) for k in src})
+    trees = dict.fromkeys(param_subtree(k) for k in own)  # in model order
+    names = ["backbone"] if which == "backbone" else [t for t in trees if t != "backbone"]
+    for name in names:
+        if name not in src_trees:
+            raise ValueError(missing.format(which=which, name=name, trees=src_trees))
+        shapes = [{k: tuple(v.shape) for k, v in sd.items() if param_subtree(k) == name}
+                  for sd in (own, src)]
+        if shapes[0] != shapes[1]:
+            raise ValueError(mismatch.format(which=which, name=name, trees=src_trees))
+        own.update({k: v for k, v in src.items() if param_subtree(k) == name})

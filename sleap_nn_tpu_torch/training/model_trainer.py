@@ -5,31 +5,37 @@ centroid, centered-instance, bottom-up and identity (multi-class
 bottom-up and top-down) models on one device. A train step renders the
 batch's targets on the device under ``torch.no_grad()`` (kernel 4 on
 CUDA for the centroid and bottom-up confidence maps), runs
-the forward and the loss under autograd, then ``backward`` and one Adam /
-AdamW step. PyTorch runs eagerly, so where the JAX trainer jits one
-program per step, the port launches the same stages one by one. The
+the forward and the loss under autograd, then ``backward`` and one Adam,
+AdamW or AMSGrad step. PyTorch runs eagerly, so where the JAX trainer jits
+one program per step, the port launches the same stages one by one. The
 model trains with plain convolutions (``use_fused=False``), as the JAX
 trainer does: the fused double-conv kernel has no backward.
+
+Labels come in memory or from ``data_config.train_labels_path`` /
+``val_labels_path`` (``.slp`` files, with the JAX trainer's video path
+remapping). The trainer takes the JAX trainer's options: transfer init
+from another model's checkpoint, resume, ``init_weights``, ``save_top_k``,
+negative frames, user centroids and AMSGrad.
 
 The model directory: ``initial_config.yaml`` (the config as the caller
 gave it), ``training_config.yaml`` (the config the trainer filled in: max
 dims, strides, part names, PAF edges, classes, crop size, skeleton, run
-name, parameter count), ``best.ckpt`` (and ``last.ckpt`` with
-``model_ckpt.save_last``) and ``training_log.csv`` (one row per epoch).
-A checkpoint is ``torch.save({"state_dict", "epoch", "best_val_loss"})``
-with the model's ``state_dict`` keys under the ``model.`` prefix of the
-reference's Lightning checkpoints. ``inference.loaders.load_model`` reads
-the directory back; so does the JAX package's ``load_model``.
+name, parameter count), ``labels_{train,val}_gt_{i}.slp`` (the splits,
+frames embedded), ``best.ckpt`` (and ``last.ckpt`` with
+``model_ckpt.save_last``, ``epoch=NNN-val_loss=X.ckpt`` with
+``save_top_k`` above 1) and ``training_log.csv`` (one row per epoch).
+Writing ``.slp`` needs h5py; where it does not import, the ``.slp`` files
+are left out and named in ``slp_not_written`` (``train.run_training``
+warns once with them). A checkpoint is
+``torch.save({"state_dict", "epoch", "best_val_loss"})`` with the model's
+``state_dict`` keys under the ``model.`` prefix of the reference's
+Lightning checkpoints. ``inference.loaders.load_model`` reads the
+directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
 ROADMAP.md): the segmentation model types, backbones other than UNet,
-tiling, the disk cache, pretrained or transfer init, resume, ZMQ, wandb,
-visualization, negative frames (a crop model leaves them out with a
-warning, as the JAX trainer does), user centroids,
-amsgrad, ``save_top_k`` above 1, device-trace profilers, more than one
-device, loading labels from paths, and the ``labels_{train,val}_gt_*.slp``
-files of the model directory (writing them needs h5py, which the card
-machine lacks; ROADMAP.md section 1, item 1).
+tiling, the disk cache, ZMQ, wandb, visualization, device-trace
+profilers and more than one device.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ from sleap_nn_tpu_torch.data.pipeline import (
 from sleap_nn_tpu_torch.data.providers import get_max_height_width
 from sleap_nn_tpu_torch.inference.backends import resolve_device
 from sleap_nn_tpu_torch.io.model import Labels
-from sleap_nn_tpu_torch.models.model import MODEL_TYPES, Model
+from sleap_nn_tpu_torch.models.model import MODEL_TYPES, Model, swap_subtrees
 from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
@@ -81,27 +87,66 @@ _BATCH_TENSORS = ("image", "instances", "center_idx", "track_ids", "batch_mask",
                   "sample_weight")
 
 
-def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Xavier-uniform conv, transposed-conv and dense weights, zero biases,
-    in place.
+def _remap_video_paths(labels: Labels, data_config):
+    """Point a labels file's videos at new paths, for labels moved between
+    machines: in order (``video_paths``), by exact match
+    (``video_path_map``) or by shared prefix (``video_prefix_map``)."""
+    vp = getattr(data_config, "video_paths", None)
+    if vp:
+        for vid, new in zip(labels.videos, vp):
+            vid.filename = new
+            vid.backend = None
+    vmap = getattr(data_config, "video_path_map", None) or {}
+    pmap = getattr(data_config, "video_prefix_map", None) or {}
+    for vid in labels.videos:
+        fn = str(vid.filename)
+        if fn in vmap:
+            vid.filename = vmap[fn]
+            vid.backend = None
+            continue
+        for old, new in pmap.items():
+            if fn.startswith(old):
+                vid.filename = new + fn[len(old):]
+                vid.backend = None
+                break
 
-    The JAX package's rule on its HWIO and (in, out) kernels: ``fan_in = kh
-    * kw * in`` (``in`` for a dense layer), ``fan_out = out``, limit
-    ``sqrt(6 / (fan_in + fan_out))``. (PyTorch's ``xavier_uniform_`` on
-    OIHW weights would count ``out * kh * kw`` as ``fan_out``.)
-    ``generator`` lives on the weights' device.
-    """
+
+def h5py_available() -> bool:
+    """Whether h5py imports, so that ``.slp`` files can be written."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _fans(m: nn.Module):
+    """``(fan_in, fan_out)`` of a conv, transposed-conv or dense weight as
+    the JAX package counts them on its HWIO and (in, out) kernels: ``fan_in
+    = kh * kw * in`` (``in`` for a dense layer), ``fan_out = out``. (PyTorch's
+    own initialisers on OIHW weights would count ``out * kh * kw`` as
+    ``fan_out``.) None for any other module."""
+    if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw)
+        c_in, c_out, kh, kw = m.weight.shape
+    elif isinstance(m, nn.Conv2d):  # (out, in, kh, kw)
+        c_out, c_in, kh, kw = m.weight.shape
+    elif isinstance(m, nn.Linear):  # (out, in)
+        (c_out, c_in), kh, kw = m.weight.shape, 1, 1
+    else:
+        return None
+    return kh * kw * c_in, c_out
+
+
+def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Xavier-uniform conv, transposed-conv and dense weights (limit
+    ``sqrt(6 / (fan_in + fan_out))``, the JAX fans of :func:`_fans`), zero
+    biases, in place. ``generator`` lives on the weights' device."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw)
-                c_in, c_out, kh, kw = m.weight.shape
-            elif isinstance(m, nn.Conv2d):  # (out, in, kh, kw)
-                c_out, c_in, kh, kw = m.weight.shape
-            elif isinstance(m, nn.Linear):  # (out, in)
-                (c_out, c_in), kh, kw = m.weight.shape, 1, 1
-            else:
+            fans = _fans(m)
+            if fans is None:
                 continue
-            limit = math.sqrt(6.0 / (kh * kw * c_in + c_out))
+            limit = math.sqrt(6.0 / sum(fans))
             u = torch.rand(m.weight.shape, generator=generator, device=m.weight.device)
             m.weight.copy_(u * (2 * limit) - limit)
             if m.bias is not None:
@@ -109,15 +154,115 @@ def xavier_init_params(model: nn.Module, generator: torch.Generator) -> nn.Modul
     return model
 
 
-def make_optimizer(params, name: str, lr: float) -> torch.optim.Optimizer:
-    """``optax.adam`` / ``optax.adamw`` at their defaults, in PyTorch: betas
-    (0.9, 0.999), eps 1e-8 and, for AdamW, decoupled weight decay 1e-4
-    (optax's default; torch's is 1e-2)."""
+def flax_default_init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The initialisers of the JAX package's flax layers, in place: every
+    conv, transposed-conv and dense weight from LeCun's truncated normal
+    (``lecun_normal``: variance ``1 / fan_in``, cut at two standard
+    deviations), zero biases. The weights the JAX trainer keeps for an
+    ``init_weights`` other than ``default`` or ``xavier``; the same
+    distribution, not the same values. ``generator`` is a CPU one."""
+    with torch.no_grad():
+        for m in model.modules():
+            fans = _fans(m)
+            if fans is None:
+                continue
+            # flax's variance_scaling divides by the standard deviation of
+            # a standard normal cut at +-2.
+            std = math.sqrt(1.0 / fans[0]) / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model
+
+
+class AMSGrad(torch.optim.Optimizer):
+    """``optax.amsgrad`` at its defaults (betas 0.9 / 0.999, eps 1e-8,
+    ``eps_root`` 0), written from tensor ops.
+
+    Per step ``t``: ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2)
+    g^2``, ``nu_max = max(nu_max, nu / (1 - b2^t))`` and ``p -= lr * (mu /
+    (1 - b1^t)) / (sqrt(nu_max) + eps)``. optax keeps the maximum of the
+    bias-corrected second moment; ``torch.optim.Adam(amsgrad=True)``
+    keeps that of the raw one, which steps differently.
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    for k in ("mu", "nu", "nu_max"):
+                        state[k] = torch.zeros_like(p)
+                state["step"] += 1
+                t = state["step"]
+                mu, nu, nu_max = state["mu"], state["nu"], state["nu_max"]
+                mu.mul_(b1).add_(g, alpha=1 - b1)
+                nu.mul_(b2).add_(g * g, alpha=1 - b2)
+                # optax's bias correction, 1 - decay^t, in f32 (the scalar
+                # keeps its f32 value in the f32 ops below).
+                c1 = float(1 - np.float32(b1) ** t)
+                c2 = float(1 - np.float32(b2) ** t)
+                torch.maximum(nu_max, nu / c2, out=nu_max)
+                upd = (mu / c1) / (torch.sqrt(nu_max) + group["eps"])
+                p.add_(upd * -group["lr"])
+        return None
+
+
+def make_optimizer(params, name: str, lr: float, amsgrad: bool = False) -> torch.optim.Optimizer:
+    """``optax.adam`` / ``optax.adamw`` / ``optax.amsgrad`` at their
+    defaults, in PyTorch: betas (0.9, 0.999), eps 1e-8 and, for AdamW,
+    decoupled weight decay 1e-4 (optax's default; torch's is 1e-2).
+    optax has no AMSGrad form of AdamW, so that pair raises, as in JAX."""
+    if amsgrad and name.lower() == "adam":
+        return AMSGrad(params, lr=lr)
+    if amsgrad:
+        raise ValueError(
+            f"optimizer.amsgrad is only supported with optimizer_name 'adam' (got {name!r}).")
     if name.lower() == "adam":
         return torch.optim.Adam(params, lr=lr)
     if name.lower() == "adamw":
         return torch.optim.AdamW(params, lr=lr, weight_decay=1e-4)
     raise ValueError(f"Unsupported optimizer: {name}")
+
+
+def _checkpoint_state_of(path) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` of a model dir's ``best.ckpt`` or of a
+    ``.ckpt`` file; a JAX trainer's orbax checkpoint raises, naming the
+    tool that converts it."""
+    from sleap_nn_tpu_torch.config import resolve_model_dir
+
+    p = Path(path)
+    if p.is_dir() and p.suffix.lower() != ".ckpt":
+        p = resolve_model_dir(p) / "best.ckpt"
+    return ModelTrainer.load_checkpoint_params(p)
+
+
+def _init_subtrees_from_ckpts(model: nn.Module, backbone_ckpt, head_ckpt) -> None:
+    """Replace the backbone and / or every other top-level subtree (the
+    heads) of ``model`` with another trained model's, in place. A subtree
+    the source lacks, or one whose keys or shapes differ, raises
+    ``ValueError`` instead of mixing weights."""
+    own = model.state_dict()
+    for src_path, which in ((backbone_ckpt, "backbone"), (head_ckpt, "head")):
+        if src_path:
+            swap_subtrees(
+                own, _checkpoint_state_of(src_path), which,
+                missing="pretrained_{which}_weights: checkpoint has no '{name}' subtree "
+                        "(has {trees}).",
+                mismatch="pretrained_{which}_weights: '{name}' parameter shapes do not match "
+                         "the configured architecture.")
+    model.load_state_dict(own, strict=True)
 
 
 def sample_weights(batch: Dict[str, torch.Tensor], train: bool = True) -> Optional[torch.Tensor]:
@@ -134,8 +279,7 @@ def sample_weights(batch: Dict[str, torch.Tensor], train: bool = True) -> Option
 
 def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) -> List[str]:
     """What this configuration asks for that the port does not train yet."""
-    tc, dc, mc = cfg.trainer_config, cfg.data_config, cfg.model_config
-    cm = getattr(get_head_config(cfg), "confmaps", None)
+    tc, dc = cfg.trainer_config, cfg.data_config
     devices = tc.trainer_devices
     checks = [
         (model_type not in MODEL_TYPES,
@@ -143,17 +287,9 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
         (backbone_type != "unet", f"backbone {backbone_type!r} (unet is ported)"),
         (dc.preprocessing.tiling is not None and dc.preprocessing.tiling.enabled, "tiling"),
         (str(dc.data_pipeline_fw).endswith("cache_img_disk"), "the disk cache"),
-        (bool(mc.pretrained_backbone_weights or mc.pretrained_head_weights),
-         "pretrained or transfer init"),
-        (mc.init_weights not in ("default", "xavier"), f"init_weights={mc.init_weights!r}"),
-        (bool(tc.resume_ckpt_path), "resume_ckpt_path"),
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
-        (bool(dc.use_negative_frames) and model_type not in CROP_TYPES, "negative frames"),
-        (getattr(cm, "centroid_source", None) == "user", "user centroids"),
-        (bool(getattr(tc.optimizer, "amsgrad", False)), "amsgrad"),
-        (int(tc.model_ckpt.save_top_k or 1) > 1, "save_top_k > 1"),
         (tc.profiler not in (None, "simple", "advanced", "passthrough"),
          f"profiler={tc.profiler!r}"),
         ((isinstance(devices, int) and devices > 1)
@@ -194,6 +330,10 @@ class ModelTrainer:
         self.history: List[Dict] = []
         self.best_val_loss = math.inf
         self.initial_config: Optional[TrainingJobConfig] = None  # set by from_config
+        # The .slp files of the model dir left out for want of h5py;
+        # train.run_training names them, with its own, in one warning.
+        self.slp_not_written: List[Path] = []
+        self._top_k_ckpts: List = []
         self._setup_done = False
 
     # -- construction -------------------------------------------------------
@@ -205,29 +345,43 @@ class ModelTrainer:
         val_labels: Optional[List[Labels]] = None,
         device="cuda",
     ) -> "ModelTrainer":
-        """Validate the config, split the labels, infer the derived config.
+        """Validate the config, load and split the labels, infer the derived
+        config.
 
-        Labels come in memory: reading ``data_config.train_labels_path`` /
-        ``val_labels_path`` waits for the ``.slp`` I/O slice. Without
-        ``val_labels`` the training labels are split with
-        ``Labels.make_training_splits`` at ``validation_fraction`` and the
-        trainer seed, as the JAX trainer splits them.
+        Labels come in memory, else from ``data_config.train_labels_path``
+        (and ``val_labels_path``) through ``io.slp.load_slp`` with the JAX
+        trainer's video path remapping; an empty training file raises
+        ``ValueError``. Without validation labels the training labels are
+        split with ``Labels.make_training_splits`` at
+        ``validation_fraction`` and the trainer seed, as the JAX trainer
+        splits them.
         """
         verify_training_cfg(config)
         initial = copy.deepcopy(config)
+        dc = config.data_config
         if train_labels is None:
-            raise NotImplementedError(
-                "loading labels from data_config.train_labels_path waits for the .slp I/O "
-                "slice (ROADMAP.md section 1, item 1): pass in-memory Labels")
+            from sleap_nn_tpu_torch.io.slp import load_slp
+
+            paths = dc.train_labels_path or []
+            if not paths:
+                raise ValueError("data_config.train_labels_path must be set.")
+            train_labels = [load_slp(p) for p in paths]
+            for p, labels in zip(paths, train_labels):
+                if not labels.labeled_frames:
+                    raise ValueError(
+                        f"Training labels file is empty (no labeled frames): {p}")
+                _remap_video_paths(labels, dc)
         if val_labels is None:
-            if config.data_config.use_same_data_for_val:
+            if dc.use_same_data_for_val:
                 val_labels = list(train_labels)
-            elif config.data_config.val_labels_path:
-                raise NotImplementedError(
-                    "loading data_config.val_labels_path waits for the .slp I/O slice: "
-                    "pass in-memory val_labels")
+            elif dc.val_labels_path:
+                from sleap_nn_tpu_torch.io.slp import load_slp
+
+                val_labels = [load_slp(p) for p in dc.val_labels_path]
+                for labels in val_labels:
+                    _remap_video_paths(labels, dc)
             else:
-                frac = config.data_config.validation_fraction
+                frac = dc.validation_fraction
                 keep_cent = get_model_type_from_cfg(config) == "centroid"
                 split = [
                     labels.make_training_splits(
@@ -271,6 +425,17 @@ class ModelTrainer:
         cm = getattr(head, "confmaps", None)
         if cm is not None and hasattr(cm, "part_names") and cm.part_names is None:
             cm.part_names = list(skel.node_names)
+        if getattr(cm, "centroid_source", None) == "user":
+            # Only centroid models train on user-annotated centroids.
+            if self.model_type != "centroid":
+                raise ValueError(
+                    "centroid_source='user' only applies to centroid "
+                    f"models, not {self.model_type!r}.")
+            if not any(lf.user_centroids for L in self.train_labels for lf in L.labeled_frames):
+                raise ValueError(
+                    "centroid_source='user' but the training labels carry "
+                    "no user-annotated centroid records; annotate centroids "
+                    "or use centroid_source='computed'.")
         pafs = getattr(head, "pafs", None)
         if pafs is not None and pafs.edges is None:
             pafs.edges = [list(e) for e in skel.edge_names]
@@ -311,7 +476,8 @@ class ModelTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-        if cfg.data_config.use_negative_frames and self.model_type in CROP_TYPES:
+        use_negatives = cfg.data_config.use_negative_frames
+        if use_negatives and self.model_type in CROP_TYPES:
             # A crop has no frame-level sample to attach a negative to.
             warnings.warn(
                 f"use_negative_frames is enabled but model_type="
@@ -320,10 +486,20 @@ class ModelTrainer:
                 f"will be disabled.",
                 stacklevel=2,
             )
-        user_only = cfg.data_config.user_instances_only
-        self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx, user_only)
+            use_negatives = False
+        ds_kwargs = dict(
+            user_instances_only=cfg.data_config.user_instances_only,
+            use_negative_frames=use_negatives,
+            negative_loss_weight=cfg.data_config.negative_loss_weight,
+            centroid_from_user=(
+                self.model_type == "centroid"
+                and getattr(getattr(get_head_config(cfg), "confmaps", None),
+                            "centroid_source", None) == "user"),
+        )
+        self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx, **ds_kwargs)
         val_ctx = dataclasses.replace(self.ctx, use_augmentations=False)
-        self.val_ds = make_dataset(self.model_type, self.val_labels, val_ctx, user_only)
+        self.val_ds = make_dataset(self.model_type, self.val_labels, val_ctx,
+                                   **{**ds_kwargs, "use_negative_frames": False})
         if len(self.train_ds) == 0:
             raise ValueError("Train dataset is empty (no usable labeled frames).")
         if len(self.val_ds) == 0:
@@ -348,12 +524,34 @@ class ModelTrainer:
         self.model = Model.from_config(
             self.backbone_type, get_backbone_config(cfg), get_head_config(cfg), self.model_type,
             input_hw=self._input_shape[1:3])
-        xavier_init_params(self.model, torch.Generator().manual_seed(seed))
+        if cfg.model_config.init_weights in ("default", "xavier"):
+            xavier_init_params(self.model, torch.Generator().manual_seed(seed))
+        else:
+            flax_default_init_params(self.model, torch.Generator().manual_seed(seed))
+        mc = cfg.model_config
+        if mc.pretrained_backbone_weights or mc.pretrained_head_weights:
+            # Transfer init from another trained model's checkpoint.
+            _init_subtrees_from_ckpts(self.model, mc.pretrained_backbone_weights,
+                                      mc.pretrained_head_weights)
+        if tc.resume_ckpt_path:
+            # Parameters, epoch and best val loss from a saved checkpoint; the
+            # optimizer restarts fresh, as in the JAX trainer.
+            self._warn_on_resume_seed_mismatch(cfg)
+            state = self.load_checkpoint(tc.resume_ckpt_path)
+            restored = state["state_dict"]
+            want = {k: tuple(v.shape) for k, v in self.model.state_dict().items()}
+            if want != {k: tuple(v.shape) for k, v in restored.items()}:
+                raise ValueError(
+                    f"resume_ckpt_path params do not match the configured "
+                    f"model architecture ({tc.resume_ckpt_path}).")
+            self.model.load_state_dict(restored, strict=True)
+            self.current_epoch = int(state.get("epoch", -1)) + 1
+            self.best_val_loss = float(state.get("best_val_loss", math.inf))
         self.model.to(self.device)
         cfg.model_config.total_params = int(sum(p.numel() for p in self.model.parameters()))
 
         self.optimizer = make_optimizer(self.model.parameters(), tc.optimizer_name,
-                                        tc.optimizer.lr)
+                                        tc.optimizer.lr, bool(tc.optimizer.amsgrad))
         self.scheduler = make_scheduler(tc.lr_scheduler, tc.optimizer.lr, tc.max_epochs)
         ohkm = tc.online_hard_keypoint_mining
         self._ohkm = dataclasses.asdict(ohkm) if ohkm else None
@@ -373,11 +571,45 @@ class ModelTrainer:
                 match_threshold=tc.eval.match_threshold))
         self._setup_done = True
 
+    @staticmethod
+    def _warn_on_resume_seed_mismatch(cfg):
+        """Warn when resuming with another train/val split seed than the
+        run that wrote the checkpoint: a new split can move that run's
+        validation frames into training."""
+        orig_path = Path(cfg.trainer_config.resume_ckpt_path).parent / "training_config.yaml"
+        if not orig_path.exists():
+            warnings.warn(
+                f"Resuming from checkpoint but {orig_path} was not found to "
+                f"verify the train/val split seed. Ensure trainer_config.seed "
+                f"matches the original run to avoid train/val leakage.",
+                stacklevel=3,
+            )
+            return
+        try:
+            import yaml
+
+            with open(orig_path) as fp:
+                orig = yaml.safe_load(fp) or {}
+            orig_seed = (orig.get("trainer_config") or {}).get("seed")
+        except Exception:
+            return
+        seed = cfg.trainer_config.seed
+        if orig_seed != seed:
+            warnings.warn(
+                f"Current seed ({seed}) differs from the original training "
+                f"seed ({orig_seed}) in {orig_path}. This produces a "
+                f"different train/val split and can leak former validation "
+                f"frames into training. Set trainer_config.seed: {orig_seed} "
+                f"to preserve the original split.",
+                stacklevel=3,
+            )
+
     def _setup_ckpt_dir(self):
         """``<ckpt_dir>/<run_name>``, suffixed -1, -2, ... when it exists and
-        is not empty, with ``initial_config.yaml`` and
-        ``training_config.yaml``. The ``.slp`` splits the JAX trainer also
-        writes there are not ported (ROADMAP.md section 1, item 1)."""
+        is not empty, with ``initial_config.yaml``, ``training_config.yaml``
+        and the splits as ``labels_{train,val}_gt_{i}.slp`` (frames
+        embedded; left out, and named in ``slp_not_written``, where h5py
+        does not import)."""
         tc = self.config.trainer_config
         run_name = tc.run_name
         if not run_name:
@@ -395,6 +627,14 @@ class ModelTrainer:
         if self.initial_config is not None:
             self.initial_config.save_yaml(self.ckpt_dir / "initial_config.yaml")
         self.config.save_yaml(self.ckpt_dir / "training_config.yaml")
+        can_write = h5py_available()
+        for split, labels_list in (("train", self.train_labels), ("val", self.val_labels)):
+            for i, labels in enumerate(labels_list):
+                path = self.ckpt_dir / f"labels_{split}_gt_{i}.slp"
+                if can_write:
+                    labels.save(path, embed=True)
+                else:
+                    self.slp_not_written.append(path)
 
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, name: str = "best.ckpt"):
@@ -411,13 +651,42 @@ class ModelTrainer:
         torch.save(state, tmp)
         os.replace(tmp, path)
 
+    def _update_top_k(self, epoch: int, val_loss: float, top_k: int):
+        """Keep the ``top_k`` best epoch-stamped checkpoints: each epoch that
+        qualifies writes ``epoch=NNN-val_loss=X.ckpt``, and past ``top_k``
+        the worst one is deleted."""
+        if len(self._top_k_ckpts) >= top_k and val_loss >= max(
+                v for v, _ in self._top_k_ckpts):
+            return
+        name = f"epoch={epoch:03d}-val_loss={val_loss:.5f}.ckpt"
+        self.save_checkpoint(name)
+        self._top_k_ckpts.append((val_loss, self.ckpt_dir / name))
+        self._top_k_ckpts.sort(key=lambda t: t[0])
+        while len(self._top_k_ckpts) > top_k:
+            _, worst = self._top_k_ckpts.pop()
+            worst.unlink(missing_ok=True)
+
+    @staticmethod
+    def load_checkpoint(path) -> Dict:
+        """What ``save_checkpoint`` wrote: ``state_dict`` (keys without the
+        ``model.`` prefix), ``epoch`` and ``best_val_loss``. A JAX trainer's
+        orbax checkpoint (a directory) raises, naming the tool that
+        converts it."""
+        path = Path(path)
+        if path.is_dir():
+            from sleap_nn_tpu_torch.inference.loaders import orbax_refusal
+
+            raise orbax_refusal(path)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        state["state_dict"] = {k.removeprefix("model."): v
+                               for k, v in state["state_dict"].items()}
+        return state
+
     @staticmethod
     def load_checkpoint_params(path) -> Dict[str, torch.Tensor]:
         """A checkpoint's model ``state_dict`` (keys without the ``model.``
         prefix), ready for ``Model.load_state_dict(..., strict=True)``."""
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        return {k[len("model."):] if k.startswith("model.") else k: v
-                for k, v in state["state_dict"].items()}
+        return ModelTrainer.load_checkpoint(path)["state_dict"]
 
     # -- steps ----------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -541,6 +810,9 @@ class ModelTrainer:
                 if val_loss < self.best_val_loss:
                     self.best_val_loss = val_loss
                     self.save_checkpoint("best.ckpt")
+                top_k = int(tc.model_ckpt.save_top_k or 1)
+                if top_k > 1 and self.ckpt_dir is not None:
+                    self._update_top_k(epoch, val_loss, top_k)
                 if tc.model_ckpt.save_last:
                     self.save_checkpoint("last.ckpt")
 

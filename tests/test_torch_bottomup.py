@@ -3,8 +3,8 @@
 The JAX package's jitted ``BottomUpLayer`` and ``Predictor.predict`` run
 beside the port's on the same frames and the same (converted) weights, on
 the CPU; the port runs with ``fused_convs=True`` so its blocks go through
-the fused-conv wrapper as on the card. The JAX side groups with its scipy
-path (its C++ grouping is switched off), the port's one grouping path.
+the fused-conv wrapper as on the card. Both sides group on their default
+path, the C++ library.
 
 As in ``test_torch_topdown.py``, frames are black with a few bright
 Gaussian blobs and flax biases start at zero, so the maps are flat away
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-import sleap_nn_tpu.native
 from sleap_nn_tpu.inference import layers as jl
 from sleap_nn_tpu.inference import paf_grouping as jpg
 from sleap_nn_tpu.inference.backends import JaxBackend
@@ -94,11 +93,6 @@ def _model_pair(frames, seed=0):
     return fmodel, params, tmodel, flax_to_torch_state(params, tmodel)
 
 
-@pytest.fixture
-def scipy_grouping(monkeypatch):
-    monkeypatch.setattr(sleap_nn_tpu.native, "paf_group_sample_native", lambda *a, **k: None)
-
-
 @pytest.fixture(scope="module")
 def layers():
     frames = blob_frames(6)
@@ -157,7 +151,7 @@ def _assert_grouped_match(got, want):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=key)
 
 
-def test_bottomup_layer_matches_jitted_jax(layers, scipy_grouping):
+def test_bottomup_layer_matches_jitted_jax(layers):
     frames, _, _, _, jlayer, tlayer = layers
     dev_want = jlayer.predict_async(frames[:4])
     dev_got = tlayer.predict_async(frames[:4])
@@ -173,7 +167,7 @@ def test_bottomup_layer_matches_jitted_jax(layers, scipy_grouping):
 
 
 @pytest.mark.parametrize("paf_workers", [0, 2])
-def test_predictor_matches_jax_with_tail_batch(layers, scipy_grouping, paf_workers):
+def test_predictor_matches_jax_with_tail_batch(layers, paf_workers):
     frames, _, _, _, jlayer, tlayer = layers
     video = ArrayVideo(frames)  # 6 frames, batch 4: the tail batch is padded
     want = JaxPredictor(jlayer, "bottomup", None, [], batch_size=4).predict(

@@ -17,8 +17,13 @@ ATen's ``exp`` may differ by ulps), and in the cull cases with zeros placed
 exactly. NaN in the fused conv's input: NaN placement exact, the tolerance
 on the rest. The public functions given layouts the kernels refuse (views,
 misaligned starts) copy them first: the PAF scores equal the dense call's
-bit for bit, the maps the plain version's to 1e-6.
+bit for bit, the maps the plain version's to 1e-6. Bottom-up
+``Predictor.predict`` on the card groups in the C++ library (``native/``),
+inline and in two spawn workers alike, and gives the instances, in their
+order, that the library gives on the fetched scores.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -402,3 +407,81 @@ def test_make_multi_confmaps_copies_a_node_slice(cuda):
         assert want.max().item() > 0.5
     with pytest.raises(ValueError, match="contiguous"):
         multi_confmaps(pts[0][..., :5, :], xv.contiguous(), yv, 5.0)
+
+
+def _bottomup_layer(device):
+    """A narrow bottom-up model (the trainer's Xavier init, zero biases) on
+    64x64 blob frames (4 nodes, 3 edges), its confmap head moved onto
+    [0, 1] per channel."""
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+    from sleap_nn_tpu_torch.inference import layers as tl
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
+    from sleap_nn_tpu_torch.models.model import Model
+    from sleap_nn_tpu_torch.training.model_trainer import xavier_init_params
+
+    ns = types.SimpleNamespace
+    names, edges = ["n0", "n1", "n2", "n3"], [("n0", "n1"), ("n1", "n2"), ("n0", "n3")]
+    heads = ns(confmaps=ns(part_names=names, sigma=2.5, output_stride=2, loss_weight=None),
+               pafs=ns(edges=[list(e) for e in edges], sigma=15.0, output_stride=4,
+                       loss_weight=None))
+    cfg = UNetConfig(in_channels=1, filters=8, filters_rate=1.5, max_stride=8, output_stride=2)
+    model = xavier_init_params(Model.from_config("unet", cfg, heads, "bottomup"),
+                               torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:64, :64]
+    frames = np.zeros((8, 64, 64, 1), np.float32)
+    for i in range(8):
+        for cy, cx in rng.uniform(10, 54, (3, 2)):
+            frames[i, ..., 0] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0)
+    frames = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
+    with torch.no_grad():
+        maps = model(torch.from_numpy(frames / np.float32(255)))["MultiInstanceConfmapsHead"]
+        top, bottom = maps.amax(dim=(0, 1, 2)), maps.amin(dim=(0, 1, 2))
+        conv = next(layer["MultiInstanceConfmapsHead"][0] for layer in model.head_layers
+                    if "MultiInstanceConfmapsHead" in layer)
+        conv.weight.div_((top - bottom)[:, None, None, None])
+        conv.bias.copy_(-bottom / (top - bottom))
+    post = tl.PostprocessConfig(peak_threshold=0.2, max_peaks=40, max_instances=None,
+                                min_line_scores=-0.5)
+    layer = tl.BottomUpLayer(
+        TorchBackend(model, model.state_dict(), fused_convs=True, device=device),
+        tl.PreprocessConfig(ensure_grayscale=True, max_stride=8), post,
+        paf_scorer=PAFScorer(names, edges, pafs_stride=4, min_line_scores=-0.5, k_per_node=6),
+        cm_output_stride=2, device=device)
+    return layer, frames
+
+
+@pytest.mark.parametrize("paf_workers", [0, 2])
+def test_bottomup_predict_groups_natively_on_the_card(cuda, paf_workers):
+    from sleap_nn_tpu_torch import native
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.providers import VideoProvider
+    from sleap_nn_tpu_torch.inference.streaming import group_batch_host
+
+    assert native.get_lib() is not None, native.build_log
+    layer, frames = _bottomup_layer(cuda)
+
+    class Frames:
+        shape = frames.shape
+
+        def __len__(self):
+            return len(frames)
+
+        def get_frame(self, idx, fmt=None):
+            return frames[idx]
+
+    pred = Predictor(layer, "bottomup", batch_size=4, device=str(cuda), paf_workers=paf_workers)
+    got = pred.predict(provider=VideoProvider(Frames(), batch_size=4), make_labels=False)
+    assert len(got) == 2 and all(out["valid"].all() for out in got)
+    n_inst = 0
+    for i, out in enumerate(got):
+        # The library's grouping of the same batch's fetched scores, inline.
+        want = group_batch_host(layer.device_to_payload(layer.predict_async(
+            frames[4 * i:4 * i + 4])), layer.paf_scorer, None)
+        for key in ("pred_keypoints", "pred_peak_values", "pred_instance_scores"):
+            assert len(out[key]) == len(want[key]) == 4
+            for g, w in zip(out[key], want[key]):
+                np.testing.assert_array_equal(g, w, err_msg=key)  # in the same order
+        n_inst += sum(len(k) for k in out["pred_keypoints"])
+    assert n_inst >= 8

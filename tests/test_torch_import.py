@@ -5,7 +5,10 @@ checkpoints), and imports PyYAML, h5py and cv2 only inside function
 bodies: the functions that read or write YAML, ``.slp`` or HDF5 files, and
 those that decode video, resize frames on the host or compute optical
 flow. The GPU machine has PyYAML and cv2 but no h5py, and a module of the
-port must import where any of the three is missing."""
+port must import where any of the three is missing. Only the modules that
+build and load native code (the CUDA kernels of ``ops/``, the C++ grouping
+of ``native/``) start compilers or load libraries (``subprocess``,
+``ctypes``)."""
 
 import ast
 import os
@@ -20,6 +23,10 @@ PORT = ROOT / "sleap_nn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx")
 # Blocked while importing every port module; only a function body may import it.
 LAZY = ("yaml", "h5py", "cv2")
+# The modules that may start a compiler or load a shared library.
+NATIVE = ("subprocess", "ctypes")
+NATIVE_OK = {"sleap_nn_tpu_torch/ops/_build.py", "sleap_nn_tpu_torch/ops/kernels.py",
+             "sleap_nn_tpu_torch/ops/fused_conv.py", "sleap_nn_tpu_torch/native/__init__.py"}
 
 
 def _port_modules():
@@ -74,7 +81,8 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.tracking.utils",
             "sleap_nn_tpu_torch.training.callbacks",
             "sleap_nn_tpu_torch.inference.identity",
-            "sleap_nn_tpu_torch.data.identity"} <= set(mods)
+            "sleap_nn_tpu_torch.data.identity",
+            "sleap_nn_tpu_torch.native"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"
@@ -98,3 +106,28 @@ def test_no_jax_or_jax_package_imports(path):
     eager = [m for m in _imported_roots(path, outside_functions=True)
              if m.split(".")[0] in LAZY]
     assert not eager, f"{path.name} imports {eager} outside a function"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_code_is_built_and_loaded_only_where_expected(path):
+    used = {m.split(".")[0] for m in _imported_roots(path)} & set(NATIVE)
+    assert not used or str(path.relative_to(ROOT)) in NATIVE_OK, \
+        f"{path.name} imports {sorted(used)}"
+
+
+def test_native_grouping_imports_without_h5py_or_a_compiler(tmp_path):
+    """The grouping module imports with h5py blocked and builds nothing at
+    import time: its library appears at first use only."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "from sleap_nn_tpu_torch import native\n"
+        "native.BUILD_DIR = __import__('pathlib').Path(%r)\n"
+        "import sleap_nn_tpu_torch.inference.paf_grouping\n"
+        "print(native._lib is None, native.BUILD_DIR.exists())\n" % str(tmp_path / "b")
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["True", "False"]

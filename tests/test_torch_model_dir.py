@@ -18,7 +18,7 @@ code); against the JAX package's ``load_model`` +
 ``Predictor.from_model_paths`` on the same dirs they match with the
 tolerances of those tests: validity and counts exact, NaN placed exactly,
 keypoints and values to 1e-4 (top-down, single-instance) and 1e-5
-(bottom-up, with the JAX package's scipy grouping). The port refuses a
+(bottom-up, both packages on their native grouping). The port refuses a
 JAX-trained orbax dir by name; ``tools/orbax_to_torch.py`` converts it
 (through ``weights.flax_to_torch_state``) into a dir that the port loads
 and that predicts what the JAX package predicts on the orbax dir.
@@ -35,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-import sleap_nn_tpu.native
 from sleap_nn_tpu.config import TrainingJobConfig as JConfig
 from sleap_nn_tpu.inference.loaders import load_model as jax_load_model
 from sleap_nn_tpu.inference.predictor import Predictor as JaxPredictor
@@ -63,7 +62,7 @@ TYPE_SETS = {"single_instance": ("single_instance",),
 # Random PAF heads score lines low: keep enough matches that instances form.
 KW = {"single_instance": {}, "topdown": {}, "bottomup": {"min_line_scores": -0.5}}
 FILES = {"initial_config.yaml", "training_config.yaml", "best.ckpt", "last.ckpt",
-         "training_log.csv"}
+         "training_log.csv", "labels_train_gt_0.slp", "labels_val_gt_0.slp"}
 
 
 class FrameVideo:
@@ -162,11 +161,6 @@ def dirs(tmp_path_factory):
         trainer.save_checkpoint("best.ckpt")
         out[mt] = ns(trained=trained, cond=cond, trainer=trainer, given=given, frames=frames)
     return out
-
-
-@pytest.fixture
-def scipy_grouping(monkeypatch):
-    monkeypatch.setattr(sleap_nn_tpu.native, "paf_group_sample_native", lambda *a, **k: None)
 
 
 def _video():
@@ -320,7 +314,7 @@ def test_dir_predictions_equal_the_in_memory_model(dirs, type_set):
 
 
 @pytest.mark.parametrize("type_set", TYPE_SETS)
-def test_dir_predictions_match_the_jax_package(dirs, type_set, scipy_grouping):
+def test_dir_predictions_match_the_jax_package(dirs, type_set):
     video = _video()
     paths = _paths(dirs, type_set)
     got = prun.predict(video, paths, batch_size=4, device="cpu", make_labels=False,
@@ -351,7 +345,7 @@ def _assert_same_labels(got, want, atol=1e-4):
 
 
 @pytest.mark.parametrize("type_set", TYPE_SETS)
-def test_run_predict_labels_match_the_jax_package(dirs, type_set, scipy_grouping, tmp_path):
+def test_run_predict_labels_match_the_jax_package(dirs, type_set, tmp_path):
     frames = blob_frames(N_FRAMES, seed=9)
     video_p, video_j = FrameVideo(frames), FrameVideo(frames)
     labels_p = pio.Labels([pio.LabeledFrame(video_p, i) for i in range(N_FRAMES)])

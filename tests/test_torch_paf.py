@@ -9,8 +9,9 @@ the gather path and the Pallas kernel (``SLEAP_NN_TPU_PALLAS=1``, interpret
 mode) are compared. Tolerance: 1e-5 absolute on finite scores (sums in
 another order), ``-inf`` placement exact.
 
-The host half is held against the JAX package's scipy path (its C++
-grouping is switched off), which must give identical instances.
+The host half is held against the JAX package's default path (its C++
+grouping, which the port's copy runs too), which must give identical
+instances in the same order.
 
 ``PAFScorer``'s cached line fractions are held bit for bit against
 ``jnp.linspace``.
@@ -25,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-import sleap_nn_tpu.native
 from sleap_nn_tpu.inference import paf_grouping as jpg
 from sleap_nn_tpu.inference import streaming as jstream
 from sleap_nn_tpu_torch.inference import paf_grouping as tpg
@@ -191,12 +191,6 @@ def test_toposort_edges_cyclic_cases():
     assert tpg.toposort_edges([(0, 1), (1, 0), (2, 0)]) == (2, 0, 1)
 
 
-@pytest.fixture
-def scipy_grouping(monkeypatch):
-    """The JAX package's scipy grouping path (its C++ path switched off)."""
-    monkeypatch.setattr(sleap_nn_tpu.native, "paf_group_sample_native", lambda *a, **k: None)
-
-
 def _grouping_case(seed, n_nodes=6, k=5):
     """Dense scores of instances laid out along a skeleton, plus clutter."""
     rng = np.random.default_rng(seed)
@@ -221,7 +215,7 @@ def _grouping_case(seed, n_nodes=6, k=5):
 
 @pytest.mark.parametrize("min_instance_peaks", [0, 3, 0.5])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_group_sample_matches_jax(scipy_grouping, seed, min_instance_peaks):
+def test_group_sample_matches_jax(seed, min_instance_peaks):
     names, edges, gp, gv, scores = _grouping_case(seed)
     kw = dict(part_names=names, edges=edges, min_line_scores=0.25,
               min_instance_peaks=min_instance_peaks)
@@ -240,7 +234,7 @@ def test_group_sample_matches_jax(scipy_grouping, seed, min_instance_peaks):
 
 
 @pytest.mark.parametrize("max_instances,return_paf_graph", [(None, False), (2, True)])
-def test_group_batch_host_matches_jax(scipy_grouping, max_instances, return_paf_graph):
+def test_group_batch_host_matches_jax(max_instances, return_paf_graph):
     names, edges, gp, gv, scores = _grouping_case(2)
     payload = {"grouped_peaks": gp, "grouped_vals": gv, "scores": scores, "lift": 0.5,
                "pafs": np.ones((3, 4, 4, 10), np.float32)}

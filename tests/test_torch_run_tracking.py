@@ -25,7 +25,6 @@ from tests.test_torch_model_dir import (  # noqa: F401  (dirs is a fixture)
     FrameVideo,
     _paths,
     dirs,
-    scipy_grouping,
 )
 
 N_FRAMES = 7
@@ -77,7 +76,7 @@ CASES = {
 @pytest.mark.parametrize("type_set,case", [
     (t, c) for t in ("single_instance", "topdown", "bottomup") for c in sorted(CASES)
     if not (t == "single_instance" and c == "kalman")])  # one animal: no Kalman count of 2
-def test_tracked_predict_matches_jax(dirs, scipy_grouping, type_set, case):  # noqa: F811
+def test_tracked_predict_matches_jax(dirs, type_set, case):  # noqa: F811
     paths = _paths(dirs, type_set)
     kw = dict(batch_size=4, tracking=True, **KW[type_set], **CASES[case])
     got = prun.predict(source(pio), paths, device="cpu", **kw)
@@ -96,7 +95,7 @@ def test_tracked_predict_matches_jax(dirs, scipy_grouping, type_set, case):  # n
     assert all(i.track is None for lf in untracked for i in lf.instances)
 
 
-def test_tracker_object_matches_jax(dirs, scipy_grouping):  # noqa: F811
+def test_tracker_object_matches_jax(dirs):  # noqa: F811
     paths = _paths(dirs, "topdown")
     got = prun.predict(source(pio), paths, device="cpu", batch_size=4,
                        tracker=PTracker.from_config(window_size=2))

@@ -37,13 +37,12 @@ from sleap_nn_tpu_torch.inference.predictor import Predictor
 from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io import video as pvideo
 from sleap_nn_tpu_torch.training import ModelTrainer
-from tests.test_torch_model_dir import (  # noqa: F401  (dirs, scipy_grouping: fixtures)
+from tests.test_torch_model_dir import (  # noqa: F401  (dirs: fixtures)
     KW,
     FrameVideo,
     _paths,
     config_dict,
     dirs,
-    scipy_grouping,
 )
 from tests.test_torch_multiclass import _condition, _dir_config, id_labels
 from tests.test_torch_topdown import blob_frames
@@ -135,7 +134,7 @@ def _type_paths(dirs, mc_dirs, type_set):  # noqa: F811
 
 
 @pytest.mark.parametrize("type_set", TYPE_SETS)
-def test_run_predict_from_a_video_file_matches_jax(dirs, mc_dirs, scipy_grouping, clips,  # noqa: F811
+def test_run_predict_from_a_video_file_matches_jax(dirs, mc_dirs, clips,  # noqa: F811
                                                    type_set):
     paths = _type_paths(dirs, mc_dirs, type_set)
     kw = dict(batch_size=4, **KW.get(type_set, {}))
@@ -306,7 +305,7 @@ class _Frames:
 @pytest.mark.parametrize("type_set,flag", [("centroid", "return_confmaps"),
                                            ("bottomup", "return_paf_graph"),
                                            ("single_instance", "return_confmaps")])
-def test_per_call_overrides_match_jax_and_leave_the_predictor(dirs, scipy_grouping, clips,  # noqa: F811
+def test_per_call_overrides_match_jax_and_leave_the_predictor(dirs, clips,  # noqa: F811
                                                               type_set, flag):
     paths = _paths(dirs, "topdown")[:1] if type_set == "centroid" else _paths(dirs, type_set)
     kw = dict(batch_size=4, **KW.get(type_set, {}))

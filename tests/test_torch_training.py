@@ -399,15 +399,15 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
 
 @pytest.mark.parametrize("override", [
     {"model_config": {"head_configs": {"centroid": None, "bottomup_segmentation": {}}}},
-    {"trainer_config": {"resume_ckpt_path": "x.ckpt"}},
+    {"trainer_config": {"profiler": "pytorch"}},
     {"trainer_config": {"use_wandb": True}},
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
-    {"trainer_config": {"optimizer": {"amsgrad": True}}},
+    {"trainer_config": {"trainer_device_indices": [0, 1]}},
     {"trainer_config": {"trainer_devices": 2}},
     {"trainer_config": {"visualize_preds_during_training": True}},
-    {"data_config": {"use_negative_frames": True}},
+    {"data_config": {"data_pipeline_fw": "torch_dataset_cache_img_disk"}},
     {"data_config": {"preprocessing": {"tiling": {"enabled": True, "tile_size": 32}}}},
-    {"model_config": {"pretrained_backbone_weights": "a/b"}},
+    {"model_config": {"backbone_config": {"convnext": {}}}},
 ], ids=lambda o: next(iter(next(iter(o.values())))))
 def test_unported_features_raise(override):
     d = cfg_dict()
@@ -419,7 +419,8 @@ def test_unported_features_raise(override):
 
 
 def test_labels_from_paths_and_cuda_without_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="in-memory"):
+    # Labels from paths are ported: with neither labels nor a path, the JAX error.
+    with pytest.raises(ValueError, match="train_labels_path must be set"):
         run_training(PConfig.from_dict(cfg_dict()), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
