@@ -193,8 +193,9 @@ Phases, each of which raises on failure (exit code != 0):
     through ``run_training`` with the post-training evaluation, which
     predicts every local maximum (threshold -1e9; the models have trained
     3 steps); each ``metrics.{split}.0.npz`` must equal ``run_evaluation``
-    of the same predictions, and without h5py one warning must name the
-    ``.slp`` files left out (with h5py, the files must be there). Then, on
+    of the same predictions, and the model dir's ``.slp`` files (the port's
+    own HDF5 writer; the card machine has no h5py) must read back equal to
+    the splits and to the recorded predictions. Then, on
     the card: resume for one epoch (parameters equal to ``best.ckpt`` bit
     for bit before the first step, the epoch count carried on); the
     backbone taken from phase 7's centroid dir (equal to it; the head
@@ -204,9 +205,26 @@ Phases, each of which raises on failure (exit code != 0):
     training with frames that carry user centroids only; and AMSGrad, 3
     steps on the card against the CPU as in phase 8. Kernel 4's launches
     are counted on each of these trainings.
-
-The card machine has no h5py, so the script writes no ``.slp`` or analysis
-HDF5 file (the CPU tests hold those files to the JAX package's).
+23. The command line at full width, in-process through
+    ``sleap_nn_tpu_torch.cli.main`` (launches counted per command; every
+    kernel call at each new signature recorded, kernel 4 included, and
+    held against its plain version at phase 3's tolerances): ``train``
+    from a YAML of phase 22's medium_rf centroid config whose
+    ``train_labels_path`` / ``val_labels_path`` are ``.slp`` files the
+    port wrote of phase 22's clip, with ``trainer_config.max_epochs=1`` as
+    an override (the model dir's ``.slp`` files must read back equal to
+    the splits and the recorded predictions); ``predict`` of phase 13's
+    top-down dirs from an MJPG clip of phase 4's frames to ``.slp`` (bf16,
+    batch 8) and to an analysis HDF5 file, and ``track`` of phase 10's
+    bottom-up dir (kernel 3), each read back by the port's reader equal to
+    ``run.predict`` in-process with the kwargs the command passed;
+    ``track-only``; ``eval`` (its JSON line equal to ``run_evaluation``'s
+    summary); ``info``; and ``python -m sleap_nn_tpu_torch.cli system``
+    as a subprocess, which must exit 0 and name the card. Then
+    ``save_slp`` and ``load_slp`` of a synthetic 10,000-frame predictions
+    file (6 instances of 15 nodes a frame), timed on the host, the round
+    trip equal (``slp_io`` line). The card machine has no h5py: every
+    ``.slp`` and analysis file goes through the port's ``io/hdf5.py``.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -2538,19 +2556,21 @@ def labels_equal(a, b):
 PATH_WRAPPERS = (("fused_double_conv3x3", "sleap_nn_tpu_torch.models.encoder_decoder"),
                  ("nms_scores", "sleap_nn_tpu_torch.ops.peaks"),
                  ("paf_line_scores", "sleap_nn_tpu_torch.inference.paf_grouping"))
+# Kernel 4 as the training renders call it (phase 23 records it too).
+TRAIN_WRAPPERS = (("multi_confmaps", "sleap_nn_tpu_torch.ops.confmaps"),)
 
 
 @contextlib.contextmanager
-def recording_kernel_calls(seen, calls):
-    """Within the block, each wrapper of ``PATH_WRAPPERS`` appends to
-    ``calls`` a copy of its inputs, once for each signature (shapes,
-    dtypes and other arguments) not yet in ``seen``."""
+def recording_kernel_calls(seen, calls, wrappers=PATH_WRAPPERS):
+    """Within the block, each wrapper of ``wrappers`` appends to ``calls`` a
+    copy of its inputs, once for each signature (shapes, dtypes and other
+    arguments) not yet in ``seen``."""
     import importlib
 
     import torch
 
     saved = []
-    for name, module in PATH_WRAPPERS:
+    for name, module in wrappers:
         mod = importlib.import_module(module)
         fn = getattr(mod, name)
 
@@ -2572,21 +2592,71 @@ def recording_kernel_calls(seen, calls):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def timing_calls(targets, into):
+    """Within the block, adds to ``into[name]`` the seconds spent in the
+    callable ``getattr(owner, attribute)`` of each ``name: (owner,
+    attribute)`` of ``targets`` (a call within a call of the same target
+    counts once)."""
+    saved = []
+    for name, (owner, attr) in targets.items():
+        real, depth = getattr(owner, attr), [0]
+        into.setdefault(name, 0.0)
+
+        def timed(*args, _real=real, _name=name, _depth=depth, **kw):
+            _depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kw)
+            finally:
+                _depth[0] -= 1
+                if not _depth[0]:
+                    into[_name] += time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+        saved.append((owner, attr, real))
+    try:
+        yield into
+    finally:
+        for owner, attr, real in reversed(saved):
+            setattr(owner, attr, real)
+
+
+def slp_file_stages():
+    """``timing_calls`` targets that split the time of ``.slp`` files:
+    ``save_slp`` whole, its PNG encoding of embedded frames, the HDF5
+    writer's datasets and its closing (headers, groups, superblock; a
+    reader's close, an unmap, counts there too), ``load_slp`` and the PNG
+    decoding of embedded frames. What ``save_slp`` spends outside the
+    encoding and the writer is the frames' reads from their video and the
+    row tables."""
+    from sleap_nn_tpu_torch.io import hdf5, slp
+    from sleap_nn_tpu_torch.io import video as pvideo
+
+    return {"save_slp_s": (slp, "save_slp"), "encode_png_s": (slp, "encode_png"),
+            "hdf5_datasets_s": (hdf5._WGroup, "create_dataset"),
+            "hdf5_close_s": (hdf5.File, "close"), "load_slp_s": (slp, "load_slp"),
+            "decode_png_s": (pvideo, "decode_png")}
+
+
 def check_recorded_calls(calls):
     """Each recorded call of ``recording_kernel_calls`` through its wrapper
     and through its plain version on the same inputs, at phase 3's
     tolerances: the fused conv to 1 bf16 ulp of the output's largest
     magnitude (f32: 1e-4 of it), NMS exact, the PAF line scores to 1e-5 on
-    finite scores; -inf and NaN placed alike. Returns a row per call."""
+    finite scores, the multi-instance confmaps to 1e-6; -inf and NaN placed
+    alike. Returns a row per call."""
     import torch
 
     from sleap_nn_tpu_torch.ops.fused_conv import _plain_double_conv, fused_double_conv3x3
     from sleap_nn_tpu_torch.ops.kernels import (
-        _plain_nms_scores, _plain_paf_line_scores, nms_scores, paf_line_scores)
+        _plain_multi_confmaps, _plain_nms_scores, _plain_paf_line_scores, multi_confmaps,
+        nms_scores, paf_line_scores)
 
     pairs = {"fused_double_conv3x3": (fused_double_conv3x3, _plain_double_conv),
              "nms_scores": (nms_scores, _plain_nms_scores),
-             "paf_line_scores": (paf_line_scores, _plain_paf_line_scores)}
+             "paf_line_scores": (paf_line_scores, _plain_paf_line_scores),
+             "multi_confmaps": (multi_confmaps, _plain_multi_confmaps)}
     rows = []
     with torch.inference_mode():
         for name, args, kw in calls:
@@ -2601,7 +2671,7 @@ def check_recorded_calls(calls):
                 top = want.abs().max().item()
                 tol = bf16_ulp(top) if args[0].dtype == torch.bfloat16 else 1e-4 * top
             else:
-                tol = 0.0 if name == "nms_scores" else 1e-5
+                tol = {"nms_scores": 0.0, "multi_confmaps": 1e-6}.get(name, 1e-5)
             rows.append({"kernel": name, "dtype": str(args[0].dtype).split(".")[-1],
                          "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
                          "max_abs_err": err, "tol": tol, "ok": placed and err <= tol})
@@ -2990,6 +3060,53 @@ def expect_launches(what, launches, **want):
         raise AssertionError(f"phase 22 {what}: launch counts {launches}, expected {want}")
 
 
+def stored_labels_equal(a, b):
+    """``a`` read back from a ``.slp`` file equal to ``b`` as written: the
+    same frames and instances, points and point scores bit for bit (NaN
+    alike), instance and tracking scores at the file's float32, the same
+    track names."""
+    if [lf.frame_idx for lf in a] != [lf.frame_idx for lf in b]:
+        return False
+    for x, y in zip(a.labeled_frames, b.labeled_frames):
+        if len(x.instances) != len(y.instances):
+            return False
+        for i, j in zip(x.instances, y.instances):
+            if not (np.array_equal(i.numpy(), j.numpy(), equal_nan=True)
+                    and type(i).__name__ == type(j).__name__
+                    and (i.track and i.track.name) == (j.track and j.track.name)):
+                return False
+            if hasattr(j, "point_scores") and not (
+                    np.array_equal(i.point_scores, j.point_scores, equal_nan=True)
+                    and np.float32(i.score) == np.float32(j.score)
+                    and np.float32(i.tracking_score or 0) == np.float32(j.tracking_score or 0)):
+                return False
+    return True
+
+
+def check_model_dir_slp(ckpt_dir, train, val, preds, where):
+    """The model dir's ``labels_{train,val}_gt_0.slp`` read back by the
+    port's reader equal to the splits (points, and the embedded frames to
+    the pixel), and ``labels_pr.{train,val}_0.slp`` equal to the recorded
+    post-training predictions (``preds``: (labels, predictions) in split
+    order). Returns the seconds each read took."""
+    from sleap_nn_tpu_torch.io.slp import load_slp
+
+    out = {}
+    for split, gt, (_, pr) in (("train", train, preds[0]), ("val", val, preds[1])):
+        t0 = time.perf_counter()
+        got = load_slp(ckpt_dir / f"labels_{split}_gt_0.slp")
+        if [lf.frame_idx for lf in got] != [lf.frame_idx for lf in gt] or not all(
+                np.array_equal(a.numpy(), b.numpy(), equal_nan=True)
+                and np.array_equal(a.image, b.image) for a, b in zip(got, gt)):
+            raise AssertionError(f"{where}: labels_{split}_gt_0.slp differs from the split")
+        got_pr = load_slp(ckpt_dir / f"labels_pr.{split}_0.slp")
+        if not stored_labels_equal(got_pr, pr) or not len(got_pr):
+            raise AssertionError(f"{where}: labels_pr.{split}_0.slp differs from the "
+                                 "recorded predictions")
+        out[split] = time.perf_counter() - t0
+    return out
+
+
 def run_file_training(kernels, root, centroid_dir):
     """Phase 22: ``run_training`` from labels on an MJPG clip with the
     post-training evaluation, then resume, backbone transfer from
@@ -3000,7 +3117,6 @@ def run_file_training(kernels, root, centroid_dir):
     name (launches and batches, for the ``kernels`` line) and the rows of
     ``check_recorded_calls``."""
     import functools
-    import warnings
 
     import torch
 
@@ -3009,7 +3125,6 @@ def run_file_training(kernels, root, centroid_dir):
     from sleap_nn_tpu_torch.inference import run as prun
     from sleap_nn_tpu_torch.models.model import param_subtree
     from sleap_nn_tpu_torch.training import ModelTrainer
-    from sleap_nn_tpu_torch.training.model_trainer import h5py_available
 
     t_phase = time.perf_counter()
     out_dir = root / "phase22"
@@ -3040,9 +3155,7 @@ def run_file_training(kernels, root, centroid_dir):
     calls = []
     t0 = time.perf_counter()
     try:
-        with warnings.catch_warnings(record=True) as caught, \
-                recording_kernel_calls(set(), calls):
-            warnings.simplefilter("always")
+        with recording_kernel_calls(set(), calls):
             trainer, launches = run_counted(kernels, lambda: ptrain.run_training(
                 file_config(out_dir, "centroid"), train, val, device=DEVICE))
     finally:
@@ -3070,25 +3183,17 @@ def run_file_training(kernels, root, centroid_dir):
                            "history": trainer.history, "steps_per_sec":
                            trainer.history[-1]["train/steps_per_sec"]}
     files = {p.name for p in trainer.ckpt_dir.iterdir()}
-    slp_names = {"labels_train_gt_0.slp", "labels_val_gt_0.slp", "labels_pr.train_0.slp",
-                 "labels_pr.val_0.slp"}
-    slp_warnings = [str(w.message) for w in caught if "h5py" in str(w.message)]
-    if h5py_available():
-        ok = slp_names <= files and not slp_warnings
-    else:
-        ok = (len(slp_warnings) == 1 and all(n in slp_warnings[0] for n in slp_names)
-              and not any(n.endswith(".slp") for n in files))
-    if not ok or len(preds) != 2:
-        raise AssertionError(f"phase 22 model dir: files {sorted(files)}, warnings "
-                             f"{slp_warnings}, {len(preds)} predictions")
+    if len(preds) != 2:
+        raise AssertionError(f"phase 22: {len(preds)} post-training predictions")
+    # The model dir's .slp files, written by the port's own HDF5 writer.
+    slp_read = check_model_dir_slp(trainer.ckpt_dir, train[0], val[0], preds, "phase 22")
     for split, (gt, pr) in zip(("train", "val"), preds):
         n_found = sum(len(lf.instances) for lf in pr)
         direct = run_evaluation(gt, pr, match_method="centroid")
         same_metrics(load_metrics(trainer.ckpt_dir, split=split), direct, f"metrics.{split}.0")
         stats["file_train"][f"{split}_predicted_centroids"] = n_found
-    stats["file_train"]["h5py"] = h5py_available()
-    stats["file_train"]["slp_warning"] = slp_warnings[0] if slp_warnings else None
     stats["file_train"]["model_dir_files"] = sorted(files)
+    stats["file_train"]["model_dir_slp_read"] = slp_read
 
     # Resume for one epoch from best.ckpt.
     best = torch.load(trainer.ckpt_dir / "best.ckpt", weights_only=True)
@@ -3191,6 +3296,255 @@ def run_file_training(kernels, root, centroid_dir):
     log("file_training " + json.dumps({"times": times, **{
         k: v for k, v in stats.items() if k != "amsgrad_card_vs_cpu"}}, default=str))
     return {k: v for k, v in stats.items() if "launches" in v}, held
+
+
+# --------------------------------------------------------------------------
+# Phase 23: the command line at full width
+# --------------------------------------------------------------------------
+
+# Phase 23's synthetic predictions file: frames, instances a frame, nodes.
+SLP_IO_FRAMES, SLP_IO_INSTANCES = 10_000, 6
+
+
+def slp_io_round_trip(tmp, smi):
+    """``save_slp`` then ``load_slp`` of a synthetic predictions file of
+    ``SLP_IO_FRAMES`` frames with ``SLP_IO_INSTANCES`` instances of
+    ``N_NODES`` nodes each, on the host: seconds each way and MB on disk;
+    the labels read back must equal those written."""
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, PredictedInstance, Skeleton
+    from sleap_nn_tpu_torch.io.slp import load_slp, save_slp
+    from sleap_nn_tpu_torch.io.video import Video
+
+    rng = np.random.default_rng(23)
+    shape = (SLP_IO_FRAMES, SLP_IO_INSTANCES, N_NODES)
+    pts = rng.uniform(0, IMG, shape + (2,))
+    pts[rng.random(shape) < 0.05] = np.nan
+    scores = rng.random(shape).astype(np.float32)
+    inst_scores = rng.random(shape[:2]).astype(np.float32)
+    skel = Skeleton([f"n{i}" for i in range(N_NODES)], edges=list(TREE))
+    video = Video(str(tmp / "clip.avi"))
+    labels = Labels([LabeledFrame(video, f, [
+        PredictedInstance(pts[f, i], skel, point_scores=scores[f, i],
+                          score=float(inst_scores[f, i])) for i in range(SLP_IO_INSTANCES)])
+        for f in range(SLP_IO_FRAMES)], videos=[video], skeletons=[skel])
+    path = tmp / "slp_io.slp"
+    t0 = time.perf_counter()
+    save_slp(path, labels)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_slp(path, open_videos=False)
+    load_s = time.perf_counter() - t0
+    if not stored_labels_equal(back, labels):
+        raise AssertionError("phase 23 slp_io: the predictions read back differ")
+    row = {"frames": SLP_IO_FRAMES, "instances": SLP_IO_FRAMES * SLP_IO_INSTANCES,
+           "points": int(np.prod(shape)), "save_s": save_s, "load_s": load_s,
+           "mb": path.stat().st_size / 1e6, "device": smi}
+    path.unlink()
+    return row
+
+
+def run_cli(kernels, root, smi):
+    """Phase 23: the command line (``sleap_nn_tpu_torch.cli``) at full
+    width, in-process through ``cli.main`` so that launches are counted,
+    each command's kernel calls recorded (``recording_kernel_calls``, a
+    copy at each new signature, kernel 4 too) and held against their plain
+    versions. ``train`` from ``.slp`` files the port wrote (phase 22's
+    clip and labels) with the post-training evaluation; ``predict`` of
+    phase 13's top-down dirs to ``.slp`` and to an analysis file, and
+    ``track`` of its bottom-up dir, each equal, read back by the port's
+    reader, to ``run.predict`` in-process with the kwargs the command
+    passed; ``track-only``, ``eval`` (its JSON line equal to
+    ``run_evaluation``'s summary) and ``info``; ``python -m
+    sleap_nn_tpu_torch.cli system`` as a subprocess, naming the card.
+    Returns the counted paths' stats, the held rows and the ``slp_io``
+    row."""
+    import functools
+    import io
+    import os
+
+    from sleap_nn_tpu_torch import cli
+    from sleap_nn_tpu_torch import train as ptrain
+    from sleap_nn_tpu_torch.evaluation import run_evaluation
+    from sleap_nn_tpu_torch.inference import run as prun
+    from sleap_nn_tpu_torch.io import hdf5
+    from sleap_nn_tpu_torch.io.slp import load_slp, save_slp
+
+    t_phase = time.perf_counter()
+    tmp = root / "phase23"
+    tmp.mkdir()
+    stats, seen, calls, times = {}, set(), [], {}
+    recorded, real_predict = [], prun.predict
+
+    def recording_predict(*args, **kwargs):
+        recorded.append((args, dict(kwargs)))
+        return real_predict(*args, **kwargs)
+
+    def command(name, argv):
+        """``cli.main(argv)``, counted and recorded; its stdout."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with recording_kernel_calls(seen, calls, PATH_WRAPPERS + TRAIN_WRAPPERS), \
+                contextlib.redirect_stdout(out):
+            code, launches = run_counted(kernels, lambda: cli.main([str(a) for a in argv]))
+        times[name] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"phase 23 {name}: exit code {code}; {out.getvalue()[-2000:]}")
+        return out.getvalue(), launches
+
+    def expect(name, launches, **want):
+        want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
+                "multi_confmaps": 0, **want}
+        if DEVICE != "cpu" and launches != want:
+            raise AssertionError(f"phase 23 {name}: launch counts {launches}, expected {want}")
+
+    # train: labels on phase 22's clip, as .slp files the port writes.
+    clip22 = write_clip(tmp / "train_clip.avi", training_labels(
+        FILE_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=22).labeled_frames[0].video.frames,
+        "MJPG")
+    train, val = file_splits(file_labels(clip22, seed=22))
+    save_slp(tmp / "train.slp", train[0])
+    save_slp(tmp / "val.slp", val[0])
+    cfg = file_config(tmp / "models", "centroid", max_epochs=3)
+    cfg.data_config.train_labels_path = [str(tmp / "train.slp")]
+    cfg.data_config.val_labels_path = [str(tmp / "val.slp")]
+    if DEVICE == "cpu":
+        cfg.trainer_config.trainer_accelerator = "cpu"
+    cfg.save_yaml(tmp / "centroid.yaml")
+    preds, real_eval = [], ptrain._eval_split
+
+    def recording_eval_predict(labels_gt, *args, **kwargs):
+        out = real_predict(labels_gt, *args, **kwargs)
+        preds.append((labels_gt, out))
+        return out
+
+    prun.predict = recording_eval_predict
+    ptrain._eval_split = functools.partial(real_eval, peak_threshold=EVAL_PEAK_THRESHOLD)
+    try:
+        _, launches = command("train", ["train", tmp / "centroid.yaml",
+                                        "trainer_config.max_epochs=1"])
+    finally:
+        prun.predict, ptrain._eval_split = real_predict, real_eval
+    model_dir = tmp / "models" / "centroid"
+    n_val = -(-len(val[0]) // TRAIN_BATCH)
+    n_pred = sum(-(-len(gt) // 4) for gt, _ in preds)
+    n_renders = FILE_STEPS + n_val + 1
+    expect("train", launches, multi_confmaps=n_renders, fused_double_conv3x3=9 * n_pred,
+           nms_scores=n_pred)
+    # The splits as the command read them: their videos probed (``shape``
+    # finds the clip's gray content stored as RGB, as the trainer's read did).
+    splits = [load_slp(tmp / "train.slp"), load_slp(tmp / "val.slp")]
+    for s in splits:
+        s.videos[0].shape
+    slp_read = check_model_dir_slp(model_dir, *splits, preds, "phase 23 train")
+    stats["cli_train"] = {"launches": launches, "n_batches": {
+        "multi_confmaps": n_renders, "fused_double_conv3x3": n_pred, "nms_scores": n_pred},
+        "slp_read_s": slp_read}
+
+    # predict / track: phase 13's dirs on phase 4's frames as an MJPG clip.
+    clip = write_clip(tmp / "clip.avi", smoke_frames(), "MJPG")
+    n_batches = -(-N_FRAMES // BATCH)
+    common = ["-i", clip, "--device", DEVICE, "-b", BATCH, "--max-instances", MAX_INST,
+              "--peak-threshold", DIR_PEAK_THRESHOLD]
+    if DEVICE == "cuda":
+        common.append("--use-bf16")
+    runs = (
+        ("cli_predict_topdown", "topdown", ["predict", "-m", root / "centroid",
+                                            "-m", root / "centered_instance",
+                                            "-o", tmp / "td.slp"]),
+        ("cli_predict_analysis", "topdown", ["predict", "-m", root / "centroid",
+                                             "-m", root / "centered_instance",
+                                             "-o", tmp / "td_a.slp", "--output-format",
+                                             "analysis_h5"]),
+        ("cli_track_bottomup", "bottomup", ["track", "-m", root / "bottomup", "-o", tmp / "bu.slp",
+                                            "--min-line-scores", DIR_MIN_LINE,
+                                            "--max-peaks", DIR_MAX_PEAKS, "--max-tracks",
+                                            MAX_INST]),
+    )
+    for name, row, argv in runs:
+        recorded.clear()
+        prun.predict = recording_predict
+        try:
+            out, launches = command(name, argv[:1] + common + argv[1:])
+        finally:
+            prun.predict = real_predict
+        want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                        (n * n_batches for n in PREDICT_LAUNCHES[row])))
+        expect(name, launches, **want)
+        (args, kwargs), = recorded
+        ref = tmp / f"{name}.ref.slp"
+        real_predict(*args, **{**kwargs, "output_path": ref})
+        if "--output-format" in argv:
+            got_h5, ref_h5 = tmp / "td_a.analysis.h5", tmp / f"{name}.ref.analysis.h5"
+            with hdf5.File(got_h5, "r") as f, hdf5.File(ref_h5, "r") as g:
+                keys = set(f.keys())
+                if keys != set(g.keys()) or not all(
+                        np.array_equal(f[k][()], g[k][()], equal_nan=f[k].dtype.kind == "f")
+                        for k in keys - {"provenance", "labels_path"}):
+                    raise AssertionError(f"phase 23 {name}: the analysis file differs from "
+                                         "run.predict's")
+                n_inst = int(f["track_occupancy"][()].sum())
+        else:
+            got, want_labels = load_slp(argv[argv.index("-o") + 1]), load_slp(ref)
+            if not stored_labels_equal(got, want_labels) or set(got.provenance) != set(
+                    want_labels.provenance):
+                raise AssertionError(f"phase 23 {name}: the .slp differs from run.predict's")
+            n_inst = sum(len(lf) for lf in got)
+            if row == "bottomup" and not got.tracks:
+                raise AssertionError(f"phase 23 {name}: no track")
+        if not n_inst:
+            raise AssertionError(f"phase 23 {name}: no instance")
+        stats[name] = {"launches": launches, "n_batches": n_batches, "instances": n_inst,
+                       "output": out.strip().splitlines()[-1]}
+
+    # track-only, eval, info.
+    out, launches = command("cli_track_only", ["track-only", "-i", tmp / "td.slp", "-o",
+                                                tmp / "td.tracked.slp"])
+    expect("track-only", launches)
+    tracked = load_slp(tmp / "td.tracked.slp")
+    if not tracked.tracks or tracked.provenance.get("pipeline_type") != "tracking_only":
+        raise AssertionError(f"phase 23 track-only: {len(tracked.tracks)} tracks")
+    pr_val = model_dir / "labels_pr.val_0.slp"
+    out, launches = command("cli_eval", ["eval", "-g", tmp / "val.slp", "-p", pr_val])
+    expect("eval", launches)
+    want_line = cli.eval_summary(run_evaluation(  # the command's defaults
+        str(tmp / "val.slp"), str(pr_val), oks_stddev=0.025, oks_scale=None,
+        match_threshold=0.0, user_labels_only=True, match_method="auto", anchor_part=None))
+    if json.loads(out.strip().splitlines()[-1]) != want_line:
+        raise AssertionError(f"phase 23 eval: {out.strip()} against {want_line}")
+    out, launches = command("cli_info", ["info", model_dir])
+    expect("info", launches)
+    missing = [t for t in ("Model Info", "Data", "Training", "Training Results",
+                           "Evaluation Metrics (val)", "Files") if t not in out]
+    if missing or "labels_pr.val_0.slp" not in out:
+        raise AssertionError(f"phase 23 info: sections {missing} missing; {out[-1000:]}")
+
+    # system, as a subprocess of its own.
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-m", "sleap_nn_tpu_torch.cli", "system"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    card = smi.split(",")[0].strip()
+    if proc.returncode != 0 or (DEVICE == "cuda" and card not in proc.stdout) \
+            or "device smoke test: OK" not in proc.stdout:
+        raise AssertionError(f"phase 23 system: exit {proc.returncode}; {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    stats_system = [ln.strip() for ln in proc.stdout.splitlines()
+                    if "accelerator" in ln or "cuda:" in ln or "smoke" in ln]
+
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("cli_kernel " + json.dumps(r))
+    bad = [r for r in held if not r["ok"]]
+    want_kernels = {"fused_double_conv3x3", "nms_scores", "paf_line_scores", "multi_confmaps"}
+    if bad or (DEVICE != "cpu" and {r["kernel"] for r in held} != want_kernels):
+        raise AssertionError(f"phase 23: {len(held)} kernel calls held, {len(bad)} disagree "
+                             f"with their plain versions: {bad}")
+    slp_io = slp_io_round_trip(tmp, smi)
+    times["phase_s"] = time.perf_counter() - t_phase
+    log("cli " + json.dumps({"times": times, "system": stats_system, **{
+        k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in stats.items()}},
+        default=str))
+    return stats, held, slp_io
 
 
 # --------------------------------------------------------------------------
@@ -3483,9 +3837,18 @@ def main() -> int:
     # the trainer options (resume, transfer, save_top_k, negative frames,
     # user centroids, AMSGrad).
     t_phase = time.perf_counter()
-    file_runs, file_held = run_file_training(_build.KERNELS, root, root / "centroid")
+    with timing_calls(slp_file_stages(), {}) as slp_split:
+        file_runs, file_held = run_file_training(_build.KERNELS, root, root / "centroid")
     phase22_s = time.perf_counter() - t_phase
     log(f"phase 22: {phase22_s:.1f} s")
+    log("file_training_slp_split " + json.dumps({"phase_s": phase22_s, **slp_split}))
+
+    # 23. The command line at full width: train from .slp files, predict and
+    # track to .slp and analysis files, track-only, eval, info, system.
+    t_phase = time.perf_counter()
+    cli_runs, cli_held, slp_io = run_cli(_build.KERNELS, root, smi)
+    phase23_s = time.perf_counter() - t_phase
+    log(f"phase 23: {phase23_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -3498,9 +3861,10 @@ def main() -> int:
             "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu,
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
-            **{f"video_{path}": row for path, row in video.items()}, **file_runs}
+            **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
-                             runs, {"video_path": video_held, "file_train": file_held})
+                             runs, {"video_path": video_held, "file_train": file_held,
+                                    "cli": cli_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -3525,7 +3889,8 @@ def main() -> int:
         f"{native_grouping['native_ms_median']:.3f} ms, scipy "
         f"{native_grouping['scipy_ms_median_same_call']:.3f} ms in this call (scipy before the "
         f"port: {SCIPY_GROUPING_MS[0]} ms); phase 22 {phase22_s:.1f} s; "
-        f"total script {time.perf_counter() - t_start:.1f} s")
+        f"phase 23 {phase23_s:.1f} s; total script {time.perf_counter() - t_start:.1f} s")
+    log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -614,7 +614,7 @@ def run_evaluation(
     anchor_part: Optional[str] = None,
 ) -> Optional[dict]:
     """Evaluate predictions against ground truth, each a ``Labels`` or a
-    ``.slp`` path (read with h5py). Returns None when there is no
+    ``.slp`` path (read by ``load_slp``). Returns None when there is no
     prediction; ``match_method="auto"`` picks ``centroid`` for a one-node
     skeleton, else ``oks``."""
     if match_method in ("mask", "semantic"):

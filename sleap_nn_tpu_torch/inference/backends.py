@@ -18,9 +18,10 @@ from torch import nn
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on; a CUDA request without a card raises.
 
-    There is no silent CPU fallback: CPU runs ask for ``device="cpu"``.
+    There is no silent CPU fallback: CPU runs ask for ``device="cpu"``;
+    ``"auto"`` and None mean the card, as the command line's ``--device``.
     """
-    device = torch.device(device)
+    device = torch.device("cuda" if device in (None, "auto") else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

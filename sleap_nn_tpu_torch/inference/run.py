@@ -3,7 +3,7 @@
 Port of ``predict`` and ``save_predictions`` of
 ``sleap_nn_tpu/inference/run.py``: trained model dirs in, predicted
 ``Labels`` out, optionally written to a ``.slp`` file and / or SLEAP
-Analysis HDF5 files (h5py). The source is a port ``Labels``, a ``.slp``
+Analysis HDF5 files (``io/hdf5.py``). The source is a port ``Labels``, a ``.slp``
 path, a video file's path (media, image, or an HDF5 dataset with
 ``video_dataset``) or an in-memory video; the source-scoping options
 (``video_path_map``, ``video_index``, ``exclude_user_labeled``,

@@ -2,7 +2,8 @@
 
 Port of ``sleap_nn_tpu/inference/writer.py`` (``IncrementalLabelsWriter``):
 buffer predicted frames, periodically flush to a temp ``.slp`` so long
-runs survive interruption, atomically finalize. Writing needs h5py.
+runs survive interruption, atomically finalize. Each flush writes
+through ``save_slp``.
 """
 
 from __future__ import annotations

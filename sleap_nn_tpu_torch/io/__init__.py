@@ -1,6 +1,6 @@
 """Labels and video I/O: the labels data model, ``.slp`` read / write and
-the embedded-frame video backend (h5py is imported by the reads and writes
-only)."""
+the embedded-frame video backend, over the port's own HDF5 reader and
+writer (``io/hdf5.py``)."""
 
 from sleap_nn_tpu_torch.io.model import (
     Edge,

@@ -13,7 +13,9 @@ sleap-io analysis layout:
 
 Untracked instances get rank-order pseudo-tracks (``track_0``...), as
 sleap-io exports them, so that readers always see a dense track axis.
-h5py is imported by the writer only.
+The file is written through the port's own HDF5 subset (``io/hdf5.py``):
+the five numeric datasets chunked with deflate level 1 (one chunk each),
+the strings and scalars contiguous, as the JAX package's h5py writes them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from sleap_nn_tpu_torch.io import hdf5
 from sleap_nn_tpu_torch.io.model import Labels, PredictedInstance
 
 
@@ -48,8 +51,6 @@ def save_analysis_h5(
     labels_path: Optional[str] = None,
 ) -> Path:
     """Write one video's predictions as a SLEAP Analysis HDF5 file."""
-    import h5py
-
     vid = labels.videos[video] if labels.videos else None
     lfs = [
         lf for lf in labels.labeled_frames
@@ -107,7 +108,7 @@ def save_analysis_h5(
 
     out_path = Path(path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    with h5py.File(str(out_path), "w") as f:
+    with hdf5.File(str(out_path), "w") as f:
         f.create_dataset("tracks", data=pts, compression="gzip", compression_opts=1)
         f.create_dataset("track_occupancy", data=occupancy, compression="gzip", compression_opts=1)
         f.create_dataset("point_scores", data=point_scores, compression="gzip", compression_opts=1)

@@ -526,7 +526,7 @@ class Labels:
         return tuple(out)
 
     def save(self, path, embed: bool = False):
-        """Write a ``.slp`` file (needs h5py)."""
+        """Write a ``.slp`` file."""
         from sleap_nn_tpu_torch.io.slp import save_slp
 
         save_slp(path, self, embed=embed)

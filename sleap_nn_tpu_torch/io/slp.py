@@ -1,8 +1,9 @@
 """``.slp`` (HDF5) labels file reader/writer.
 
 Port of ``sleap_nn_tpu/io/slp.py``: the SLEAP labels container of
-sleap-io (format_id 1.2). h5py is imported by ``load_slp`` and
-``save_slp`` only, so the port imports on a machine without it. Embedded
+sleap-io (format_id 1.2), read and written through the port's own
+HDF5 subset (``io/hdf5.py``), so the files are the JAX package's and no
+HDF5 library is needed. Embedded
 frames are PNG through ``io/png.py`` (the JAX package calls cv2). The
 per-frame segmentation masks of the JAX writer's extension are not ported
 (``SegmentationMask``, ROADMAP.md section 1, item 10): ``load_slp``
@@ -41,6 +42,7 @@ from sleap_nn_tpu_torch.io.model import (
     Track,
     UserCentroid,
 )
+from sleap_nn_tpu_torch.io import hdf5
 from sleap_nn_tpu_torch.io.png import encode_png
 from sleap_nn_tpu_torch.io.video import Video
 
@@ -232,10 +234,8 @@ def _encode_skeletons(skeletons: List[Skeleton]):
 
 def load_slp(path: Union[str, Path], open_videos: bool = True) -> Labels:
     """Read a ``.slp`` labels file."""
-    import h5py
-
     path = str(path)
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         metadata = json.loads(f["metadata"].attrs["json"])
         skeletons = _decode_skeletons(metadata)
 
@@ -386,8 +386,6 @@ def _video_json(video) -> dict:
 
 def save_slp(path: Union[str, Path], labels: Labels, embed: bool = False):
     """Write a ``.slp`` labels file (sleap-io format_id 1.2 layout)."""
-    import h5py
-
     path = str(path)
     parent = Path(path).parent
     if str(parent) not in ("", "."):
@@ -480,7 +478,7 @@ def save_slp(path: Union[str, Path], labels: Labels, embed: bool = False):
         "provenance": labels.provenance,
     }
 
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         # Optionally embed frames referenced by labeled frames.
         videos_json_rows = []
         for vi, video in enumerate(labels.videos):
@@ -489,11 +487,10 @@ def save_slp(path: Union[str, Path], labels: Labels, embed: bool = False):
                     {lf.frame_idx for lf in labels.labeled_frames if lf.video is video}
                 )
                 grp = f.create_group(f"video{vi}")
-                imgs = [np.frombuffer(encode_png(video[i]), dtype=np.uint8) for i in frame_idxs]
-                dt = h5py.vlen_dtype(np.uint8)
-                ds = grp.create_dataset("video", shape=(len(imgs),), dtype=dt)
-                for k, b in enumerate(imgs):
-                    ds[k] = b
+                imgs = np.empty(len(frame_idxs), dtype=hdf5.vlen_dtype(np.uint8))
+                for k, i in enumerate(frame_idxs):
+                    imgs[k] = np.frombuffer(encode_png(video[i]), dtype=np.uint8)
+                ds = grp.create_dataset("video", data=imgs)
                 shape = video.shape
                 ds.attrs["format"] = "png"
                 ds.attrs["channels"] = shape[3] if shape else 1

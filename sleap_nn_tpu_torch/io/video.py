@@ -12,8 +12,8 @@ Port of ``sleap_nn_tpu/io/video.py``, with its three backends:
   group.
 - ``ImageVideoBackend``: a list of image files, one frame each.
 
-cv2 is imported by the functions that decode and h5py by the HDF5 reads
-only. Any object with ``get_frame(idx)``, ``num_frames`` and ``shape``
+cv2 is imported by the functions that decode only; HDF5 reads go
+through the port's own reader (``io/hdf5.py``). Any object with ``get_frame(idx)``, ``num_frames`` and ``shape``
 serves as a backend, so an in-memory ``Video`` takes an array-backed one.
 
 Frames come back as ``uint8 (H, W, C)``, C in {1, 3}.
@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from sleap_nn_tpu_torch.io import hdf5
 from sleap_nn_tpu_torch.io.png import decode_png
 
 
@@ -145,13 +146,20 @@ class HDF5VideoBackend:
         self._attrs = None
 
     def _file(self):
-        import h5py
-
         f = getattr(self._local, "f", None)
         if f is None:
-            f = h5py.File(self.filename, "r")
+            f = hdf5.File(self.filename, "r")
             self._local.f = f
         return f
+
+    def _dataset(self):
+        """This thread's handle on the frames' dataset, which keeps its
+        chunk index once read."""
+        ds = getattr(self._local, "ds", None)
+        if ds is None:
+            ds = self._file()[self.dataset]
+            self._local.ds = ds
+        return ds
 
     def _load_meta(self):
         if self._attrs is not None:
@@ -187,7 +195,7 @@ class HDF5VideoBackend:
 
     def get_frame(self, idx: int, fmt: Optional[str] = None) -> np.ndarray:
         self._load_meta()
-        ds = self._file()[self.dataset]
+        ds = self._dataset()
         row = self._frame_map.get(int(idx))
         if row is None:
             raise IndexError(f"Frame {idx} is not embedded in {self.filename}:{self.dataset}")

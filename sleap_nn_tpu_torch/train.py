@@ -6,14 +6,11 @@ The model directory the trainer writes loads with
 split is predicted with ``inference.run.predict`` and scored with
 ``evaluation.run_evaluation``: ``labels_pr.{split}_{i}.slp`` and
 ``metrics.{split}.{i}.npz`` in the model dir, as the JAX package writes
-them. The ``.slp`` files need h5py; where it does not import, the metrics
-are still computed and written, and one warning names every ``.slp`` file
-of the model dir left out.
+them.
 """
 
 from __future__ import annotations
 
-import warnings
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -21,7 +18,6 @@ from sleap_nn_tpu_torch.config import TrainingJobConfig
 from sleap_nn_tpu_torch.evaluation import run_evaluation
 from sleap_nn_tpu_torch.io.model import Labels
 from sleap_nn_tpu_torch.training import ModelTrainer
-from sleap_nn_tpu_torch.training.model_trainer import h5py_available
 
 
 def _eval_split(
@@ -32,13 +28,11 @@ def _eval_split(
     labels_gt,
     peak_threshold: float = 0.2,
     device="cuda",
-    slp_not_written: Optional[List[Path]] = None,
 ) -> Optional[dict]:
     """Predict a split's ground-truth frames and evaluate the predictions:
     ``labels_pr.{split}_{idx}.slp`` and ``metrics.{split}.{idx}.npz`` in
     ``model_dir``. A centered-instance model alone cannot run top-down, so
-    its splits are skipped (None), as in the JAX package. Without h5py the
-    ``.slp`` path is appended to ``slp_not_written`` instead."""
+    its splits are skipped (None), as in the JAX package."""
     from sleap_nn_tpu_torch.inference.run import predict
 
     if model_type == "centered_instance":
@@ -46,11 +40,7 @@ def _eval_split(
     match_method = "centroid" if model_type == "centroid" else "oks"
     preds = predict(labels_gt, [str(model_dir)], make_labels=True,
                     peak_threshold=peak_threshold, device=device)
-    pred_path = model_dir / f"labels_pr.{split}_{idx}.slp"
-    if h5py_available():
-        preds.save(pred_path)
-    elif slp_not_written is not None:
-        slp_not_written.append(pred_path)
+    preds.save(model_dir / f"labels_pr.{split}_{idx}.slp")
     return run_evaluation(labels_gt, preds, match_method=match_method,
                           save_metrics=str(model_dir / f"metrics.{split}.{idx}.npz"))
 
@@ -88,18 +78,13 @@ def run_training(config: TrainingJobConfig, train_labels: Optional[List[Labels]]
             for i, labels in enumerate(labels_list):
                 try:
                     m = _eval_split(trainer.ckpt_dir, trainer.model_type, split, i, labels,
-                                    device=str(trainer.device),
-                                    slp_not_written=trainer.slp_not_written)
+                                    device=str(trainer.device))
                     if m is None:
                         print(f"eval {split}_{i}: no usable predictions, metrics skipped")
                     elif "mOKS" in m:
                         print(f"eval {split}_{i}: mOKS={m['mOKS']['mOKS']:.4f}")
                 except Exception as e:  # best effort, as in the JAX package
                     print(f"Post-training eval failed for {split}_{i}: {e}")
-    if trainer.slp_not_written:
-        warnings.warn("h5py does not import, so these .slp files of the model dir were not "
-                      "written: " + ", ".join(str(p) for p in trainer.slp_not_written),
-                      stacklevel=2)
     return trainer
 
 

@@ -24,9 +24,7 @@ name, parameter count), ``labels_{train,val}_gt_{i}.slp`` (the splits,
 frames embedded), ``best.ckpt`` (and ``last.ckpt`` with
 ``model_ckpt.save_last``, ``epoch=NNN-val_loss=X.ckpt`` with
 ``save_top_k`` above 1) and ``training_log.csv`` (one row per epoch).
-Writing ``.slp`` needs h5py; where it does not import, the ``.slp`` files
-are left out and named in ``slp_not_written`` (``train.run_training``
-warns once with them). A checkpoint is
+A checkpoint is
 ``torch.save({"state_dict", "epoch", "best_val_loss"})`` with the model's
 ``state_dict`` keys under the ``model.`` prefix of the reference's
 Lightning checkpoints. ``inference.loaders.load_model`` reads the
@@ -109,15 +107,6 @@ def _remap_video_paths(labels: Labels, data_config):
                 vid.filename = new + fn[len(old):]
                 vid.backend = None
                 break
-
-
-def h5py_available() -> bool:
-    """Whether h5py imports, so that ``.slp`` files can be written."""
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
 
 
 def _fans(m: nn.Module):
@@ -330,9 +319,6 @@ class ModelTrainer:
         self.history: List[Dict] = []
         self.best_val_loss = math.inf
         self.initial_config: Optional[TrainingJobConfig] = None  # set by from_config
-        # The .slp files of the model dir left out for want of h5py;
-        # train.run_training names them, with its own, in one warning.
-        self.slp_not_written: List[Path] = []
         self._top_k_ckpts: List = []
         self._setup_done = False
 
@@ -608,8 +594,7 @@ class ModelTrainer:
         """``<ckpt_dir>/<run_name>``, suffixed -1, -2, ... when it exists and
         is not empty, with ``initial_config.yaml``, ``training_config.yaml``
         and the splits as ``labels_{train,val}_gt_{i}.slp`` (frames
-        embedded; left out, and named in ``slp_not_written``, where h5py
-        does not import)."""
+        embedded)."""
         tc = self.config.trainer_config
         run_name = tc.run_name
         if not run_name:
@@ -627,14 +612,9 @@ class ModelTrainer:
         if self.initial_config is not None:
             self.initial_config.save_yaml(self.ckpt_dir / "initial_config.yaml")
         self.config.save_yaml(self.ckpt_dir / "training_config.yaml")
-        can_write = h5py_available()
         for split, labels_list in (("train", self.train_labels), ("val", self.val_labels)):
             for i, labels in enumerate(labels_list):
-                path = self.ckpt_dir / f"labels_{split}_gt_{i}.slp"
-                if can_write:
-                    labels.save(path, embed=True)
-                else:
-                    self.slp_not_written.append(path)
+                labels.save(self.ckpt_dir / f"labels_{split}_gt_{i}.slp", embed=True)
 
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, name: str = "best.ckpt"):

@@ -1,13 +1,15 @@
 """The port stands alone: it imports without JAX and names nothing of the
 JAX package (nor does chip_smoke.py). It never imports networkx or orbax
 (which imports JAX; ``tools/orbax_to_torch.py`` converts a JAX trainer's
-checkpoints), and imports PyYAML, h5py and cv2 only inside function
-bodies: the functions that read or write YAML, ``.slp`` or HDF5 files, and
-those that decode video, resize frames on the host or compute optical
-flow. The GPU machine has PyYAML and cv2 but no h5py, and a module of the
-port must import where any of the three is missing. Only the modules that
-build and load native code (the CUDA kernels of ``ops/``, the C++ grouping
-of ``native/``) start compilers or load libraries (``subprocess``,
+checkpoints), nor h5py (``.slp`` and analysis files go through its own
+``io/hdf5.py``), click or rich (its command line is argparse); the GPU
+machine has none of them. It imports PyYAML and cv2 only inside function
+bodies: the functions that read or write YAML, and those that decode
+video, resize frames on the host or compute optical flow, so a module of
+the port imports where either is missing. Only the modules that build and
+load native code (the CUDA kernels of ``ops/``, the C++ grouping of
+``native/``) and the system report (which asks nvcc, g++ and nvidia-smi
+for their versions) start programs or load libraries (``subprocess``,
 ``ctypes``)."""
 
 import ast
@@ -20,13 +22,15 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx",
+             "h5py", "click", "rich")
 # Blocked while importing every port module; only a function body may import it.
-LAZY = ("yaml", "h5py", "cv2")
+LAZY = ("yaml", "cv2")
 # The modules that may start a compiler or load a shared library.
 NATIVE = ("subprocess", "ctypes")
 NATIVE_OK = {"sleap_nn_tpu_torch/ops/_build.py", "sleap_nn_tpu_torch/ops/kernels.py",
-             "sleap_nn_tpu_torch/ops/fused_conv.py", "sleap_nn_tpu_torch/native/__init__.py"}
+             "sleap_nn_tpu_torch/ops/fused_conv.py", "sleap_nn_tpu_torch/native/__init__.py",
+             "sleap_nn_tpu_torch/system_info.py"}
 
 
 def _port_modules():
@@ -82,7 +86,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.training.callbacks",
             "sleap_nn_tpu_torch.inference.identity",
             "sleap_nn_tpu_torch.data.identity",
-            "sleap_nn_tpu_torch.native"} <= set(mods)
+            "sleap_nn_tpu_torch.native",
+            "sleap_nn_tpu_torch.io.hdf5",
+            "sleap_nn_tpu_torch.cli",
+            "sleap_nn_tpu_torch.system_info",
+            "sleap_nn_tpu_torch.model_info"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"

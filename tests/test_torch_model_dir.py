@@ -372,7 +372,6 @@ def test_run_predict_labels_match_the_jax_package(dirs, type_set, tmp_path):
 
 
 def test_run_predict_writes_a_slp_the_jax_package_reads(dirs, tmp_path):
-    pytest.importorskip("h5py")
     from sleap_nn_tpu.io.slp import load_slp as jax_load_slp
 
     frames = blob_frames(N_FRAMES, seed=9)
@@ -522,7 +521,6 @@ def test_dir_predictor_runs_on_the_card_unless_asked(dirs, monkeypatch):
 
 
 def test_run_predict_streams_to_file_and_scopes_labels(dirs, tmp_path):
-    pytest.importorskip("h5py")
     from sleap_nn_tpu_torch.io.slp import load_slp
 
     frames = blob_frames(N_FRAMES, seed=9)

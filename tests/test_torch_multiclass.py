@@ -633,7 +633,6 @@ def test_run_predict_labels_match_the_jax_package(dirs, type_set):
 
 
 def test_slp_keeps_the_class_tracks(dirs, tmp_path):
-    pytest.importorskip("h5py")
     from sleap_nn_tpu.io.slp import load_slp as jax_load_slp
     from sleap_nn_tpu_torch.io.slp import load_slp
 

@@ -20,6 +20,7 @@ HDF5 output.
 import copy
 import json
 import shutil
+import zlib
 from types import SimpleNamespace as ns
 
 import cv2
@@ -34,6 +35,7 @@ from sleap_nn_tpu.io import video as jvideo
 from sleap_nn_tpu_torch.config import TrainingJobConfig as PConfig
 from sleap_nn_tpu_torch.inference import run as prun
 from sleap_nn_tpu_torch.inference.predictor import Predictor
+from sleap_nn_tpu_torch.io import hdf5
 from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io import video as pvideo
 from sleap_nn_tpu_torch.training import ModelTrainer
@@ -425,14 +427,25 @@ def test_source_options_match_jax(dirs, clips, tmp_path, option):  # noqa: F811
         assert str(clips.root / "moved") in got.videos[1].filename
 
 
-def test_video_dataset_matches_jax(dirs, clips, tmp_path):  # noqa: F811
-    for fmt, data in (("channels_last", clips.frames),
-                      ("channels_first", clips.frames.transpose(0, 3, 1, 2))):
-        path = tmp_path / f"{fmt}.h5"
+def test_video_dataset_matches_jax(dirs, clips, tmp_path, monkeypatch):  # noqa: F811
+    inflated = []
+    monkeypatch.setattr(hdf5, "zlib", ns(decompress=lambda b: inflated.append(1) or
+                                         zlib.decompress(b)))
+    # Contiguous frames in either layout, and raw frames as SLEAP writes
+    # them: one gzip chunk a frame, each inflated when its frame is read
+    # (not the whole video a frame).
+    for name, fmt, data, opts in (
+            ("last", "channels_last", clips.frames, {}),
+            ("first", "channels_first", clips.frames.transpose(0, 3, 1, 2), {}),
+            ("chunked", "channels_last", clips.frames,
+             dict(chunks=(1,) + clips.frames.shape[1:], compression="gzip"))):
+        path = tmp_path / f"{name}.h5"
         with h5py.File(path, "w") as f:
-            f.create_dataset("box", data=data)
+            f.create_dataset("box", data=data, **opts)
         kw = dict(batch_size=4, video_dataset="box", video_input_format=fmt)
+        del inflated[:]
         got = prun.predict(str(path), _paths(dirs, "topdown"), device="cpu", **kw)
+        assert len(inflated) <= 2 * N_FRAMES and bool(inflated) == bool(opts)
         want = jax_predict(str(path), _paths(dirs, "topdown"), **kw)
         assert_same_labels(got, want)
         assert _n_instances(got) >= N_FRAMES

@@ -207,6 +207,60 @@ def test_each_package_reads_the_others_slp(tmp_path, embed):
         assert from_jax.videos[1].shape == (2, 20, 16, 3)  # frames 1 and 4 embedded
 
 
+@pytest.mark.parametrize("embed", [False, True])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_port_reader_reads_both_packages_files_as_h5py_does(tmp_path, embed, writer):
+    """The port's HDF5 reader (``io/hdf5.py``) gives every dataset, dtype,
+    value and attribute h5py gives, on either package's ``.slp``, with and
+    without embedded frames."""
+    from sleap_nn_tpu_torch.io import hdf5
+    from tests.test_torch_hdf5 import _h5py_tree, _port_tree, assert_trees_equal
+
+    path = tmp_path / f"{writer}.slp"
+    if writer == "port":
+        save_slp(path, build_labels(pio, pvideo), embed=embed)
+    else:
+        jax_save_slp(path, build_labels(jio, jvideo), embed=embed)
+    assert_trees_equal(_port_tree(path), _h5py_tree(path))
+    with hdf5.File(path, "r") as f:
+        assert isinstance(f["metadata"].attrs["json"], np.bytes_)
+        assert f["metadata"].attrs["format_id"] == 1.2
+
+
+def _analysis_labels(io, video_mod, tracked):
+    labels = build_labels(io, video_mod)
+    if not tracked:
+        for lf in labels.labeled_frames:
+            for inst in lf.instances:
+                inst.track = None
+    return labels
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_both_packages_write_the_same_analysis_h5(tmp_path, tracked):
+    """The analysis HDF5 of the same labels: the same datasets, dtypes,
+    values (NaN equal to NaN), chunking and deflate level, by h5py; and the
+    port's reader reads the JAX package's file as h5py does."""
+    from sleap_nn_tpu.io.analysis import save_analysis_h5 as jax_save_analysis_h5
+    from sleap_nn_tpu_torch.io.analysis import save_analysis_h5
+    from tests.test_torch_hdf5 import _h5py_tree, _port_tree, assert_trees_equal
+
+    for vi in (0, 1):
+        port_path, jax_path = tmp_path / f"port{vi}.h5", tmp_path / f"jax{vi}.h5"
+        save_analysis_h5(_analysis_labels(pio, pvideo, tracked), port_path, video=vi,
+                         labels_path="l.slp")
+        jax_save_analysis_h5(_analysis_labels(jio, jvideo, tracked), jax_path, video=vi,
+                             labels_path="l.slp")
+        assert_trees_equal(_h5py_tree(port_path), _h5py_tree(jax_path))
+        assert_trees_equal(_port_tree(jax_path), _h5py_tree(jax_path))
+        with h5py.File(port_path, "r") as f, h5py.File(jax_path, "r") as g:
+            for key in ("tracks", "track_occupancy", "point_scores", "instance_scores",
+                        "tracking_scores"):
+                assert f[key].compression == g[key].compression == "gzip", key
+                assert f[key].compression_opts == g[key].compression_opts == 1, key
+            assert f["tracks"].shape[-1] == (6 if vi == 0 else 5)
+
+
 def test_load_slp_refuses_segmentation_masks(tmp_path):
     labels = build_labels(jio, jvideo)
     labels.labeled_frames[0].masks = [jio.SegmentationMask(np.eye(4, dtype=bool), score=0.5)]

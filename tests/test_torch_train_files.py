@@ -12,8 +12,8 @@ the JAX ``ValueError``. ``run_training`` writes the JAX trainer's model-dir
 file set (with ``test_file_path``); the JAX package reads its ``.slp`` and
 metrics files. The post-training evaluation predicts at threshold -1e9 in
 both packages here, so that the briefly trained models emit predictions.
-With h5py blocked, one warning names the ``.slp`` files left out and the
-metrics files are written.
+With h5py blocked, every ``.slp`` file of the model dir is still written
+(the port's own HDF5 writer) and no warning is raised.
 """
 
 import copy
@@ -212,7 +212,7 @@ def test_model_dir_file_set_matches_jax(files, tmp_path, low_threshold):
     jtrain.run_training(JConfig.from_dict(copy.deepcopy(d)))
     d = _run_cfg(files, tmp_path / "port")
     with warnings.catch_warnings():
-        warnings.simplefilter("error", UserWarning)  # h5py imports: no warning
+        warnings.simplefilter("error", UserWarning)  # no warning
         trainer = ptrain.run_training(PConfig.from_dict(d), device="cpu")
     jdir, pdir = tmp_path / "jax" / "run", tmp_path / "port" / "run"
     names = {p.name for p in pdir.iterdir()}
@@ -244,23 +244,47 @@ def test_model_dir_file_set_matches_jax(files, tmp_path, low_threshold):
 
 def test_without_h5py_one_warning_and_the_metrics_only(files, tmp_path, monkeypatch,
                                                        low_threshold):
+    """With h5py blocked the model dir is whole (the port writes ``.slp``
+    through its own ``io/hdf5.py``): every split and every prediction file
+    is written, loads equal to the split or to the recorded predictions, and
+    no warning is raised."""
     frames = blob_frames(N, seed=4)
     labels = _labels(pio, FrameVideo(frames))
     d = cfg_dict(max_epochs=1, train_steps_per_epoch=2, save_ckpt=True,
                  ckpt_dir=str(tmp_path), run_name="run")
     monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py raises ImportError
-    with pytest.warns(UserWarning) as record:
-        ptrain.run_training(PConfig.from_dict(d), [labels], device="cpu")
-    slp_warnings = [w for w in record if "h5py" in str(w.message)]
-    assert len(slp_warnings) == 1
+    recorded = {}
+    evaluate = ptrain.run_evaluation
+
+    def record(gt, preds, save_metrics=None, **kw):
+        recorded[save_metrics.rsplit("metrics.", 1)[1].split(".")[0]] = preds
+        return evaluate(gt, preds, save_metrics=save_metrics, **kw)
+
+    monkeypatch.setattr(ptrain, "run_evaluation", record)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        trainer = ptrain.run_training(PConfig.from_dict(d), [labels], device="cpu")
     run = tmp_path / "run"
     names = {p.name for p in run.iterdir()}
-    assert not any(n.endswith(".slp") for n in names)
-    assert {"metrics.train.0.npz", "metrics.val.0.npz", "best.ckpt"} <= names
-    msg = str(slp_warnings[0].message)
-    for n in ("labels_train_gt_0.slp", "labels_val_gt_0.slp", "labels_pr.train_0.slp",
-              "labels_pr.val_0.slp"):
-        assert n in msg
+    assert {"labels_train_gt_0.slp", "labels_val_gt_0.slp", "labels_pr.train_0.slp",
+            "labels_pr.val_0.slp", "metrics.train.0.npz", "metrics.val.0.npz",
+            "best.ckpt"} <= names
+    for split, gt in (("train", trainer.train_labels[0]), ("val", trainer.val_labels[0])):
+        got = port_load_slp(str(run / f"labels_{split}_gt_0.slp"))
+        assert [lf.frame_idx for lf in got] == [lf.frame_idx for lf in gt]
+        for a, b in zip(got, gt):
+            np.testing.assert_array_equal(a.image, b.image)
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        got = port_load_slp(str(run / f"labels_pr.{split}_0.slp"))
+        want = recorded[split]
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            assert a.frame_idx == b.frame_idx
+            assert len(a.instances) == len(b.instances)
+            for ia, ib in zip(a.instances, b.instances):
+                np.testing.assert_array_equal(ia.numpy(), ib.numpy())
+                np.testing.assert_array_equal(ia.point_scores, ib.point_scores)
+                assert ia.score == ib.score
 
 
 def test_train_from_a_config_path_matches_jax(files, tmp_path):

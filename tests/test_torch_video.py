@@ -13,6 +13,8 @@ or a frame past the end. ``.slp`` files that reference a media video are
 read by the other package to the same frames, also after the files moved
 together (the stale-path rule). The analysis HDF5 files of the two
 packages hold the same datasets, dtypes and values, NaN placed alike.
+Embedded PNG frames of either package's ``.pkg.slp`` read through the
+port's own HDF5 reader, one handle a thread, equal to the JAX package's.
 """
 
 import json
@@ -205,6 +207,46 @@ def test_jpeg_embedded_frames_match_jax(media, fmt):
         np.testing.assert_array_equal(gv.get_frame(lf.frame_idx, fmt=fmt),
                                       wv.get_frame(lf.frame_idx, fmt=fmt))
         np.testing.assert_array_equal(lf.image, wv[lf.frame_idx])
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_embedded_png_frames_read_through_the_port_reader_in_threads(tmp_path, writer):
+    """A ``.pkg.slp`` of PNG frames, written by either package, read by
+    the embedded-frame backend over the port's HDF5 reader: each of four
+    threads opens its own handle, and every frame equals the JAX
+    package's read."""
+    import threading
+
+    from sleap_nn_tpu.io.slp import save_slp as jax_save_slp
+    from sleap_nn_tpu_torch.io.slp import save_slp
+
+    path = tmp_path / "emb.pkg.slp"
+    if writer == "port":
+        save_slp(path, build_labels(pio, pvideo), embed=True)
+    else:
+        jax_save_slp(path, build_labels(jio, jvideo), embed=True)
+    got, want = load_slp(path), jax_load_slp(path)
+    pairs = [(gv, wv, fi) for gv, wv in zip(got.videos, want.videos)
+             for fi in gv.backend.frame_numbers]
+    assert len(pairs) == 5
+    out, handles = {}, []
+
+    def read(k):
+        for j, (gv, _, fi) in enumerate(pairs):
+            out[k, j] = gv.get_frame(fi)
+        handles.append(got.videos[0].backend._file())  # kept alive: ids stay distinct
+
+    threads = [threading.Thread(target=read, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert len({id(h) for h in handles}) == 4  # one open handle a thread
+    for (k, j), frame in out.items():
+        gv, wv, fi = pairs[j]
+        np.testing.assert_array_equal(frame, wv.get_frame(fi))
+        assert gv.shape == wv.shape
 
 
 @pytest.mark.parametrize("batch_size,frames", [(4, None), (4, [7, 2, 5, 5, 0]), (3, [1, 2, 3])])
