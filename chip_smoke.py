@@ -225,6 +225,36 @@ Phases, each of which raises on failure (exit code != 0):
     file (6 instances of 15 nodes a frame), timed on the host, the round
     trip equal (``slp_io`` line). The card machine has no h5py: every
     ``.slp`` and analysis file goes through the port's ``io/hdf5.py``.
+24. Tiled predict at medium_rf width: 4 frames of 2048x2048 (a dark field
+    with 6 animals of 15 blobs), tiles of 512 overlapping by 128 (25 a
+    frame, snapped to the max stride 32), chunks of 16 (18 fused-conv
+    launches a frame), bf16: a centroid model's ``TiledLayer`` in local
+    mode (kernel 2 once on the merged ``(4, 1024, 1024, 1)`` canvases) and
+    a 15-node single-instance model's in global mode through
+    ``Predictor.predict``; every kernel call at each new signature held
+    against its plain version at phase 3's tolerances; one frame's stage
+    split (tiling, forward, merge, peaks, each fenced); narrow models on
+    256x384 frames at tile 128, the card against the CPU.
+25. Prediction on ground-truth centroids: ``run.predict`` with phase 11's
+    centered-instance dir alone on a ``.slp`` the port wrote of phase 7's
+    first 8 frames (an MJPG clip; user and predicted instances, mixed
+    frames), bf16, batch 4, 6 crops a frame: the default centroids,
+    ``anchor_part="n0"`` and ``only_labeled_frames``, each slot held to
+    the source (centroid, validity, the source's score as the instance
+    score) and each kernel-1 call on the ``(24, 256, 256, .)`` crops held;
+    the top-down stage 2 on the same centroids equal bit for bit; ``cli
+    predict --anchor_part`` and ``--only_labeled_frames`` equal to
+    ``run.predict`` with the kwargs they passed; phase 14's narrow
+    centered-instance dir alone, the card against the CPU.
+26. Tiled training: bottom-up medium_rf on 8 noise frames of 2048x2048
+    (6 / 2, 1-6 instances of 15 nodes), 4 tiles of 512 and the
+    ``full_frame_pass`` slot a frame, rotation on (tiles cut 725 wide and
+    cropped back after it), batch 4, 2 epochs of ``tiling.steps_per_epoch``
+    5: kernel 4 launches = train steps + val batches + 1 probe, each call
+    at a new signature held; steps/s and peak memory. Then a narrow tiled
+    centroid training through the disk cache
+    (``torch_dataset_cache_img_disk``), 3 steps on the card against the
+    CPU; its ``.npy`` files are there during training and gone after it.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -2000,7 +2030,8 @@ def condition_weights(model, frames):
     (``tools/model_dir_divergence.py``; PERF.md, PR 7)."""
     import torch
 
-    heads = {"CentroidConfmapsHead", "CenteredInstanceConfmapsHead", "MultiInstanceConfmapsHead"}
+    heads = {"CentroidConfmapsHead", "CenteredInstanceConfmapsHead", "MultiInstanceConfmapsHead",
+             "SingleInstanceConfmapsHead"}
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):
@@ -3053,11 +3084,12 @@ def run_counted(kernels, fn):
     return out, {name: k.launches for name, k in kernels.items()}
 
 
-def expect_launches(what, launches, **want):
+def expect_launches(what, launches, phase=22, **want):
     want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
             "multi_confmaps": 0, **want}
     if DEVICE != "cpu" and launches != want:  # a CPU rehearsal launches no kernel
-        raise AssertionError(f"phase 22 {what}: launch counts {launches}, expected {want}")
+        raise AssertionError(f"phase {phase} {what}: launch counts {launches}, "
+                             f"expected {want}")
 
 
 def stored_labels_equal(a, b):
@@ -3548,6 +3580,590 @@ def run_cli(kernels, root, smi):
 
 
 # --------------------------------------------------------------------------
+# Phases 24-26: tiling and ground-truth centroids
+# --------------------------------------------------------------------------
+
+# Phase 24: frames, their size, the tile geometry and the tile chunk; the
+# narrow card-against-CPU frames and tile.
+TILED_FRAMES, TILED_IMG, TILE, TILE_OVERLAP, TILE_BATCH = 4, 2048, 512, 128, 16
+TILED_ANIMALS, TILED_NARROW_HW, TILED_NARROW_TILE = 6, (256, 384), 128
+# Phase 25: the frames of phase 7's labels it predicts, and the batch.
+GT_FRAMES, GT_BATCH = 8, 4
+# Phase 26: frames (6 train, 2 val), tiles a frame, steps an epoch.
+TILED_TRAIN_FRAMES, TILED_TRAIN_VAL, TILED_SPF, TILED_STEPS = 8, 2, 4, 5
+
+
+def animal_frames(n, hw, n_animals, seed, sigma=6.0):
+    """uint8 ``(n, H, W, 1)``: a dark field with ``n_animals`` bright
+    animals a frame, each ``N_NODES`` Gaussian blobs of ``sigma`` px around
+    its centre (drawn in a window of their own)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    out = np.zeros((n, h, w), np.float32)
+    r = int(4 * sigma)
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    blob = np.exp(-(yy ** 2 + xx ** 2) / (2 * sigma ** 2)).astype(np.float32)
+    for f in range(n):
+        for _ in range(n_animals):
+            cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
+            for y, x in np.stack([cy + rng.normal(0, 0.02 * h, N_NODES),
+                                  cx + rng.normal(0, 0.02 * w, N_NODES)], axis=1):
+                y0, x0 = int(round(y)) - r, int(round(x)) - r
+                ys, xs = slice(max(y0, 0), min(y0 + 2 * r + 1, h)), slice(max(x0, 0),
+                                                                         min(x0 + 2 * r + 1, w))
+                patch = blob[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0]
+                np.maximum(out[f, ys, xs], patch, out=out[f, ys, xs])
+    return (out[..., None] * 255).astype(np.uint8)
+
+
+def single_instance_model(cfg_cls, n_nodes, seed, **cfg_kw):
+    """A single-instance model (confmaps at stride 2) with random weights
+    from ``seed``, initialised as in :func:`build_models`."""
+    import torch
+    from types import SimpleNamespace as ns
+
+    from sleap_nn_tpu_torch.models.model import Model
+
+    cfg = cfg_cls(in_channels=1, output_stride=2, **cfg_kw)
+    torch.manual_seed(seed)
+    model = Model.from_config("unet", cfg, ns(confmaps=ns(
+        part_names=[f"n{i}" for i in range(n_nodes)], sigma=2.5, output_stride=2,
+        loss_weight=None)), "single_instance")
+    random_init(model)
+    return cfg, model
+
+
+def tiled_layer(cfg, model, mode, device, use_bf16, tile, overlap=None):
+    """A ``TiledLayer`` of ``model`` (its one head) in ``mode``; the overlap
+    ``TILE_OVERLAP`` unless given."""
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.layers import (
+        PostprocessConfig, PreprocessConfig, TiledLayer)
+
+    return TiledLayer(
+        TorchBackend(model, None, use_bf16=use_bf16, output_dtype=None, device=device),
+        PreprocessConfig(ensure_grayscale=True, max_stride=cfg.max_stride),
+        PostprocessConfig(peak_threshold=0.2), head_name=model.heads[0].name,
+        output_stride=2, tile_size=tile, overlap=TILE_OVERLAP if overlap is None else overlap,
+        tile_batch_size=TILE_BATCH,
+        mode=mode, device=device)
+
+
+def tiled_stage_times(layer, frame):
+    """ms of one frame's tiled predict by stage, each fenced by
+    synchronize(): cutting the tiles, the model on them (chunk by chunk),
+    the merge and the peaks (local peaks on the canvas: kernel 2). The
+    second of two passes is kept."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.tile_merger import merge_tiles
+    from sleap_nn_tpu_torch.ops.peaks import find_local_peaks
+
+    x = torch.from_numpy(frame[None]).to(DEVICE)
+    origins = layer.tile_grid(x.shape[1:3])
+    os_ = layer.output_stride
+    origins_os = [(y // os_, x0 // os_) for y, x0 in origins]
+    canvas = (x.shape[1] // os_, x.shape[2] // os_)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):
+            tiles = timed("tiling", lambda: layer.frame_tiles(layer.padded_frames(x, origins)[0],
+                                                              origins))
+            maps = timed("forward", lambda: layer.tile_maps(tiles))
+            cms = timed("merge", lambda: merge_tiles(maps, origins_os, canvas, layer._window))
+            timed("peaks", lambda: find_local_peaks(cms[None], threshold=0.2,
+                                                    refinement="integral"))
+    times["sum"] = sum(times.values())
+    times["tiles"], times["chunks"] = len(origins), -(-len(origins) // layer.tile_batch_size)
+    return times
+
+
+def canonical_peaks(out, i):
+    """Frame ``i``'s valid local peaks ``(channel, x, y, value)``, sorted by
+    channel and position (near-equal values may rank two peaks either way
+    on two devices)."""
+    keep = out["peak_valid"][i]
+    rows = np.concatenate([out["peak_channels"][i][keep][:, None].astype(np.float64),
+                           out["pred_peaks"][i][keep], out["peak_vals"][i][keep][:, None]],
+                          axis=1)
+    return rows[np.lexsort((np.round(rows[:, 2], 2), np.round(rows[:, 1], 2), rows[:, 0]))]
+
+
+def check_tiled_against_cpu():
+    """Phase 24's narrow half: ``TiledLayer`` in both modes with narrow
+    models (filters 8, max stride 16), conditioned as phase 14's, on
+    ``TILED_NARROW_HW`` frames of animals at tile ``TILED_NARROW_TILE``,
+    f32 on the card and on the CPU: merged maps to 1e-4 of their largest
+    magnitude (the fused conv's f32 tolerance); peak counts, channels and
+    NaN placement exact; points to 1e-4 px, values to 1e-5."""
+    import torch
+
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+
+    frames = animal_frames(2, TILED_NARROW_HW, 2, seed=240, sigma=3.0)
+    report = {}
+    for mode, model_type in (("local", "centroid"), ("global", "single_instance")):
+        if model_type == "centroid":
+            cfg, model, _ = build_models(UNetConfig, N_NODES, seed=241, filters=8,
+                                         filters_rate=1.5, max_stride=16)
+        else:
+            cfg, model = single_instance_model(UNetConfig, N_NODES, seed=242, filters=8,
+                                               filters_rate=1.5, max_stride=16)
+        condition_weights(model, frames)
+        outs, maps = [], []
+        for device in (DEVICE, "cpu"):
+            layer = tiled_layer(cfg, model, mode, device, False, TILED_NARROW_TILE, 32)
+            with torch.inference_mode():
+                maps.append(layer.merged_maps(torch.from_numpy(frames).to(device)).cpu())
+            outs.append(layer.predict(frames))
+        err = {"maps_max_abs_err": (maps[0] - maps[1]).abs().max().item(),
+               "maps_max": maps[1].abs().max().item()}
+        if mode == "local":
+            got = [canonical_peaks(outs[0], i) for i in range(len(frames))]
+            want = [canonical_peaks(outs[1], i) for i in range(len(frames))]
+            err["peaks"] = sum(len(w) for w in want)
+            if [len(g) for g in got] != [len(w) for w in want] or any(
+                    not np.array_equal(g[:, 0], w[:, 0]) for g, w in zip(got, want)):
+                raise AssertionError(f"phase 24 narrow {mode}: peaks differ {err}")
+            err["points_max_abs_err"] = max((np.abs(g[:, 1:3] - w[:, 1:3]).max(initial=0.0)
+                                             for g, w in zip(got, want)), default=0.0)
+            err["values_max_abs_err"] = max((np.abs(g[:, 3] - w[:, 3]).max(initial=0.0)
+                                             for g, w in zip(got, want)), default=0.0)
+        else:
+            g, w = outs[0]["pred_keypoints"], outs[1]["pred_keypoints"]
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                raise AssertionError(f"phase 24 narrow {mode}: NaN placed apart")
+            err["peaks"] = int(np.isfinite(w[..., 0]).sum())
+            err["points_max_abs_err"] = float(np.nanmax(np.abs(g - w), initial=0.0))
+            err["values_max_abs_err"] = float(np.nanmax(np.abs(
+                outs[0]["pred_peak_values"] - outs[1]["pred_peak_values"]), initial=0.0))
+        report[mode] = err
+        if err["maps_max_abs_err"] > 1e-4 * err["maps_max"] or err["peaks"] < len(frames) \
+                or err["points_max_abs_err"] > 1e-4 or err["values_max_abs_err"] > 1e-5:
+            raise AssertionError(f"phase 24 narrow {mode}: card vs CPU {err}")
+    log("tiled_card_vs_cpu " + json.dumps(report))
+    return report
+
+
+def run_tiled_predict(kernels, smi):
+    """Phase 24: tiled predict at medium_rf width (bf16) on ``TILED_FRAMES``
+    frames of ``TILED_IMG`` squared with animals, tiles of ``TILE``
+    overlapping by ``TILE_OVERLAP`` (the grid snapped to the max stride of
+    32), ``TILE_BATCH`` tiles a chunk: a centroid model in local mode
+    (``layer.predict``: kernel 1 on every chunk, kernel 2 once on the
+    merged canvases) and a 15-node single-instance model in global mode
+    through ``Predictor.predict`` (batch 2). Every kernel call at each new
+    signature is recorded and held against its plain version. Then the
+    stage split of one frame and the narrow models on the card against the
+    CPU. Returns the counted paths' stats and the held rows."""
+    import torch
+
+    from sleap_nn_tpu_torch.config.model_config import UNetMediumRFConfig
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.io.model import Skeleton
+
+    t_phase = time.perf_counter()
+    frames = animal_frames(TILED_FRAMES, (TILED_IMG, TILED_IMG), TILED_ANIMALS, seed=24)
+    cfg, centroid, _ = build_models(UNetMediumRFConfig, N_NODES, seed=24)
+    _, single = single_instance_model(UNetMediumRFConfig, N_NODES, seed=25)
+    local = tiled_layer(cfg, centroid, "local", DEVICE, True, TILE)
+    glob = tiled_layer(cfg, single, "global", DEVICE, True, TILE)
+    n_tiles = len(local.tile_grid((TILED_IMG, TILED_IMG)))
+    chunks = -(-n_tiles // TILE_BATCH)
+    pred = Predictor(glob, "single_instance", Skeleton([f"n{i}" for i in range(N_NODES)]),
+                     batch_size=2, device=DEVICE)
+    video = ArrayVideo(frames)
+    local.predict(frames[:1])  # warm-up
+    pred.predict(ArrayVideo(frames[:2]), make_labels=False)
+    seen, calls, stats = set(), [], {}
+    with recording_kernel_calls(seen, calls):
+        sync()
+        t0 = time.perf_counter()
+        out, launches = run_counted(kernels, lambda: local.predict(frames))
+        local_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results, g_launches = run_counted(kernels, lambda: pred.predict(video, make_labels=False))
+        global_s = time.perf_counter() - t0
+        labels = pred.predict(video)
+    for name, got, want, n in (
+            ("tiled_predict_local", launches, {"fused_double_conv3x3": 9 * chunks * TILED_FRAMES,
+                                               "nms_scores": 1}, 1),
+            ("tiled_predict_global", g_launches,
+             {"fused_double_conv3x3": 9 * chunks * TILED_FRAMES}, -(-TILED_FRAMES // 2))):
+        want = {"fused_double_conv3x3": 0, "nms_scores": 0, "paf_line_scores": 0,
+                "multi_confmaps": 0, **want}
+        if DEVICE != "cpu" and got != want:
+            raise AssertionError(f"phase 24 {name}: launch counts {got}, expected {want}")
+    canvas = (TILED_IMG // 2, TILED_IMG // 2)
+    if out["pred_peaks"].shape[0] != TILED_FRAMES or not out["peak_valid"].any():
+        raise AssertionError(f"phase 24 local: {out['peak_valid'].sum()} peaks")
+    kp = np.concatenate([r["pred_keypoints"][r["valid"]] for r in results])
+    if kp.shape != (TILED_FRAMES, 1, N_NODES, 2) or not np.isfinite(kp).all() \
+            or not ((kp >= 0) & (kp < TILED_IMG)).all():
+        raise AssertionError(f"phase 24 global: keypoints {kp.shape}")
+    if [lf.frame_idx for lf in labels] != list(range(TILED_FRAMES)) or not all(
+            np.array_equal(lf.instances[0].points, kp[i, 0].astype(np.float64))
+            for i, lf in enumerate(labels.labeled_frames)):
+        raise AssertionError("phase 24 global: the Labels do not hold the keypoints")
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("tiled_kernel " + json.dumps(r))
+    bad = [r for r in held if not r["ok"]]
+    if bad or (DEVICE != "cpu" and {r["kernel"] for r in held} != {"fused_double_conv3x3",
+                                                                     "nms_scores"}):
+        raise AssertionError(f"phase 24: {len(held)} kernel calls held, {len(bad)} disagree "
+                             f"with their plain versions: {bad}")
+    stages = tiled_stage_times(local, frames[0])
+    narrow = check_tiled_against_cpu()
+    stats["tiled_predict_local"] = {
+        "launches": launches, "n_batches": {"fused_double_conv3x3": chunks * TILED_FRAMES,
+                                            "nms_scores": 1},
+        "fps": TILED_FRAMES / local_s, "peaks": int(out["peak_valid"].sum()),
+        "canvas": [TILED_FRAMES, *canvas, 1]}
+    stats["tiled_predict_global"] = {
+        "launches": g_launches, "n_batches": {"fused_double_conv3x3": chunks * TILED_FRAMES},
+        "fps": TILED_FRAMES / global_s, "predictor_fps": pred.last_stats["fps"]}
+    log("tiled_predict " + json.dumps({
+        "frames": [TILED_FRAMES, TILED_IMG, TILED_IMG, 1], "tile": TILE,
+        "overlap": TILE_OVERLAP, "tiles_per_frame": n_tiles, "chunks_per_frame": chunks,
+        "stage_ms_per_frame": stages, "held": len(held), "narrow": narrow,
+        "phase_s": time.perf_counter() - t_phase, "device": smi,
+        **{k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in stats.items()}}))
+    return stats, held
+
+
+def gt_source(tmp):
+    """Phase 25's source: the first ``GT_FRAMES`` frames of phase 7's labels
+    on an MJPG clip of their frames, written by the port as a ``.slp``: the
+    user instances, plus on odd frames a scored ``PredictedInstance`` beside
+    them (mixed frames), and on the last frame predicted instances only."""
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels, PredictedInstance
+    from sleap_nn_tpu_torch.io.video import Video
+
+    base = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
+    frames = base.labeled_frames[0].video.frames[:GT_FRAMES]
+    clip = write_clip(tmp / "gt_clip.avi", frames, "MJPG")
+    video = Video.from_filename(str(clip))
+    rng = np.random.default_rng(25)
+    lfs = []
+    for f in range(GT_FRAMES):
+        user = list(base.labeled_frames[f].instances)
+        skel = user[0].skeleton
+        preds = [PredictedInstance(i.numpy() + rng.normal(0, 2, i.numpy().shape), skel,
+                                   point_scores=rng.uniform(0, 1, N_NODES),
+                                   score=float(rng.uniform(0.1, 0.9))) for i in user[:2]]
+        insts = preds if f == GT_FRAMES - 1 else user + (preds[:1] if f % 2 else [])
+        lfs.append(LabeledFrame(video, f, insts))
+    labels = Labels(lfs, videos=[video], skeletons=base.skeletons)
+    path = tmp / "gt.slp"
+    labels.save(str(path))
+    return path, labels
+
+
+def expected_gt_slots(lf, anchor, user_only):
+    """The centroids, validity and values a frame's slots should carry."""
+    insts = lf.user_instances if user_only else lf.instances
+    cents = np.full((MAX_INST, 2), np.nan)
+    vals = np.full(MAX_INST, np.nan)
+    for k, inst in enumerate(insts[:MAX_INST]):
+        pts = inst.numpy()
+        c = pts[anchor] if anchor is not None and np.isfinite(pts[anchor]).all() else \
+            np.nanmean(pts, axis=0)
+        cents[k] = c
+        vals[k] = getattr(inst, "score", None) if hasattr(inst, "point_scores") else 1.0
+    return cents, np.isfinite(cents[:, 0]), vals
+
+
+def run_gt_predict(kernels, root, narrow_labels, narrow_dirs, smi):
+    """Phase 25: ``run.predict`` with phase 11's centered-instance dir alone,
+    on ground-truth centroids of a ``.slp`` the port wrote (``gt_source``),
+    bf16, batch ``GT_BATCH``, ``MAX_INST`` crops a frame: the default
+    centroids, ``anchor_part="n0"`` and ``only_labeled_frames``. Each run is
+    counted (kernel 1: 9 a batch, on ``(GT_BATCH * MAX_INST, 256, 256, .)``
+    crops; no other kernel), its kernel calls recorded and held, its slots
+    checked against the source (centroids, validity, the source scores as
+    instance scores) and its ``Labels`` against its raw outputs. The top-down
+    stage 2 (phase 7's centroid dir with phase 11's) fed the same centroids
+    gives the same points and values. The command line (``predict
+    --anchor_part``, ``--only_labeled_frames``) gives what ``run.predict``
+    gives with its kwargs. Then phase 14's narrow centered-instance dir on
+    its labels, the card against the CPU."""
+    import torch
+
+    from sleap_nn_tpu_torch import cli
+    from sleap_nn_tpu_torch.inference import run as prun
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.providers import LabelsProvider
+    from sleap_nn_tpu_torch.io.slp import load_slp
+
+    t_phase = time.perf_counter()
+    tmp = root / "phase25"
+    tmp.mkdir()
+    path, source = gt_source(tmp)
+    ci_dir = root / "centered_instance"
+    kw = dict(batch_size=GT_BATCH, use_bf16=True, device=DEVICE, max_instances=MAX_INST,
+              peak_threshold=DIR_PEAK_THRESHOLD)
+    seen, calls, stats = set(), [], {}
+    prun.predict(str(path), [ci_dir], make_labels=False, **kw)  # warm-up
+    for name, extra in (("gt_default", {}), ("gt_anchor", {"anchor_part": "n0"}),
+                        ("gt_only_labeled", {"only_labeled_frames": True})):
+        with recording_kernel_calls(seen, calls):
+            t0 = time.perf_counter()
+            results, launches = run_counted(kernels, lambda: prun.predict(
+                str(path), [ci_dir], make_labels=False, **kw, **extra))
+            elapsed = time.perf_counter() - t0
+        user_only = bool(extra.get("only_labeled_frames"))
+        lfs = [lf for lf in source.labeled_frames if lf.user_instances or not user_only]
+        n_batches = -(-len(lfs) // GT_BATCH)
+        expect_launches(name, launches, phase=25, fused_double_conv3x3=9 * n_batches)
+        anchor = 0 if "anchor_part" in extra else None
+        for b, out in enumerate(results):
+            for i in np.flatnonzero(out["valid"]):
+                cents, valid, vals = expected_gt_slots(lfs[b * GT_BATCH + i], anchor, user_only)
+                if not (np.array_equal(out["instance_valid"][i], valid)
+                        and np.allclose(out["pred_centroids"][i], cents, atol=1e-3,
+                                        equal_nan=True)
+                        and np.array_equal(out["pred_instance_scores"][i], vals.astype(np.float32),
+                                           equal_nan=True)):
+                    raise AssertionError(f"phase 25 {name}: frame {lfs[b * GT_BATCH + i].frame_idx}"
+                                         f" slots differ from the source")
+        predictor = Predictor.from_model_paths([ci_dir], anchor_part=extra.get("anchor_part"),
+                                               **kw)
+        predictor.gt_user_instances_only = user_only
+        labels = predictor.predict(load_slp(path))
+        n_inst = labels_hold_outputs(labels, results, "topdown")
+        scores = sorted({round(i.score, 6) for lf in labels for i in lf.instances})
+        if not n_inst or (user_only and scores != [1.0]) or (not user_only and len(scores) < 3):
+            raise AssertionError(f"phase 25 {name}: {n_inst} instances, scores {scores}")
+        stats[name] = {"launches": launches, "n_batches": n_batches, "instances": n_inst,
+                       "fps": len(lfs) / elapsed, "frames": len(lfs)}
+
+    # The top-down stage 2, fed the same centroids.
+    gt_pred = Predictor.from_model_paths([ci_dir], **kw)
+    td_pred = Predictor.from_model_paths([root / "centroid", ci_dir], **kw)
+    gt_layer, td = gt_pred.layer, td_pred.layer
+    batch = next(iter(LabelsProvider(load_slp(path), batch_size=GT_BATCH, with_centroids=True,
+                                      max_instances=MAX_INST)._gen()))
+    dev = {k: torch.from_numpy(getattr(batch, k)).to(DEVICE) for k in (
+        "frames", "gt_centroids", "gt_centroid_valid", "gt_centroid_vals")}
+    got = gt_layer.finalize(gt_layer.predict_async(
+        dev["frames"], dev["gt_centroids"], dev["gt_centroid_valid"], dev["gt_centroid_vals"]))
+    with torch.inference_mode():
+        inst = td.instance_layer
+        x2, eff2 = preprocess_images(inst.pre, dev["frames"])
+        s = inst.pre.scale * eff2
+        peaks, vals, _ = td._stage2(x2, torch.nan_to_num(dev["gt_centroids"] * s, nan=-1e6),
+                                    dev["gt_centroid_valid"])
+        want_kp, want_vals = (peaks / s).float().cpu().numpy(), vals.float().cpu().numpy()
+    if td.crop_size != gt_layer.crop_size or not (
+            np.array_equal(got["pred_keypoints"], want_kp, equal_nan=True)
+            and np.array_equal(got["pred_peak_values"], want_vals)):
+        raise AssertionError("phase 25: the top-down stage 2 on the same centroids differs")
+
+    # The command line, against run.predict with the kwargs it passed.
+    recorded, real_predict = [], prun.predict
+
+    def recording_predict(*args, **kwargs):
+        recorded.append((args, dict(kwargs)))
+        return real_predict(*args, **kwargs)
+
+    common = ["predict", "-i", path, "-m", ci_dir, "--device", DEVICE, "-b", GT_BATCH,
+              "--max-instances", MAX_INST, "--peak-threshold", DIR_PEAK_THRESHOLD]
+    if DEVICE == "cuda":
+        common.append("--use-bf16")
+    for name, extra in (("cli_gt_anchor", ["--anchor_part", "n0"]),
+                        ("cli_gt_only_labeled", ["--only_labeled_frames"])):
+        out_path = tmp / f"{name}.slp"
+        recorded.clear()
+        prun.predict = recording_predict
+        try:
+            with recording_kernel_calls(seen, calls), \
+                    contextlib.redirect_stdout(sys.stderr):
+                code, launches = run_counted(kernels, lambda: cli.main(
+                    [str(a) for a in common + extra + ["-o", out_path]]))
+        finally:
+            prun.predict = real_predict
+        (args, kwargs), = recorded
+        if code != 0 or kwargs.get("anchor_part", None) != ("n0" if "anchor" in name else None) \
+                or bool(kwargs.get("only_labeled_frames")) != ("only" in name):
+            raise AssertionError(f"phase 25 {name}: exit {code}, kwargs {kwargs}")
+        ref = tmp / f"{name}.ref.slp"
+        real_predict(*args, **{**kwargs, "output_path": ref})
+        if not stored_labels_equal(load_slp(out_path), load_slp(ref)):
+            raise AssertionError(f"phase 25 {name}: the .slp differs from run.predict's")
+        n_batches = stats["gt_only_labeled" if "only" in name else "gt_anchor"]["n_batches"]
+        expect_launches(name, launches, phase=25, fused_double_conv3x3=9 * n_batches)
+        stats[name] = {"launches": launches, "n_batches": n_batches}
+
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("gt_kernel " + json.dumps(r))
+    bad = [r for r in held if not r["ok"]]
+    if bad or (DEVICE != "cpu" and {r["kernel"] for r in held} != {"fused_double_conv3x3"}):
+        raise AssertionError(f"phase 25: {len(held)} kernel calls held, {len(bad)} disagree "
+                             f"with their plain versions: {bad}")
+
+    # The narrow centered-instance dir alone, the card against the CPU.
+    runs = [prun.predict(narrow_labels, [narrow_dirs["centered_instance"]], batch_size=4,
+                         make_labels=False, device=device, peak_threshold=0.2)
+            for device in (DEVICE, "cpu")]
+    narrow = compare_outputs(*runs)
+    if narrow["instances"] < len(narrow_labels):
+        raise AssertionError(f"phase 25 narrow: too few instances {narrow}")
+    log("gt_predict " + json.dumps({
+        "crops": [GT_BATCH * MAX_INST, gt_layer.crop_size, gt_layer.crop_size, 1],
+        "held": len(held), "narrow_card_vs_cpu": narrow,
+        "phase_s": time.perf_counter() - t_phase, "device": smi,
+        **{k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in stats.items()}}))
+    return stats, held
+
+
+class CacheWatch:
+    """A training callback that counts the disk cache's ``.npy`` files at
+    each step."""
+
+    def __init__(self, dirs):
+        from sleap_nn_tpu_torch.training.callbacks import Callback
+
+        self.dirs, self.counts = dirs, []
+        for hook in ("on_train_start", "on_train_end", "on_epoch_start", "on_epoch_end",
+                     "on_batch_end"):
+            setattr(self, hook, getattr(Callback(), hook))
+
+    def on_batch_start(self, trainer, batch_idx):
+        self.counts.append(sum(len(list(Path(d).glob("sample_*.npy"))) for d in self.dirs))
+
+
+def tiled_config(filters, max_stride, img, tile, spf, model_type, augment, **trainer):
+    """``training_config`` with tiled training: tiles of ``tile``, ``spf`` a
+    frame (and a ``full_frame_pass`` slot), overlap a quarter tile."""
+    cfg = training_config(filters, max_stride, img, TRAIN_BATCH, augment=augment,
+                          model_type=model_type, **trainer)
+    t = cfg.data_config.preprocessing.tiling
+    t.enabled, t.tile_size, t.overlap, t.samples_per_frame = True, tile, tile // 4, spf
+    return cfg
+
+
+def run_tiled_training(kernels, smi):
+    """Phase 26: bottom-up training at medium_rf width on
+    ``TILED_TRAIN_FRAMES`` frames of ``TILED_IMG`` squared with 1-6 instances
+    of 15 nodes, on tiles of ``TILE``: ``TILED_SPF`` tiles a frame plus the
+    ``full_frame_pass`` slot, rotation on (the halo path: tiles cut
+    ``ceil(TILE * sqrt(2))`` wide, cropped back after the rotation), batch
+    4, 2 epochs of ``tiling.steps_per_epoch`` = ``TILED_STEPS``. Kernel 4
+    renders every train step, val batch and the setup probe, each call at a
+    new signature held against its plain version. Then a narrow tiled
+    centroid training through the disk cache
+    (``torch_dataset_cache_img_disk``), 3 steps on the card against the CPU;
+    its ``.npy`` files are there during training and gone after it."""
+    import torch
+
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    t_phase = time.perf_counter()
+    labels = training_labels(TILED_TRAIN_FRAMES, TILED_IMG, N_NODES, MAX_INST, seed=26)
+    n_train = TILED_TRAIN_FRAMES - TILED_TRAIN_VAL
+    cfg = tiled_config(24, 32, TILED_IMG, TILE, TILED_SPF, "bottomup", True, max_epochs=2)
+    cfg.data_config.preprocessing.tiling.full_frame_pass = True
+    cfg.data_config.preprocessing.tiling.steps_per_epoch = TILED_STEPS
+    trainer = ModelTrainer.get_model_trainer_from_config(
+        cfg, [labels.extract(range(n_train))],
+        [labels.extract(range(n_train, TILED_TRAIN_FRAMES))], device=DEVICE)
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    seen, calls = set(), []
+    with recording_kernel_calls(seen, calls, TRAIN_WRAPPERS):
+        def train():
+            trainer.setup()
+            return trainer.train()
+
+        history, launches = run_counted(kernels, train)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
+    ds = trainer.train_ds
+    n_val = len(trainer.val_loader)
+    renders = 2 * (TILED_STEPS + n_val) + 1
+    expect_launches("tiled training", launches, phase=26, multi_confmaps=renders)
+    if not (ds.use_halo and ds.halo_size == int(np.ceil(TILE * np.sqrt(2)))
+            and ds.samples_per_frame == TILED_SPF + 1 and ds.epoch == 1
+            and trainer._input_shape == (1, TILE, TILE, 1) and len(history) == 2
+            and np.isfinite([h["train/loss"] for h in history]).all()):
+        raise AssertionError(f"phase 26: tiled training {history} (halo {ds.halo_size}, "
+                             f"epoch {ds.epoch}, input {trainer._input_shape})")
+    halo_batch = ds.make_batch([0, 1, 2, 3])
+    rendered = trainer.render(halo_batch, train=True)
+    if halo_batch["image"].shape[1] != ds.halo_size or rendered["image"].shape[1:3] != (TILE, TILE):
+        raise AssertionError(f"phase 26: the halo render {halo_batch['image'].shape} -> "
+                             f"{tuple(rendered['image'].shape)}")
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("tiled_train_kernel " + json.dumps(r))
+    if any(not r["ok"] for r in held) or (DEVICE != "cpu" and not held):
+        raise AssertionError(f"phase 26: kernel 4 calls held {held}")
+
+    # A narrow tiled centroid training through the disk cache, card vs CPU.
+    nl = blob_labels(10, 256, 5, 3, seed=26)
+
+    def narrow_cfg():
+        c = tiled_config(8, 16, 256, 128, 2, "centroid", False, max_epochs=1,
+                         train_steps_per_epoch=3)
+        c.data_config.data_pipeline_fw = "torch_dataset_cache_img_disk"
+        return c
+
+    split = ([nl.extract(range(8))], [nl.extract(range(8, 10))])
+    card = ModelTrainer.get_model_trainer_from_config(narrow_cfg(), *split, device=DEVICE)
+    cpu = ModelTrainer.get_model_trainer_from_config(narrow_cfg(), *split, device="cpu")
+    card.setup()
+    cpu.setup()
+    card.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    cache_dirs = [card.train_ds.inner.cache_dir, card.val_ds.inner.cache_dir]
+    batch = next(iter(cpu.train_loader))
+    report = {}
+    for step in range(3):
+        loss_card, loss_cpu = card.train_step(batch)[0].item(), cpu.train_step(batch)[0].item()
+        if step == 0:
+            report["loss_rel_err"] = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    report["param_max_abs_err"] = max(
+        (a.cpu() - b).abs().max().item()
+        for a, b in zip(card.model.state_dict().values(), cpu.model.state_dict().values()))
+    if report["loss_rel_err"] > 1e-5 or report["param_max_abs_err"] > 1e-5:
+        raise AssertionError(f"phase 26 narrow cached: card vs CPU {report}")
+    watch = CacheWatch(cache_dirs)
+    card.callbacks.append(watch)
+    card.train()
+    report["npy_files_during_training"] = watch.counts
+    report["cache_dirs_after"] = [Path(d).exists() for d in cache_dirs]
+    if not watch.counts or min(watch.counts) != len(card.train_ds.inner) + len(
+            card.val_ds.inner) or any(report["cache_dirs_after"]):
+        raise AssertionError(f"phase 26 narrow cached: {report}")
+    cpu.delete_cache()
+    stats = {"train_tiled_bottomup": {
+        "launches": launches, "n_batches": {"multi_confmaps": renders},
+        "steps_per_sec": history[-1]["train/steps_per_sec"],
+        "samples_per_sec": history[-1]["train/samples_per_sec"],
+        "steps_per_sec_by_epoch": [h["train/steps_per_sec"] for h in history],
+        "peak_mem_gib": peak_gib, "train_samples": len(ds), "val_batches": n_val,
+        "halo": ds.halo_size, "history": history}}
+    log("tiled_training " + json.dumps({
+        **{k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in stats.items()},
+        "held": len(held), "narrow_cached_card_vs_cpu": report,
+        "phase_s": time.perf_counter() - t_phase, "device": smi}))
+    return stats, held
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
@@ -3557,7 +4173,8 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
     and ``n_batches``, one count or a count per kernel that launched), and
     the checks at the shapes of other paths (``held``: name -> the rows of
     ``check_recorded_calls``; phase 20's ``video_path``, phase 22's
-    ``file_train``)."""
+    ``file_train``, phase 23's ``cli``, phases 24-26's ``tiled``, ``gt`` and
+    ``tiled_train``)."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
     nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
@@ -3849,6 +4466,26 @@ def main() -> int:
     cli_runs, cli_held, slp_io = run_cli(_build.KERNELS, root, smi)
     phase23_s = time.perf_counter() - t_phase
     log(f"phase 23: {phase23_s:.1f} s")
+
+    # 24. Tiled predict: a centroid model in local mode and a single-instance
+    # model in global mode on 2048x2048 frames, tiles of 512.
+    t_phase = time.perf_counter()
+    tiled_runs, tiled_held = run_tiled_predict(_build.KERNELS, smi)
+    phase24_s = time.perf_counter() - t_phase
+    log(f"phase 24: {phase24_s:.1f} s")
+
+    # 25. Predict from ground-truth centroids: phase 11's centered-instance
+    # dir alone on a .slp, through run.predict and the command line.
+    t_phase = time.perf_counter()
+    gt_runs, gt_held = run_gt_predict(_build.KERNELS, root, narrow_labels, narrow_dirs, smi)
+    phase25_s = time.perf_counter() - t_phase
+    log(f"phase 25: {phase25_s:.1f} s")
+
+    # 26. Tiled training (bottom-up, the halo, full_frame_pass) and the disk cache.
+    t_phase = time.perf_counter()
+    tiled_train_runs, tiled_train_held = run_tiled_training(_build.KERNELS, smi)
+    phase26_s = time.perf_counter() - t_phase
+    log(f"phase 26: {phase26_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -3861,10 +4498,12 @@ def main() -> int:
             "tracked_topdown": tracked_td, "tracked_bottomup": tracked_bu,
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
-            **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs}
+            **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
+            **tiled_runs, **gt_runs, **tiled_train_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
-                                    "cli": cli_held})
+                                    "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
+                                    "tiled_train": tiled_train_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -3889,7 +4528,13 @@ def main() -> int:
         f"{native_grouping['native_ms_median']:.3f} ms, scipy "
         f"{native_grouping['scipy_ms_median_same_call']:.3f} ms in this call (scipy before the "
         f"port: {SCIPY_GROUPING_MS[0]} ms); phase 22 {phase22_s:.1f} s; "
-        f"phase 23 {phase23_s:.1f} s; total script {time.perf_counter() - t_start:.1f} s")
+        f"phase 23 {phase23_s:.1f} s; tiled predict (2048x2048, tiles of {TILE}) "
+        f"{tiled_runs['tiled_predict_local']['fps']:.2f} frames/s local, "
+        f"{tiled_runs['tiled_predict_global']['fps']:.2f} global; ground-truth centroids "
+        f"{gt_runs['gt_default']['fps']:.2f} frames/s; tiled bottom-up training "
+        f"{tiled_train_runs['train_tiled_bottomup']['steps_per_sec']:.2f} steps/s; phase 24 "
+        f"{phase24_s:.1f} s; phase 25 {phase25_s:.1f} s; phase 26 {phase26_s:.1f} s; "
+        f"total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

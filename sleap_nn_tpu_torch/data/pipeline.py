@@ -13,14 +13,18 @@ fields, class maps and class vectors.
 Frame-level datasets take negative frames (labeled frames without an
 instance: all-NaN keypoints, so empty targets, and ``sample_weight`` =
 ``negative_loss_weight``) and, for centroid models, user-annotated
-centroids. Not ported yet: the render and datasets of the segmentation
-and tiled model types (they raise ``NotImplementedError``) and the disk
-cache.
+centroids. Decoded frames stay in memory, or with ``cache_mode="disk"``
+go to ``.npy`` files read back per sample. ``TiledDataset`` wraps a
+frame-level dataset and draws fixed-size tiles of each frame per epoch
+(with a halo that the train render crops away after a geometric
+augmentation). Not ported yet: the render and datasets of the
+segmentation model types (they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +44,13 @@ from sleap_nn_tpu_torch.data.instance_cropping import (
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.providers import get_max_instances, process_lf
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_resizer, apply_sizematcher
+from sleap_nn_tpu_torch.data.tiling import (
+    draw_tile_origin,
+    extract_tile,
+    frame_foreground_centers,
+    generate_tile_grid,
+    tile_sample_seed,
+)
 from sleap_nn_tpu_torch.io.model import Labels, is_negative_frame
 from sleap_nn_tpu_torch.ops.confmaps import generate_confmaps, generate_multiconfmaps
 from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
@@ -90,6 +101,11 @@ class PipelineContext:
     intensity: Optional[dict] = None
     geometric: Optional[dict] = None
     symmetric_inds: Tuple[Tuple[int, int], ...] = ()
+    # Tiled training with geometric augmentation: train tiles come with a
+    # halo (side ceil(tile * sqrt(2))), and after the augmentation the train
+    # render centre-crops them back to this tile size, so that a rotation
+    # never pulls zero padding into the tile.
+    halo_crop_to: Optional[int] = None
 
 
 def _aug_kwargs(cfg) -> dict:
@@ -107,8 +123,9 @@ def preprocess_batch(
     generator: Optional[torch.Generator],
     train: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, float]:
-    """normalize -> channels -> sizematch -> scale -> augment (not yet padded
-    to stride). Returns ``(image, instances, eff_scale)``."""
+    """normalize -> channels -> sizematch -> scale -> augment -> the halo's
+    centre crop (not yet padded to stride). Returns ``(image, instances,
+    eff_scale)``."""
     image = normalize_image(image)
     image = apply_channel_config(image, ctx.ensure_rgb, ctx.ensure_grayscale)
     image, eff_scale = apply_sizematcher(image, ctx.max_height, ctx.max_width)
@@ -122,6 +139,14 @@ def preprocess_batch(
             image, instances = apply_geometric_augmentation(
                 generator, image, instances, symmetric_inds=ctx.symmetric_inds or None,
                 **ctx.geometric)
+    if train and ctx.halo_crop_to is not None:
+        target = int(round(ctx.halo_crop_to * ctx.scale))
+        h, w = image.shape[-3], image.shape[-2]
+        if h > target or w > target:
+            off_h, off_w = (h - target) // 2, (w - target) // 2
+            image = image[..., off_h:off_h + target, off_w:off_w + target, :]
+            instances = instances - torch.tensor([off_w, off_h], dtype=instances.dtype,
+                                                 device=instances.device)
     return image, instances, eff_scale
 
 
@@ -221,8 +246,12 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
 class BaseDataset:
     """Host-side dataset: index + decode + pad; one item is one frame sample.
 
-    Decoded frames are held in memory (the JAX package's ``cache_mode``
-    "memory"; its disk cache is not ported). ``use_negative_frames`` adds
+    Decoded frames are held in memory (``cache_mode="memory"``), or with
+    ``cache_mode="disk"`` saved as ``sample_{i}.npy`` under ``cache_dir``
+    (a new temporary directory where None) and loaded back by
+    ``get_sample``; ``use_existing_imgs`` keeps a file that is already
+    there, and ``cache_workers`` above 1 writes them from a thread pool.
+    ``use_negative_frames`` adds
     each labeled frame without an instance as a negative: all-NaN
     keypoints (empty targets) and ``sample_weight`` =
     ``negative_loss_weight``. ``centroid_from_user`` (centroid models)
@@ -236,15 +265,21 @@ class BaseDataset:
 
     def __init__(self, labels_list: Sequence[Labels], ctx: PipelineContext,
                  user_instances_only: bool = True, use_negative_frames: bool = False,
-                 negative_loss_weight: float = 1.0, centroid_from_user: bool = False):
+                 negative_loss_weight: float = 1.0, centroid_from_user: bool = False,
+                 cache_mode: str = "memory", cache_dir=None, use_existing_imgs: bool = False,
+                 cache_workers: int = 0):
         self.labels_list = list(labels_list)
         self.ctx = ctx
         self.user_instances_only = user_instances_only
         self.use_negative_frames = use_negative_frames
         self.negative_loss_weight = negative_loss_weight
         self.centroid_from_user = centroid_from_user
+        self.cache_mode = cache_mode
+        self.cache_dir = cache_dir
         self.samples: List[Dict[str, Any]] = []
         self._build_index()
+        if cache_mode == "disk":
+            self._spill_to_disk(use_existing=use_existing_imgs, workers=cache_workers)
 
     def _build_index(self):
         for labels in self.labels_list:
@@ -302,6 +337,33 @@ class BaseDataset:
             "sample_weight": float(weight),
         }
 
+    def _spill_to_disk(self, use_existing: bool = False, workers: int = 0):
+        """Move each sample's decoded frame to ``sample_{i}.npy``; the
+        sample keeps its path."""
+        import tempfile
+        from pathlib import Path
+
+        cache_dir = Path(self.cache_dir or tempfile.mkdtemp(prefix="sleap_torch_cache_"))
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        self.cache_dir = cache_dir
+
+        def spill_one(i_s):
+            i, s = i_s
+            path = cache_dir / f"sample_{i}.npy"
+            if not (use_existing and path.exists()):
+                np.save(path, s["image"])
+            s["image_path"] = str(path)
+            del s["image"]
+
+        if workers and workers > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                list(pool.map(spill_one, enumerate(self.samples)))
+        else:
+            for item in enumerate(self.samples):
+                spill_one(item)
+
     def _append_samples(self, sample: Dict[str, Any]):
         self.samples.append(sample)
 
@@ -309,7 +371,10 @@ class BaseDataset:
         return len(self.samples)
 
     def get_sample(self, idx: int) -> Dict[str, Any]:
-        return self.samples[idx]
+        s = self.samples[idx]
+        if "image" not in s and "image_path" in s:
+            s = dict(s, image=np.load(s["image_path"]))
+        return s
 
     def make_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         samples = [self.get_sample(i) for i in indices]
@@ -356,6 +421,121 @@ class CenteredInstanceDataset(BaseDataset):
 class TopDownCenteredInstanceMultiClassDataset(CenteredInstanceDataset):
     """Centered-instance samples; the render adds class vectors from the
     instances' track ids."""
+
+
+class TiledDataset:
+    """Epoch-seeded tile sampler over a frame-level dataset.
+
+    Each epoch draws ``samples_per_frame`` fixed-size tiles of each frame
+    (the grid count of the first frame where unset), deterministic per
+    ``(frame, tile, epoch)`` through ``tile_sample_seed``: with
+    ``sampling="foreground"`` origins biased to the instances' centres with
+    jitter, with ``"grid"`` the tiles of the full-coverage grid (output
+    stride 1). Instances move into tile coordinates; the visible ones come
+    first, with ``track_ids`` kept aligned. ``use_halo``: tiles are cut
+    ``ceil(tile * sqrt(2))`` wide around the same centre, for the train
+    render to crop back after a rotation. ``full_frame_pass`` adds one slot
+    per frame holding the whole frame resized (cv2 ``INTER_AREA``) onto a
+    tile (or halo) canvas. ``Loader.set_epoch`` re-draws the tiles.
+    """
+
+    def __init__(self, inner: BaseDataset, tiling, base_seed: int = 0, use_halo: bool = False):
+        if not tiling.tile_size:
+            raise ValueError("tiling.enabled requires tiling.tile_size.")
+        self.inner = inner
+        self.cfg = tiling
+        self.base_seed = base_seed
+        self.epoch = 0
+        self.use_halo = bool(use_halo)
+        self.halo_size = int(math.ceil(tiling.tile_size * math.sqrt(2.0)))
+        self.sampling = getattr(tiling, "sampling", "foreground") or "foreground"
+        self._grid = generate_tile_grid(
+            inner.get_sample(0)["image"].shape[:2], tiling.tile_size,
+            overlap=tiling.overlap or 0, output_stride=1,
+            min_overlap_fraction=tiling.min_overlap_fraction)
+        if self.sampling != "grid" and tiling.samples_per_frame:
+            self.samples_per_frame = int(tiling.samples_per_frame)
+        else:
+            self.samples_per_frame = max(1, len(self._grid))
+        self.full_frame_pass = bool(getattr(tiling, "full_frame_pass", False))
+        if self.full_frame_pass:
+            self.samples_per_frame += 1
+
+    def set_epoch(self, epoch: int):
+        self.epoch = int(epoch)
+
+    def __len__(self) -> int:
+        return len(self.inner) * self.samples_per_frame
+
+    @property
+    def ctx(self):
+        return self.inner.ctx
+
+    @property
+    def samples(self):
+        return self.inner.samples
+
+    @staticmethod
+    def _with_tile(s: Dict[str, Any], image: np.ndarray, pts: np.ndarray, side: int):
+        """``s`` on a tile: its instances with the visible ones first."""
+        vis = ~np.isnan(pts[..., 0]).all(axis=-1)
+        order = np.concatenate([np.nonzero(vis)[0], np.nonzero(~vis)[0]])
+        out = dict(s, image=image, instances=pts[order],
+                   orig_size=np.array([side, side], np.float32), num_instances=int(vis.sum()))
+        if "track_ids" in s:
+            out["track_ids"] = np.asarray(s["track_ids"])[order]
+        return out
+
+    def get_sample(self, idx: int) -> Dict[str, Any]:
+        frame_i, k = divmod(int(idx), self.samples_per_frame)
+        s = self.inner.get_sample(frame_i)
+        if self.full_frame_pass and k == self.samples_per_frame - 1:
+            return self._full_frame_sample(s)
+        cfg = self.cfg
+        rng = np.random.default_rng(tile_sample_seed(
+            self.base_seed, f"{s['video_idx']}:{s['frame_idx']}", k, self.epoch))
+        if self.sampling == "grid":
+            origin = tuple(self._grid[k % max(1, len(self._grid))])
+        else:
+            origin = draw_tile_origin(
+                frame_foreground_centers(s["instances"]), s["image"].shape[:2], cfg.tile_size,
+                sample_k=k, samples_per_frame=self.samples_per_frame,
+                tile_fg_fraction=cfg.tile_fg_fraction, center_jitter=cfg.center_jitter,
+                rng=rng)
+        side = cfg.tile_size
+        if self.use_halo:
+            # The halo centred on the tile's centre.
+            margin = (self.halo_size - cfg.tile_size) // 2
+            origin, side = (origin[0] - margin, origin[1] - margin), self.halo_size
+        tile, pts = extract_tile(s["image"], s["instances"], origin, side,
+                                 min_visible_keypoints=cfg.min_visible_keypoints)
+        return self._with_tile(s, tile, pts, cfg.tile_size)
+
+    def _full_frame_sample(self, s: Dict[str, Any]) -> Dict[str, Any]:
+        """The frame resized to fit a tile, centred on a tile (or halo)
+        canvas: the ``full_frame_pass`` slot."""
+        import cv2
+
+        ts = int(self.cfg.tile_size)
+        img = s["image"]
+        h, w = img.shape[:2]
+        scale = min(ts / h, ts / w)
+        nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
+        resized = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)
+        if resized.ndim == 2:
+            resized = resized[..., None]
+        canvas_size = self.halo_size if self.use_halo else ts
+        off = ((canvas_size - nh) // 2, (canvas_size - nw) // 2)
+        canvas = np.zeros((canvas_size, canvas_size, img.shape[2]), img.dtype)
+        canvas[off[0]:off[0] + nh, off[1]:off[1] + nw] = resized
+        pts = np.asarray(s["instances"], np.float32).copy()
+        pts *= scale
+        pts[..., 0] += off[1]
+        pts[..., 1] += off[0]
+        return self._with_tile(s, canvas, pts, ts)
+
+    def make_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        return BaseDataset.make_batch(self, indices)
 
 
 _DATASET_BY_TYPE = {
@@ -470,7 +650,10 @@ class Loader:
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
+        """The epoch of the shuffle, and of a tiled dataset's draws."""
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size

@@ -4,10 +4,13 @@ Port of the single-instance, top-down, bottom-up and identity part of
 ``sleap_nn_tpu/inference/layers.py``: ``PreprocessConfig``,
 ``PostprocessConfig``, ``preprocess_images``, ``SingleInstanceLayer``,
 ``CentroidLayer``, ``CenteredInstanceLayer``, ``TopDownLayer``,
-``BottomUpLayer``, ``BottomUpMultiClassLayer`` and
-``TopDownMultiClassLayer``, with the same output keys, shapes and
-coordinate bookkeeping (eff_scale / scale / crop offsets lift coordinates
-back to the original image).
+``BottomUpLayer``, ``BottomUpMultiClassLayer``, ``TopDownMultiClassLayer``,
+``TiledLayer`` (sliding-window inference over frames too large for one
+pass, blended by ``inference/tile_merger.py``) and
+``GTCentroidTopDownLayer`` (a lone centered-instance model on
+ground-truth centroids), with the same output keys, shapes and coordinate
+bookkeeping (eff_scale / scale / crop offsets lift coordinates back to the
+original image).
 
 PyTorch runs eagerly, so the JAX package's ``jit_layer`` has no
 counterpart. ``predict_async`` enqueues a batch's device work and returns
@@ -28,6 +31,7 @@ import torch
 
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_sizematcher, resize_image
+from sleap_nn_tpu_torch.data.tiling import generate_tile_grid
 from sleap_nn_tpu_torch.inference.backends import resolve_device
 from sleap_nn_tpu_torch.inference.identity import (
     get_class_inds_from_vectors,
@@ -35,6 +39,11 @@ from sleap_nn_tpu_torch.inference.identity import (
 )
 from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
 from sleap_nn_tpu_torch.inference.streaming import group_batch_host
+from sleap_nn_tpu_torch.inference.tile_merger import (
+    build_importance_window,
+    merge_counts,
+    merge_tiles,
+)
 from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
 from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
 
@@ -460,4 +469,182 @@ class BottomUpMultiClassLayer(InferenceLayer):
             "pred_keypoints": grouped_pts * lift,
             "pred_peak_values": grouped_vals,
             "pred_class_probs": class_probs,
+        }
+
+
+class TiledLayer(InferenceLayer):
+    """Sliding-window inference over large frames with blended stitching.
+
+    Each frame is cut into the tiles of ``generate_tile_grid`` (snapped to
+    ``pre.max_stride``), zero-padded past its edges as ``extract_tile``
+    pads them; the tiles are only normalized and channel-converted (no
+    sizematcher, scale or pad to stride) and go through the model
+    ``tile_batch_size`` at a time, a short last chunk padded with copies of
+    its last tile so the model sees one shape. Each frame's tile maps are
+    merged onto a canvas of its own at the head's output stride, ``(H //
+    os, W // os)``, weighted by the importance window. ``mode="local"``
+    finds local peaks on the canvases (``pred_peaks``, ``peak_vals``,
+    ``peak_channels``, ``peak_valid``), ``mode="global"`` one peak per
+    channel (``pred_keypoints`` ``(B, 1, N, 2)``, ``pred_peak_values``),
+    in frame coordinates. Built directly (``Predictor(layer,
+    "single_instance", ...)`` drives a global-mode layer), as in the JAX
+    package.
+    """
+
+    # The JAX predictor hands such a layer whole host batches, never a
+    # trimmed tail; the port's predictor never trims one.
+    consumes_host_frames = True
+
+    def __init__(
+        self,
+        backend,
+        pre,
+        post,
+        head_name: str,
+        output_stride: int,
+        tile_size: int,
+        overlap: Optional[int] = None,
+        blend: str = "gaussian",
+        sigma_scale: float = 0.125,
+        min_overlap_fraction: float = 0.25,
+        tile_batch_size: int = 16,
+        mode: str = "local",  # "local" (multi peak) or "global" (single instance)
+        device="cuda",
+    ):
+        super().__init__(backend, pre, post, device)
+        self.head_name = head_name
+        self.output_stride = output_stride
+        self.tile_size = tile_size
+        self.overlap = overlap if overlap is not None else tile_size // 4
+        self.blend = blend
+        self.sigma_scale = sigma_scale
+        self.min_overlap_fraction = min_overlap_fraction
+        self.tile_batch_size = tile_batch_size
+        self.mode = mode
+        ts = tile_size // output_stride
+        self._window = build_importance_window((ts, ts), blend, sigma_scale, device=self.device)
+
+    def _tile_fn(self, tiles: torch.Tensor) -> torch.Tensor:
+        x = normalize_image(tiles)
+        x = apply_channel_config(x, self.pre.ensure_rgb, self.pre.ensure_grayscale)
+        return self.backend(x)[self.head_name]
+
+    def tile_grid(self, hw):
+        """The ``(y0, x0)`` tile origins of a frame of size ``hw``."""
+        return generate_tile_grid(
+            hw, self.tile_size, self.overlap, self.output_stride,
+            max_stride=self.pre.max_stride, min_overlap_fraction=self.min_overlap_fraction)
+
+    def padded_frames(self, images: torch.Tensor, origins) -> torch.Tensor:
+        """``images`` with zeros past their bottom and right edges, so that
+        every tile of ``origins`` lies inside."""
+        h, w = images.shape[1:3]
+        ts = self.tile_size
+        pad_h = max(0, max(y for y, _ in origins) + ts - h)
+        pad_w = max(0, max(x for _, x in origins) + ts - w)
+        if pad_h or pad_w:
+            images = torch.nn.functional.pad(images, (0, 0, 0, pad_w, 0, pad_h))
+        return images
+
+    def frame_tiles(self, frame: torch.Tensor, origins) -> torch.Tensor:
+        """One padded ``(H, W, C)`` frame -> its ``(n_tiles, tile, tile, C)`` tiles."""
+        ts = self.tile_size
+        return torch.stack([frame[y:y + ts, x:x + ts] for y, x in origins])
+
+    def tile_maps(self, tiles: torch.Tensor) -> torch.Tensor:
+        """The head's maps of ``tiles``, ``tile_batch_size`` at a time."""
+        tbs, maps = self.tile_batch_size, []
+        for start in range(0, len(tiles), tbs):
+            chunk = tiles[start:start + tbs]
+            pad = tbs - chunk.shape[0]
+            if pad:
+                chunk = torch.cat([chunk, chunk[-1:].expand(pad, *chunk.shape[1:])])
+            out = self._tile_fn(chunk)
+            maps.append(out[:out.shape[0] - pad] if pad else out)
+        return torch.cat(maps)
+
+    def merged_maps(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 ``(B, H, W, C)`` frames -> the merged maps ``(B, H // os,
+        W // os, C_out)``."""
+        b, h, w, _ = images.shape
+        os_ = self.output_stride
+        origins = self.tile_grid((h, w))
+        origins_os = [(y // os_, x // os_) for y, x in origins]
+        canvas_hw = (h // os_, w // os_)
+        images = self.padded_frames(images, origins)
+        counts, canvases = None, []
+        for i in range(b):
+            tile_maps = self.tile_maps(self.frame_tiles(images[i], origins))
+            if counts is None:
+                counts = merge_counts(origins_os, canvas_hw, self._window, tile_maps.dtype)
+            canvases.append(merge_tiles(tile_maps, origins_os, canvas_hw, self._window, counts))
+        return torch.stack(canvases)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        post, os_ = self.post, self.output_stride
+        cms = self.merged_maps(images)
+        if self.mode == "global":
+            points, vals = find_global_peaks(
+                cms, threshold=post.peak_threshold, refinement=post.refinement,
+                integral_patch_size=post.integral_patch_size)
+            return {"pred_keypoints": (points * os_)[:, None],
+                    "pred_peak_values": vals[:, None]}
+        points, vals, channels, valid = find_local_peaks(
+            cms, threshold=post.peak_threshold, refinement=post.refinement,
+            integral_patch_size=post.integral_patch_size, max_peaks=post.max_peaks)
+        return {"pred_peaks": points * os_, "peak_vals": vals, "peak_channels": channels,
+                "peak_valid": valid}
+
+
+class GTCentroidTopDownLayer(TopDownLayer):
+    """Centered-instance-only inference on ground-truth centroids.
+
+    No centroid model: the centroids of a labels source's instances
+    (``LabelsProvider(with_centroids=True)``: the anchor node, else the
+    mean of the visible points, in original image coordinates) place the
+    crops, and only the stage-2 model runs, through ``TopDownLayer``'s
+    stage 2. ``centroid_vals`` and ``pred_instance_scores`` are the source
+    instances' scores (1.0 for a user instance; ones where none are given),
+    NaN on invalid slots; invalid slots give NaN points and zero values.
+    """
+
+    needs_gt_centroids = True
+
+    def __init__(self, instance_layer: CenteredInstanceLayer, max_instances: int = 20,
+                 crop_size: int = 160, device="cuda"):
+        self.device = resolve_device(device)
+        if instance_layer.device != self.device:
+            raise ValueError(f"stage layer runs on {instance_layer.device}, layer on "
+                             f"{self.device}")
+        self.instance_layer = instance_layer
+        self.max_instances = max_instances
+        self.crop_size = crop_size
+        self.anchor_ind: Optional[int] = None  # set by from_model_paths(anchor_part=...)
+
+    def predict_async(self, images, centroids=None, valid=None, centroid_vals=None):
+        with torch.inference_mode():
+            valid = self._as_tensor(valid).bool()
+            if centroid_vals is None:
+                centroid_vals = torch.ones(valid.shape, dtype=torch.float32, device=self.device)
+            return self.forward(self._as_tensor(images), self._as_tensor(centroids), valid,
+                                self._as_tensor(centroid_vals))
+
+    def forward(self, images: torch.Tensor, centroids: torch.Tensor = None,
+                valid: torch.Tensor = None, centroid_vals: torch.Tensor = None):
+        """``centroids``: ``(B, K, 2)`` in original image coordinates (NaN
+        pads); ``valid`` ``(B, K)``; ``centroid_vals`` ``(B, K)``."""
+        inst = self.instance_layer
+        x2, eff2 = preprocess_images(inst.pre, images)
+        s = inst.pre.scale * eff2
+        cent2 = torch.nan_to_num(centroids * s, nan=-1e6)
+        peaks, vals, _ = self._stage2(x2, cent2, valid)
+        cvals = torch.where(valid, centroid_vals.float(),
+                            torch.full_like(centroid_vals, float("nan"), dtype=torch.float32))
+        return {
+            "pred_keypoints": peaks / s,
+            "pred_peak_values": vals,
+            "pred_centroids": centroids,
+            "centroid_vals": cvals,
+            "pred_instance_scores": cvals,
+            "instance_valid": valid,
         }

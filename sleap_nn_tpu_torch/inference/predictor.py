@@ -1,7 +1,8 @@
 """Predictor: providers -> layer -> per-batch numpy outputs -> Labels.
 
 Port of ``sleap_nn_tpu/inference/predictor.py`` for the single-instance,
-centroid-only, top-down (centroid + centered-instance), bottom-up and
+centroid-only, top-down (centroid + centered-instance), centered-instance
+alone (on the ground-truth centroids of a labels source), bottom-up and
 identity (multi-class bottom-up; centroid + multi-class top-down) models:
 ``from_model_paths`` builds the layer from trained model directories
 (optionally with another dir's backbone or head weights swapped in),
@@ -49,6 +50,7 @@ from sleap_nn_tpu_torch.inference.layers import (
     BottomUpMultiClassLayer,
     CenteredInstanceLayer,
     CentroidLayer,
+    GTCentroidTopDownLayer,
     PostprocessConfig,
     PreprocessConfig,
     SingleInstanceLayer,
@@ -81,8 +83,6 @@ UNPORTED_KNOBS = {
                              "(ROADMAP.md section 1, item 13)"),
     "packed_level0": (None, "packed_level0 selects the JAX package's space-to-depth TPU "
                             "layout (ops/packed_conv.py), which the port has no copy of"),
-    "anchor_part": (None, "ground-truth centroids (a lone centered-instance model) are not "
-                          "ported (ROADMAP.md section 1, item 10)"),
     **{name: (default, _SEGMENTATION) for name, default in (
         ("merge_fragments", False), ("merge_method", "greedy"), ("min_mask_area", 0),
         ("fg_threshold", 0.5), ("center_nms_kernel", 3), ("distance_gate_alpha", None),
@@ -218,6 +218,9 @@ class Predictor:
         # queue depth in batches (None: the provider's default).
         self.centroid_output = "instance"
         self.prefetch_batches: Optional[int] = None
+        # Set by run.predict(only_labeled_frames=True): ground-truth
+        # centroids come from user instances only.
+        self.gt_user_instances_only = False
         self.last_stats: Dict[str, float] = {}
 
     # -- construction ---------------------------------------------------------
@@ -253,12 +256,15 @@ class Predictor:
         centroid_only: bool = False,
         backbone_ckpt_path: Optional[Union[str, Path]] = None,
         head_ckpt_path: Optional[Union[str, Path]] = None,
+        anchor_part: Optional[str] = None,
         device="cuda",
         **unported,
     ) -> "Predictor":
         """Load the model dirs and build the layer of their type set:
         ``{single_instance}``, ``{centroid}``, ``{centroid,
-        centered_instance}`` (top-down) or ``{bottomup}``; identity models:
+        centered_instance}`` (top-down), ``{centered_instance}`` (on the
+        ground-truth centroids of a labels source, at the ``anchor_part``
+        node where it is visible) or ``{bottomup}``; identity models:
         ``{multi_class_bottomup}`` and ``{centroid, multi_class_topdown}``.
 
         ``backbone_ckpt_path`` / ``head_ckpt_path`` swap in the backbone /
@@ -400,9 +406,21 @@ class Predictor:
             return make(layer, "bottomup", m)
 
         if types == {"centered_instance"}:
-            raise NotImplementedError(
-                "a lone centered-instance model predicts from ground-truth centroids, "
-                "which are not ported (ROADMAP.md section 1, item 10)")
+            mi = by_type["centered_instance"]
+            inst_pre = _pre_config(mi)
+            instance_layer = CenteredInstanceLayer(
+                backend_for(mi), inst_pre, post_for(),
+                output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
+            layer = GTCentroidTopDownLayer(
+                instance_layer, max_instances=max_instances or 20,
+                crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
+            if anchor_part is not None:
+                nodes = list(mi.skeleton_nodes)
+                if anchor_part not in nodes:
+                    raise ValueError(
+                        f"anchor_part {anchor_part!r} is not a skeleton node; nodes: {nodes}.")
+                layer.anchor_ind = nodes.index(anchor_part)
+            return make(layer, "topdown", mi)
         raise ValueError(f"Unsupported model type combination: {sorted(types)}")
 
     # -- prediction -----------------------------------------------------------
@@ -433,7 +451,9 @@ class Predictor:
         """A ``LabelsProvider`` of a ``Labels`` or ``.slp`` path, else a
         ``VideoProvider`` of a video file by name or a video object, which
         decodes to one channel for a grayscale model. ``prefetch_batches``
-        sets the decode queue's depth."""
+        sets the decode queue's depth. A layer on ground-truth centroids
+        gets them from the labels provider and refuses a video."""
+        needs_gt = getattr(self.layer, "needs_gt_centroids", False)
         is_slp = isinstance(data, (str, Path)) and str(data).endswith(".slp")
         if (isinstance(data, Labels) or is_slp) and frames is not None:
             raise ValueError("frames selects frames of a video; a Labels source predicts its "
@@ -447,7 +467,18 @@ class Predictor:
 
             data = load_slp(data)
         if isinstance(data, Labels):
+            if needs_gt:
+                kw.update(with_centroids=True, max_instances=self.layer.max_instances,
+                          anchor_ind=self.layer.anchor_ind,
+                          user_frames_only=self.gt_user_instances_only)
             return LabelsProvider(data, **kw)
+        if needs_gt and isinstance(data, (str, Path)):
+            raise ValueError(
+                "Centered-instance-only inference uses GROUND-TRUTH centroids and needs a "
+                ".slp source (a video has none); pair the model with a centroid model for "
+                "videos.")
+        if needs_gt:
+            raise ValueError("Centered-instance-only inference needs a .slp source.")
         return VideoProvider(str(data) if isinstance(data, Path) else data, frames=frames,
                              out_format="gray" if self._host_grayscale else None, **kw)
 
@@ -564,6 +595,11 @@ class Predictor:
             return scoped.predict(data, frames, make_labels, provider)
         provider = provider or self._make_provider(data, frames)
         videos = self._provider_videos(provider)
+        if videos:
+            # As the JAX predictor's start log does: reading the first
+            # video's shape lets a media video find that its content is
+            # gray, and its frames then decode to one channel.
+            getattr(videos[0], "shape", None)
         writer = self.stream_writer
         stream_frames: List[LabeledFrame] = []
         cuda = self.device.type == "cuda"
@@ -629,7 +665,12 @@ class Predictor:
                 for batch, frames_b, factor in batches:
                     if errors:
                         break
-                    out = self.layer.predict_async(self._send(frames_b, h2d))
+                    args = [self._send(frames_b, h2d)]
+                    if getattr(self.layer, "needs_gt_centroids", False):
+                        # The centroids of every row, padded ones too.
+                        args += [self._send(a, h2d) for a in (
+                            batch.gt_centroids, batch.gt_centroid_valid, batch.gt_centroid_vals)]
+                    out = self.layer.predict_async(*args)
                     fetch_q.put((self._fetch_async(out, d2h), batch, factor))
             finally:
                 fetch_q.put(None)
@@ -738,9 +779,15 @@ class Predictor:
             elif self.model_type == "topdown":
                 pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
                 valid = out["instance_valid"][i]
+                # Ground-truth centroids carry their source's score as the
+                # instance score; a centroid model's runs score by the
+                # mean peak value.
+                scores = out.get("pred_instance_scores")
                 for k in range(pts.shape[0]):
                     if valid[k] and not np.all(np.isnan(pts[k])):
-                        instances.append(self._make_instance(pts[k], vals[k], skel))
+                        instances.append(self._make_instance(
+                            pts[k], vals[k], skel,
+                            score=None if scores is None else float(scores[i][k])))
             elif self.model_type == "bottomup":
                 pts_list, vals_list = out["pred_keypoints"][i], out["pred_peak_values"][i]
                 scores = out["pred_instance_scores"][i]

@@ -7,8 +7,10 @@ Port of ``sleap_nn_tpu/inference/providers.py``: ``Batch``,
 or an in-memory video), and ``LabelsProvider`` over the labeled frames of a
 ``Labels``. One thread per provider decodes ahead, ``prefetch`` batches
 deep; ``batches(host_step)`` runs a step of the consumer's on each batch on
-that thread too. The ground-truth centroids of the centered-instance-only
-path are not ported (ROADMAP.md section 1, item 10).
+that thread too. With ``with_centroids``, a ``LabelsProvider`` adds each
+frame's ground-truth centroids, their validity and their source scores to
+the batch, for the centered-instance-only path
+(``GTCentroidTopDownLayer``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class Batch:
     frame_inds: np.ndarray  # (B,)
     video_inds: np.ndarray  # (B,)
     valid: np.ndarray  # (B,) bool, False on padded rows
+    gt_centroids: Optional[np.ndarray] = None  # (B, K, 2) original coords, NaN pads
+    gt_centroid_valid: Optional[np.ndarray] = None  # (B, K) bool
+    gt_centroid_vals: Optional[np.ndarray] = None  # (B, K) source scores (1.0 for user)
 
     def __len__(self):
         return len(self.frame_inds)
@@ -104,13 +109,29 @@ class VideoProvider(_Provider):
 
 class LabelsProvider(_Provider):
     """Batched frames of the labeled frames of a ``Labels`` (``lf.image``);
-    a short last batch repeats its last frame."""
+    a short last batch repeats its last frame.
 
-    def __init__(self, labels, batch_size: int = 4, prefetch: int = 2):
+    ``user_frames_only``: the frames with user instances only
+    (``labels.user_labeled_frames``), whose centroids then come from their
+    user instances alone. ``with_centroids``: each batch also carries the
+    ground-truth centroids of each frame's first ``max_instances``
+    instances, in original image coordinates: the ``anchor_ind`` node where
+    it is visible, else the NaN-mean of the visible points. Each slot's
+    value is its instance's score (a ``PredictedInstance``), or 1.0 for a
+    user instance; empty and padded slots are NaN, invalid and NaN.
+    """
+
+    def __init__(self, labels, batch_size: int = 4, prefetch: int = 2,
+                 user_frames_only: bool = False, with_centroids: bool = False,
+                 max_instances: int = 20, anchor_ind: Optional[int] = None):
         self.labels = labels
         self.batch_size = batch_size
         self.prefetch = prefetch
-        self.lfs = labels.labeled_frames
+        self.with_centroids = with_centroids
+        self.max_instances = max_instances
+        self.anchor_ind = anchor_ind
+        self.user_frames_only = user_frames_only
+        self.lfs = labels.user_labeled_frames if user_frames_only else labels.labeled_frames
 
     def __len__(self):
         return (len(self.lfs) + self.batch_size - 1) // self.batch_size
@@ -125,6 +146,31 @@ class LabelsProvider(_Provider):
                 return i
         return 0
 
+    def _frame_centroids(self, lf):
+        """``(centroids (K, 2), valid (K,), values (K,))`` of one frame."""
+        k = self.max_instances
+        cents = np.full((k, 2), np.nan, np.float32)
+        ok = np.zeros(k, bool)
+        vals = np.full(k, np.nan, np.float32)
+        # A mixed frame of a user-frames-only run gives its user instances
+        # alone: its predictions are not ground truth.
+        insts = lf.user_instances if self.user_frames_only else lf.instances
+        for i, inst in enumerate(insts[:k]):
+            pts = np.asarray(inst.numpy(), np.float64)
+            c = None
+            if self.anchor_ind is not None and 0 <= self.anchor_ind < len(pts):
+                a = pts[self.anchor_ind]
+                if np.isfinite(a).all():
+                    c = a
+            if c is None and np.isfinite(pts).any():
+                c = np.nanmean(pts, axis=0)
+            if c is not None and np.isfinite(c).all():
+                cents[i] = c
+                ok[i] = True
+                score = getattr(inst, "score", None)
+                vals[i] = float(score) if score is not None else 1.0
+        return cents, ok, vals
+
     def _gen(self) -> Iterator[Batch]:
         bs = self.batch_size
         for start in range(0, len(self.lfs), bs):
@@ -133,16 +179,24 @@ class LabelsProvider(_Provider):
             fidx = [lf.frame_idx for lf in chunk]
             vidx = [self._video_index(lf.video) for lf in chunk]
             valid = np.ones(bs, dtype=bool)
+            gt = [self._frame_centroids(lf) for lf in chunk] if self.with_centroids else []
             if len(chunk) < bs:
                 pad = bs - len(chunk)
                 imgs += [imgs[-1]] * pad
                 fidx += [fidx[-1]] * pad
                 vidx += [vidx[-1]] * pad
                 valid[len(chunk):] = False
+                if gt:
+                    k = self.max_instances
+                    gt += [(np.full((k, 2), np.nan, np.float32), np.zeros(k, bool),
+                            np.full(k, np.nan, np.float32))] * pad
+            gt_c, gt_v, gt_s = (np.stack(a) for a in zip(*gt)) if gt else (None, None, None)
             yield Batch(
                 frames=np.stack(imgs),
                 frame_inds=np.asarray(fidx, dtype=np.int64),
                 video_inds=np.asarray(vidx, dtype=np.int32),
                 valid=valid,
+                gt_centroids=gt_c,
+                gt_centroid_valid=gt_v,
+                gt_centroid_vals=gt_s,
             )
-

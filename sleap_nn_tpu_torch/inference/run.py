@@ -110,6 +110,7 @@ def predict(
     only_labeled_frames: bool = False,
     only_predicted_frames: bool = False,
     centroid_peak_threshold: Optional[float] = None,
+    anchor_part: Optional[str] = None,
     video_index: Optional[int] = None,
     make_labels: bool = True,
     input_scale: Optional[float] = None,
@@ -137,7 +138,10 @@ def predict(
 ):
     """Run inference on a labels or video source with one or two trained
     models (``model_paths``: single-instance, centroid, the centroid +
-    centered-instance pair, bottom-up, or an identity model or pair).
+    centered-instance pair, bottom-up, or an identity model or pair; a
+    lone centered-instance model crops around the ground-truth centroids
+    of a labels source, at the ``anchor_part`` node where it is visible,
+    and with ``only_labeled_frames`` from the user instances alone).
 
     Returns ``Labels`` (and writes ``output_path`` if given, as ``.slp``
     and / or ``analysis_h5`` per ``output_format``), or the per-batch
@@ -270,11 +274,13 @@ def predict(
         min_instance_peaks=min_instance_peaks,
         backbone_ckpt_path=backbone_ckpt_path,
         head_ckpt_path=head_ckpt_path,
+        anchor_part=anchor_part,
         device=device or "cuda",
     )
     predictor.centroid_output = centroid_output
-    # Ground-truth centroids (item 10) will need the JAX package's
-    # gt_user_instances_only = only_labeled_frames here.
+    # Ground-truth centroids of a mixed frame come from its user instances
+    # alone when only the user-labeled frames are predicted.
+    predictor.gt_user_instances_only = bool(only_labeled_frames)
     if queue_maxsize:
         # Frames -> whole batches of decode queue.
         predictor.prefetch_batches = max(1, int(queue_maxsize) // max(1, predictor.batch_size))

@@ -15,7 +15,10 @@ Labels come in memory or from ``data_config.train_labels_path`` /
 ``val_labels_path`` (``.slp`` files, with the JAX trainer's video path
 remapping). The trainer takes the JAX trainer's options: transfer init
 from another model's checkpoint, resume, ``init_weights``, ``save_top_k``,
-negative frames, user centroids and AMSGrad.
+negative frames, user centroids, AMSGrad, tiled training
+(``preprocessing.tiling``: frame-level types train on tiles drawn anew each
+epoch, ``TiledDataset``) and the disk cache of decoded frames
+(``data_pipeline_fw`` ending in ``cache_img_disk``).
 
 The model directory: ``initial_config.yaml`` (the config as the caller
 gave it), ``training_config.yaml`` (the config the trainer filled in: max
@@ -32,8 +35,8 @@ directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
 ROADMAP.md): the segmentation model types, backbones other than UNet,
-tiling, the disk cache, ZMQ, wandb, visualization, device-trace
-profilers and more than one device.
+ZMQ, wandb, visualization, device-trace profilers and more than one
+device.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from sleap_nn_tpu_torch.config import (
 from sleap_nn_tpu_torch.data.pipeline import (
     CROP_TYPES,
     Loader,
+    TiledDataset,
     build_pipeline_context,
     make_dataset,
     make_render_fn,
@@ -274,8 +278,6 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
         (model_type not in MODEL_TYPES,
          f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"),
         (backbone_type != "unet", f"backbone {backbone_type!r} (unet is ported)"),
-        (dc.preprocessing.tiling is not None and dc.preprocessing.tiling.enabled, "tiling"),
-        (str(dc.data_pipeline_fw).endswith("cache_img_disk"), "the disk cache"),
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
@@ -473,19 +475,35 @@ class ModelTrainer:
                 stacklevel=2,
             )
             use_negatives = False
+        dc = cfg.data_config
         ds_kwargs = dict(
-            user_instances_only=cfg.data_config.user_instances_only,
+            user_instances_only=dc.user_instances_only,
             use_negative_frames=use_negatives,
-            negative_loss_weight=cfg.data_config.negative_loss_weight,
+            negative_loss_weight=dc.negative_loss_weight,
             centroid_from_user=(
                 self.model_type == "centroid"
                 and getattr(getattr(get_head_config(cfg), "confmaps", None),
                             "centroid_source", None) == "user"),
+            use_existing_imgs=dc.use_existing_imgs,
+            cache_workers=dc.cache_workers or (4 if dc.parallel_caching else 0),
         )
-        self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx, **ds_kwargs)
+        # The disk cache: each split's frames in a directory of its own
+        # under cache_img_path (a temporary directory each where unset).
+        disk = str(dc.data_pipeline_fw).endswith("cache_img_disk")
+        cache_dirs = {split: (Path(dc.cache_img_path) / f"{split}_imgs"
+                              if disk and dc.cache_img_path else None)
+                      for split in ("train", "val")}
+        cache_mode = "disk" if disk else "memory"
+        self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx,
+                                     cache_mode=cache_mode, cache_dir=cache_dirs["train"],
+                                     **ds_kwargs)
         val_ctx = dataclasses.replace(self.ctx, use_augmentations=False)
         self.val_ds = make_dataset(self.model_type, self.val_labels, val_ctx,
+                                   cache_mode=cache_mode, cache_dir=cache_dirs["val"],
                                    **{**ds_kwargs, "use_negative_frames": False})
+        tiling = dc.preprocessing.tiling
+        if tiling is not None and tiling.enabled:
+            self._setup_tiling(tiling, seed)
         if len(self.train_ds) == 0:
             raise ValueError("Train dataset is empty (no usable labeled frames).")
         if len(self.val_ds) == 0:
@@ -556,6 +574,61 @@ class ModelTrainer:
                 self, frequency=tc.eval.frequency, oks_stddev=tc.eval.oks_stddev,
                 match_threshold=tc.eval.match_threshold))
         self._setup_done = True
+
+    def _setup_tiling(self, tiling, seed: int):
+        """Tiled training: the tile geometry checked and rounded as the JAX
+        trainer rounds it, the datasets wrapped in ``TiledDataset`` (the
+        train tiles with a halo when geometric augmentation is on; the val
+        tiles drawn with ``seed + 1`` and never re-drawn) and the pipeline
+        context set for tiles."""
+        cfg = self.config
+        if self.model_type in CROP_TYPES:
+            raise ValueError(
+                f"Tiled training is not supported for crop-based model type "
+                f"{self.model_type!r}.")
+        if not tiling.tile_size:
+            raise ValueError("tiling.enabled requires tiling.tile_size.")
+        unit = int(get_backbone_config(cfg).max_stride)
+        rounded = int(math.ceil(tiling.tile_size / unit) * unit)
+        if rounded != tiling.tile_size:
+            print(f"WARNING: tiling.tile_size {tiling.tile_size} is not a multiple of "
+                  f"max_stride {unit}; rounded up to {rounded}.")
+            tiling.tile_size = rounded
+        out_stride = int(self.ctx.output_stride or 1)
+        ov = int(tiling.overlap or 0)
+        if ov % out_stride:
+            ov2 = int(math.ceil(ov / out_stride) * out_stride)
+            print(f"WARNING: tiling.overlap {ov} is not a multiple of the output stride "
+                  f"{out_stride}; rounded up to {ov2}.")
+            ov = ov2
+        floor = int(math.ceil((tiling.min_overlap_fraction or 0) * tiling.tile_size))
+        if ov < floor:
+            floor = int(math.ceil(floor / out_stride) * out_stride)
+            print(f"WARNING: tiling.overlap {ov} is below the min_overlap_fraction floor "
+                  f"({floor}); raised.")
+            ov = floor
+        if ov >= tiling.tile_size:
+            raise ValueError(f"tiling.overlap ({ov}) must be smaller than tiling.tile_size "
+                             f"({tiling.tile_size}).")
+        tiling.overlap = ov
+        dc = cfg.data_config
+        use_halo = bool(dc.use_augmentations_train and dc.augmentation_config is not None
+                        and dc.augmentation_config.geometric is not None)
+        self.train_ds = TiledDataset(self.train_ds, tiling, base_seed=seed, use_halo=use_halo)
+        self.val_ds = TiledDataset(self.val_ds, tiling, base_seed=seed + 1)
+        # Tiles are fixed-size already: the labels' max dims would scale
+        # each tile back up to the frame's size.
+        self.ctx = dataclasses.replace(self.ctx, max_height=None, max_width=None,
+                                       halo_crop_to=tiling.tile_size if use_halo else None)
+
+    def delete_cache(self) -> None:
+        """Remove the disk cache's directories (``delete_cache_imgs_after_training``)."""
+        import shutil
+
+        for ds in (getattr(self, "train_ds", None), getattr(self, "val_ds", None)):
+            cache = getattr(getattr(ds, "inner", ds), "cache_dir", None)
+            if cache:
+                shutil.rmtree(cache, ignore_errors=True)
 
     @staticmethod
     def _warn_on_resume_seed_mismatch(cfg):
@@ -717,9 +790,14 @@ class ModelTrainer:
         self.setup()
         tc = self.config.trainer_config
         self._log_all("on_train_start")
-        # An explicit train_steps_per_epoch wins; otherwise small datasets
-        # re-draw batches up to min_train_steps_per_epoch.
+        # An explicit train_steps_per_epoch wins, then tiling.steps_per_epoch;
+        # otherwise small datasets re-draw batches up to
+        # min_train_steps_per_epoch.
         steps_cap = tc.train_steps_per_epoch
+        tiling = self.config.data_config.preprocessing.tiling
+        if steps_cap is None and tiling is not None and tiling.enabled \
+                and tiling.steps_per_epoch:
+            steps_cap = int(tiling.steps_per_epoch)
         if steps_cap is None:
             steps_cap = max(len(self.train_loader), tc.min_train_steps_per_epoch)
 
@@ -814,6 +892,10 @@ class ModelTrainer:
                     f"min {np.min(times):.2f}s max {np.max(times):.2f}s | "
                     f"steps/sec avg {np.mean(sps):.2f}"
                 )
+            dc = self.config.data_config
+            if str(dc.data_pipeline_fw).endswith("cache_img_disk") \
+                    and dc.delete_cache_imgs_after_training:
+                self.delete_cache()
             if getattr(self, "_interrupted", False) and self.ckpt_dir is not None \
                     and self.ckpt_dir.exists():
                 import shutil

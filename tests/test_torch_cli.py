@@ -489,7 +489,6 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
                          (["--data-parallel"], "item 13"),
                          (["--profile-dir", "p"], "item 13"),
                          (["--mask-output", "polygon"], "item 10"),
-                         (["--anchor-part", "n0"], "item 10"),
                          (["--stream-mode", "stream"], "fetch_remote_data")):
         with pytest.raises(NotImplementedError, match=match):
             pcli.main(base + extra)

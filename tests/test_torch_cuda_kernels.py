@@ -146,6 +146,38 @@ def test_nms_kernel_matches_plain_exactly(cuda, shape, kernel, dtype):
     assert torch.equal(got, _plain_nms_scores(cms, 0.3, kernel))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_mid,c_out", [(1, 24, 24), (24, 36, 36)])
+def test_fused_conv_kernel_at_a_tile_chunk(cuda, c_in, c_mid, c_out, dtype):
+    """Tiled predict: a chunk of 16 tiles of 512x512 through medium_rf's
+    first two blocks."""
+    rng = np.random.default_rng(c_in)
+    x = torch.from_numpy(rng.random((16, 512, 512, c_in), dtype=np.float32)).to(cuda, dtype)
+    w1 = torch.from_numpy(rng.standard_normal((3, 3, c_in, c_mid), dtype=np.float32)
+                          / np.sqrt(9 * c_in)).to(cuda)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, c_mid, c_out), dtype=np.float32)
+                          / np.sqrt(9 * c_mid)).to(cuda)
+    b1 = torch.zeros(c_mid, device=cuda)
+    b2 = torch.zeros(c_out, device=cuda)
+    got = fused_double_conv3x3(x, w1, b1, w2, b2)
+    want = _plain_double_conv(x, w1, b1, w2, b2)
+    top = want.float().abs().max().item()
+    tol = 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-4 * top
+    assert got.shape == (16, 512, 512, c_out)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_kernel_at_a_merged_canvas(cuda, dtype):
+    """Tiled predict in local mode: the merged (2, 1024, 1024, 1) canvases."""
+    cms = torch.from_numpy(np.random.default_rng(24).random((2, 1024, 1024, 1),
+                                                            dtype=np.float32)).to(cuda, dtype)
+    before = NMS_SCORES.launches
+    got = nms_scores(cms, 0.2, 3)
+    assert NMS_SCORES.launches == before + 1
+    assert torch.equal(got, _plain_nms_scores(cms, 0.2, 3))
+
+
 def test_nms_kernel_matches_plain_at_bottomup_channels(cuda):
     cms = torch.from_numpy(np.random.default_rng(15).random((2, 64, 48, 15), dtype=np.float32))
     for dtype in (torch.float32, torch.bfloat16):
@@ -198,7 +230,8 @@ def test_paf_line_scores_kernel_matches_plain(cuda, b, hp, wp, n_nodes, k, n_edg
 @pytest.mark.parametrize(
     "b,n_inst,n_nodes,h,w,stride,sigma",
     [(4, 6, 1, 1024, 1024, 2, 5.0), (4, 6, 15, 512, 512, 2, 2.5), (3, 1, 2, 37, 53, 1, 1.5),
-     (2, 9, 3, 96, 64, 4, 4.0)],
+     (2, 9, 3, 96, 64, 4, 4.0),
+     (4, 6, 1, 512, 512, 2, 5.0)],  # tiled centroid training: 512 tiles -> (4, 256, 256, 1)
 )
 def test_multi_confmaps_kernel_matches_plain(cuda, b, n_inst, n_nodes, h, w, stride, sigma):
     rng = np.random.default_rng(n_inst * n_nodes)

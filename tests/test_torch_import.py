@@ -90,7 +90,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.io.hdf5",
             "sleap_nn_tpu_torch.cli",
             "sleap_nn_tpu_torch.system_info",
-            "sleap_nn_tpu_torch.model_info"} <= set(mods)
+            "sleap_nn_tpu_torch.model_info",
+            "sleap_nn_tpu_torch.data.tiling",
+            "sleap_nn_tpu_torch.inference.tile_merger"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"

@@ -453,7 +453,6 @@ def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
     ("data_parallel", True, "item 13"),
     ("packed_level0", True, "TPU layout"),
     ("min_mask_area", 10, "item 10"),
-    ("anchor_part", "n0", "item 10"),
     ("center_nms_kernel", 5, "item 10"),
     ("full_res_masks", True, "item 10"),
     ("merge_fragments", True, "item 10"),
@@ -466,7 +465,7 @@ def test_from_model_paths_refuses_unported_knobs(dirs, knob, value, match):
                                    **{knob: value})
     # The knob at its no-op value is accepted.
     default = {"merge_method": "greedy", "data_parallel": False, "packed_level0": None,
-               "min_mask_area": 0, "anchor_part": None, "center_nms_kernel": 3,
+               "min_mask_area": 0, "center_nms_kernel": 3,
                "full_res_masks": False, "merge_fragments": False, "fg_threshold": 0.5,
                "mask_output": "mask"}[knob]
     Predictor.from_model_paths(_paths(dirs, "single_instance"), device="cpu",
@@ -475,7 +474,7 @@ def test_from_model_paths_refuses_unported_knobs(dirs, knob, value, match):
 
 @pytest.mark.parametrize("types,error,match", [
     (("centroid", "bottomup"), ValueError, "Unsupported model type combination"),
-    (("centered_instance",), NotImplementedError, "item 10"),
+    (("centered_instance", "single_instance"), ValueError, "Unsupported model type combination"),
     (("single_instance", "single_instance"), ValueError, "Duplicate model type"),
     (("single_instance", "bottomup"), ValueError, "Unsupported model type combination"),
 ])
@@ -501,7 +500,7 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"headers": {"Authorization": "x"}}, "fetch_remote_data"),
     ({"stream_mode": "stream"}, "fetch_remote_data"),
     ({"data_parallel": True}, "item 13"),
-    ({"anchor_part": "n0"}, "item 10"),
+    ({"merge_method": "iou"}, "item 10"),
     ({"min_mask_area": 5}, "item 10"),
     ({"merge_thresholds": (0.9, 0.5, 0.3)}, "item 10"),
     ({"polygon_epsilon": 0.05}, "item 10"),

@@ -405,8 +405,6 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
     {"trainer_config": {"trainer_device_indices": [0, 1]}},
     {"trainer_config": {"trainer_devices": 2}},
     {"trainer_config": {"visualize_preds_during_training": True}},
-    {"data_config": {"data_pipeline_fw": "torch_dataset_cache_img_disk"}},
-    {"data_config": {"preprocessing": {"tiling": {"enabled": True, "tile_size": 32}}}},
     {"model_config": {"backbone_config": {"convnext": {}}}},
 ], ids=lambda o: next(iter(next(iter(o.values())))))
 def test_unported_features_raise(override):
