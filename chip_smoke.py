@@ -255,6 +255,23 @@ Phases, each of which raises on failure (exit code != 0):
     centroid training through the disk cache
     (``torch_dataset_cache_img_disk``), 3 steps on the card against the
     CPU; its ``.npy`` files are there during training and gone after it.
+27-30. The other backbones and SLEAP v1 model dirs, through ``run.predict``
+    from dirs written with random weights at published widths (20 frames of
+    1024x1024 with 6 animals of 15 blobs, batch 8, bf16, every local peak
+    counted): top-down with ConvNeXt tiny for both stages (27; kernel 2 once
+    a batch, no kernel 1: the fused conv runs in UNet backbones only, as in
+    JAX), bottom-up with SwinT tiny, window 7 (28; kernels 2 and 3 once a
+    batch), single-instance with each pretrained built-in, ConvNeXtV2-tiny,
+    ResNet-50, Swinv2-tiny and DINOv2-small, at random init since no
+    snapshot is there (29; the HF import must warn; no kernel: global
+    peaks), and a SLEAP v1 top-down pair at the importer's default widths,
+    its ``best_model.h5`` written by the port's own HDF5 writer (30; kernel
+    1 14 a batch, kernel 2 once). Every kernel call at each new signature
+    is held against its plain version at phase 3's tolerances; frames/s
+    and launches on the ``backbone_predict`` line. Then narrow conditioned
+    dirs of each path (the CPU tests' widths, 128x128 blob frames) run on
+    the card and on the CPU in f32 and must agree as phase 14's
+    (``backbone_card_vs_cpu`` line).
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -2114,6 +2131,8 @@ def frame_instances(out, i):
     elif "pred_keypoints" not in out:  # centroid-only: each centroid a one-node instance
         keep = out["centroid_valid"][i]
         arrays = [out["pred_centroids"][i][keep][:, None], out["centroid_vals"][i][keep][:, None]]
+    elif "pred_instance_scores" not in out:  # single instance: one instance a frame
+        arrays = [np.asarray(out[k][i])[None] for k in ("pred_keypoints", "pred_peak_values")]
     else:
         arrays = [np.asarray(out[k][i]) for k in ("pred_keypoints", "pred_peak_values",
                                                    "pred_instance_scores")]
@@ -4164,6 +4183,349 @@ def run_tiled_training(kernels, smi):
 
 
 # --------------------------------------------------------------------------
+# Phases 27-30: the other backbones and SLEAP v1 model dirs
+# --------------------------------------------------------------------------
+
+# Phase 27-30's full-width backbones (published widths, random weights).
+CONVNEXT_TINY = {"convnext": {"model_type": "tiny", "output_stride": 2, "max_stride": 32}}
+SWINT_TINY = {"swint": {"model_type": "tiny", "window_size": 7, "output_stride": 2,
+                        "max_stride": 32}}
+# name, the built-in id (no snapshot on the card: random init), head stride.
+PRETRAINED_BUILTINS = (("convnextv2", "facebook/convnextv2-tiny-22k-224", 2),
+                       ("resnet", "microsoft/resnet-50", 2),
+                       ("swinv2", "microsoft/swinv2-tiny-patch4-window8-256", 2),
+                       ("dinov2", "facebook/dinov2-small", 14))
+# SLEAP v1 UNet at the importer's defaults.
+V1_UNET = {"filters": 32, "filters_rate": 1.5, "max_stride": 16, "output_stride": 2,
+           "stem_stride": None, "middle_block": True, "up_interpolate": True, "stacks": 1}
+# The narrow archs of the card-against-CPU checks (the CPU tests' widths).
+NARROW_BACKBONES = {
+    "convnext": {"convnext": {"arch": {"depths": [1, 1, 1, 1], "channels": [8, 16, 32, 64]},
+                              "output_stride": 2, "max_stride": 32}},
+    "swint": {"swint": {"arch": {"embed": 8, "depths": [1, 2, 1, 1],
+                                 "num_heads": [2, 2, 2, 2]},
+                        "window_size": 4, "output_stride": 2, "max_stride": 32}},
+}
+NARROW_PRETRAINED = {
+    "convnextv2": {"model_type": "convnextv2", "depths": [1, 1, 2, 1],
+                   "hidden_sizes": [8, 16, 24, 32]},
+    "resnet": {"model_type": "resnet", "depths": [1, 2, 1, 1], "hidden_sizes": [8, 16, 24, 32],
+               "embedding_size": 8, "layer_type": "bottleneck"},
+    "swinv2": {"model_type": "swinv2", "embed_dim": 16, "depths": [1, 2, 1, 1],
+               "num_heads": [2, 2, 2, 2], "window_size": 4, "image_size": 64, "patch_size": 4},
+    "dinov2": {"model_type": "dinov2", "hidden_size": 32, "num_hidden_layers": 2,
+               "num_attention_heads": 2, "patch_size": 8, "image_size": 32},
+}
+# Launches per predict batch of phases 27-30's paths: fused conv, NMS, PAF.
+# The fused conv runs in UNets only; a single-instance model takes global
+# peaks (no NMS).
+BACKBONE_LAUNCHES = {"topdown": (0, 1, 0), "bottomup": (0, 1, 1), "single_instance": (0, 0, 0),
+                     "topdown_v1": (14, 1, 0)}
+
+
+def skeleton_dict(n_nodes):
+    return {"name": "skeleton", "nodes": [{"name": f"n{i}"} for i in range(n_nodes)],
+            "edges": [{"source": {"name": f"n{a}"}, "destination": {"name": f"n{b}"}}
+                      for a, b in bottomup_edges(n_nodes)], "symmetries": []}
+
+
+def dir_config(backbone, model_type, n_nodes, crop=None, head_stride=2):
+    """A model dir's training config (a dict) of ``backbone`` and one head set."""
+    parts = [f"n{i}" for i in range(n_nodes)]
+    heads = {
+        "centroid": {"confmaps": {"anchor_part": None, "sigma": 5.0, "output_stride": 2}},
+        "centered_instance": {"confmaps": {"part_names": parts, "anchor_part": None,
+                                           "sigma": 2.5, "output_stride": 2}},
+        "single_instance": {"confmaps": {"part_names": parts, "sigma": 2.5,
+                                         "output_stride": head_stride}},
+        "bottomup": {"confmaps": {"part_names": parts, "sigma": 2.5, "output_stride": 2},
+                     "pafs": {"edges": [[f"n{a}", f"n{b}"] for a, b in bottomup_edges(n_nodes)],
+                              "sigma": 15.0, "output_stride": 4}},
+    }[model_type]
+    return {"data_config": {"preprocessing": {"crop_size": crop},
+                            "skeletons": [skeleton_dict(n_nodes)]},
+            "model_config": {"backbone_config": backbone, "head_configs": {model_type: heads}},
+            "trainer_config": {"run_name": model_type}}
+
+
+def random_model(config, seed):
+    """The port model of a dir config, with torch's init from ``seed``."""
+    import torch
+
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+    from sleap_nn_tpu_torch.inference.loaders import build_model
+
+    torch.manual_seed(seed)
+    return build_model(TrainingJobConfig.from_dict(json.loads(json.dumps(config))), ROOT)[1]
+
+
+def write_port_dir(d, config, model):
+    """A model dir as the port's trainer writes it: ``training_config.yaml``
+    and ``best.ckpt`` (the ``state_dict`` under ``model.``)."""
+    import torch
+
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+
+    d.mkdir(parents=True, exist_ok=True)
+    TrainingJobConfig.from_dict(json.loads(json.dumps(config))).save_yaml(
+        d / "training_config.yaml")
+    torch.save({"state_dict": {f"model.{k}": v.detach().cpu()
+                               for k, v in model.state_dict().items()},
+                "epoch": 0, "best_val_loss": 0.0}, d / "best.ckpt")
+    return d
+
+
+def v1_skeleton(n_nodes):
+    """A SLEAP v1 jsonpickle skeleton: a node's first mention is its
+    object, later ones ``py/id`` back-references (1-based)."""
+    ids = {}
+
+    def node(i):
+        if i in ids:
+            return {"py/id": ids[i]}
+        ids[i] = len(ids) + 1
+        return {"py/object": "sleap.skeleton.Node", "py/state": {"py/tuple": [f"n{i}", 1.0]}}
+
+    links = [{"key": 0, "source": node(a), "target": node(b)} for a, b in bottomup_edges(n_nodes)]
+    for i in range(n_nodes):
+        node(i)
+    return {"directed": True, "graph": {"name": "skeleton"}, "links": links, "multigraph": True,
+            "nodes": [{"id": {"py/id": ids[i]}} for i in range(n_nodes)]}
+
+
+def v1_config(model_type, n_nodes, unet, crop=None):
+    parts = [f"n{i}" for i in range(n_nodes)]
+    heads = {"centroid": {"anchor_part": None, "sigma": 5.0, "output_stride": 2},
+             "centered_instance": {"part_names": parts, "anchor_part": None, "sigma": 2.5,
+                                   "output_stride": 2}}
+    return {"data": {"labels": {"skeletons": [v1_skeleton(n_nodes)]},
+                     "preprocessing": {"ensure_grayscale": True, "input_scaling": 1.0},
+                     "instance_cropping": {"crop_size": crop}},
+            "model": {"backbone": {"unet": unet}, "heads": {model_type: heads[model_type]}},
+            "optimization": {}, "outputs": {"run_name": model_type}}
+
+
+def write_v1_dir(d, legacy, model):
+    """A SLEAP v1 model dir of ``model``'s weights: ``training_config.json``
+    and a Keras ``best_model.h5`` (``model_weights/<layer>/<layer>/kernel:0``,
+    HWIO kernels, a transposed conv's as ``(h, w, OUT, IN)``), written with
+    the port's ``io/hdf5.py`` (the card machine has no h5py)."""
+    from sleap_nn_tpu_torch.io import hdf5
+    from sleap_nn_tpu_torch.weights import torch_key_paths
+
+    weights = {}
+    state = model.state_dict()
+    for key, (path, kind) in torch_key_paths(model).items():
+        parts = key.split(".")
+        layer = parts[-2] if parts[0] == "backbone" else f"{parts[2]}_0"
+        value = state[key].detach().cpu().numpy()
+        if kind == "conv_kernel":
+            value = value.transpose(2, 3, 1, 0)
+        elif kind == "trans_conv_kernel":
+            value = np.swapaxes(value.transpose(2, 3, 0, 1)[::-1, ::-1], -1, -2)
+        weights.setdefault(layer, {})[path[-1]] = np.ascontiguousarray(value, np.float32)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "training_config.json").write_text(json.dumps(legacy))
+    names = sorted(weights)
+    with hdf5.File(d / "best_model.h5", "w") as f:
+        f.attrs["backend"] = "tensorflow"
+        f.attrs["keras_version"] = "2.3.1"
+        f.attrs["model_config"] = json.dumps({"class_name": "Model"})
+        mw = f.create_group("model_weights")
+        mw.attrs["layer_names"] = np.array([n.encode() for n in names])
+        for name in names:
+            g = mw.create_group(name)
+            g.attrs["weight_names"] = np.array([f"{name}/{k}:0".encode()
+                                                for k in sorted(weights[name])])
+            inner = g.create_group(name)
+            for k in sorted(weights[name]):
+                inner.create_dataset(f"{k}:0", data=weights[name][k])
+    return d
+
+
+def backbone_dirs(root):
+    """Phase 27-30's full-width dirs: (path name, dirs, run.predict knobs)."""
+    runs = []
+    cfg_c = dir_config(CONVNEXT_TINY, "centroid", N_NODES)
+    cfg_i = dir_config(CONVNEXT_TINY, "centered_instance", N_NODES, crop=CROP)
+    runs.append(("topdown_convnext", "topdown", [
+        write_port_dir(root / "convnext_centroid", cfg_c, random_model(cfg_c, 27)),
+        write_port_dir(root / "convnext_ci", cfg_i, random_model(cfg_i, 28))]))
+    cfg_b = dir_config(SWINT_TINY, "bottomup", N_NODES)
+    runs.append(("bottomup_swint", "bottomup", [
+        write_port_dir(root / "swint_bottomup", cfg_b, random_model(cfg_b, 29))]))
+    for i, (name, model_name, stride) in enumerate(PRETRAINED_BUILTINS):
+        cfg = dir_config({"pretrained": {"model_name": model_name, "output_stride": 2}},
+                         "single_instance", N_NODES, head_stride=stride)
+        model = random_model(cfg, 30 + i)
+        runs.append((f"single_instance_{name}", "single_instance",
+                     [write_port_dir(root / f"pretrained_{name}", cfg, model)]))
+    from sleap_nn_tpu_torch.legacy_models import legacy_config_mapper
+
+    v1 = []
+    for model_type, crop, seed in (("centroid", None, 40), ("centered_instance", CROP, 41)):
+        legacy = v1_config(model_type, N_NODES, V1_UNET, crop)
+        cfg = legacy_config_mapper(legacy)
+        cfg.model_config.backbone_config.unet.in_channels = 1
+        v1.append(write_v1_dir(root / f"v1_{model_type}", legacy,
+                               random_model(cfg.to_dict(), seed)))
+    runs.append(("topdown_v1", "topdown_v1", v1))
+    return runs
+
+
+def run_backbone_predict(kernels, smi):
+    """Phases 27-30: ``run.predict`` from full-width model dirs of the other
+    backbones and of SLEAP v1 (random weights, 20 frames of 1024x1024 with
+    6 animals of 15 blobs, batch 8, bf16, every local peak counted):
+    top-down ConvNeXt
+    tiny for both stages (27), bottom-up SwinT tiny, window 7 (28),
+    single-instance on each pretrained built-in (29: ConvNeXtV2-tiny,
+    ResNet-50, Swinv2-tiny, DINOv2-small; random init, as no snapshot is
+    there: ``load_hf_encoder_params`` must warn) and a SLEAP v1 top-down
+    pair at the importer's default widths, its ``best_model.h5`` written
+    by the port's own HDF5 writer (30). Each loads strictly; launch counts
+    per batch as ``BACKBONE_LAUNCHES`` (the fused conv in the v1 UNets
+    only); every kernel call at each new signature held against its plain
+    version at phase 3's tolerances. Returns the runs and the held rows."""
+    import warnings
+
+    import torch
+
+    from sleap_nn_tpu_torch.inference.loaders import load_model
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.models.pretrained import load_hf_encoder_params
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    runs_def = backbone_dirs(root)
+    write_s = time.perf_counter() - t0
+    # Animals of blobs: random smooth maps (SwinT's) hold no local peak on noise.
+    frames = animal_frames(N_FRAMES, (IMG, IMG), MAX_INST, seed=27)
+    n_batches = -(-N_FRAMES // BATCH)
+    seen, calls, runs, stats = set(), [], {}, {}
+    for name, kind, dirs in runs_def:
+        loaded = [load_model(d) for d in dirs]
+        if name.startswith("single_instance_"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, got = load_hf_encoder_params(
+                    loaded[0].backbone_config.model_name, loaded[0].model.state_dict())
+            if got or not any("No local snapshot" in str(w.message) for w in caught):
+                raise AssertionError(f"{name}: the pretrained import did not warn")
+        kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE,
+                  peak_threshold=DIR_PEAK_THRESHOLD, max_instances=MAX_INST)
+        if kind == "bottomup":
+            kw.update(min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS, paf_workers=0)
+        predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
+        sync()
+        with recording_kernel_calls(seen, calls):
+            labels, launches = run_counted(kernels, lambda: predict(
+                frame_labels(frames), dirs, **kw))
+        want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                        (n * n_batches for n in BACKBONE_LAUNCHES[kind])), multi_confmaps=0)
+        if DEVICE != "cpu" and launches != want:
+            raise AssertionError(f"phases 27-30 {name}: launches {launches}, expected {want}")
+        # Random weights: a frame may hold no instance, the run must hold some.
+        kp = [inst.numpy() for lf in labels for inst in lf.instances]
+        if not kp or not all(np.isfinite(k).any() for k in kp):
+            raise AssertionError(f"phases 27-30 {name}: {len(labels.labeled_frames)} frames, "
+                                 f"{len(kp)} instances")
+        pstats = labels.provenance["stats"]
+        runs[f"backbone_{name}"] = {"launches": launches, "n_batches": n_batches,
+                                    "fps": pstats["fps"]}
+        stats[name] = {"fps": pstats["fps"], "launches": launches, "instances": len(kp),
+                       "frames_with_instances": len(labels.labeled_frames),
+                       "params_m": sum(p.numel() for lm in loaded
+                                       for p in lm.model.parameters()) / 1e6,
+                       "backbone": [lm.config.model_config.backbone_config.which()
+                                    for lm in loaded]}
+        del labels, loaded
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("backbone_kernel " + json.dumps(r))
+    if any(not r["ok"] for r in held) or (DEVICE != "cpu" and not held):
+        raise AssertionError(f"phases 27-30: kernel calls held {held}")
+    log("backbone_predict " + json.dumps({"paths": stats, "held": len(held),
+                                          "write_dirs_s": write_s, "frames": N_FRAMES,
+                                          "batch": BATCH, "img": IMG, "device": smi}))
+    tmp.cleanup()
+    return runs, held
+
+
+def narrow_backbone_dirs(root, labels):
+    """Narrow conditioned dirs of each new path (the CPU tests' widths) on
+    ``labels`` (5 nodes): name -> (dirs, run.predict knobs)."""
+    frames = labels.video.frames
+    out = {}
+
+    def conditioned(config, seed):
+        model = random_model(config, seed)
+        condition_weights(model, frames)
+        return model
+
+    for name, backbone in NARROW_BACKBONES.items():
+        if name == "convnext":
+            cfgs = [dir_config(backbone, "centroid", 5),
+                    dir_config(backbone, "centered_instance", 5, crop=64)]
+            out["topdown_convnext"] = ([write_port_dir(root / f"narrow_cn_{i}", c,
+                                                       conditioned(c, 50 + i))
+                                        for i, c in enumerate(cfgs)],
+                                       {"max_instances": 64, "peak_threshold": 0.5})
+        else:
+            c = dir_config(backbone, "bottomup", 5)
+            out["bottomup_swint"] = ([write_port_dir(root / "narrow_sw", c, conditioned(c, 52))],
+                                     {"min_line_scores": -0.5})
+    for name, arch in NARROW_PRETRAINED.items():
+        snap = root / f"snapshot_{name}"
+        snap.mkdir(parents=True, exist_ok=True)
+        (snap / "config.json").write_text(json.dumps(arch))
+        stride = 8 if name == "dinov2" else 2
+        # normalize off: black stays 0 through the encoder, as phase 14's conditioning needs.
+        c = dir_config({"pretrained": {"model_name": str(snap), "output_stride": 2,
+                                       "weights": False, "normalize": False}},
+                       "single_instance", 5, head_stride=stride)
+        out[f"single_instance_{name}"] = (
+            [write_port_dir(root / f"narrow_pt_{name}", c, conditioned(c, 53))], {})
+    from sleap_nn_tpu_torch.legacy_models import legacy_config_mapper
+
+    unet = dict(V1_UNET, filters=8, max_stride=8)
+    v1 = []
+    for model_type, crop, seed in (("centroid", None, 54), ("centered_instance", 64, 55)):
+        legacy = v1_config(model_type, 5, unet, crop)
+        cfg = legacy_config_mapper(legacy)
+        cfg.model_config.backbone_config.unet.in_channels = 1
+        v1.append(write_v1_dir(root / f"narrow_v1_{model_type}", legacy,
+                               conditioned(cfg.to_dict(), seed)))
+    out["topdown_v1"] = (v1, {"max_instances": 64, "peak_threshold": 0.5})
+    return out
+
+
+def check_backbone_dirs_against_cpu(smi):
+    """Phases 27-30 on the card against the CPU: each new path's narrow dir
+    (conditioned weights, as phase 14's), predicted through ``run.predict``
+    in f32 on both, held by ``compare_outputs`` (keypoints to 1e-4 px,
+    values to 1e-5, counts exact)."""
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    tmp = tempfile.TemporaryDirectory()
+    labels = blob_labels(8, 128, 5, 3, seed=27)
+    report = {}
+    for name, (dirs, kw) in narrow_backbone_dirs(Path(tmp.name), labels).items():
+        outs = [predict(frame_labels(labels.video.frames), dirs, batch_size=4,
+                        make_labels=False, device=device, **kw) for device in (DEVICE, "cpu")]
+        report[name] = compare_outputs(*outs)
+        if not report[name]["instances"]:
+            raise AssertionError(f"phases 27-30 narrow {name}: no instance")
+    log("backbone_card_vs_cpu " + json.dumps({"paths": report, "device": smi}))
+    tmp.cleanup()
+    return report
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
@@ -4174,7 +4536,7 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
     the checks at the shapes of other paths (``held``: name -> the rows of
     ``check_recorded_calls``; phase 20's ``video_path``, phase 22's
     ``file_train``, phase 23's ``cli``, phases 24-26's ``tiled``, ``gt`` and
-    ``tiled_train``)."""
+    ``tiled_train``, phases 27-30's ``backbone``)."""
     main_path = [r for r in fused_rows if r["dtype"] == "bfloat16"]
     nms_main = next(r for r in nms_rows if r["dtype"] == "bfloat16" and r["kernel"] == 3)
     nms_bu = next(r for r in nms_bu_rows if r["dtype"] == "bfloat16")
@@ -4488,6 +4850,15 @@ def main() -> int:
     log(f"phase 26: {phase26_s:.1f} s")
     runs_dir.cleanup()
 
+    # 27-30. The other backbones and SLEAP v1 dirs from model dirs at full
+    # width (ConvNeXt top-down, SwinT bottom-up, the pretrained built-ins,
+    # a v1 top-down pair), then their narrow dirs on the card against the CPU.
+    t_phase = time.perf_counter()
+    backbone_runs, backbone_held = run_backbone_predict(_build.KERNELS, smi)
+    backbone_vs_cpu = check_backbone_dirs_against_cpu(smi)
+    phase27_s = time.perf_counter() - t_phase
+    log(f"phases 27-30: {phase27_s:.1f} s")
+
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
@@ -4499,11 +4870,12 @@ def main() -> int:
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
-            **tiled_runs, **gt_runs, **tiled_train_runs}
+            **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
-                                    "tiled_train": tiled_train_held})
+                                    "tiled_train": tiled_train_held,
+                                    "backbone": backbone_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -4534,6 +4906,12 @@ def main() -> int:
         f"{gt_runs['gt_default']['fps']:.2f} frames/s; tiled bottom-up training "
         f"{tiled_train_runs['train_tiled_bottomup']['steps_per_sec']:.2f} steps/s; phase 24 "
         f"{phase24_s:.1f} s; phase 25 {phase25_s:.1f} s; phase 26 {phase26_s:.1f} s; "
+        f"phases 27-30 {phase27_s:.1f} s; from the other backbones' and v1 dirs "
+        f"(frames/s, bf16, batch {BATCH}): "
+        + ", ".join(f"{k.removeprefix('backbone_')} {v['fps']:.2f}"
+                    for k, v in backbone_runs.items())
+        + f"; narrow card vs CPU worst keypoint "
+        f"{max(r['keypoints_max_abs_err'] for r in backbone_vs_cpu.values()):.2e} px; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

@@ -2,8 +2,8 @@
 
 Port of ``sleap_nn_tpu/config/training_job_config.py``: the
 ``{data_config, model_config, trainer_config}`` container and its
-fail-fast validation. Reading a SLEAP v1 ``training_config.json`` (the
-legacy schema) is not ported.
+fail-fast validation. A SLEAP v1 ``training_config.json`` (the legacy
+schema) goes through ``legacy_models.legacy_config_mapper``.
 """
 
 from __future__ import annotations
@@ -42,9 +42,12 @@ class TrainingJobConfig:
         if isinstance(data, dict) and "model_config" not in data and (
             "model" in data or "optimization" in data
         ):
-            raise NotImplementedError(
-                "SLEAP v1 legacy training configs are not ported (ROADMAP section 1, item 9)")
-        cfg = from_dict(cls, data)
+            # SLEAP v1 schema (top-level model / optimization / outputs).
+            from sleap_nn_tpu_torch.legacy_models import legacy_config_mapper
+
+            cfg = legacy_config_mapper(data)
+        else:
+            cfg = from_dict(cls, data)
         cfg.filename = str(path)
         if overrides:
             apply_overrides(cfg, overrides)

@@ -33,8 +33,15 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def maybe_fuse_convs(model: nn.Module, fused: bool) -> nn.Module:
-    """Route every eligible double-conv block through the fused kernel (or not)."""
-    for module in model.modules():
+    """Route every eligible double-conv block of a UNet backbone through the
+    fused kernel (or not). Other backbones are left as they are, as the JAX
+    package's ``with_fused`` leaves them: their decoders are not fused."""
+    from sleap_nn_tpu_torch.models.unet import UNet
+
+    backbone = getattr(model, "backbone", None)
+    if not isinstance(backbone, UNet):
+        return model
+    for module in backbone.modules():
         if hasattr(module, "use_fused"):
             module.use_fused = fused
     return model

@@ -8,8 +8,11 @@ The checkpoint is the explicit ``.ckpt`` path when one is given, else
 checkpoints hold it), loaded with ``strict=True``. A JAX trainer's
 checkpoint is an orbax directory; reading it needs orbax, which imports
 JAX, so the port refuses it and ``tools/orbax_to_torch.py`` converts such
-a model dir into one the port loads. SLEAP v1 directories are not ported
-(ROADMAP.md section 1, item 9).
+a model dir into one the port loads. Any backbone the JAX package builds
+(``unet``, ``convnext``, ``swint``, ``pretrained``) loads. A dir without
+``training_config.yaml`` is a SLEAP v1 model dir (``training_config.json``
++ ``best_model.h5``), imported by ``legacy_models.load_legacy_model``, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -57,10 +60,8 @@ class LoadedModel:
         return get_backbone_config(self.config)
 
 
-def unported_model_type(model_type: str, backbone_type: str = "unet") -> Optional[str]:
+def unported_model_type(model_type: str) -> Optional[str]:
     """Why a model of this type cannot be built by the port yet, or None."""
-    if backbone_type != "unet":
-        return f"backbone {backbone_type!r} is not ported (ROADMAP.md section 1, item 11)"
     if model_type not in MODEL_TYPES:
         return f"model type {model_type!r} is not ported (ROADMAP.md section 1, item 10)"
     return None
@@ -91,12 +92,12 @@ def build_model(config: TrainingJobConfig, model_dir: Path) -> Tuple[str, Model]
     """``(model_type, model)`` of a training config, with random weights;
     a model the port cannot build raises ``NotImplementedError``."""
     model_type = get_model_type_from_cfg(config)
-    why = unported_model_type(model_type, get_backbone_type_from_cfg(config))
+    why = unported_model_type(model_type)
     if why:
         raise NotImplementedError(f"{model_dir}: {why}")
     return model_type, Model.from_config(
-        "unet", get_backbone_config(config), get_head_config(config), model_type,
-        input_hw=model_input_hw(config))
+        get_backbone_type_from_cfg(config), get_backbone_config(config),
+        get_head_config(config), model_type, input_hw=model_input_hw(config))
 
 
 def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) -> LoadedModel:
@@ -109,9 +110,7 @@ def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) 
     explicit_ckpt = p if p.suffix.lower() == ".ckpt" and p.exists() else None
     model_dir = resolve_model_dir(path)
     if not (model_dir / "training_config.yaml").exists():
-        raise NotImplementedError(
-            f"{model_dir} is a SLEAP v1 model directory; importing it is not ported "
-            "(ROADMAP.md section 1, item 9)")
+        return _load_legacy_dir(model_dir)
     config = TrainingJobConfig.load_yaml(model_dir / "training_config.yaml")
     model_type, model = build_model(config, model_dir)
     if params_override is not None:
@@ -126,12 +125,28 @@ def load_model(path, params_override: Optional[Dict[str, torch.Tensor]] = None) 
     model.load_state_dict(params, strict=True)
     model.eval()
 
-    nodes: List[str] = []
-    edges: List[Tuple[str, str]] = []
-    skel_list = config.data_config.skeletons or []
-    if skel_list:
-        skel = skel_list[0]
-        nodes = [n["name"] for n in skel.get("nodes", [])]
-        edges = [(e["source"]["name"], e["destination"]["name"]) for e in skel.get("edges", [])]
+    nodes, edges = skeleton_of(config)
     return LoadedModel(model_dir=model_dir, config=config, model_type=model_type, model=model,
                        params=params, skeleton_nodes=nodes, skeleton_edges=edges)
+
+
+def skeleton_of(config: TrainingJobConfig) -> Tuple[List[str], List[Tuple[str, str]]]:
+    """(node names, edges) of the config's first skeleton, or empty lists."""
+    skel_list = config.data_config.skeletons or []
+    if not skel_list:
+        return [], []
+    skel = skel_list[0]
+    nodes = [n["name"] for n in skel.get("nodes", [])]
+    edges = [(e["source"]["name"], e["destination"]["name"]) for e in skel.get("edges", [])]
+    return nodes, edges
+
+
+def _load_legacy_dir(model_dir: Path) -> LoadedModel:
+    """A SLEAP v1 model dir -> LoadedModel through the Keras weight importer."""
+    from sleap_nn_tpu_torch.legacy_models import load_legacy_model
+
+    model, params, config, _stats = load_legacy_model(model_dir)
+    nodes, edges = skeleton_of(config)
+    return LoadedModel(model_dir=Path(model_dir), config=config,
+                       model_type=get_model_type_from_cfg(config), model=model, params=params,
+                       skeleton_nodes=nodes, skeleton_edges=edges)

@@ -439,19 +439,29 @@ class _FileReader:
 
     # -- attributes ------------------------------------------------------------
 
-    def attributes(self, msgs: List[_Message]) -> Dict[str, Any]:
+    def attributes(self, msgs: List[_Message]) -> "Attributes":
+        """An object's attributes, each decoded when it is first read: an
+        attribute nobody asks for is never decoded, so its type cannot
+        refuse the file."""
         mm = self.mm
         out: Dict[str, Any] = {}
+        dense = False
         for m in msgs:
             if m.type == 0x0015:
                 flags = mm[m.off + 1]
                 p = m.off + 2 + (2 if flags & 1 else 0)
-                if struct.unpack_from("<Q", mm, p)[0] != UNDEF:
-                    raise NotImplementedError("HDF5 dense attribute storage (fractal heap)")
+                dense = dense or struct.unpack_from("<Q", mm, p)[0] != UNDEF
             elif m.type == 0x000C:
-                name, value = self._attribute(m.off)
-                out[name] = value
-        return out
+                out[self._attribute_name(m.off)] = _Lazy(
+                    lambda off=m.off: self._attribute(off)[1])
+        return Attributes(out, writable=False, dense=dense)
+
+    def _attribute_name(self, off: int) -> str:
+        mm = self.mm
+        version = mm[off]
+        nsize = struct.unpack_from("<H", mm, off + 2)[0]
+        p = off + 8 + (1 if version == 3 else 0)
+        return bytes(mm[p:p + nsize]).rstrip(b"\x00").decode()
 
     def _attribute(self, off: int):
         mm = self.mm
@@ -549,16 +559,40 @@ class _FileReader:
         return out.reshape(shape)
 
 
+class _Lazy:
+    """An attribute value still to be decoded."""
+
+    __slots__ = ("decode",)
+
+    def __init__(self, decode):
+        self.decode = decode
+
+
 class Attributes:
     """An object's attributes (h5py's ``AttributeManager``): read from the
-    file, or gathered to be written when the file closes."""
+    file, or gathered to be written when the file closes.
 
-    def __init__(self, values: Dict[str, Any], writable: bool):
+    An object whose attributes the file keeps in dense storage (a fractal
+    heap) answers only for the ones it holds in its header; asking for any
+    other, or for the whole list, raises ``NotImplementedError``.
+    """
+
+    def __init__(self, values: Dict[str, Any], writable: bool, dense: bool = False):
         self._values = values
         self._writable = writable
+        self._dense = dense
+
+    def _check_listable(self):
+        if self._dense:
+            raise NotImplementedError("HDF5 dense attribute storage (fractal heap)")
 
     def __getitem__(self, key):
-        return self._values[key]
+        if key not in self._values:
+            self._check_listable()
+        value = self._values[key]
+        if isinstance(value, _Lazy):
+            value = self._values[key] = value.decode()
+        return value
 
     def __setitem__(self, key, value):
         if not self._writable:
@@ -566,22 +600,27 @@ class Attributes:
         self._values[key] = value
 
     def __contains__(self, key):
-        return key in self._values
+        if key not in self._values:
+            self._check_listable()
+            return False
+        return True
 
     def __iter__(self):
-        return iter(self._values)
+        return iter(self.keys())
 
     def __len__(self):
+        self._check_listable()
         return len(self._values)
 
     def keys(self):
+        self._check_listable()
         return self._values.keys()
 
     def items(self):
-        return self._values.items()
+        return [(k, self[k]) for k in self.keys()]
 
     def get(self, key, default=None):
-        return self._values.get(key, default)
+        return self[key] if key in self else default
 
 
 class Group:
@@ -602,7 +641,7 @@ class Group:
     @property
     def attrs(self) -> Attributes:
         if self._attrs is None:
-            self._attrs = Attributes(self._r.attributes(self._msgs), writable=False)
+            self._attrs = self._r.attributes(self._msgs)
         return self._attrs
 
     def _child(self, key: str):
@@ -820,7 +859,7 @@ class Dataset:
     @property
     def attrs(self) -> Attributes:
         if self._attrs is None:
-            self._attrs = Attributes(self._r.attributes(self._msgs), writable=False)
+            self._attrs = self._r.attributes(self._msgs)
         return self._attrs
 
     def __getitem__(self, key):

@@ -12,7 +12,9 @@ tables; the port prints them as plain text (rich is not on its import
 list), with the same rows. A bare training-config YAML gives the config
 sections only. The parameter count is the config's ``total_params``, or,
 where the config lacks it, the element count of ``best.ckpt``'s state
-dict.
+dict. A SLEAP v1 dir reports its ``training_config.json`` through the v1
+mapper and counts the weights of its ``best_model.h5`` (the JAX command
+reads ``training_config.yaml`` only).
 """
 
 from __future__ import annotations
@@ -116,12 +118,26 @@ def _format_head_summary(cfg, model_type: Optional[str]) -> str:
     return _format_model_type(model_type)
 
 
+def _dir_config(model_dir: Path) -> TrainingJobConfig:
+    """A model dir's training config: ``training_config.yaml``, or a SLEAP
+    v1 dir's ``training_config.json`` through the v1 mapper."""
+    path = model_dir / "training_config.yaml"
+    if not path.exists() and (model_dir / "training_config.json").exists():
+        path = model_dir / "training_config.json"
+    return TrainingJobConfig.load_yaml(path)
+
+
 def _param_count(cfg, model_dir: Optional[Path]):
     """The config's ``total_params``, else the element count of
-    ``best.ckpt``'s state dict."""
+    ``best.ckpt``'s state dict (of a SLEAP v1 dir's ``best_model.h5``)."""
     if cfg.model_config.total_params is not None or model_dir is None:
         return cfg.model_config.total_params
     ckpt = model_dir / "best.ckpt"
+    if not ckpt.exists() and (model_dir / "best_model.h5").exists():
+        from sleap_nn_tpu_torch.legacy_models import load_keras_weights
+
+        layers = load_keras_weights(model_dir / "best_model.h5").values()
+        return int(sum(v.size for w in layers for v in w.values()))
     if not ckpt.exists():
         return None
     import torch
@@ -207,7 +223,7 @@ def _load_available_metrics(model_dir: Path) -> Tuple[Optional[dict], str]:
 def get_model_info(path) -> Dict:
     """Summarize a trained model dir: type, backbone, params, training log."""
     model_dir = resolve_model_dir(path)
-    cfg = TrainingJobConfig.load_yaml(model_dir / "training_config.yaml")
+    cfg = _dir_config(model_dir)
     backbone_type = get_backbone_type_from_cfg(cfg)
     backbone = get_backbone_config(cfg)
     info = {
@@ -241,7 +257,8 @@ def get_model_info(path) -> Dict:
 def model_info_sections(path) -> List[Tuple[str, Rows]]:
     """The report's sections as ``(title, [(property, value), ...])``.
     Raises ``FileNotFoundError`` for a missing path and ``ValueError`` for
-    a dir without ``training_config.yaml``."""
+    a dir without ``training_config.yaml`` (or a SLEAP v1 dir's
+    ``training_config.json`` and ``best_model.h5``)."""
     p = Path(path)
     if not p.exists():
         raise FileNotFoundError(f"Path not found: {path}")
@@ -251,7 +268,7 @@ def model_info_sections(path) -> List[Tuple[str, Rows]]:
     else:
         try:
             model_dir = resolve_model_dir(p)
-            cfg = TrainingJobConfig.load_yaml(model_dir / "training_config.yaml")
+            cfg = _dir_config(model_dir)
         except (FileNotFoundError, ValueError):
             raise ValueError(f"No training_config.yaml found in {path}") from None
 

@@ -14,7 +14,7 @@ rewrite of the same function and are not ported.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +44,28 @@ def get_act_fn(name: Optional[str]):
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW torch conv module to an NHWC tensor."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def conv_nhwc_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply an unpadded NCHW torch conv to an NHWC tensor with flax's
+    ``padding="SAME"``: a total of ``max((ceil(n / s) - 1) * s + k - n, 0)``
+    zeros an axis, the smaller half first."""
+    pads = []
+    for n, k, s in ((x.shape[2], conv.kernel_size[1], conv.stride[1]),
+                    (x.shape[1], conv.kernel_size[0], conv.stride[0])):  # F.pad: W, then H
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return conv_nhwc(conv, F.pad(x, [0, 0] + pads) if any(pads) else x)
+
+
+def trans_conv_pads(kernel_size: int, phase: str) -> Tuple[int, int]:
+    """The (low, high) padding of the dilated input that the JAX package's
+    ``ConvTranspose`` (stride 2) uses: ``(1, 2)`` in the "torch" phase,
+    ``lax.conv_transpose``'s ``"SAME"`` in the "tf" phase."""
+    if phase == "torch":
+        return 1, 2
+    lo = kernel_size - 1 if 2 > kernel_size - 1 else -(-kernel_size // 2)
+    return lo, kernel_size - lo
 
 
 def hwio(weight: torch.Tensor) -> torch.Tensor:
@@ -201,11 +223,14 @@ class SimpleUpsamplingBlock(nn.Module):
 
     ``skip_channels=0`` builds the block without a skip concat.
 
-    Transposed conv, "torch" phase: ``ConvTranspose2d(k=3, s=2, padding=1,
-    output_padding=1)``, the reference layer the JAX package reproduces
-    with explicit ((1, 2), (1, 2)) padding and a flipped kernel. "tf" phase
-    (flax SAME, pads (2, 1) on the dilated input): ``padding=0`` and the
-    last row / column dropped.
+    Transposed conv (stride 2, any odd or even ``kernel_size``): the JAX
+    package's flax ``ConvTranspose`` pads the dilated input by
+    ``trans_conv_pads`` and correlates with its kernel. The torch layer
+    runs unpadded (its full output) with the spatially flipped kernel, and
+    the window the padding selects is cut from it; in the "torch" phase at
+    k=3 that is the reference's ``ConvTranspose2d(k=3, s=2, padding=1,
+    output_padding=1)``, in the "tf" phase (flax SAME) the
+    SLEAP v1 Keras layer.
     """
 
     def __init__(
@@ -230,14 +255,10 @@ class SimpleUpsamplingBlock(nn.Module):
         self.blocks = nn.ModuleDict()
         c = in_channels
         if not up_interpolate:
-            if kernel_size != 3:
-                raise NotImplementedError("transposed-conv upsampling is ported for kernel_size=3")
-            torch_phase = trans_conv_phase == "torch"
+            self.trans_pads = trans_conv_pads(kernel_size, trans_conv_phase)
             t = transpose_convs_filters or refine_convs_filters
             self.blocks[f"{prefix}_trans_conv"] = nn.ConvTranspose2d(
-                c, t, kernel_size, stride=2,
-                padding=1 if torch_phase else 0,
-                output_padding=1 if torch_phase else 0)
+                c, t, kernel_size, stride=2)
             c = t
         c += skip_channels
         for i in range(refine_convs):
@@ -245,14 +266,20 @@ class SimpleUpsamplingBlock(nn.Module):
                 c, refine_convs_filters, kernel_size, padding="same")
             c = refine_convs_filters
 
+    def _trans_conv(self, conv: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+        # The unpadded output is the correlation over the dilated input
+        # padded by k - 1 a side; re-pad (or crop) it to flax's (lo, hi).
+        lo, hi = (p - (self.kernel_size - 1) for p in self.trans_pads)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), conv.weight, stride=2)
+        y = F.pad(y, [lo, hi, lo, hi])
+        return (y + conv.bias[:, None, None]).permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor, feature: Optional[torch.Tensor]) -> torch.Tensor:
         convs = list(self.blocks.values())
         if self.up_interpolate:
             x = bilinear_upsample(x)
         else:
-            h, w = x.shape[1], x.shape[2]
-            x = conv_nhwc(convs.pop(0), x)[:, : 2 * h, : 2 * w]
-            x = torch.relu(x)
+            x = torch.relu(self._trans_conv(convs.pop(0), x))
         if self.has_skip:
             if x.shape[1:3] != feature.shape[1:3]:
                 x = resize_bilinear(x, feature.shape[1], feature.shape[2])

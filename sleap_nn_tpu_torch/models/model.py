@@ -1,11 +1,13 @@
 """Model assembly: backbone + heads.
 
-Port of ``sleap_nn_tpu/models/model.py`` for the UNet backbone and the
-single-instance, centroid, centered-instance, bottom-up and identity
-(multi-class) heads: ``get_backbone`` / ``get_head`` and the ``Model``
-that binds each head's 1x1 conv to the decoder feature at that head's
-``output_stride`` (a class-vectors head to the backbone's
-``intermediate_feat``), with gray<->RGB input coercion in ``forward``.
+Port of ``sleap_nn_tpu/models/model.py`` for the UNet, ConvNeXt, SwinT and
+pretrained backbones and the single-instance, centroid, centered-instance,
+bottom-up and identity (multi-class) heads: ``get_backbone`` /
+``get_head`` and the ``Model`` that binds each head's 1x1 conv to the
+decoder feature at that head's ``output_stride`` (a class-vectors head to
+the backbone's ``intermediate_feat``; every head of an encoder-only
+backbone to its ``middle_output``), with gray<->RGB input coercion in
+``forward``.
 """
 
 from __future__ import annotations
@@ -41,10 +43,24 @@ def _cfg_get(cfg, key, default=None):
 
 
 def get_backbone(backbone_type: str, backbone_config) -> nn.Module:
-    """Instantiate a backbone from its config (``unet`` is ported)."""
+    """Instantiate a backbone from its config: ``unet``, ``convnext``,
+    ``swint`` or ``pretrained``."""
     if backbone_type == "unet":
         return UNet.from_config(backbone_config)
-    raise KeyError(f"Unsupported backbone: {backbone_type}. Ported: unet")
+    if backbone_type == "convnext":
+        from sleap_nn_tpu_torch.models.convnext import ConvNextWrapper
+
+        return ConvNextWrapper.from_config(backbone_config)
+    if backbone_type == "swint":
+        from sleap_nn_tpu_torch.models.swint import SwinTWrapper
+
+        return SwinTWrapper.from_config(backbone_config)
+    if backbone_type == "pretrained":
+        from sleap_nn_tpu_torch.models.pretrained import PretrainedBackbone
+
+        return PretrainedBackbone.from_config(backbone_config)
+    raise KeyError(
+        f"Unsupported backbone: {backbone_type}. Supported: unet, convnext, swint, pretrained")
 
 
 def get_head(model_type: str, head_config) -> Tuple[Head, ...]:
@@ -118,6 +134,11 @@ class Model(nn.Module):
             if isinstance(head, ClassVectorsHead):
                 # Binds to the bottleneck feature, not a decoder stride.
                 layers.append(head.make_layer(self._class_vector_features(head, input_hw)))
+                continue
+            if not stride_to_filters:
+                # An encoder-only backbone: every head binds to middle_output.
+                layers.append(nn.ModuleDict(
+                    {head.name: head.make_layer(backbone.middle_channels)}))
                 continue
             if head.output_stride not in stride_to_filters:
                 raise ValueError(

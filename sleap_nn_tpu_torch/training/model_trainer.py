@@ -34,7 +34,8 @@ Lightning checkpoints. ``inference.loaders.load_model`` reads the
 directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md): the segmentation model types, backbones other than UNet,
+ROADMAP.md): the segmentation model types, backbones other than UNet
+(they load and predict; training them is item 11b),
 ZMQ, wandb, visualization, device-trace profilers and more than one
 device.
 """
@@ -277,7 +278,8 @@ def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) ->
     checks = [
         (model_type not in MODEL_TYPES,
          f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"),
-        (backbone_type != "unet", f"backbone {backbone_type!r} (unet is ported)"),
+        (backbone_type != "unet",
+         f"backbone {backbone_type!r}: predict runs it, training it is item 11b"),
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
@@ -312,7 +314,7 @@ class ModelTrainer:
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7, 10 and "
-                "11): " + "; ".join(missing))
+                "11b): " + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
         self.current_epoch = 0

@@ -1,26 +1,41 @@
 """Weight bridge: JAX package (flax) params -> the port's ``state_dict``.
 
 The inverse of the JAX package's torch-checkpoint importer
-(``sleap_nn_tpu/torch_models.py``): every key of the port model's
-``state_dict()`` names a reference block (``stack0_enc0_conv0``,
+(``sleap_nn_tpu/torch_models.py``) for the UNet: every key of the port
+model's ``state_dict()`` names a reference block (``stack0_enc0_conv0``,
 ``stack0_dec0_s32_to_s16_refine_conv0``, ``head_layers.0.<Head>.0``, ...),
-which maps to one flax leaf; the leaf is transposed back to torch layout:
+which maps to one flax leaf. The key -> flax path rules of these keys are
+this module's own copy of the importer's.
 
-- conv kernels: flax HWIO -> torch OIHW;
-- transposed-conv kernels: flax (kh, kw, in, out), spatially flipped ->
-  torch (in, out, kh, kw);
-- dense kernels (the class-vectors head: ``pre_classification{j}_fc`` <->
-  ``ClassVectorsHead/fc{j}``, ``ClassVectorsHead`` <->
-  ``ClassVectorsHead/logits``): flax (in, out) -> torch (out, in);
-- biases as they are.
+The ConvNeXt, SwinT and pretrained backbones have no reference torch keys
+to follow: their modules are named after the flax tree, so a key is its
+flax path, once the port's containers are taken out (a ``decoder_stack.N``
+and a conv block's ``blocks`` dict, whose entry ``dec0_s32_to_s16_refine_conv0``
+or ``middle_expand_conv0`` is the flax ``dec0_s32_to_s16/refine_conv0`` or
+``middle_expand/conv0``). The module that holds a leaf names it:
 
-The key -> flax path rules are this module's own copy of the importer's.
+- ``Conv2d`` (depthwise too) ``weight``: flax ``kernel``, HWIO -> OIHW
+  (a depthwise ``(kh, kw, 1, C)`` -> ``(C, 1, kh, kw)``);
+- ``ConvTranspose2d`` ``weight``: flax ``kernel`` (kh, kw, in, out),
+  spatially flipped -> torch (in, out, kh, kw);
+- ``Linear`` ``weight``: flax ``kernel``, (in, out) -> (out, in);
+- ``LayerNorm`` ``weight``: flax ``scale``;
+- ``FrozenBatchNorm`` ``weight`` / ``bias``: the ``params`` ``scale`` /
+  ``bias``; ``running_mean`` / ``running_var``: the ``batch_stats``
+  ``mean`` / ``var``;
+- any other leaf (biases, layer-scale and GRN gammas, relative-position
+  tables, Swinv2's ``logit_scale``, ViT tokens and position embeddings)
+  keeps its name and layout.
+
+The class-vectors head's dense layers (``pre_classification{j}_fc`` <->
+``ClassVectorsHead/fc{j}``, ``ClassVectorsHead`` <->
+``ClassVectorsHead/logits``) are flax (in, out) -> torch (out, in).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,16 +55,75 @@ _BACKBONE_PATTERNS = (
 )
 
 
-def flax_path_for(torch_key: str) -> Tuple[Tuple[str, ...], str]:
+_UNET_PARTS = ("encoders", "middle_blocks", "decoders", "stem")
+_DEC_BLOCK = re.compile(r"^(dec\d+_s\d+_to_s\d+)_(.+)$")
+
+
+def _flax_named_path(parts) -> Tuple[str, ...]:
+    """The flax path of a flax-named module path (see the module doc)."""
+    out = []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if part == "decoder_stack":
+            i += 2  # the container and its index
+            continue
+        if part == "blocks":
+            name = parts[i + 1]
+            m = _DEC_BLOCK.match(name)
+            if m:
+                out += [m[1], m[2]]
+            elif out and name.startswith(out[-1] + "_"):
+                out.append(name[len(out[-1]) + 1:])
+            else:
+                out.append(name)
+            i += 2
+            continue
+        out.append(part)
+        i += 1
+    return tuple(out)
+
+
+def _leaf_of(module: Optional[nn.Module], leaf: str, torch_key: str) -> Tuple[str, str, str]:
+    """(flax collection, flax leaf name, kind) of the parameter or buffer
+    ``leaf`` of ``module``."""
+    from sleap_nn_tpu_torch.models.pretrained import FrozenBatchNorm
+
+    if isinstance(module, FrozenBatchNorm):
+        return {"weight": ("params", "scale", "value"), "bias": ("params", "bias", "bias"),
+                "running_mean": ("batch_stats", "mean", "value"),
+                "running_var": ("batch_stats", "var", "value")}[leaf]
+    if leaf == "weight":
+        if isinstance(module, nn.ConvTranspose2d):
+            return "params", "kernel", "trans_conv_kernel"
+        if isinstance(module, nn.Conv2d):
+            return "params", "kernel", "conv_kernel"
+        if isinstance(module, nn.Linear):
+            return "params", "kernel", "dense_kernel"
+        if isinstance(module, nn.LayerNorm):
+            return "params", "scale", "value"
+        if module is None:
+            raise KeyError(f"{torch_key!r}: the leaf kind needs its module")
+    return "params", leaf, "bias" if leaf == "bias" else "value"
+
+
+def flax_path_for(torch_key: str, module: Optional[nn.Module] = None
+                  ) -> Tuple[Tuple[str, ...], str]:
     """Map one ``state_dict`` key to (flax tree path, leaf kind).
 
-    Leaf kind is ``conv_kernel``, ``trans_conv_kernel``, ``dense_kernel``
-    or ``bias``.
+    Leaf kind is ``conv_kernel``, ``trans_conv_kernel``, ``dense_kernel``,
+    ``bias`` or ``value`` (kept as it is). A BatchNorm running statistic's
+    path starts with ``"batch_stats"`` (its collection). ``module``: the
+    module holding the leaf; a flax-named ``weight`` needs it.
     """
     parts = torch_key.split(".")
     if parts[0] == "model":
         parts = parts[1:]
     leaf = parts[-1]
+    if parts[0] == "backbone" and len(parts) > 2 and parts[1] not in _UNET_PARTS:
+        coll, name, kind = _leaf_of(module, leaf, torch_key)
+        path = _flax_named_path(parts[:-1]) + (name,)
+        return (path if coll == "params" else (coll,) + path), kind
     if leaf not in ("weight", "bias"):
         raise KeyError(f"unsupported leaf {leaf!r} in {torch_key!r}")
     if parts[0] == "backbone":
@@ -78,7 +152,7 @@ def flax_path_for(torch_key: str) -> Tuple[Tuple[str, ...], str]:
 
 
 def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
-    if kind == "bias":
+    if kind in ("bias", "value"):
         return value
     if kind == "conv_kernel":
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -87,6 +161,13 @@ def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense_kernel":
         return value.T  # (in, out) -> (out, in)
     raise KeyError(kind)
+
+
+def torch_key_paths(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], str]]:
+    """``{state_dict key: (flax path, leaf kind)}`` of every key of ``model``."""
+    modules = dict(model.named_modules())
+    return {key: flax_path_for(key, modules.get(key.rsplit(".", 1)[0]))
+            for key in model.state_dict()}
 
 
 def _walk(node: Mapping, prefix=()):
@@ -100,17 +181,24 @@ def _walk(node: Mapping, prefix=()):
 def flax_to_torch_state(params: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
     """Build ``model``'s ``state_dict`` from a flax param tree.
 
-    ``params``: the flax tree of the JAX package's ``Model`` (with or
-    without the top ``"params"`` level), nested dicts of arrays. Raises
+    ``params``: the flax variables of the JAX package's ``Model`` (a
+    ``"params"`` collection and any other, such as ``"batch_stats"``), or
+    its bare params tree; nested dicts of arrays. Raises
     ValueError listing missing, unused or mis-shaped leaves.
     """
-    tree = params.get("params", params)
-    leaves = {path: np.asarray(v) for path, v in _walk(tree)}
+    if "params" in params:
+        leaves = {path: np.asarray(v) for path, v in _walk(params["params"])}
+        for coll, sub in params.items():
+            if coll != "params":
+                leaves.update({(coll,) + path: np.asarray(v) for path, v in _walk(sub)})
+    else:
+        leaves = {path: np.asarray(v) for path, v in _walk(params)}
     template = model.state_dict()
+    modules = dict(model.named_modules())
     out, used, errors = {}, set(), []
     for key, ref in template.items():
         try:
-            path, kind = flax_path_for(key)
+            path, kind = flax_path_for(key, modules.get(key.rsplit(".", 1)[0]))
         except KeyError as exc:
             errors.append(str(exc))
             continue

@@ -1,9 +1,10 @@
 """The port stands alone: it imports without JAX and names nothing of the
 JAX package (nor does chip_smoke.py). It never imports networkx or orbax
 (which imports JAX; ``tools/orbax_to_torch.py`` converts a JAX trainer's
-checkpoints), nor h5py (``.slp`` and analysis files go through its own
-``io/hdf5.py``), click or rich (its command line is argparse); the GPU
-machine has none of them. It imports PyYAML and cv2 only inside function
+checkpoints), nor h5py (``.slp``, analysis and Keras ``.h5`` files go
+through its own ``io/hdf5.py``), click or rich (its command line is
+argparse), safetensors or transformers (the pretrained backbones read HF
+snapshots with their own reader); the GPU machine has none of them. It imports PyYAML and cv2 only inside function
 bodies: the functions that read or write YAML, and those that decode
 video, resize frames on the host or compute optical flow, so a module of
 the port imports where either is missing. Only the modules that build and
@@ -23,7 +24,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx",
-             "h5py", "click", "rich")
+             "h5py", "click", "rich", "safetensors", "transformers")
 # Blocked while importing every port module; only a function body may import it.
 LAZY = ("yaml", "cv2")
 # The modules that may start a compiler or load a shared library.

@@ -6,9 +6,10 @@
 The JAX package's trainer saves ``best.ckpt`` (and ``last.ckpt``) as orbax
 checkpoint directories. The port reads torch checkpoints only: orbax
 imports JAX, which the port never does. This tool restores each orbax
-checkpoint of ``JAX_MODEL_DIR``, maps its flax params onto the port model
-that the dir's ``training_config.yaml`` describes
-(``sleap_nn_tpu_torch.weights.flax_to_torch_state``), and writes
+checkpoint of ``JAX_MODEL_DIR``, maps its flax variables (the params and,
+for a ResNet encoder, the BatchNorm ``batch_stats``) onto the port model
+that the dir's ``training_config.yaml`` describes, of any backbone the
+port builds (``sleap_nn_tpu_torch.weights.flax_to_torch_state``), and writes
 ``OUT_DIR`` with the dir's config and log files and a torch checkpoint of
 the same name (the model's ``state_dict`` under ``model.``, as the port's
 trainer saves it). It then loads ``OUT_DIR`` back through the port's
