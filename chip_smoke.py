@@ -272,6 +272,29 @@ Phases, each of which raises on failure (exit code != 0):
     dirs of each path (the CPU tests' widths, 128x128 blob frames) run on
     the card and on the CPU in f32 and must agree as phase 14's
     (``backbone_card_vs_cpu`` line).
+31. Training with the other backbones at published widths
+    (``run_backbone_training``, ``backbone_training`` line): ConvNeXt tiny
+    centroid with the epoch-end evaluation (kernel 4 in every render,
+    kernel 2 in the evaluation), SwinT tiny bottom-up (kernel 4 and the PAF
+    render) and a pretrained ResNet-50 single-instance model whose encoder
+    loads from a local HF snapshot the phase writes, ``freeze: true`` (the
+    encoder and every ``FrozenBatchNorm`` buffer bit-identical after
+    training; every other leaf moved, but SwinT's patch-embedding and
+    stage-0 biases that an inf Adam second moment stopped), on 1024x1024 frames of phase 27's animals, batch 4, f32, 2
+    epochs of 5 steps; launches counted, each new kernel signature held
+    against its plain version; steps/s, peak memory and stage times of each
+    model; then ``run.predict`` from each trained dir (kernels 2 and 3 on
+    SwinT's).
+32. Narrow ConvNeXt, SwinT and pretrained ConvNeXtV2 (frozen), Swinv2 and
+    ViT trainings, 3 steps on the card and on the CPU from the same weights,
+    held as phase 8 holds the UNet, but for at most 1% of the parameter
+    elements, whose gradients the card misses by a tenth of their own
+    (``backbone_train_card_vs_cpu`` line).
+33. DDP (``check_ddp``, ``ddp`` line): phase 8's narrow centroid model, 3
+    steps with a padded batch, as 2 gloo ranks on the one card in a group
+    the phase makes (two processes) and as 1 NCCL rank joined through the
+    launch variables, each against one process; rank 0 alone writes the
+    model dir; steps/s of each (one card: correctness, not scaling).
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -1443,10 +1466,15 @@ def with_tracks(labels, n_classes, seed):
 
 
 def training_config(filters, max_stride, img, batch, augment, model_type="centroid",
-                    crop_size=None, **trainer):
-    """A training config: UNet (filters_rate 1.5, output stride 2), the
-    model type's heads of ``TRAIN_HEADS`` (confmaps at stride 2; PAFs sigma
-    15 at stride 4, edges from the skeleton), Adam lr 1e-4, f32."""
+                    crop_size=None, backbone=None, head_stride=None, **trainer):
+    """A training config: UNet (filters_rate 1.5, output stride 2) unless
+    ``backbone`` (a ``backbone_config`` dict) is given, the model type's
+    heads of ``TRAIN_HEADS`` (confmaps at stride 2, or ``head_stride``;
+    PAFs sigma 15 at stride 4, edges from the skeleton), Adam lr 1e-4,
+    f32."""
+    heads = json.loads(json.dumps(TRAIN_HEADS[model_type]))
+    if head_stride is not None:
+        heads["confmaps"]["output_stride"] = head_stride
     from sleap_nn_tpu_torch.config import TrainingJobConfig
 
     return TrainingJobConfig.from_dict({
@@ -1456,9 +1484,10 @@ def training_config(filters, max_stride, img, batch, augment, model_type="centro
             "preprocessing": {"max_height": img, "max_width": img, "crop_size": crop_size},
         },
         "model_config": {
-            "backbone_config": {"unet": {"filters": filters, "filters_rate": 1.5,
-                                         "max_stride": max_stride, "output_stride": 2}},
-            "head_configs": {model_type: TRAIN_HEADS[model_type]},
+            "backbone_config": backbone or {"unet": {"filters": filters, "filters_rate": 1.5,
+                                                     "max_stride": max_stride,
+                                                     "output_stride": 2}},
+            "head_configs": {model_type: heads},
         },
         "trainer_config": {
             "optimizer_name": "Adam", "optimizer": {"lr": 1e-4}, "seed": 0,
@@ -3612,10 +3641,11 @@ GT_FRAMES, GT_BATCH = 8, 4
 TILED_TRAIN_FRAMES, TILED_TRAIN_VAL, TILED_SPF, TILED_STEPS = 8, 2, 4, 5
 
 
-def animal_frames(n, hw, n_animals, seed, sigma=6.0):
+def animal_frames(n, hw, n_animals, seed, sigma=6.0, points=None):
     """uint8 ``(n, H, W, 1)``: a dark field with ``n_animals`` bright
     animals a frame, each ``N_NODES`` Gaussian blobs of ``sigma`` px around
-    its centre (drawn in a window of their own)."""
+    its centre (drawn in a window of their own). ``points``, a list, gets
+    each frame's ``(n_animals, N_NODES, 2)`` blob centres (x, y)."""
     rng = np.random.default_rng(seed)
     h, w = hw
     out = np.zeros((n, h, w), np.float32)
@@ -3623,15 +3653,20 @@ def animal_frames(n, hw, n_animals, seed, sigma=6.0):
     yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
     blob = np.exp(-(yy ** 2 + xx ** 2) / (2 * sigma ** 2)).astype(np.float32)
     for f in range(n):
+        animals = []
         for _ in range(n_animals):
             cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
-            for y, x in np.stack([cy + rng.normal(0, 0.02 * h, N_NODES),
-                                  cx + rng.normal(0, 0.02 * w, N_NODES)], axis=1):
+            yx = np.stack([cy + rng.normal(0, 0.02 * h, N_NODES),
+                           cx + rng.normal(0, 0.02 * w, N_NODES)], axis=1)
+            animals.append(yx[:, ::-1])
+            for y, x in yx:
                 y0, x0 = int(round(y)) - r, int(round(x)) - r
                 ys, xs = slice(max(y0, 0), min(y0 + 2 * r + 1, h)), slice(max(x0, 0),
                                                                          min(x0 + 2 * r + 1, w))
                 patch = blob[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0]
                 np.maximum(out[f, ys, xs], patch, out=out[f, ys, xs])
+        if points is not None:
+            points.append(np.stack(animals))
     return (out[..., None] * 255).astype(np.uint8)
 
 
@@ -4526,6 +4561,631 @@ def check_backbone_dirs_against_cpu(smi):
 
 
 # --------------------------------------------------------------------------
+# Phases 31-33: training the other backbones, card against CPU, DDP
+# --------------------------------------------------------------------------
+
+# Phase 31's runs: name, backbone_config (None: the pretrained ResNet-50 of
+# the snapshot the phase writes, frozen), model type, animals a frame,
+# epoch-end evaluation.
+BACKBONE_TRAIN_RUNS = (("convnext_centroid", CONVNEXT_TINY, "centroid", MAX_INST, True),
+                       ("swint_bottomup", SWINT_TINY, "bottomup", MAX_INST, False),
+                       ("resnet50_single_instance", None, "single_instance", 1, False))
+BACKBONE_TRAIN_FRAMES, BACKBONE_TRAIN_VAL = 12, 4
+# The trained leaves of phase 31's runs that may end where they started
+# (every other trained leaf must move). SwinT's patch-embedding and stage-0
+# biases: a window that the rotation filled with zeros feeds each
+# LayerNorm a constant token (the biases start at 0), and each such
+# LayerNorm scales the gradient through it by 1 / sqrt(eps), about 316;
+# compounded over the stages, the gradient of these biases passes 1e19,
+# its square is inf in Adam's f32 second moment, and their updates are 0
+# from then on (on the H100, 9 of SwinT's 195 trained leaves). The JAX
+# package's LayerNorms have the same eps, and its biases the same zeros.
+BACKBONE_TRAIN_IDLE = {"swint_bottomup": re.compile(
+    r"backbone\.enc\.(patch_embed|patch_norm|stage0_block\d+\.\w+(\.\w+)?)\.bias")}
+# Launches per predict batch from phase 31's dirs: fused conv, NMS, PAF.
+BACKBONE_TRAIN_PREDICT = {"centroid": (0, 1, 0), "bottomup": (0, 1, 1),
+                          "single_instance": (0, 0, 0)}
+# Phase 32: the largest share of a model's parameter elements that its
+# noise mask (noise_elements) may take out of the 1e-5 parameter check.
+NOISE_FRACTION_MAX = 0.01
+# Phase 32's narrow ViT (the CPU tests' arch).
+NARROW_VIT = {"model_type": "vit", "hidden_size": 32, "num_hidden_layers": 2,
+              "num_attention_heads": 2, "intermediate_size": 64, "patch_size": 8,
+              "image_size": 32}
+# Phase 33: frames (10 train: the third batch of 4 is padded; 2 val), the
+# steps compared, the steps timed after them.
+DDP_FRAMES, DDP_VAL, DDP_STEPS, DDP_TIMED = 12, 2, 3, 10
+
+
+def animal_labels(n, img, n_animals, seed):
+    """Labels over ``animal_frames`` on a noise floor (gray levels 0-15):
+    each animal an instance of ``N_NODES`` nodes at its blobs' centres (the
+    skeleton of ``bottomup_edges``). On an exactly black background every
+    activation of a transformer backbone is 0 from Xavier's zero biases,
+    and each LayerNorm there scales its gradient by ``1 / sqrt(eps)``:
+    SwinT-tiny's gradients reach 1e28 at 128x128 in the JAX trainer and in
+    the port, and inf (so NaN) at 1024x1024."""
+    from sleap_nn_tpu_torch.io.model import Instance, LabeledFrame, Labels, Skeleton
+
+    points = []
+    frames = animal_frames(n, (img, img), n_animals, seed, points=points)
+    floor = np.random.default_rng(seed + 1).integers(0, 16, frames.shape, dtype=np.uint8)
+    video = ArrayVideo(np.maximum(frames, floor))
+    skel = Skeleton([f"n{i}" for i in range(N_NODES)], edges=bottomup_edges(N_NODES))
+    return Labels([LabeledFrame(video, f, [Instance(a, skel) for a in pts])
+                   for f, pts in enumerate(points)])
+
+
+def hf_resnet_key(key):
+    """The HF ``ResNetModel`` key of a key of the port's ResNet encoder (the
+    inverse of ``models.pretrained._map_resnet_key``)."""
+    mod, leaf = key.rsplit(".", 1)
+    if mod in ("stem_conv", "stem_bn"):
+        return "embedder.embedder." + ("convolution" if mod == "stem_conv"
+                                       else "normalization") + f".{leaf}"
+    block, sub = mod.split(".")
+    stage, index = block[len("stage"):].split("_block")
+    base = f"encoder.stages.{stage}.layers.{index}"
+    kind = "convolution" if "conv" in sub else "normalization"
+    if sub.startswith("shortcut"):
+        return f"{base}.shortcut.{kind}.{leaf}"
+    return f"{base}.layer.{sub[-1]}.{kind}.{leaf}"
+
+
+def write_safetensors(path, tensors):
+    """``tensors`` (name -> array, stored f32) as a ``.safetensors`` file: an
+    8-byte little-endian header length, the JSON header, the buffers."""
+    header, blobs, offset = {}, [], 0
+    for name, value in tensors.items():
+        data = np.ascontiguousarray(value, np.float32).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(np.shape(value)),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fp:
+        fp.write(len(head).to_bytes(8, "little"))
+        fp.write(head)
+        for blob in blobs:
+            fp.write(blob)
+
+
+def resnet50_snapshot(root, seed):
+    """A local HF snapshot of ResNet-50, what phase 31 loads at init:
+    ``config.json`` (the built-in architecture) and a ``model.safetensors``
+    of random values under HF's key names (He-scaled convolutions,
+    BatchNorm scales near 1 and variances above 1). Returns its dir and
+    ``{HF key: array}``."""
+    from sleap_nn_tpu_torch.models import pretrained
+
+    arch = dict(pretrained._BUILTIN_CONFIGS["resnet-50"])
+    snap = root / "resnet50_snapshot"
+    snap.mkdir(parents=True, exist_ok=True)
+    (snap / "config.json").write_text(json.dumps(arch))
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for key, v in pretrained.build_encoder(arch, 3).state_dict().items():
+        leaf, shape = key.rsplit(".", 1)[1], tuple(v.shape)
+        if len(shape) == 4:
+            value = rng.normal(0, np.sqrt(2.0 / np.prod(shape[1:])), shape)
+        elif leaf == "running_var":
+            value = 1.0 + 0.1 * np.abs(rng.normal(size=shape))
+        elif leaf == "weight":
+            value = 1.0 + 0.1 * rng.normal(size=shape)
+        else:
+            value = 0.1 * rng.normal(size=shape)
+        tensors[hf_resnet_key(key)] = value.astype(np.float32)
+    write_safetensors(snap / "model.safetensors", tensors)
+    return snap, tensors
+
+
+def run_backbone_training(kernels, smi):
+    """Phase 31: ``ModelTrainer.train`` with the other backbones at published
+    widths on ``BACKBONE_TRAIN_FRAMES`` 1024x1024 frames of phase 27's
+    animals (``BACKBONE_TRAIN_VAL`` of them val), batch 4, f32, geometric
+    augmentation, 2 epochs of 5 steps: ConvNeXt tiny centroid (kernel 4 in
+    every render, kernel 2 in the epoch-end evaluation), SwinT tiny, window
+    7, bottom-up (kernel 4 and the PAF render) and a pretrained ResNet-50
+    single-instance model, one animal a frame, whose encoder loads from a
+    local snapshot the phase writes, with ``freeze: true`` (its encoder and
+    every ``FrozenBatchNorm`` buffer must stay bit-identical; every other
+    leaf must move, but for those ``BACKBONE_TRAIN_IDLE`` lets stop). Launch counts as phase 7's; every kernel call at a new
+    signature held against its plain version. Then ``run.predict`` from
+    each trained dir (bf16, batch 8): kernel 2 on the ConvNeXt centroid
+    maps, kernels 2 and 3 on SwinT's. Prints steps/s, peak memory and the
+    per-step stage times of each model (``backbone_training`` line).
+    Returns the runs and the held rows."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.training import ModelTrainer
+    from sleap_nn_tpu_torch.training.callbacks import EpochEndEvaluationCallback
+    from sleap_nn_tpu_torch.weights import torch_key_paths
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    snap, snap_tensors = resnet50_snapshot(root, seed=31)
+    n_train = BACKBONE_TRAIN_FRAMES - BACKBONE_TRAIN_VAL
+    seen, calls, runs, stats = set(), [], {}, {}
+    for i, (name, backbone, model_type, n_animals, evaluate) in enumerate(BACKBONE_TRAIN_RUNS):
+        labels = animal_labels(BACKBONE_TRAIN_FRAMES, TRAIN_IMG, n_animals, seed=310 + i)
+        pretrained = backbone is None
+        if pretrained:
+            backbone = {"pretrained": {"model_name": str(snap), "output_stride": 2,
+                                       "freeze": True}}
+        cfg = training_config(0, 32, TRAIN_IMG, TRAIN_BATCH, augment=True,
+                              model_type=model_type, backbone=backbone,
+                              max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS,
+                              save_ckpt=True, ckpt_dir=str(root), run_name=name,
+                              eval={"enabled": evaluate, "frequency": 1,
+                                    "match_threshold": EVAL_MATCH_THRESHOLD})
+        trainer = ModelTrainer.get_model_trainer_from_config(
+            cfg, [labels.extract(range(n_train))],
+            [labels.extract(range(n_train, BACKBONE_TRAIN_FRAMES))], device=DEVICE)
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        start = {}
+
+        def train():
+            trainer.setup()
+            if evaluate:
+                next(cb for cb in trainer.callbacks if isinstance(
+                    cb, EpochEndEvaluationCallback)).peak_threshold = EVAL_PEAK_THRESHOLD
+            start.update({k: v.clone() for k, v in trainer.model.state_dict().items()})
+            return trainer.train()
+
+        with recording_kernel_calls(seen, calls, TRAIN_WRAPPERS + PATH_WRAPPERS[1:2]):
+            history, launches = run_counted(kernels, train)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
+        n_val = len(trainer.val_loader)
+        renders = TRAIN_EPOCHS * (TRAIN_STEPS + n_val) + 1
+        eval_renders = TRAIN_EPOCHS * n_val if evaluate else 0
+        renders_k4 = renders + eval_renders if model_type != "single_instance" else 0
+        expect_launches(f"{name} training", launches, phase=31, multi_confmaps=renders_k4,
+                        nms_scores=eval_renders)
+        losses = [h[k] for h in history for k in ("train/loss", "val/loss")]
+        if len(history) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 31 {name}: history {history}")
+        if evaluate and any(not EVAL_KEYS[model_type] <= set(h) for h in history):
+            raise AssertionError(f"phase 31 {name}: epoch-end evaluation keys {history}")
+        end = trainer.model.state_dict()
+        paths = torch_key_paths(trainer.model)
+        stats_keys = {k for k, (p, _) in paths.items() if p[0] == "batch_stats"}
+        still = set(trainer.frozen_parameters) | stats_keys
+        if pretrained:
+            prefix = "backbone.encoder."
+            enc = [k for k in start if k.startswith(prefix)]
+            loaded = all(np.array_equal(start[k].cpu().numpy(),
+                                        snap_tensors[hf_resnet_key(k[len(prefix):])])
+                         for k in enc)
+            if not (loaded and stats_keys and set(trainer.frozen_parameters)
+                    == {k for k in enc if k not in stats_keys}):
+                raise AssertionError(f"phase 31 {name}: snapshot loaded {loaded}, "
+                                     f"{len(trainer.frozen_parameters)} frozen of {len(enc)}")
+        changed = [k for k in still if not torch.equal(end[k], start[k])]
+        # A trained leaf that stayed put must be one that
+        # BACKBONE_TRAIN_IDLE allows this run, stopped as it says: an inf in
+        # its Adam second moment (a leaf cut off from the loss would have
+        # zero gradients and moments instead).
+        idle = [k for k in end if k not in still and torch.equal(end[k], start[k])]
+        allowed = BACKBONE_TRAIN_IDLE.get(name)
+        named = dict(trainer.model.named_parameters())
+        unexplained = [k for k in idle if allowed is None or not allowed.fullmatch(k)
+                       or not torch.isinf(trainer.optimizer.state[named[k]]["exp_avg_sq"]).any()]
+        finite = all(torch.isfinite(v).all() for v in end.values())
+        if changed or unexplained or not finite:
+            raise AssertionError(f"phase 31 {name}: frozen leaves moved {changed[:5]}, "
+                                 f"trained leaves idle {unexplained[:5]} unexplained "
+                                 f"(of {len(idle)} idle), finite {finite}")
+        batch = next(iter(trainer.train_loader))
+        stages = train_stage_times(trainer, batch)
+
+        frames = labels.video.frames
+        kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE,
+                  peak_threshold=DIR_PEAK_THRESHOLD, max_instances=MAX_INST)
+        if model_type == "bottomup":
+            kw.update(min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS, paf_workers=0)
+        predict(frame_labels(frames[:BATCH]), [trainer.ckpt_dir], make_labels=False,
+                **kw)  # warm-up
+        with recording_kernel_calls(seen, calls):
+            out, dir_launches = run_counted(kernels, lambda: predict(
+                frame_labels(frames), [trainer.ckpt_dir], **kw))
+        n_batches = -(-len(frames) // BATCH)
+        expect_launches(f"{name} predict", dir_launches, phase=31, **dict(zip(
+            ("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+            (n * n_batches for n in BACKBONE_TRAIN_PREDICT[model_type]))))
+        kp = [inst.numpy() for lf in out for inst in lf.instances]
+        if not kp or not all(np.isfinite(k).any() for k in kp):
+            raise AssertionError(f"phase 31 {name} predict: {len(kp)} instances")
+        runs[f"train_{name}"] = {"launches": launches, "n_batches": {
+            "multi_confmaps": renders + eval_renders, "nms_scores": eval_renders},
+            "steps_per_sec": history[-1]["train/steps_per_sec"]}
+        runs[f"model_dir_{name}"] = {"launches": dir_launches, "n_batches": n_batches}
+        stats[name] = {
+            "steps_per_sec": history[-1]["train/steps_per_sec"],
+            "samples_per_sec": history[-1]["train/samples_per_sec"],
+            "steps_per_sec_by_epoch": [h["train/steps_per_sec"] for h in history],
+            "peak_mem_gib": peak_gib, "stage_ms": stages, "launches": launches,
+            "params": trainer.config.model_config.total_params,
+            "frozen_params": sum(end[k].numel() for k in trainer.frozen_parameters),
+            "statistics_buffers": len(stats_keys), "input_shape": trainer._input_shape,
+            "idle_trained_leaves": idle, "trained_leaves": len(end) - len(still),
+            "losses": losses, "predict_fps": out.provenance["stats"]["fps"],
+            "predict_launches": dir_launches, "predict_instances": len(kp)}
+        del trainer, out, start, end
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("backbone_train_kernel " + json.dumps(r))
+    if any(not r["ok"] for r in held) or (DEVICE != "cpu" and not held):
+        raise AssertionError(f"phase 31: kernel calls held {held}")
+    log("backbone_training " + json.dumps({
+        "models": stats, "held": len(held), "frames": BACKBONE_TRAIN_FRAMES,
+        "val_frames": BACKBONE_TRAIN_VAL, "img": TRAIN_IMG, "batch": TRAIN_BATCH,
+        "phase_s": time.perf_counter() - t_phase, "device": smi}))
+    tmp.cleanup()
+    return runs, held
+
+
+def zero_gradient_rows(name, shape):
+    """The rows of a parameter whose exact gradient is 0, or None: a key
+    projection's bias (SwinT's fused ``qkv``: its middle third; ViT's
+    ``key``), since a shift shared by every key leaves each query's softmax
+    as it is. Two devices' gradients there are rounding noise, which
+    Adam's normalisation turns into steps of up to the learning rate."""
+    if name.endswith("attn.qkv.bias"):
+        return slice(shape[0] // 3, 2 * shape[0] // 3)
+    if name.endswith("attn.key.bias"):
+        return slice(0, shape[0])
+    return None
+
+
+def grad_err(name, got, want):
+    """``max |got - want|`` over ``max |want|`` outside the rows of
+    :func:`zero_gradient_rows` (0 where nothing is left)."""
+    import torch
+
+    rows = zero_gradient_rows(name, want.shape)
+    if rows is not None:
+        keep = torch.ones(want.shape[0], dtype=torch.bool)
+        keep[rows] = False
+        got, want = got[keep], want[keep]
+    top = want.abs().max().item() if want.numel() else 0.0
+    return (got - want).abs().max().item() / top if top > 0 else 0.0
+
+
+def noise_elements(name, grads, witness):
+    """The elements of a parameter whose Adam steps rounding may decide:
+    those of :func:`zero_gradient_rows`, and those whose gradient
+    ``grads`` (one a step) misses the f64 ``witness``'s by more than a
+    tenth of the witness's at any step. Adam's step is the ratio of an
+    element's gradient moments, blind to their scale, so an element whose
+    gradients are held to a tenth moves as the witness's does; where the
+    error is as large as the gradient itself (a gradient near 0, whose
+    error is the tensor's rounding), the step can be anything up to the
+    learning rate. Elsewhere the parameters are held to 1e-5."""
+    import torch
+
+    mask = torch.zeros_like(witness[0], dtype=torch.bool)
+    for got, want in zip(grads, witness):
+        mask |= (got - want).abs() > 0.1 * want.abs()
+    rows = zero_gradient_rows(name, mask.shape)
+    if rows is not None:
+        mask[rows] = True
+    return mask
+
+
+def compare_training(a, b, start, noise):
+    """The largest parameter difference of two trainers after the same
+    steps outside each parameter's ``noise`` mask (:func:`noise_elements`;
+    a parameter without one is compared whole), and the largest move of
+    the masked elements from ``start`` in either (None without any): the
+    caller holds it to Adam's bound of the learning rate a step."""
+    worst, moved = 0.0, None
+    sb = b.model.state_dict()
+    for name, p in a.model.state_dict().items():
+        p, q = p.detach().cpu().double(), sb[name].detach().cpu().double()
+        mask = noise.get(name)
+        if mask is not None and mask.any():
+            s = start[name].double()
+            move = max((t[mask] - s[mask]).abs().max().item() for t in (p, q))
+            moved = max(moved or 0.0, move)
+            p, q = p[~mask], q[~mask]
+        if p.numel():
+            worst = max(worst, (p - q).abs().max().item())
+    return worst, moved
+
+
+def f64_trainer(trainer):
+    """``trainer`` (set up, on the CPU) in f64: its model, optimizer state
+    and renders, for an f64 witness of its steps."""
+    import torch
+
+    trainer.model.double()
+    render = trainer.render
+
+    def render64(batch, train):
+        return {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                for k, v in render(batch, train).items()}
+
+    trainer.render = render64
+    return trainer
+
+
+def check_backbone_training_against_cpu(smi):
+    """Phase 32: narrow ConvNeXt and SwinT (phases 27-30's narrow archs) and
+    pretrained ConvNeXtV2 (``freeze`` on), Swinv2 and ViT (the CPU tests'
+    archs, random init) centroid models trained 3 steps on the card, on the
+    CPU and on the CPU in f64 from the same weights and batch (128x128
+    frames, augmentation off), held as phase 8 holds the UNet: the first
+    loss to 1e-5 relative, the first gradients to 1e-4 of their scale, the
+    parameters to 1e-5 (the elements whose steps rounding decides, to
+    Adam's bound: :func:`noise_elements`; they may be at most
+    ``NOISE_FRACTION_MAX`` of the elements). The card is held to the f64
+    witness, and the f32 CPU's distance from it is reported: the card machine's CPU build sums
+    SwinT's relative-position gradient (a scatter-add over every window)
+    to about 3e-3 of its scale, where the card stays within 1e-6."""
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    labels = training_labels(8, 128, 5, 3, seed=32)
+    train, val = labels.extract(range(6)), labels.extract(range(6, 8))
+    cases = {"convnext": (NARROW_BACKBONES["convnext"], 2),
+             "swint": (NARROW_BACKBONES["swint"], 2)}
+    for name, arch in (("convnextv2", NARROW_PRETRAINED["convnextv2"]),
+                       ("swinv2", NARROW_PRETRAINED["swinv2"]), ("vit", NARROW_VIT)):
+        snap = root / name
+        snap.mkdir()
+        (snap / "config.json").write_text(json.dumps(arch))
+        cases[name] = ({"pretrained": {"model_name": str(snap), "output_stride": 2,
+                                       "weights": False, "freeze": name == "convnextv2"}},
+                       8 if name == "vit" else 2)
+    report = {}
+    for name, (backbone, stride) in cases.items():
+        def cfg():
+            return training_config(0, 32, 128, 4, augment=False, backbone=backbone,
+                                   head_stride=stride)
+
+        runs = {}
+        for key, device in (("card", DEVICE), ("cpu", "cpu"), ("cpu_f64", "cpu")):
+            runs[key] = ModelTrainer.get_model_trainer_from_config(
+                cfg(), [train], [val], device=device)
+            runs[key].setup()
+        start = {k: v.clone() for k, v in runs["cpu"].model.state_dict().items()}
+        for key in ("card", "cpu_f64"):
+            runs[key].model.load_state_dict(start, strict=True)
+        f64_trainer(runs["cpu_f64"])
+        batch = next(iter(runs["cpu"].train_loader))
+        losses, grads = {}, {key: [] for key in runs}  # grads: one dict a step
+        for step in range(3):
+            for key, trainer in runs.items():
+                loss = trainer.train_step(batch)[0].item()
+                if step == 0:
+                    losses[key] = loss
+                grads[key].append({n: p.grad.detach().double().cpu()
+                                   for n, p in trainer.model.named_parameters()
+                                   if p.grad is not None})
+        witness = runs["cpu_f64"]
+        want = grads["cpu_f64"]
+        row = {"frozen": len(runs["card"].frozen_parameters)}
+        for key in ("card", "cpu"):
+            noise = {n: noise_elements(n, [g[n] for g in grads[key]], [g[n] for g in want])
+                     for n in want[0]}
+            n_noise = int(sum(m.sum() for m in noise.values()))
+            worst, moved = compare_training(runs[key], witness, start, noise)
+            row[key] = {
+                "loss_rel_err": abs(losses[key] - losses["cpu_f64"]) / abs(losses["cpu_f64"]),
+                "grad_err_over_max": max(grad_err(n, g, want[0][n])
+                                         for n, g in grads[key][0].items()),
+                "param_max_abs_err": worst, "noise_elements": n_noise,
+                "noise_fraction": n_noise / sum(m.numel() for m in noise.values()),
+                "noise_max_move": moved}
+        report[name] = row
+        card = row["card"]
+        if not (card["loss_rel_err"] <= 1e-5 and card["grad_err_over_max"] <= 1e-4
+                and card["param_max_abs_err"] <= 1e-5
+                and (card["noise_max_move"] or 0.0) <= 3 * 1e-4 * 1.01
+                and card["noise_fraction"] <= NOISE_FRACTION_MAX
+                and bool(row["frozen"]) == (name == "convnextv2")):
+            raise AssertionError(f"phase 32 {name}: card vs the f64 CPU witness {row}")
+    log("backbone_train_card_vs_cpu " + json.dumps({"models": report, "device": smi}))
+    tmp.cleanup()
+    return report
+
+
+def ddp_config(root, run_name):
+    """Phase 33's training config: phase 8's narrow centroid model, 3 steps
+    of one epoch, the model dir under ``root``."""
+    return training_config(8, 8, 128, 4, augment=False, max_epochs=1,
+                           train_steps_per_epoch=DDP_STEPS, save_ckpt=True,
+                           ckpt_dir=str(root), run_name=run_name)
+
+
+def ddp_labels():
+    labels = training_labels(DDP_FRAMES, 128, 5, 3, seed=33)
+    n_train = DDP_FRAMES - DDP_VAL
+    return labels.extract(range(n_train)), labels.extract(range(n_train, DDP_FRAMES))
+
+
+def ddp_steps(trainer, state, kernels):
+    """``trainer.setup()``, ``state`` loaded (None: its own init kept), then
+    ``DDP_STEPS`` train steps on its loader's first global batches and one
+    val step, each kernel-4 call at a new signature recorded: (losses,
+    steps/s of ``DDP_TIMED`` more steps on the first batch, val loss, held
+    rows, launches of the compared steps, its real rows of each batch, the
+    parameters after them, the parameters before)."""
+    import torch
+
+    seen, calls = set(), []
+    with recording_kernel_calls(seen, calls, TRAIN_WRAPPERS):
+        for k in kernels.values():
+            k.launches = 0
+        trainer.setup()
+        if state is not None:
+            trainer.model.load_state_dict(state, strict=True)
+        before = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        batches = list(trainer.train_loader._gen())[:DDP_STEPS]
+        losses = [trainer.train_step(b)[0].item() for b in batches]
+        val = trainer.val_step(next(iter(trainer.val_loader)))[0].item()
+        trainer.save_checkpoint("best.ckpt")
+        after = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        launches = {name: k.launches for name, k in kernels.items()}
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(DDP_TIMED):
+            trainer.train_step(batches[0])
+        sync()
+        seconds = time.perf_counter() - t0
+    rows = [int(np.sum(b["batch_mask"])) for b in batches]
+    return (losses, DDP_TIMED / seconds, val, check_recorded_calls(calls), launches, rows,
+            after, before)
+
+
+def _ddp_gloo_rank(rank, addr, root, state, device):
+    """A rank of phase 33's gloo run (a process of its own): join the group
+    the phase makes, train as :func:`ddp_steps` and write what it saw to
+    ``root/rank<r>.pt``, counting the files it writes."""
+    global DEVICE
+    import torch
+    import torch.distributed as dist
+
+    DEVICE = device  # a process of its own: the phase's device, not the default
+    torch.backends.cudnn.allow_tf32 = False  # as main() sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    sys.path.insert(0, str(ROOT))
+    from sleap_nn_tpu_torch.io import model as pio
+    from sleap_nn_tpu_torch.ops import _build
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank)
+    real_save, real_labels_save, writes = torch.save, pio.Labels.save, []
+
+    def counted(fn):
+        def wrapped(obj, path, *args, **kw):
+            writes.append(Path(str(path)).name)
+            return fn(obj, path, *args, **kw)
+        return wrapped
+
+    try:
+        trainer = ModelTrainer.get_model_trainer_from_config(
+            ddp_config(root, "gloo"), *map(lambda L: [L], ddp_labels()), device=device)
+        torch.save, pio.Labels.save = counted(real_save), counted(real_labels_save)
+        out = ddp_steps(trainer, state, _build.KERNELS)
+        torch.save, pio.Labels.save = real_save, real_labels_save
+        real_save({"out": out, "writes": writes, "ranks": (trainer.rank, trainer.n_ranks),
+                   "ckpt_dir": str(trainer.ckpt_dir)}, root / f"rank{rank}.pt")
+    finally:
+        torch.save, pio.Labels.save = real_save, real_labels_save
+        dist.destroy_process_group()
+
+
+def check_ddp(kernels, smi):
+    """Phase 33: phase 8's narrow centroid model trained ``DDP_STEPS`` steps
+    (the third global batch padded) three ways from the same weights: in
+    one process; as 2 ranks on the one card over gloo, in a group the
+    phase makes (2 processes; NCCL refuses two ranks on one device); and
+    as 1 rank over NCCL joined through ``initialize_distributed``'s launch
+    variables. Each run's losses (1e-5 relative) and parameters (1e-5)
+    must agree with the single process, the two gloo ranks exactly with
+    each other; rank 0 alone writes the model dir. Each rank renders its
+    own rows through kernel 4, every new signature held against its plain
+    version (``ddp`` line with each run's steps/s: one card, so this
+    measures correctness, not scaling)."""
+    import os
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from sleap_nn_tpu_torch.parallel import distributed as pdist
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    def free_addr():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return f"localhost:{sock.getsockname()[1]}"
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    single = ModelTrainer.get_model_trainer_from_config(
+        ddp_config(root, "single"), *map(lambda L: [L], ddp_labels()), device=DEVICE)
+    one = ddp_steps(single, None, kernels)
+    state = one[7]
+    if one[5] != [4, 4, 2]:
+        raise AssertionError(f"phase 33: the single run's batches {one[5]}")
+
+    mp.start_processes(_ddp_gloo_rank, args=(free_addr(), root, state, DEVICE), nprocs=2,
+                       join=True, start_method="spawn")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    env = {pdist.ENV_COORDINATOR: free_addr(), pdist.ENV_NUM_PROCESSES: "1",
+           pdist.ENV_PROCESS_ID: "0"}
+    os.environ.update(env)
+    try:
+        nccl_trainer = ModelTrainer.get_model_trainer_from_config(
+            ddp_config(root, "nccl"), *map(lambda L: [L], ddp_labels()), device=DEVICE)
+        nccl = ddp_steps(nccl_trainer, state, kernels)
+        backend = torch.distributed.get_backend()
+        joined = (nccl_trainer.distributed, nccl_trainer.n_ranks, backend)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        pdist.destroy()
+
+    def diff(a, b):
+        return max((a[k] - b[k]).abs().max().item() for k in a)
+
+    g0, g1 = (r["out"] for r in ranks)
+    report = {
+        "single": {"steps_per_sec": one[1], "losses": one[0]},
+        "gloo_2_ranks": {"steps_per_sec": g0[1], "steps_per_sec_rank1": g1[1],
+                         "losses": g0[0], "loss_rel_err": max(
+                             abs(a - b) / abs(b) for a, b in zip(g0[0], one[0])),
+                         "param_max_abs_err": diff(g0[6], one[6]),
+                         "ranks_equal": diff(g0[6], g1[6]) == 0.0,
+                         "rows_per_rank": [g0[5], g1[5]], "launches": [g0[4], g1[4]],
+                         "writes": [r["writes"] for r in ranks]},
+        "nccl_1_rank": {"steps_per_sec": nccl[1], "losses": nccl[0], "joined": joined,
+                        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(nccl[0], one[0])),
+                        "param_max_abs_err": diff(nccl[6], one[6]), "launches": nccl[4]},
+        "val_loss": [one[2], g0[2], g1[2], nccl[2]],
+        "start_equal": all(diff(r[7], state) == 0.0 for r in (g0, g1, nccl)),
+    }
+    held = one[3] + g0[3] + g1[3] + nccl[3]
+    for r in held:
+        log("ddp_kernel " + json.dumps(r))
+    renders = DDP_STEPS + 2  # the steps, one val batch and the setup probe
+    want = 0 if DEVICE == "cpu" else renders
+    gl, nc = report["gloo_2_ranks"], report["nccl_1_rank"]
+    ok = (gl["loss_rel_err"] <= 1e-5 and gl["param_max_abs_err"] <= 1e-5 and gl["ranks_equal"]
+          and nc["loss_rel_err"] <= 1e-5 and nc["param_max_abs_err"] <= 1e-5
+          and joined == (True, 1, "nccl" if DEVICE != "cpu" else "gloo")
+          and [r["ranks"] for r in ranks] == [(0, 2), (1, 2)]
+          and ranks[0]["ckpt_dir"] == ranks[1]["ckpt_dir"] == str(root / "gloo")
+          and not ranks[1]["writes"] and "best.ckpt.tmp" in ranks[0]["writes"]
+          and gl["rows_per_rank"] == [[2, 2, 2], [2, 2, 0]]
+          and all(r[4]["multi_confmaps"] == want for r in (g0, g1, nccl))
+          and report["start_equal"]
+          and all(r["ok"] for r in held) and (DEVICE == "cpu" or held)
+          and max(abs(v - one[2]) / abs(one[2]) for v in report["val_loss"]) <= 1e-5)
+    log("ddp " + json.dumps({**report, "held": len(held), "phase_s":
+                             time.perf_counter() - t_phase, "device": smi}))
+    if not ok:
+        raise AssertionError(f"phase 33: {report}")
+    tmp.cleanup()
+    runs = {"train_ddp_gloo": {"launches": {k: g0[4][k] + g1[4][k] for k in g0[4]},
+                               "n_batches": renders},
+            "train_ddp_nccl": {"launches": nccl[4], "n_batches": renders}}
+    return runs, held, report
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
@@ -4859,6 +5519,25 @@ def main() -> int:
     phase27_s = time.perf_counter() - t_phase
     log(f"phases 27-30: {phase27_s:.1f} s")
 
+    # 31. Training with ConvNeXt, SwinT and a frozen pretrained ResNet-50 at
+    # published widths, then run.predict from their dirs.
+    t_phase = time.perf_counter()
+    bb_train_runs, bb_train_held = run_backbone_training(_build.KERNELS, smi)
+    phase31_s = time.perf_counter() - t_phase
+    log(f"phase 31: {phase31_s:.1f} s")
+
+    # 32. Narrow trainings of the other backbones on the card against the CPU.
+    t_phase = time.perf_counter()
+    bb_train_vs_cpu = check_backbone_training_against_cpu(smi)
+    phase32_s = time.perf_counter() - t_phase
+    log(f"phase 32: {phase32_s:.1f} s")
+
+    # 33. DDP: 2 gloo ranks on the one card, 1 NCCL rank, against one process.
+    t_phase = time.perf_counter()
+    ddp_runs, ddp_held, ddp = check_ddp(_build.KERNELS, smi)
+    phase33_s = time.perf_counter() - t_phase
+    log(f"phase 33: {phase33_s:.1f} s")
+
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
@@ -4870,12 +5549,14 @@ def main() -> int:
             "train_multi_class_bottomup": tr_mbu, "train_multi_class_topdown": tr_mtd,
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
-            **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs}
+            **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
+            **ddp_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
                                     "tiled_train": tiled_train_held,
-                                    "backbone": backbone_held})
+                                    "backbone": backbone_held,
+                                    "backbone_train": bb_train_held, "ddp": ddp_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -4912,6 +5593,14 @@ def main() -> int:
                     for k, v in backbone_runs.items())
         + f"; narrow card vs CPU worst keypoint "
         f"{max(r['keypoints_max_abs_err'] for r in backbone_vs_cpu.values()):.2e} px; "
+        f"phase 31 {phase31_s:.1f} s, training (steps/s, batch {TRAIN_BATCH}, 1024^2, f32): "
+        + ", ".join(f"{k.removeprefix('train_')} {v['steps_per_sec']:.2f}"
+                    for k, v in bb_train_runs.items() if k.startswith("train_"))
+        + f"; phase 32 {phase32_s:.1f} s, worst parameter card vs CPU f64 "
+        f"{max(r['card']['param_max_abs_err'] for r in bb_train_vs_cpu.values()):.2e}; phase 33 "
+        f"{phase33_s:.1f} s, steps/s one process {ddp['single']['steps_per_sec']:.2f}, "
+        f"2 gloo ranks {ddp['gloo_2_ranks']['steps_per_sec']:.2f}, 1 NCCL rank "
+        f"{ddp['nccl_1_rank']['steps_per_sec']:.2f}; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

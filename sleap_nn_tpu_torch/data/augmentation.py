@@ -14,7 +14,12 @@ Each operation comes in two halves:
 
 The JAX package draws from ``jax.random`` keys, so the two packages draw
 different numbers by design; the apply halves compute the JAX package's
-functions of the drawn values. Conventions: image ``(B, H, W, C)`` f32 in
+functions of the drawn values. Under data-parallel training a process
+augments only its rows of a global batch: given ``rows`` (indices into a
+global batch of ``global_batch`` rows), the chains draw the values of the
+whole global batch, as a single process does, and keep those rows. Mixup
+blends a row with the one before it in the global batch, which ``rows``
+must then hold too. Conventions: image ``(B, H, W, C)`` f32 in
 [0, 1]; instances ``(B, ..., 2)`` ``(x, y)`` pixels; NaN stays NaN.
 """
 
@@ -30,6 +35,16 @@ import torch.nn.functional as F
 def _uniform(generator: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
     u = torch.rand(shape, generator=generator, device=generator.device)
     return lo + (hi - lo) * u
+
+
+def _keep(values, rows: Optional[torch.Tensor]):
+    """The ``rows`` of drawn values (a tensor or a dict of them); all of
+    them where ``rows`` is None."""
+    if rows is None:
+        return values
+    if isinstance(values, dict):
+        return {k: v[rows] for k, v in values.items()}
+    return values[rows]
 
 
 # ---------------------------------------------------------------------------
@@ -222,25 +237,31 @@ def apply_geometric_augmentation(
     mixup_p: float = 0.0,
     flip_p: float = 0.0,
     symmetric_inds: Optional[Sequence[Tuple[int, int]]] = None,
+    rows: Optional[torch.Tensor] = None,
+    global_batch: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The geometric chain: flip, affine, erase, mixup (each when enabled)."""
+    """The geometric chain: flip, affine, erase, mixup (each when enabled);
+    ``rows`` of a ``global_batch`` as the module doc says."""
     b, h, w, _ = image.shape
+    if rows is not None:
+        b = global_batch
     if flip_p > 0:
-        image, instances = apply_flip(image, instances, sample_flip(generator, b, flip_p),
-                                      symmetric_inds)
+        image, instances = apply_flip(
+            image, instances, _keep(sample_flip(generator, b, flip_p), rows), symmetric_inds)
     if affine_p > 0 or (rotation_p or 0) > 0 or (scale_p or 0) > 0 or (translate_p or 0) > 0:
-        mats = affine_matrices(**sample_affine(
+        mats = affine_matrices(**_keep(sample_affine(
             generator, b, h, w, rotation_min, rotation_max, rotation_p, scale_min, scale_max,
-            scale_p, translate_width, translate_height, translate_p, affine_p), height=h, width=w)
+            scale_p, translate_width, translate_height, translate_p, affine_p), rows),
+            height=h, width=w)
         image = warp_image(image, mats)
         instances = transform_points(instances, mats)
     if erase_p > 0:
-        image = apply_random_erase(image, sample_random_erase(
+        image = apply_random_erase(image, _keep(sample_random_erase(
             generator, b, h, w, erase_scale_min, erase_scale_max, erase_ratio_min,
-            erase_ratio_max, erase_p))
+            erase_ratio_max, erase_p), rows))
     if mixup_p > 0:
-        image = apply_mixup(image, sample_mixup(generator, b, mixup_lambda_min,
-                                                mixup_lambda_max, mixup_p))
+        image = apply_mixup(image, _keep(sample_mixup(generator, b, mixup_lambda_min,
+                                                      mixup_lambda_max, mixup_p), rows))
     return image, instances
 
 
@@ -302,6 +323,10 @@ def apply_intensity(image: torch.Tensor, values: Dict[str, torch.Tensor]) -> tor
 
 
 def apply_intensity_augmentation(generator: torch.Generator, image: torch.Tensor,
-                                 **cfg) -> torch.Tensor:
-    """The intensity chain on a [0, 1] batch (keypoints untouched)."""
-    return apply_intensity(image, sample_intensity(generator, tuple(image.shape), **cfg))
+                                 rows: Optional[torch.Tensor] = None,
+                                 global_batch: Optional[int] = None, **cfg) -> torch.Tensor:
+    """The intensity chain on a [0, 1] batch (keypoints untouched); ``rows``
+    of a ``global_batch`` as the module doc says (the noise is drawn for
+    the whole global batch)."""
+    shape = tuple(image.shape) if rows is None else (global_batch,) + tuple(image.shape[1:])
+    return apply_intensity(image, _keep(sample_intensity(generator, shape, **cfg), rows))

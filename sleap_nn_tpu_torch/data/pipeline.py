@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +55,7 @@ from sleap_nn_tpu_torch.data.tiling import (
 from sleap_nn_tpu_torch.io.model import Labels, is_negative_frame
 from sleap_nn_tpu_torch.ops.confmaps import generate_confmaps, generate_multiconfmaps
 from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
+from sleap_nn_tpu_torch.parallel.mesh import shard_rows
 
 # Model types of the JAX package that the port does not train yet, and the
 # ROADMAP.md section 1 item that ports each.
@@ -122,10 +124,13 @@ def preprocess_batch(
     instances: torch.Tensor,
     generator: Optional[torch.Generator],
     train: bool,
+    rows: Optional[torch.Tensor] = None,
+    global_batch: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """normalize -> channels -> sizematch -> scale -> augment -> the halo's
     centre crop (not yet padded to stride). Returns ``(image, instances,
-    eff_scale)``."""
+    eff_scale)``. The batch may be the ``rows`` of a ``global_batch``,
+    whose augmentation draws it then keeps (``data.augmentation``)."""
     image = normalize_image(image)
     image = apply_channel_config(image, ctx.ensure_rgb, ctx.ensure_grayscale)
     image, eff_scale = apply_sizematcher(image, ctx.max_height, ctx.max_width)
@@ -134,11 +139,12 @@ def preprocess_batch(
 
     if train and ctx.use_augmentations and generator is not None:
         if ctx.intensity:
-            image = apply_intensity_augmentation(generator, image, **ctx.intensity)
+            image = apply_intensity_augmentation(generator, image, rows, global_batch,
+                                                 **ctx.intensity)
         if ctx.geometric:
             image, instances = apply_geometric_augmentation(
                 generator, image, instances, symmetric_inds=ctx.symmetric_inds or None,
-                **ctx.geometric)
+                rows=rows, global_batch=global_batch, **ctx.geometric)
     if train and ctx.halo_crop_to is not None:
         target = int(round(ctx.halo_crop_to * ctx.scale))
         h, w = image.shape[-3], image.shape[-2]
@@ -153,7 +159,8 @@ def preprocess_batch(
 def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
     """Build the device-side ``batch -> {inputs, targets}`` function.
 
-    The returned ``fn(batch, generator=None)`` takes a dict of tensors on the
+    The returned ``fn(batch, generator=None, rows=None, global_batch=None)``
+    (``rows`` as :func:`preprocess_batch`) takes a dict of tensors on the
     training device (``image`` uint8 ``(B, H, W, C)``, ``instances``
     ``(B, I, N, 2)``, ``center_idx`` ``(B,)`` for crop models and
     ``track_ids`` ``(B, I)`` for identity models) and returns, under
@@ -183,10 +190,11 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
     edge_inds: Dict[torch.device, torch.Tensor] = {}
 
     @torch.no_grad()
-    def fn(batch: Dict[str, torch.Tensor],
-           generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    def fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+           rows: Optional[torch.Tensor] = None,
+           global_batch: Optional[int] = None) -> Dict[str, Any]:
         image, instances, eff_scale = preprocess_batch(
-            ctx, batch["image"], batch["instances"], generator, train)
+            ctx, batch["image"], batch["instances"], generator, train, rows, global_batch)
         image = apply_pad_to_stride(image, ctx.max_stride)
         h, w = image.shape[1], image.shape[2]
         out: Dict[str, Any] = {"eff_scale": eff_scale, "image": image, "instances": instances}
@@ -351,7 +359,12 @@ class BaseDataset:
             i, s = i_s
             path = cache_dir / f"sample_{i}.npy"
             if not (use_existing and path.exists()):
-                np.save(path, s["image"])
+                # Written aside and renamed into place: the ranks of a
+                # data-parallel run fill one cache at once.
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                with open(tmp, "wb") as fp:
+                    np.save(fp, s["image"])
+                os.replace(tmp, path)
             s["image_path"] = str(path)
             del s["image"]
 
@@ -638,16 +651,30 @@ class Loader:
     The JAX package's order and padding: ``np.random.default_rng(seed +
     epoch)`` shuffles; a short last batch is padded with wrap-around
     repeats of the epoch's order and ``batch_mask`` marks the real rows.
+
+    Under data-parallel training (``num_ranks`` above 1) every rank walks
+    the same order and yields only its contiguous ``batch_size /
+    num_ranks`` rows of each global batch of ``batch_size`` (the rows that
+    JAX's ``P("data")`` sharding gives its device), with its slice of
+    ``batch_mask`` and ``n_real``, the real rows of the whole global batch.
+    ``lead_row`` puts the global row before the rank's first (cyclically)
+    ahead of them, for mixup, which blends each row with the one before
+    it. ``rows`` holds the global rows a batch holds, in its order.
     """
 
     def __init__(self, dataset: BaseDataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2, rank: int = 0, num_ranks: int = 1,
+                 lead_row: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self.num_ranks = num_ranks
+        own = shard_rows(batch_size, rank, num_ranks)
+        lead = [(own.start - 1) % batch_size] if lead_row else []
+        self.rows = np.asarray(lead + list(range(own.start, own.stop)))
 
     def set_epoch(self, epoch: int):
         """The epoch of the shuffle, and of a tiled dataset's draws."""
@@ -675,6 +702,8 @@ class Loader:
             idxs = order[start : start + self.batch_size].tolist()
             n_real = len(idxs)
             idxs = idxs + order[np.arange(self.batch_size - n_real) % n].tolist()
-            batch = self.dataset.make_batch(idxs)
-            batch["batch_mask"] = np.arange(self.batch_size) < n_real
+            batch = self.dataset.make_batch([idxs[i] for i in self.rows])
+            batch["batch_mask"] = (np.arange(self.batch_size) < n_real)[self.rows]
+            if self.num_ranks > 1:
+                batch["n_real"] = n_real
             yield batch

@@ -57,7 +57,22 @@ def _imdecode(buf: np.ndarray, grayscale: bool) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-class MediaVideoBackend:
+class _ThreadHandles:
+    """Per-thread file handles (``self._local``), left behind when the
+    backend is pickled (into the ranks of a data-parallel run) and opened
+    anew where it is unpickled."""
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_local", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._local = threading.local()
+
+
+class MediaVideoBackend(_ThreadHandles):
     """OpenCV-based media file reader with thread-local handles.
 
     Each thread keeps its own capture and the index of the frame it reads
@@ -130,7 +145,7 @@ class MediaVideoBackend:
         return np.ascontiguousarray(img[..., ::-1])  # BGR -> RGB
 
 
-class HDF5VideoBackend:
+class HDF5VideoBackend(_ThreadHandles):
     """Frames embedded in an HDF5 file (the ``.pkg.slp`` convention).
 
     The dataset holds either raw arrays or encoded image bytes; an adjacent

@@ -88,7 +88,8 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_bias = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
-        nn.init.trunc_normal_(self.rel_pos_bias, std=0.02)
+        # flax's truncated_normal(0.02): a standard normal cut at +-2, times 0.02.
+        nn.init.trunc_normal_(self.rel_pos_bias, std=0.02, a=-0.04, b=0.04)
         self.register_buffer(
             "rel_index", torch.from_numpy(_rel_position_index(window_size, window_size)
                                           .reshape(-1)), persistent=False)

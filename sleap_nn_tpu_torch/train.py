@@ -52,13 +52,17 @@ def run_training(config: TrainingJobConfig, train_labels: Optional[List[Labels]]
     Labels come in memory, else from the config's ``train_labels_path`` /
     ``val_labels_path``; ``data_config.test_file_path`` adds test splits.
     Returns the trainer (with ``.history`` and ``.ckpt_dir``). It trains
-    and predicts on the card unless ``device="cpu"``.
+    and predicts on the card unless ``device="cpu"``. Where the trainer
+    runs data-parallel over processes it spawned, this returns rank 0's
+    trainer once every rank has finished; under the launch variables each
+    process returns its own, and only rank 0 evaluates.
     """
     trainer = ModelTrainer.get_model_trainer_from_config(
         config, train_labels, val_labels, device=device)
     trainer.train()
 
-    if trainer.ckpt_dir is not None:
+    # Rank 0 alone evaluates a data-parallel run.
+    if trainer.ckpt_dir is not None and trainer.rank == 0:
         test_labels: List = []
         tfp = config.data_config.test_file_path
         if tfp:

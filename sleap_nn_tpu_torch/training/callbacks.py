@@ -150,6 +150,8 @@ class EpochEndEvaluationCallback(Callback):
             print(f"epoch-end eval failed at epoch {epoch}: {e}")
 
     def _evaluate(self, trainer) -> Dict:
+        # The trainer's eval_loader: the whole val set, also where each
+        # rank of a data-parallel run validates on its own rows.
         mtype = trainer.model_type
         if mtype not in ("single_instance", "centered_instance", "multi_class_topdown",
                          "centroid"):
@@ -162,7 +164,7 @@ class EpochEndEvaluationCallback(Callback):
         was_training = trainer.model.training
         trainer.model.eval()
         try:
-            for batch in trainer.val_loader:
+            for batch in getattr(trainer, "eval_loader", trainer.val_loader):
                 with torch.no_grad():
                     processed = trainer.render(batch, train=False)
                     cms = trainer.model(processed["image"])[cm_head.name]

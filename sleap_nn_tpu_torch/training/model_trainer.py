@@ -2,7 +2,8 @@
 
 Port of ``sleap_nn_tpu/training/model_trainer.py`` for single-instance,
 centroid, centered-instance, bottom-up and identity (multi-class
-bottom-up and top-down) models on one device. A train step renders the
+bottom-up and top-down) models with the UNet, ConvNeXt, SwinT and
+pretrained backbones, on one device or several. A train step renders the
 batch's targets on the device under ``torch.no_grad()`` (kernel 4 on
 CUDA for the centroid and bottom-up confidence maps), runs
 the forward and the loss under autograd, then ``backward`` and one Adam,
@@ -10,6 +11,23 @@ AdamW or AMSGrad step. PyTorch runs eagerly, so where the JAX trainer jits
 one program per step, the port launches the same stages one by one. The
 model trains with plain convolutions (``use_fused=False``), as the JAX
 trainer does: the fused double-conv kernel has no backward.
+
+Initialisation follows the JAX trainer: flax's initialisers (drawn from
+the trainer's seeded generator), then Xavier-uniform conv and dense
+kernels; a pretrained backbone then loads its HF encoder from a local
+snapshot where ``weights`` is set, and ``freeze`` keeps the encoder's
+weights as they are (``FrozenBatchNorm`` statistics never change).
+
+More than one device (``trainer_devices``, JAX's rule: the largest count
+that divides both batch sizes) trains data-parallel: one process per
+device in a ``torch.distributed`` group, ``DistributedDataParallel``
+all-reducing the gradients. Without a group the calling process becomes
+rank 0 and spawns the others; under a group the caller made, the JAX
+package's launch variables or torchrun's, each process joins it
+(``sleap_nn_tpu_torch.parallel``). Each rank takes its rows of every
+global batch, scales its loss to its share of the global batch's, so
+that a step equals the JAX trainer's step on its mesh, and rank 0 alone
+writes the model dir, logs and evaluates.
 
 Labels come in memory or from ``data_config.train_labels_path`` /
 ``val_labels_path`` (``.slp`` files, with the JAX trainer's video path
@@ -34,10 +52,8 @@ Lightning checkpoints. ``inference.loaders.load_model`` reads the
 directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md): the segmentation model types, backbones other than UNet
-(they load and predict; training them is item 11b),
-ZMQ, wandb, visualization, device-trace profilers and more than one
-device.
+ROADMAP.md): the segmentation model types, ZMQ, wandb, visualization and
+device-trace profilers.
 """
 
 from __future__ import annotations
@@ -76,6 +92,18 @@ from sleap_nn_tpu_torch.data.providers import get_max_height_width
 from sleap_nn_tpu_torch.inference.backends import resolve_device
 from sleap_nn_tpu_torch.io.model import Labels
 from sleap_nn_tpu_torch.models.model import MODEL_TYPES, Model, swap_subtrees
+from sleap_nn_tpu_torch.parallel import (
+    all_reduce_sum,
+    available_devices,
+    barrier,
+    broadcast_object,
+    initialize_distributed,
+    num_devices,
+    process_count,
+    process_index,
+    sync_cache_fill_status,
+)
+from sleap_nn_tpu_torch.parallel import distributed
 from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
@@ -83,7 +111,7 @@ from sleap_nn_tpu_torch.training.callbacks import (
     EpochEndEvaluationCallback,
     ProgressCallback,
 )
-from sleap_nn_tpu_torch.training.losses import compute_loss
+from sleap_nn_tpu_torch.training.losses import compute_loss, weighted_total
 from sleap_nn_tpu_torch.training.schedulers import make_scheduler
 
 _BATCH_TENSORS = ("image", "instances", "center_idx", "track_ids", "batch_mask",
@@ -171,6 +199,48 @@ def flax_default_init_params(model: nn.Module, generator: torch.Generator) -> nn
     return model
 
 
+# The leaves that flax draws at random other than conv and dense kernels:
+# leaf name -> (distribution, standard deviation). SwinT's relative
+# position table is ``truncated_normal(0.02)`` (a standard normal cut at
+# +-2, times 0.02); the ViT / DINOv2 tokens and position embeddings are
+# ``normal(1.0)``. Every other such leaf (LayerNorm and BatchNorm scales
+# and offsets, ConvNeXt's layer scale, the GRN's zeros, Swinv2's
+# ``logit_scale``, DINOv2's ``ls1`` / ``ls2``) is a constant the modules
+# already hold.
+_FLAX_RANDOM_LEAVES = {"rel_pos_bias": ("truncated_normal", 0.02),
+                       "cls_token": ("normal", 1.0),
+                       "position_embeddings": ("normal", 1.0),
+                       "register_tokens": ("normal", 1.0)}
+
+
+def flax_random_leaves_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw the leaves of :data:`_FLAX_RANDOM_LEAVES` as flax's initialisers
+    draw them, from ``generator`` (a CPU one), in place."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            rule = _FLAX_RANDOM_LEAVES.get(name.rsplit(".", 1)[-1])
+            if rule is None:
+                continue
+            kind, std = rule
+            w = torch.empty(p.shape)
+            if kind == "normal":
+                w.normal_(0.0, std, generator=generator)
+            else:
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            p.copy_(w)
+    return model
+
+
+def frozen_encoder_parameters(model: nn.Module) -> List[str]:
+    """The parameters the JAX trainer's ``freeze`` mask holds still: those
+    whose flax path passes through a module named ``enc`` or ``encoder``."""
+    from sleap_nn_tpu_torch.weights import torch_key_paths
+
+    paths = torch_key_paths(model)
+    return [name for name, _ in model.named_parameters()
+            if any(part in ("enc", "encoder") for part in paths[name][0])]
+
+
 class AMSGrad(torch.optim.Optimizer):
     """``optax.amsgrad`` at its defaults (betas 0.9 / 0.999, eps 1e-8,
     ``eps_root`` 0), written from tensor ops.
@@ -246,8 +316,11 @@ def _init_subtrees_from_ckpts(model: nn.Module, backbone_ckpt, head_ckpt) -> Non
     """Replace the backbone and / or every other top-level subtree (the
     heads) of ``model`` with another trained model's, in place. A subtree
     the source lacks, or one whose keys or shapes differ, raises
-    ``ValueError`` instead of mixing weights."""
+    ``ValueError`` instead of mixing weights. As in the JAX trainer, which
+    swaps the ``params`` collection only, the buffers (``FrozenBatchNorm``'s
+    running statistics, JAX's ``batch_stats``) keep ``model``'s values."""
     own = model.state_dict()
+    buffers = {k: own[k] for k, _ in model.named_buffers() if k in own}
     for src_path, which in ((backbone_ckpt, "backbone"), (head_ckpt, "head")):
         if src_path:
             swap_subtrees(
@@ -256,6 +329,7 @@ def _init_subtrees_from_ckpts(model: nn.Module, backbone_ckpt, head_ckpt) -> Non
                         "(has {trees}).",
                 mismatch="pretrained_{which}_weights: '{name}' parameter shapes do not match "
                          "the configured architecture.")
+    own.update(buffers)
     model.load_state_dict(own, strict=True)
 
 
@@ -271,31 +345,28 @@ def sample_weights(batch: Dict[str, torch.Tensor], train: bool = True) -> Option
     return w
 
 
-def _unsupported(cfg: TrainingJobConfig, model_type: str, backbone_type: str) -> List[str]:
+def _unsupported(cfg: TrainingJobConfig, model_type: str) -> List[str]:
     """What this configuration asks for that the port does not train yet."""
-    tc, dc = cfg.trainer_config, cfg.data_config
-    devices = tc.trainer_devices
+    tc = cfg.trainer_config
     checks = [
         (model_type not in MODEL_TYPES,
          f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"),
-        (backbone_type != "unet",
-         f"backbone {backbone_type!r}: predict runs it, training it is item 11b"),
         (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
         (bool(tc.use_wandb), "wandb"),
         (bool(tc.visualize_preds_during_training), "visualization during training"),
         (tc.profiler not in (None, "simple", "advanced", "passthrough"),
          f"profiler={tc.profiler!r}"),
-        ((isinstance(devices, int) and devices > 1)
-         or len(tc.trainer_device_indices or []) > 1, "more than one device"),
     ]
     return [what for bad, what in checks if bad]
 
 
 class ModelTrainer:
-    """Config-driven training of one model on one device.
+    """Config-driven training of one model, on one device or data-parallel
+    over several (one process each; see the module doc).
 
     ``device``: ``"cuda"`` (the default; raises without a card) or
-    ``"cpu"``. ``trainer_config.trainer_accelerator`` is not read.
+    ``"cpu"``; a rank this trainer spawns takes ``cuda:<rank>`` (or the
+    CPU). ``trainer_config.trainer_accelerator`` is not read.
     """
 
     def __init__(
@@ -310,11 +381,11 @@ class ModelTrainer:
         self.val_labels = val_labels or []
         self.model_type = get_model_type_from_cfg(config)
         self.backbone_type = get_backbone_type_from_cfg(config)
-        missing = _unsupported(config, self.model_type, self.backbone_type)
+        missing = _unsupported(config, self.model_type)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7, 10 and "
-                "11b): " + "; ".join(missing))
+                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7c and "
+                "10b): " + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
         self.current_epoch = 0
@@ -325,6 +396,15 @@ class ModelTrainer:
         self.initial_config: Optional[TrainingJobConfig] = None  # set by from_config
         self._top_k_ckpts: List = []
         self._setup_done = False
+        # Data parallelism (set by setup): this process's rank, the ranks,
+        # the DDP wrapper of the model, the ranks this process spawned and
+        # whether it leaves the group when training ends.
+        self.rank, self.n_ranks, self.distributed = 0, 1, False
+        self._train_rows: Optional[torch.Tensor] = None  # set by setup
+        self._lead_row = False
+        self._ddp: Optional[nn.Module] = None
+        self._spawned = None
+        self._owns_group = False
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -455,12 +535,14 @@ class ModelTrainer:
 
     # -- setup ---------------------------------------------------------------
     def setup(self):
-        """Datasets, loaders, model (Xavier init), the probe render, the
-        optimizer and scheduler, the checkpoint dir and the callbacks."""
+        """The ranks, datasets, loaders, model (flax's initialisers, Xavier
+        kernels, a pretrained encoder), the probe render, the optimizer and
+        scheduler, the checkpoint dir and the callbacks."""
         if self._setup_done:
             return
         cfg = self.config
         tc = cfg.trainer_config
+        self._join_or_launch_ranks()
         seed = tc.seed if tc.seed is not None else 0
         # One generator for the device-side augmentation draws.
         self.generator = torch.Generator(device=self.device)
@@ -496,13 +578,19 @@ class ModelTrainer:
                               if disk and dc.cache_img_path else None)
                       for split in ("train", "val")}
         cache_mode = "disk" if disk else "memory"
-        self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx,
-                                     cache_mode=cache_mode, cache_dir=cache_dirs["train"],
-                                     **ds_kwargs)
-        val_ctx = dataclasses.replace(self.ctx, use_augmentations=False)
-        self.val_ds = make_dataset(self.model_type, self.val_labels, val_ctx,
-                                   cache_mode=cache_mode, cache_dir=cache_dirs["val"],
-                                   **{**ds_kwargs, "use_negative_frames": False})
+        # Every rank fills its cache; a rank that failed makes them all raise.
+        cache_error: Optional[Exception] = None
+        try:
+            self.train_ds = make_dataset(self.model_type, self.train_labels, self.ctx,
+                                         cache_mode=cache_mode, cache_dir=cache_dirs["train"],
+                                         **ds_kwargs)
+            val_ctx = dataclasses.replace(self.ctx, use_augmentations=False)
+            self.val_ds = make_dataset(self.model_type, self.val_labels, val_ctx,
+                                       cache_mode=cache_mode, cache_dir=cache_dirs["val"],
+                                       **{**ds_kwargs, "use_negative_frames": False})
+        except Exception as e:  # noqa: BLE001 (raised on every rank below)
+            cache_error = e
+        sync_cache_fill_status(cache_error)
         tiling = dc.preprocessing.tiling
         if tiling is not None and tiling.enabled:
             self._setup_tiling(tiling, seed)
@@ -510,15 +598,27 @@ class ModelTrainer:
             raise ValueError("Train dataset is empty (no usable labeled frames).")
         if len(self.val_ds) == 0:
             raise ValueError("Val dataset is empty (no usable labeled frames).")
+        # Data-parallel: each rank loads and renders its rows of every
+        # global batch; the train render draws the augmentation of the
+        # whole global batch (every rank's generator in step) and applies
+        # it to those rows, with the row before them where mixup blends it.
+        mixup = (self.n_ranks > 1 and self.ctx.use_augmentations
+                 and (self.ctx.geometric or {}).get("mixup_p", 0) > 0)
         self.train_loader = Loader(
             self.train_ds, tc.train_data_loader.batch_size,
             shuffle=tc.train_data_loader.shuffle, seed=seed,
             prefetch=max(2, int(tc.train_data_loader.num_workers or 0)),
+            rank=self.rank, num_ranks=self.n_ranks, lead_row=mixup,
         )
-        self.val_loader = Loader(
-            self.val_ds, tc.val_data_loader.batch_size,
-            prefetch=max(2, int(tc.val_data_loader.num_workers or 0)),
-        )
+        self._train_rows = None if self.n_ranks == 1 else torch.as_tensor(
+            self.train_loader.rows, device=self.device)
+        self._lead_row = mixup
+        val_prefetch = max(2, int(tc.val_data_loader.num_workers or 0))
+        self.val_loader = Loader(self.val_ds, tc.val_data_loader.batch_size,
+                                 prefetch=val_prefetch, rank=self.rank, num_ranks=self.n_ranks)
+        # The epoch-end evaluation (rank 0) scores the whole val set.
+        self.eval_loader = self.val_loader if self.n_ranks == 1 else Loader(
+            self.val_ds, tc.val_data_loader.batch_size, prefetch=val_prefetch)
 
         self._renders = {True: make_render_fn(self.ctx, train=True),
                          False: make_render_fn(self.ctx, train=False)}
@@ -530,10 +630,23 @@ class ModelTrainer:
         self.model = Model.from_config(
             self.backbone_type, get_backbone_config(cfg), get_head_config(cfg), self.model_type,
             input_hw=self._input_shape[1:3])
+        init_gen = torch.Generator().manual_seed(seed)
+        flax_random_leaves_init(self.model, init_gen)
         if cfg.model_config.init_weights in ("default", "xavier"):
-            xavier_init_params(self.model, torch.Generator().manual_seed(seed))
+            xavier_init_params(self.model, init_gen)
         else:
-            flax_default_init_params(self.model, torch.Generator().manual_seed(seed))
+            flax_default_init_params(self.model, init_gen)
+        frozen: List[str] = []
+        if self.backbone_type == "pretrained":
+            bb = get_backbone_config(cfg)
+            if getattr(bb, "weights", True):
+                from sleap_nn_tpu_torch.models.pretrained import load_hf_encoder_params
+
+                state, _ = load_hf_encoder_params(bb.model_name, self.model.state_dict(),
+                                                  revision=getattr(bb, "revision", None))
+                self.model.load_state_dict(state, strict=True)
+            if getattr(bb, "freeze", False):
+                frozen = frozen_encoder_parameters(self.model)
         mc = cfg.model_config
         if mc.pretrained_backbone_weights or mc.pretrained_head_weights:
             # Transfer init from another trained model's checkpoint.
@@ -554,28 +667,116 @@ class ModelTrainer:
             self.current_epoch = int(state.get("epoch", -1)) + 1
             self.best_val_loss = float(state.get("best_val_loss", math.inf))
         self.model.to(self.device)
-        cfg.model_config.total_params = int(sum(p.numel() for p in self.model.parameters()))
+        # The JAX trainer counts every leaf of its variables, batch_stats
+        # (FrozenBatchNorm's statistics) included: the state_dict's leaves.
+        cfg.model_config.total_params = int(sum(v.numel()
+                                                for v in self.model.state_dict().values()))
+        # freeze: the encoder's weights never move (the JAX trainer zeros
+        # their updates; here they take no gradient and no optimizer step).
+        params = dict(self.model.named_parameters())
+        for name in frozen:
+            params[name].requires_grad_(False)
+        self.frozen_parameters = frozen
+        if self.distributed:
+            from torch.nn.parallel import DistributedDataParallel
 
-        self.optimizer = make_optimizer(self.model.parameters(), tc.optimizer_name,
-                                        tc.optimizer.lr, bool(tc.optimizer.amsgrad))
+            # static_graph: a pretrained encoder under out_indices computes
+            # stages whose parameters no output uses, the same ones each step.
+            self._ddp = DistributedDataParallel(
+                self.model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False, static_graph=True)
+
+        self._trained = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer = make_optimizer(self._trained, tc.optimizer_name, tc.optimizer.lr,
+                                        bool(tc.optimizer.amsgrad))
         self.scheduler = make_scheduler(tc.lr_scheduler, tc.optimizer.lr, tc.max_epochs)
         ohkm = tc.online_hard_keypoint_mining
         self._ohkm = dataclasses.asdict(ohkm) if ohkm else None
 
         if tc.save_ckpt:
             self._setup_ckpt_dir()
-        self.callbacks = [ProgressCallback(tc.enable_progress_bar)]
-        if self.ckpt_dir is not None:
+        # Rank 0 alone prints, logs and evaluates; every rank stops early alike.
+        lead = self.rank == 0
+        self.callbacks = [ProgressCallback(tc.enable_progress_bar)] if lead else []
+        if self.ckpt_dir is not None and lead:
             self.callbacks.append(CSVLoggerCallback(self.ckpt_dir / "training_log.csv"))
         es = tc.early_stopping
         if es is not None and es.stop_training_on_plateau:
             self.callbacks.append(EarlyStopping(min_delta=es.min_delta, patience=es.patience))
-        if tc.eval is not None and tc.eval.enabled:
+        if tc.eval is not None and tc.eval.enabled and lead:
             # Ahead of the CSV logger, so that the eval keys land in the row.
             self.callbacks.insert(0, EpochEndEvaluationCallback(
                 self, frequency=tc.eval.frequency, oks_stddev=tc.eval.oks_stddev,
                 match_threshold=tc.eval.match_threshold))
         self._setup_done = True
+
+    def _join_or_launch_ranks(self):
+        """Data parallelism. Join the process group the caller made or the
+        launch variables describe (``parallel.initialize_distributed``):
+        its size must divide both batch sizes. Without one, JAX's device
+        count (``parallel.num_devices``); above 1, this process spawns
+        ranks ``1..n-1`` (one device each, running this trainer's config
+        and labels) and becomes rank 0 of their group."""
+        tc = self.config.trainer_config
+        bs, vbs = tc.train_data_loader.batch_size, tc.val_data_loader.batch_size
+        # Through the launch variables a CUDA process takes its local rank's card.
+        if not distributed.is_initialized() and initialize_distributed(device=self.device.type):
+            self._owns_group = True
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        if distributed.is_initialized():
+            n = process_count()
+            if bs % n or vbs % n:
+                raise ValueError(f"batch sizes {bs} (train) and {vbs} (val) must divide evenly "
+                                 f"across the {n} processes of the group.")
+        else:
+            n = num_devices(bs, vbs, tc.trainer_devices, available_devices(self.device))
+            if n > 1:
+                self._spawn_ranks(n)
+        self.distributed = distributed.is_initialized()
+        self.rank, self.n_ranks = process_index(), process_count()
+
+    def _spawn_ranks(self, n: int):
+        """Start ranks ``1..n-1`` (``torch.multiprocessing``, spawn) on
+        ``cuda:<rank>`` (or the CPU) and join their group as rank 0."""
+        import socket
+
+        import torch.multiprocessing as mp
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            addr = f"localhost:{sock.getsockname()[1]}"
+        # The ranks compute as this process does: its TF32 switches go along.
+        job = {"config": copy.deepcopy(self.config), "initial_config": self.initial_config,
+               "train_labels": self.train_labels, "val_labels": self.val_labels,
+               "tf32": (torch.backends.cudnn.allow_tf32,
+                        torch.backends.cuda.matmul.allow_tf32)}
+        self._spawned = mp.start_processes(_train_rank, args=(addr, n, self.device.type, job),
+                                           nprocs=n - 1, join=False, start_method="spawn")
+        self._owns_group = True
+        try:
+            initialize_distributed(addr, n, 0, device=self.device)
+        except BaseException:
+            self._stop_ranks(failed=True)
+            raise
+
+    def _stop_ranks(self, failed: bool) -> None:
+        """Wait for the ranks this process spawned (after a failure here,
+        end them first), then leave the group this trainer joined. A rank
+        that failed raises here."""
+        spawned, self._spawned = self._spawned, None
+        try:
+            if spawned is not None and failed:
+                for proc in spawned.processes:
+                    proc.terminate()
+                    proc.join()
+            elif spawned is not None:
+                while not spawned.join():
+                    pass
+        finally:
+            if self._owns_group:
+                self._owns_group = False
+                distributed.destroy()
 
     def _setup_tiling(self, tiling, seed: int):
         """Tiled training: the tile geometry checked and rounded as the JAX
@@ -675,36 +876,51 @@ class ModelTrainer:
         if not run_name:
             run_name = time.strftime(f"%y%m%d_%H%M%S.{self.model_type}")
             tc.run_name = run_name
+        # Rank 0 picks the suffix (and the time-stamped name) for every rank.
+        run_name, n = broadcast_object((run_name, self._free_suffix(tc, run_name)))
+        tc.run_name = run_name
         base = Path(tc.ckpt_dir or ".") / run_name
-        ckpt_dir, n = base, 0
-        while ckpt_dir.exists() and any(ckpt_dir.iterdir()):
-            n += 1
-            ckpt_dir = base.with_name(f"{base.name}-{n}")
+        ckpt_dir = base if n == 0 else base.with_name(f"{base.name}-{n}")
         if n:
             tc.run_name = ckpt_dir.name
         self.ckpt_dir = ckpt_dir
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        if self.initial_config is not None:
-            self.initial_config.save_yaml(self.ckpt_dir / "initial_config.yaml")
-        self.config.save_yaml(self.ckpt_dir / "training_config.yaml")
-        for split, labels_list in (("train", self.train_labels), ("val", self.val_labels)):
-            for i, labels in enumerate(labels_list):
-                labels.save(self.ckpt_dir / f"labels_{split}_gt_{i}.slp", embed=True)
+        if self.rank == 0:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+            if self.initial_config is not None:
+                self.initial_config.save_yaml(self.ckpt_dir / "initial_config.yaml")
+            self.config.save_yaml(self.ckpt_dir / "training_config.yaml")
+            for split, labels_list in (("train", self.train_labels), ("val", self.val_labels)):
+                for i, labels in enumerate(labels_list):
+                    labels.save(self.ckpt_dir / f"labels_{split}_gt_{i}.slp", embed=True)
+        barrier("ckpt_dir")
+
+    def _free_suffix(self, tc, run_name: str) -> int:
+        """0, or the first ``n`` whose ``<run_name>-<n>`` is free (rank 0's
+        probe; the other ranks' value is not used)."""
+        base = Path(tc.ckpt_dir or ".") / run_name
+        probe, n = base, 0
+        while self.rank == 0 and probe.exists() and any(probe.iterdir()):
+            n += 1
+            probe = base.with_name(f"{base.name}-{n}")
+        return n
 
     # -- checkpointing -------------------------------------------------------
     def save_checkpoint(self, name: str = "best.ckpt"):
+        """Rank 0 writes ``name``; every rank waits for the file."""
         if self.ckpt_dir is None:
             return
-        state = {
-            "state_dict": {f"model.{k}": v.detach().cpu()
-                           for k, v in self.model.state_dict().items()},
-            "epoch": self.current_epoch,
-            "best_val_loss": float(self.best_val_loss),
-        }
-        path = self.ckpt_dir / name
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        if self.rank == 0:
+            state = {
+                "state_dict": {f"model.{k}": v.detach().cpu()
+                               for k, v in self.model.state_dict().items()},
+                "epoch": self.current_epoch,
+                "best_val_loss": float(self.best_val_loss),
+            }
+            path = self.ckpt_dir / name
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        barrier(f"ckpt:{name}")
 
     def _update_top_k(self, epoch: int, val_loss: float, top_k: int):
         """Keep the ``top_k`` best epoch-stamped checkpoints: each epoch that
@@ -719,7 +935,8 @@ class ModelTrainer:
         self._top_k_ckpts.sort(key=lambda t: t[0])
         while len(self._top_k_ckpts) > top_k:
             _, worst = self._top_k_ckpts.pop()
-            worst.unlink(missing_ok=True)
+            if self.rank == 0:
+                worst.unlink(missing_ok=True)
 
     @staticmethod
     def load_checkpoint(path) -> Dict:
@@ -750,37 +967,68 @@ class ModelTrainer:
 
     def render(self, batch: Dict[str, np.ndarray], train: bool) -> Dict[str, torch.Tensor]:
         """Move a host batch to the device and render its inputs and targets
-        (no autograd). The train render augments with the trainer's generator."""
+        (no autograd). The train render augments with the trainer's
+        generator; under data parallelism it draws the augmentation of the
+        global batch and applies this rank's rows of it (the train loader's
+        ``rows``), then drops the lead row that only fed mixup."""
         dbatch = self._to_device(batch)
-        processed = self._renders[train](dbatch, self.generator if train else None)
+        if train:
+            processed = self._renders[True](dbatch, self.generator, self._train_rows,
+                                            self.train_loader.batch_size)
+        else:
+            processed = self._renders[False](dbatch)
         processed["batch_mask"] = dbatch.get("batch_mask")
         processed["sample_weight"] = dbatch.get("sample_weight")
+        if train and self._lead_row:
+            n = len(batch["batch_mask"])
+            processed = {k: v[1:] if torch.is_tensor(v) and v.ndim and v.shape[0] == n else v
+                         for k, v in processed.items()}
         return processed
 
     def compute_loss(self, processed: Dict[str, torch.Tensor], train: bool):
-        """Forward and loss of a rendered batch: ``(loss, parts)``."""
-        preds = self.model(processed["image"])
+        """Forward and loss of a rendered batch: ``(loss, parts)``; under
+        data parallelism this rank's shares of the global batch's (the
+        train forward through the DDP wrapper)."""
+        net = self._ddp if train and self._ddp is not None else self.model
+        preds = net(processed["image"])
         return compute_loss(preds, processed, self.model.heads,
-                            sample_weights(processed, train), self._ohkm if train else None)
+                            sample_weights(processed, train), self._ohkm if train else None,
+                            group_sum=all_reduce_sum if self.distributed else None)
+
+    def _logged(self, loss: torch.Tensor, parts: Dict[str, torch.Tensor]):
+        """The global batch's loss and parts, detached: under data
+        parallelism ``loss`` is this rank's share and ``parts`` are the
+        global batch's already (:func:`compute_loss`), so the loss is
+        their weighted sum."""
+        parts = {k: v.detach() for k, v in parts.items()}
+        if self.distributed:
+            return weighted_total(parts, self.model.heads), parts
+        return loss.detach(), parts
 
     def train_step(self, batch: Dict[str, np.ndarray]):
         """Render, forward, loss, backward and one optimizer step.
 
-        Returns the loss and the loss parts, detached, on the device. The
-        gradients stay in ``.grad`` until the next step.
+        Returns the loss and the loss parts of the global batch, detached,
+        on the device. The gradients stay in ``.grad`` until the next step.
+        Under data parallelism each rank's share is scaled by the number of
+        ranks, so that DDP's average of the gradients is the gradient of
+        the global batch's loss.
         """
         self.model.train()
         processed = self.render(batch, train=True)
         self.optimizer.zero_grad(set_to_none=True)
         loss, parts = self.compute_loss(processed, train=True)
-        loss.backward()
+        (loss * self.n_ranks if self._ddp is not None else loss).backward()
+        for p in self._trained:
+            if p.grad is None:  # unused by every output: optax's zero gradient
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+        return self._logged(loss, parts)
 
     @torch.no_grad()
     def val_step(self, batch: Dict[str, np.ndarray]):
         self.model.eval()
-        return self.compute_loss(self.render(batch, train=False), train=False)
+        return self._logged(*self.compute_loss(self.render(batch, train=False), train=False))
 
     # -- loops ----------------------------------------------------------------
     def _log_all(self, hook: str, *args):
@@ -803,6 +1051,7 @@ class ModelTrainer:
         if steps_cap is None:
             steps_cap = max(len(self.train_loader), tc.min_train_steps_per_epoch)
 
+        failed = False
         try:
             for epoch in range(self.current_epoch, tc.max_epochs):
                 self.current_epoch = epoch
@@ -827,7 +1076,7 @@ class ModelTrainer:
                     for k, v in parts.items():
                         part_sums.setdefault(k, []).append(v)
                     n_steps += 1
-                    n_samples += int(np.sum(batch["batch_mask"]))
+                    n_samples += int(batch.get("n_real", np.sum(batch["batch_mask"])))
                     self._log_all("on_batch_end", n_steps - 1, {})
                     if self.should_stop or (steps_cap and n_steps >= steps_cap):
                         break
@@ -883,6 +1132,9 @@ class ModelTrainer:
             # A cancelled run leaves no model dir behind.
             self._interrupted = True
             print("Stopping training (KeyboardInterrupt)...")
+        except BaseException:
+            failed = True
+            raise
         finally:
             self._log_all("on_train_end")
             if tc.profiler in ("simple", "advanced") and self.history:
@@ -896,15 +1148,33 @@ class ModelTrainer:
                 )
             dc = self.config.data_config
             if str(dc.data_pipeline_fw).endswith("cache_img_disk") \
-                    and dc.delete_cache_imgs_after_training:
+                    and dc.delete_cache_imgs_after_training and self.rank == 0:
                 self.delete_cache()
             if getattr(self, "_interrupted", False) and self.ckpt_dir is not None \
-                    and self.ckpt_dir.exists():
+                    and self.ckpt_dir.exists() and self.rank == 0:
                 import shutil
 
                 print(f"Training canceled - cleaning up {self.ckpt_dir}...")
                 shutil.rmtree(self.ckpt_dir, ignore_errors=True)
+            self._stop_ranks(failed)
         return self.history
+
+
+def _train_rank(index: int, addr: str, n: int, device_type: str, job: Dict) -> None:
+    """A spawned rank (``index + 1``): join the group at ``addr``, then
+    train ``job``'s config on its labels, on ``cuda:<rank>`` or the CPU."""
+    rank = index + 1
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = job["tf32"]
+    initialize_distributed(addr, n, rank, device=device)
+    try:
+        trainer = ModelTrainer(job["config"], job["train_labels"], job["val_labels"],
+                               device=device)
+        trainer.initial_config = job["initial_config"]
+        trainer._infer_config()
+        trainer.train()
+    finally:
+        distributed.destroy()
 
 
 def _mean(values: List[torch.Tensor]) -> float:

@@ -93,7 +93,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.system_info",
             "sleap_nn_tpu_torch.model_info",
             "sleap_nn_tpu_torch.data.tiling",
-            "sleap_nn_tpu_torch.inference.tile_merger"} <= set(mods)
+            "sleap_nn_tpu_torch.inference.tile_merger",
+            "sleap_nn_tpu_torch.parallel",
+            "sleap_nn_tpu_torch.parallel.distributed",
+            "sleap_nn_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"

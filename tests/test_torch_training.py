@@ -402,10 +402,7 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
     {"trainer_config": {"profiler": "pytorch"}},
     {"trainer_config": {"use_wandb": True}},
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
-    {"trainer_config": {"trainer_device_indices": [0, 1]}},
-    {"trainer_config": {"trainer_devices": 2}},
     {"trainer_config": {"visualize_preds_during_training": True}},
-    {"model_config": {"backbone_config": {"convnext": {}}}},
 ], ids=lambda o: next(iter(next(iter(o.values())))))
 def test_unported_features_raise(override):
     d = cfg_dict()
