@@ -295,6 +295,43 @@ Phases, each of which raises on failure (exit code != 0):
     the phase makes (two processes) and as 1 NCCL rank joined through the
     launch variables, each against one process; rank 0 alone writes the
     model dir; steps/s of each (one card: correctness, not scaling).
+34. Bottom-up segmentation predict (``run_segmentation_predict``,
+    ``segmentation_predict`` line): ``run.predict`` from a full-width dir
+    (UNet medium_rf; foreground, instance-centre and centre-offset heads
+    at stride 2; random weights from a seed, the foreground and centre
+    heads' biases calibrated on two frames so that about 30% of the
+    pixels are foreground and about 8 centres a frame clear the
+    threshold) over 20 frames of 1024x1024 animals on their noise floor,
+    batch 8, bf16, ``max_instances`` 50: at ``center_nms_kernel`` 3, then
+    at 5 with the fragment merge, ``distance_gate_alpha`` 2 and
+    ``mask_output="both"`` (8 frames). Launches 9 (kernel 1) and 1 (kernel
+    2) a batch; kernel 2 held against its plain version on the real centre
+    heatmap at k = 3 and 5, and every other new kernel signature too; the
+    ``Labels`` hold the first batch's raw masks; frames/s and the ms of
+    each stage (preprocess, UNet, centre peaks, offset grouping, device
+    total, copy to the host, host clean-up and merge).
+35. Semantic segmentation predict (9 launches of kernel 1 a batch) and
+    top-down segmentation predict (a medium_rf centroid model and a
+    centered-instance segmentation model on crops of 256, ``max_instances``
+    6: 18 + 1 a batch, kernel 1 held at the crop batch's shapes), as
+    phase 34.
+36. Training the three segmentation types (``run_segmentation_training``,
+    ``segmentation_training`` line): ``ModelTrainer.train`` of each at
+    medium_rf width on 12 frames of 1024x1024 (4 val), batch 4, f32,
+    geometric augmentation, 2 epochs of 5 steps, with the epoch-end
+    ``val/fg_iou``; no kernel launches. Then from each dir (top-down beside
+    phase 35's centroid dir): ``run.predict`` with tracking (masks and mask
+    IoU) to an ``.slp`` with masks and polygons, ``load_slp`` back (masks
+    bit-identical), ``run_evaluation`` (``mask``, or ``semantic``) against
+    the val frames' rendered masks. Steps/s, peak memory, step stage times,
+    the predict, save, load and evaluation seconds.
+37. Narrow f32 segmentation layers of the three types, the card against
+    the CPU (``check_segmentation_against_cpu``,
+    ``segmentation_card_vs_cpu`` line): maps to 1e-4, validity exact,
+    masks under the threshold-margin rule (a pixel may differ only where
+    the CPU's foreground lies within 1e-5 of the threshold, at most 0.1%
+    of the mask); the host step fed the same device outputs gives the
+    same masks, polygons and mask tracks on both.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -5186,6 +5223,569 @@ def check_ddp(kernels, smi):
 
 
 # --------------------------------------------------------------------------
+# Phases 34-37: segmentation
+# --------------------------------------------------------------------------
+
+# The segmentation heads of phases 34-37 (all at stride 2).
+SEG_HEADS = {
+    "bottomup_segmentation": {"segmentation": {"output_stride": 2},
+                              "center": {"sigma": 4.0, "output_stride": 2},
+                              "offsets": {"output_stride": 2}},
+    "semantic_segmentation": {"segmentation": {"output_stride": 2}},
+    "centered_instance_segmentation": {"segmentation": {"output_stride": 2}},
+}
+TRAIN_HEADS.update(SEG_HEADS)
+# Phase 34: the centres a frame may hold; the frames of the merge run (its
+# host step scores every touching pair of a frame's masks); the centres
+# that the random centre head's calibration puts above the threshold, on
+# average, in a frame (about what a frame of animals holds: the host step
+# cleans each centre's mask on the host, 10-20 ms each).
+SEG_MAX_INST, SEG_MERGE_FRAMES, SEG_CENTRES = 50, 8, 8
+MEDIUM_RF = {"unet": {"in_channels": 1, "filters": 24, "filters_rate": 1.5, "max_stride": 32,
+                      "output_stride": 2}}
+# Phases 34-36's runs: name, the model types of their dirs, run.predict's
+# knobs, the launches a batch of kernels 1 and 2.
+SEG_PREDICT_RUNS = (
+    ("bottomup_segmentation", ("bottomup_segmentation",),
+     {"max_instances": SEG_MAX_INST}, (9, 1)),
+    ("bottomup_segmentation_merge", ("bottomup_segmentation",),
+     {"max_instances": SEG_MAX_INST, "center_nms_kernel": 5, "merge_fragments": True,
+      "distance_gate_alpha": 2.0, "mask_output": "both"}, (9, 1)),
+    ("semantic_segmentation", ("semantic_segmentation",), {}, (9, 0)),
+    ("topdown_segmentation", ("centroid", "centered_instance_segmentation"),
+     {"max_instances": MAX_INST}, (18, 1)),
+)
+# Phase 36: frames (8 train, 4 val) and the evaluation of each type.
+SEG_TRAIN_FRAMES, SEG_TRAIN_VAL = 12, 4
+SEG_EVAL = {"bottomup_segmentation": "mask", "semantic_segmentation": "semantic",
+            "centered_instance_segmentation": "mask"}
+# Phase 37: the masks' threshold margin and the share of a mask it may take.
+SEG_MARGIN, SEG_MARGIN_FRACTION = 1e-5, 1e-3
+
+
+def seg_dir_config(model_type, n_nodes, backbone=None, crop=None):
+    """A segmentation model dir's config (a dict): UNet medium_rf unless
+    ``backbone`` is given."""
+    cfg = dir_config(backbone or MEDIUM_RF, "centroid", n_nodes, crop=crop)
+    cfg["model_config"]["head_configs"] = {model_type: json.loads(json.dumps(
+        SEG_HEADS[model_type]))}
+    cfg["trainer_config"]["run_name"] = model_type
+    return cfg
+
+
+def seg_random_init(model, frames):
+    """He-normal backbone convs with zero biases and 1x1 heads of gain 0.1
+    (offsets: 4 px, bias 0); then, from the maps on ``frames`` (run on
+    ``DEVICE``), the foreground logits scaled to a spread of 4 with 30% of
+    the pixels above 0, and the centre heatmap moved so that a frame's
+    ``2 * SEG_CENTRES``-th largest local maximum sits at 0 and its
+    ``SEG_CENTRES``-th at 0.25: about ``SEG_CENTRES`` centres a frame clear
+    the 0.2 threshold."""
+    import torch
+    from torch import nn
+
+    from sleap_nn_tpu_torch.ops.peaks import nms_max_pool
+
+    random_init(model)
+    heads = {name: head[0] for layer in model.head_layers for name, head in layer.items()}
+    with torch.no_grad():
+        for name, conv in heads.items():
+            conv.bias.zero_()
+            if name == "CenterOffsetHead":
+                nn.init.normal_(conv.weight, std=4.0 * conv.in_channels ** -0.5)
+        model.to(DEVICE).eval()
+        out = model(torch.from_numpy(frames / np.float32(255.0)).to(DEVICE))
+        p = out["SegmentationHead"].double().clamp(1e-12, 1 - 1e-12)
+        z = torch.log(p / (1 - p)).flatten()
+        a = 4.0 / z.std().item()
+        heads["SegmentationHead"].weight.mul_(a)
+        heads["SegmentationHead"].bias.fill_(-a * torch.quantile(z[::7], 0.7).item())
+        if "InstanceCenterHead" in heads:
+            hm = out["InstanceCenterHead"]
+            peaks = (hm >= nms_max_pool(hm, 3)).flatten(1)
+            kth, med = [], []
+            for row, is_peak in zip(hm.flatten(1), peaks):
+                v = row[is_peak].sort(descending=True).values
+                kth.append(v[SEG_CENTRES - 1].item())
+                med.append(v[2 * SEG_CENTRES - 1].item())
+            a = 0.25 / (np.mean(kth) - np.mean(med))
+            heads["InstanceCenterHead"].weight.mul_(a)
+            heads["InstanceCenterHead"].bias.fill_(-a * np.mean(med))
+        model.cpu()
+
+
+def seg_dirs(root, frames):
+    """Phase 34-35's full-width dirs with random weights: bottom-up and
+    semantic segmentation, a centroid model and a centered-instance
+    segmentation model (crop ``CROP``)."""
+    out = {}
+    for i, (mt, crop) in enumerate((("bottomup_segmentation", None),
+                                    ("semantic_segmentation", None),
+                                    ("centered_instance_segmentation", CROP))):
+        cfg = seg_dir_config(mt, N_NODES, crop=crop)
+        model = random_model(cfg, seed=340 + i)
+        seg_random_init(model, frames)
+        out[mt] = write_port_dir(root / mt, cfg, model)
+    cfg = dir_config(MEDIUM_RF, "centroid", N_NODES)
+    model = random_model(cfg, seed=343)
+    random_init(model)
+    out["centroid"] = write_port_dir(root / "centroid", cfg, model)
+    return out
+
+
+def seg_frames(n, seed):
+    """Phase 27's animals on their noise floor (gray levels 0-15)."""
+    frames = animal_frames(n, (IMG, IMG), MAX_INST, seed)
+    floor = np.random.default_rng(seed + 1).integers(0, 16, frames.shape, dtype=np.uint8)
+    return np.maximum(frames, floor)
+
+
+def seg_stage_times(layer, frames):
+    """ms of one batch by stage, each fenced by synchronize(): preprocess,
+    the UNet(s), centre peaks (kernel 2), the offset grouping (its
+    ``(B, K, H, W)`` distances in eager torch) or the crops, the copy to
+    the host and the host step (clean-up, merge, pastes)."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference import segmentation as seg
+    from sleap_nn_tpu_torch.inference.layers import preprocess_images, to_host
+    from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
+
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    images = torch.from_numpy(frames).to(layer.device)
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            if isinstance(layer, seg.TopDownSegmentationLayer):
+                c = layer.centroid_layer
+                x, eff = timed("preprocess", lambda: preprocess_images(c.pre, images))
+                cres = timed("centroid_unet_and_peaks", lambda: c.forward_preprocessed(x, eff))
+                cent = torch.nan_to_num(cres["centroids_scaled"][:, :layer.max_instances],
+                                        nan=-1e6)
+                b, k = cent.shape[:2]
+                crops = timed("crops", lambda: crop_bboxes(
+                    x, make_centered_bboxes(cent.reshape(b * k, 2), layer.crop_size,
+                                            layer.crop_size),
+                    torch.arange(b, device=x.device).repeat_interleave(k), layer.crop_size,
+                    layer.crop_size))
+                timed("instance_unet", lambda: layer.backend(crops))
+            else:
+                x, eff = timed("preprocess", lambda: preprocess_images(layer.pre, images))
+                preds = timed("unet", lambda: layer.backend(x))
+                if isinstance(layer, seg.BottomUpSegmentationLayer):
+                    pts, vals, valid = timed("center_peaks", lambda: seg.find_center_peaks(
+                        preds["InstanceCenterHead"], layer.post.peak_threshold,
+                        layer.max_instances, layer.center_nms_kernel))
+                    timed("offset_grouping", lambda: seg.group_instances_from_offsets(
+                        preds["SegmentationHead"], preds["CenterOffsetHead"],
+                        pts * layer.center_output_stride, valid, layer.seg_output_stride,
+                        layer.max_center_dist, layer.fg_threshold,
+                        layer.distance_gate_alpha))
+            dev = timed("device_total", lambda: layer.forward(images))
+            host = timed("to_host", lambda: to_host(dev))
+    timed("host_step", lambda: layer.postprocess_host(host))
+    if layer.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            layer.forward(images)
+        sync()
+        times["device_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return times
+
+
+def seg_labels_hold_outputs(labels, results, mask_output):
+    """The ``Labels`` of a segmentation run hold the masks of its raw
+    outputs, frame by frame: each mask (bits, score, scale), and with
+    ``mask_output`` ``"both"`` one polygon per mask with an outline."""
+    by_frame = {lf.frame_idx: lf for lf in labels}
+    n = 0
+    for out in results:
+        for i, f in enumerate(out["frame_inds"]):
+            if not out["valid"][i]:
+                continue
+            want = out["pred_masks"][i]
+            lf = by_frame.get(int(f))
+            got = lf.masks if lf is not None else []
+            if len(got) != len(want) or not all(
+                    np.array_equal(a.mask, b.mask) and a.score == b.score and a.scale == b.scale
+                    for a, b in zip(got, want)):
+                raise AssertionError(f"frame {f}: {len(got)} masks in the Labels, "
+                                     f"{len(want)} in the outputs")
+            if mask_output == "both" and lf is not None and len(lf.rois) > len(got):
+                raise AssertionError(f"frame {f}: {len(lf.rois)} polygons for {len(got)} masks")
+            n += len(want)
+    return n
+
+
+def run_segmentation_predict(kernels, smi):
+    """Phases 34-35: ``run.predict`` from full-width segmentation dirs
+    (UNet medium_rf, random weights from a seed; 20 frames of 1024x1024
+    animals on a noise floor, batch 8, bf16). Phase 34: the bottom-up
+    segmentation model (``max_instances`` 50) at ``center_nms_kernel`` 3,
+    then at 5 with the fragment merge, ``distance_gate_alpha`` 2 and
+    ``mask_output="both"`` (on ``SEG_MERGE_FRAMES`` frames: the merge
+    scores every touching pair of a frame's masks on the host). Phase 35:
+    the semantic model, and the top-down pair (a centroid model and a
+    centered-instance segmentation model on crops of ``CROP``,
+    ``max_instances`` ``MAX_INST``). Launches a batch as
+    ``SEG_PREDICT_RUNS``; every kernel call at a new signature (the centre
+    heatmap at k = 3 and 5, the UNets on frames and on the crop batch) held
+    against its plain version; the ``Labels`` hold the raw outputs' masks;
+    frames/s and the ms of each stage (``segmentation_predict`` line).
+    Returns the runs, the held rows and the dirs."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.io.model import Labels
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    frames = seg_frames(N_FRAMES, seed=34)
+    dirs = seg_dirs(Path(tmp.name), frames[:2])
+    seen, calls, runs, stats = set(), [], {}, {}
+    for name, types, knobs, per_batch in SEG_PREDICT_RUNS:
+        paths = [dirs[t] for t in types]
+        use = frames[:SEG_MERGE_FRAMES] if knobs.get("merge_fragments") else frames
+        n_batches = -(-len(use) // BATCH)
+        kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, **knobs)
+        predict(frame_labels(use[:BATCH]), paths, make_labels=False, **kw)  # warm-up
+        sync()
+        with recording_kernel_calls(seen, calls):
+            labels, launches = run_counted(kernels, lambda: predict(frame_labels(use), paths,
+                                                                    **kw))
+        expect_launches(f"{name} predict", launches, phase=34, fused_double_conv3x3=per_batch[0]
+                        * n_batches, nms_scores=per_batch[1] * n_batches)
+        # The first batch again through the predictor's raw outputs: its
+        # Labels, and run.predict's, hold their masks.
+        pred = Predictor.from_model_paths(paths, **{k: v for k, v in kw.items()
+                                                    if k != "batch_size"},
+                                          batch_size=BATCH)
+        first = frame_labels(use[:BATCH])
+        raw = pred.predict(first, make_labels=False)
+        n_masks = seg_labels_hold_outputs(pred.to_labels(raw, labels_src=first), raw,
+                                          knobs.get("mask_output", "mask"))
+        seg_labels_hold_outputs(Labels([lf for lf in labels if lf.frame_idx < BATCH]), raw,
+                                knobs.get("mask_output", "mask"))
+        total = sum(len(lf.masks) for lf in labels)
+        if n_masks == 0:
+            raise AssertionError(f"phase 34-35 {name}: no mask in the first batch")
+        if knobs.get("mask_output") == "both" and not any(lf.rois for lf in labels):
+            raise AssertionError(f"phase 34 {name}: no polygon")
+        layer = pred.layer
+        stages = seg_stage_times(layer, use[:BATCH])
+        valid = [out["centroid_valid"][out["valid"]] for out in raw if "centroid_valid" in out]
+        runs[f"seg_{name}"] = {"launches": launches, "n_batches": n_batches,
+                               "fps": labels.provenance["stats"]["fps"]}
+        stats[name] = {"fps": labels.provenance["stats"]["fps"], "frames": len(use),
+                       "launches": launches, "masks": total,
+                       "masks_per_frame": total / len(use),
+                       "centres_per_frame": (float(np.mean([v.sum(axis=-1).mean()
+                                                            for v in valid]))
+                                             if valid else None),
+                       "polygons": sum(len(lf.rois) for lf in labels),
+                       "mask_scale": raw[0].get("mask_scale"), "stage_ms": stages}
+        del labels, raw, pred, layer
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    held = check_recorded_calls(calls)
+    del calls
+    for r in held:
+        log("segmentation_kernel " + json.dumps(r))
+    sigs = {(r["kernel"], tuple(map(tuple, r["shapes"]))) for r in held}
+    if any(not r["ok"] for r in held) or (DEVICE != "cpu" and not held):
+        raise AssertionError(f"phases 34-35: kernel calls held {held}")
+    log("segmentation_predict " + json.dumps({
+        "paths": stats, "held": len(held), "held_signatures": len(sigs), "img": IMG,
+        "batch": BATCH, "phase_s": time.perf_counter() - t_phase, "device": smi}))
+    return runs, held, dirs, tmp
+
+
+def seg_labels(n, seed):
+    """Labels over ``seg_frames`` (``N_NODES``-node animals at their blobs'
+    centres) and, per frame, the masks its instances render to (the
+    training render's capsules of radius 12 around the edges)."""
+    import torch
+
+    from sleap_nn_tpu_torch.data.segmentation_maps import render_masks_from_instances
+    from sleap_nn_tpu_torch.io.model import (
+        Instance, LabeledFrame, Labels, SegmentationMask, Skeleton)
+
+    points = []
+    frames = animal_frames(n, (TRAIN_IMG, TRAIN_IMG), MAX_INST, seed, points=points)
+    floor = np.random.default_rng(seed + 1).integers(0, 16, frames.shape, dtype=np.uint8)
+    video = ArrayVideo(np.maximum(frames, floor))
+    skel = Skeleton([f"n{i}" for i in range(N_NODES)], edges=bottomup_edges(N_NODES))
+    edges = torch.tensor(bottomup_edges(N_NODES), dtype=torch.long)
+    lfs = []
+    for f, pts in enumerate(points):
+        masks = render_masks_from_instances(torch.from_numpy(pts.astype(np.float32)),
+                                            (TRAIN_IMG, TRAIN_IMG), edges).numpy()
+        lfs.append(LabeledFrame(video, f, [Instance(a, skel) for a in pts],
+                                masks=[SegmentationMask(m) for m in masks]))
+    return Labels(lfs)
+
+
+def run_segmentation_training(kernels, smi, dirs):
+    """Phase 36: ``ModelTrainer.train`` of each segmentation type (UNet
+    medium_rf, ``SEG_TRAIN_FRAMES`` 1024x1024 frames of phase 34's animals,
+    ``SEG_TRAIN_VAL`` of them val, batch 4, f32, geometric augmentation, 2
+    epochs of 5 steps, the epoch-end ``val/fg_iou`` in every epoch's logs);
+    no kernel launches (the targets are plain torch, the trainer's convs
+    cuDNN). Then from each dir (the centered-instance one beside phase
+    35's centroid dir): ``run.predict`` with tracking (masks and mask IoU
+    by default) to an ``.slp`` with masks and polygons, read back by
+    ``load_slp`` (masks bit-identical, polygons and tracks the same),
+    ``run_evaluation`` against the val frames' rendered masks (``mask`` or
+    ``semantic``). Prints steps/s, peak memory, the stage times of one step
+    and the predict, save, load, evaluation and tracking seconds
+    (``segmentation_training`` line). Returns the runs."""
+    import torch
+
+    from sleap_nn_tpu_torch.evaluation import run_evaluation
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.io.slp import load_slp
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    labels = seg_labels(SEG_TRAIN_FRAMES, seed=36)
+    n_train = SEG_TRAIN_FRAMES - SEG_TRAIN_VAL
+    val = labels.extract(range(n_train, SEG_TRAIN_FRAMES))
+    runs, stats = {}, {}
+    for mt in SEG_HEADS:
+        crop = CROP if mt == "centered_instance_segmentation" else None
+        cfg = training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
+                              crop_size=crop, max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS,
+                              save_ckpt=True, ckpt_dir=str(root), run_name=mt,
+                              eval={"enabled": True, "frequency": 1})
+        trainer = ModelTrainer.get_model_trainer_from_config(
+            cfg, [labels.extract(range(n_train))], [val], device=DEVICE)
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        history, launches = run_counted(kernels, trainer.train)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
+        expect_launches(f"{mt} training", launches, phase=36)
+        losses = [h[k] for h in history for k in ("train/loss", "val/loss", "val/fg_iou")]
+        if len(history) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 36 {mt}: history {history}")
+        stages = train_stage_times(trainer, next(iter(trainer.train_loader)))
+
+        paths = ([dirs["centroid"]] if crop else []) + [trainer.ckpt_dir]
+        out_path = root / f"{mt}.predictions.slp"
+        timings = {}
+        t0 = time.perf_counter()
+        pred, dir_launches = run_counted(kernels, lambda: predict(
+            val, paths, batch_size=BATCH, use_bf16=True, device=DEVICE, tracking=True,
+            mask_output="both", max_instances=SEG_MAX_INST if not crop else MAX_INST))
+        timings["predict_and_track_s"] = time.perf_counter() - t0
+        per_batch = {"bottomup_segmentation": (9, 1), "semantic_segmentation": (9, 0),
+                     "centered_instance_segmentation": (18, 1)}[mt]
+        n_batches = -(-len(val) // BATCH)
+        expect_launches(f"{mt} predict", dir_launches, phase=36,
+                        fused_double_conv3x3=per_batch[0] * n_batches,
+                        nms_scores=per_batch[1] * n_batches)
+        masks = [m for lf in pred for m in lf.masks]
+        if not masks or any(m.track is None for m in masks if m.area):
+            raise AssertionError(f"phase 36 {mt}: {len(masks)} masks, tracked "
+                                 f"{sum(m.track is not None for m in masks)}")
+        t0 = time.perf_counter()
+        pred.save(str(out_path))
+        timings["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_slp(out_path)
+        timings["load_s"] = time.perf_counter() - t0
+        for a, b in zip(back.labeled_frames, pred.labeled_frames):
+            if not (len(a.masks) == len(b.masks) and len(a.rois) == len(b.rois) and all(
+                    np.array_equal(x.mask, y.mask) and x.score == y.score and x.scale == y.scale
+                    and getattr(x.track, "name", None) == getattr(y.track, "name", None)
+                    for x, y in zip(a.masks, b.masks)) and all(
+                    np.array_equal(x.points, y.points) for x, y in zip(a.rois, b.rois))):
+                raise AssertionError(f"phase 36 {mt}: frame {a.frame_idx} read back differs")
+        t0 = time.perf_counter()
+        metrics = run_evaluation(val, str(out_path), match_method=SEG_EVAL[mt])
+        timings["evaluate_s"] = time.perf_counter() - t0
+        if metrics is None:
+            raise AssertionError(f"phase 36 {mt}: nothing to evaluate")
+        key = "semantic_metrics" if SEG_EVAL[mt] == "semantic" else "mask_metrics"
+        summary = {k: v for k, v in metrics[key].items()
+                   if isinstance(v, (int, float)) and k not in ("ious",)}
+        runs[f"train_{mt}"] = {"launches": launches, "n_batches": 1,
+                               "steps_per_sec": history[-1]["train/steps_per_sec"]}
+        runs[f"model_dir_{mt}"] = {"launches": dir_launches, "n_batches": n_batches}
+        stats[mt] = {
+            "steps_per_sec": history[-1]["train/steps_per_sec"],
+            "samples_per_sec": history[-1]["train/samples_per_sec"],
+            "peak_mem_gib": peak_gib, "stage_ms": stages, "launches": launches,
+            "input_shape": trainer._input_shape, "losses": losses,
+            "fg_iou": [h["val/fg_iou"] for h in history],
+            "predict_launches": dir_launches, "masks": len(masks),
+            "tracks": len(pred.tracks), "polygons": sum(len(lf.rois) for lf in pred),
+            "eval": summary, **timings}
+        del trainer, pred, back
+    log("segmentation_training " + json.dumps({
+        "models": stats, "frames": SEG_TRAIN_FRAMES, "val_frames": SEG_TRAIN_VAL,
+        "img": TRAIN_IMG, "batch": TRAIN_BATCH, "phase_s": time.perf_counter() - t_phase,
+        "device": smi}, default=str))
+    tmp.cleanup()
+    return runs
+
+
+def seg_margin_ok(got, want, values, threshold):
+    """Masks equal but for pixels where ``values`` lies within
+    ``SEG_MARGIN`` of ``threshold``, at most ``SEG_MARGIN_FRACTION`` of the
+    mask; returns the count of such pixels."""
+    got, want = np.asarray(got, bool), np.asarray(want, bool)
+    diff = got != want
+    near = np.broadcast_to(np.abs(np.asarray(values, np.float64) - threshold) <= SEG_MARGIN,
+                           diff.shape)
+    if (diff & ~near).any() or diff.sum() > SEG_MARGIN_FRACTION * diff.size:
+        raise AssertionError(f"masks differ at {int(diff.sum())} pixels, "
+                             f"{int((diff & ~near).sum())} away from the threshold")
+    return int(diff.sum())
+
+
+def narrow_seg_layers(device, frames):
+    """Narrow f32 segmentation layers (UNet filters 8, max_stride 8, heads
+    at stride 2) of each type with the same weights on ``device``:
+    conditioned as the CPU tests condition them (zero biases; foreground
+    logits scaled to 6, the centre heatmap to 1, offsets to 4 px)."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference import segmentation as seg
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.inference.layers import (
+        CentroidLayer, PostprocessConfig, PreprocessConfig)
+
+    models = {}
+    for i, mt in enumerate(list(SEG_HEADS) + ["centroid"]):
+        unet = {"unet": {"filters": 8, "filters_rate": 1.5, "max_stride": 8,
+                         "output_stride": 2, "in_channels": 1}}
+        cfg = (seg_dir_config(mt, 3, backbone=unet) if mt != "centroid"
+               else dir_config(unet, "centroid", 3))
+        model = random_model(cfg, seed=370 + i)
+        x = frames if mt != "centered_instance_segmentation" else frames[:, 32:96, 32:96]
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+            model.eval()
+            out = model(torch.from_numpy(x / np.float32(255.0)))
+            for layer in model.head_layers:
+                for head, m in layer.items():
+                    y = out[head].numpy()
+                    if head == "SegmentationHead":
+                        y = np.clip(y, 1e-7, 1 - 1e-7)
+                        scale = 6.0 / np.abs(np.log(y / (1 - y))).max(axis=(0, 1, 2))
+                    elif head == "CenterOffsetHead":
+                        scale = 4.0 / np.abs(y).max(axis=(0, 1, 2))
+                    else:
+                        top, bottom = y.max(axis=(0, 1, 2)), y.min(axis=(0, 1, 2))
+                        scale = np.where(top > 0, 1 / np.maximum(top, 1e-12),
+                                         1 / np.minimum(bottom, -1e-12))
+                    m[0].weight.mul_(torch.from_numpy(scale.astype(np.float32))[
+                        :, None, None, None])
+        models[mt] = model
+    pre = PreprocessConfig(ensure_grayscale=True, max_stride=8)
+    post = PostprocessConfig(peak_threshold=0.2, max_instances=4)
+
+    def backend(mt):
+        return TorchBackend(models[mt], None, device=device)
+
+    return {
+        "bottomup_segmentation": seg.BottomUpSegmentationLayer(
+            backend("bottomup_segmentation"), pre, post, max_instances=8,
+            merge_fragments=True, device=device),
+        "semantic_segmentation": seg.SemanticSegmentationLayer(
+            backend("semantic_segmentation"), pre, post, device=device),
+        "topdown_segmentation": seg.TopDownSegmentationLayer(
+            CentroidLayer(backend("centroid"), pre, post, device=device),
+            backend("centered_instance_segmentation"), pre, fg_threshold=0.6,
+            max_instances=4, crop_size=64, device=device),
+    }
+
+
+def check_segmentation_against_cpu(smi):
+    """Phase 37: narrow f32 segmentation layers of the three types on the
+    card and on the CPU, same weights, 8 frames of 128x128 blobs: the maps
+    to 1e-4, the centre validity and crop corners exact, the device masks
+    under the threshold-margin rule (``seg_margin_ok``, against the CPU's
+    foreground); the host step fed the CPU's device outputs gives the same
+    masks on both layers, and their polygons and mask tracks are the same
+    (``segmentation_card_vs_cpu`` line)."""
+    import copy
+
+    from sleap_nn_tpu_torch.inference.layers import to_host
+    from sleap_nn_tpu_torch.inference.segmentation import mask_to_polygon
+    from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
+    from sleap_nn_tpu_torch.tracking.tracker import run_tracker
+
+    labels = blob_labels(8, 128, 3, 3, seed=37)
+    frames = labels.video.frames
+    card, cpu = narrow_seg_layers(DEVICE, frames), narrow_seg_layers("cpu", frames)
+    report = {}
+    for name in card:
+        got, want = to_host(card[name].predict_async(frames)), to_host(
+            cpu[name].predict_async(frames))
+        errs, margin = {}, 0
+        for key, w in want.items():
+            g = got[key]
+            if not isinstance(w, np.ndarray) or key in ("instance_masks", "crop_masks"):
+                continue
+            if w.dtype.kind in "biu" or key == "top_left":
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"phase 37 {name}: {key} differs")
+                continue
+            fin = np.isfinite(w)
+            if not np.array_equal(fin, np.isfinite(g)):
+                raise AssertionError(f"phase 37 {name}: {key} NaN placed apart")
+            errs[key] = float(np.abs(g[fin] - w[fin]).max()) if fin.any() else 0.0
+            if errs[key] > 1e-4:
+                raise AssertionError(f"phase 37 {name}: {key} {errs[key]:.3e} apart")
+        if name == "bottomup_segmentation":
+            margin = seg_margin_ok(got["instance_masks"], want["instance_masks"],
+                                   want["fg"][:, None, ..., 0], 0.5)
+        elif name == "topdown_segmentation":
+            if not np.array_equal(got["crop_masks"], want["crop_masks"]):
+                raise AssertionError(f"phase 37 {name}: crop masks differ")
+        hosts = [layer.postprocess_host(copy.deepcopy(want)) for layer in (card[name],
+                                                                            cpu[name])]
+        frames_out = []
+        for host in hosts:
+            lfs = [LabeledFrame(None, i, masks=m) for i, m in enumerate(host["pred_masks"])]
+            polys = [[mask_to_polygon(m.mask, 0.01, m.scale) for m in lf.masks] for lf in lfs]
+            tracked = run_tracker(Labels(lfs), features="masks", scoring_method="mask_iou")
+            frames_out.append((host, polys, [[getattr(m.track, "name", None) for m in lf.masks]
+                                             for lf in tracked.labeled_frames]))
+        (h0, p0, t0), (h1, p1, t1) = frames_out
+        same = all(len(a) == len(b) and all(np.array_equal(x.mask, y.mask) and x.score == y.score
+                                            for x, y in zip(a, b))
+                   for a, b in zip(h0["pred_masks"], h1["pred_masks"]))
+        same_polys = all(len(a) == len(b) and all(
+            (x is None and y is None) or np.array_equal(x, y) for x, y in zip(a, b))
+            for a, b in zip(p0, p1))
+        n_masks = sum(len(m) for m in h0["pred_masks"])
+        if not (same and same_polys and t0 == t1 and n_masks):
+            raise AssertionError(f"phase 37 {name}: host step apart (masks {same}, polygons "
+                                 f"{same_polys}, tracks {t0 == t1}, {n_masks} masks)")
+        report[name] = {"max_abs_err": errs, "margin_pixels": margin, "masks": n_masks,
+                        "tracks": len({t for row in t0 for t in row if t})}
+    log("segmentation_card_vs_cpu " + json.dumps({"paths": report, "device": smi}))
+    return report
+
+
+# --------------------------------------------------------------------------
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
@@ -5538,6 +6138,27 @@ def main() -> int:
     phase33_s = time.perf_counter() - t_phase
     log(f"phase 33: {phase33_s:.1f} s")
 
+    # 34-35. Segmentation predict from full-width dirs: bottom-up (k = 3;
+    # k = 5 with the merge), semantic, top-down.
+    t_phase = time.perf_counter()
+    seg_runs, seg_held, seg_dir_paths, seg_tmp = run_segmentation_predict(_build.KERNELS, smi)
+    phase34_s = time.perf_counter() - t_phase
+    log(f"phases 34-35: {phase34_s:.1f} s")
+
+    # 36. Training the three segmentation types, then predict, save, load,
+    # evaluate and track from their dirs.
+    t_phase = time.perf_counter()
+    seg_train_runs = run_segmentation_training(_build.KERNELS, smi, seg_dir_paths)
+    seg_tmp.cleanup()
+    phase36_s = time.perf_counter() - t_phase
+    log(f"phase 36: {phase36_s:.1f} s")
+
+    # 37. Narrow segmentation layers, the card against the CPU.
+    t_phase = time.perf_counter()
+    check_segmentation_against_cpu(smi)
+    phase37_s = time.perf_counter() - t_phase
+    log(f"phase 37: {phase37_s:.1f} s")
+
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
@@ -5550,13 +6171,14 @@ def main() -> int:
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
             **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
-            **ddp_runs}
+            **ddp_runs, **seg_runs, **seg_train_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
                                     "tiled_train": tiled_train_held,
                                     "backbone": backbone_held,
-                                    "backbone_train": bb_train_held, "ddp": ddp_held})
+                                    "backbone_train": bb_train_held, "ddp": ddp_held,
+                                    "segmentation": seg_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -5600,7 +6222,13 @@ def main() -> int:
         f"{max(r['card']['param_max_abs_err'] for r in bb_train_vs_cpu.values()):.2e}; phase 33 "
         f"{phase33_s:.1f} s, steps/s one process {ddp['single']['steps_per_sec']:.2f}, "
         f"2 gloo ranks {ddp['gloo_2_ranks']['steps_per_sec']:.2f}, 1 NCCL rank "
-        f"{ddp['nccl_1_rank']['steps_per_sec']:.2f}; "
+        f"{ddp['nccl_1_rank']['steps_per_sec']:.2f}; phases 34-35 {phase34_s:.1f} s, "
+        f"segmentation predict (frames/s, bf16, batch {BATCH}): "
+        + ", ".join(f"{k.removeprefix('seg_')} {v['fps']:.2f}" for k, v in seg_runs.items())
+        + f"; phase 36 {phase36_s:.1f} s, segmentation training (steps/s): "
+        + ", ".join(f"{k.removeprefix('train_')} {v['steps_per_sec']:.2f}"
+                    for k, v in seg_train_runs.items() if k.startswith("train_"))
+        + f"; phase 37 {phase37_s:.1f} s; "
         f"total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

@@ -1139,7 +1139,7 @@ def _not_ported(name: str, item: str) -> int:
 ])
 def sam_cmd(**kw):
     """Predict per-instance SAM masks for an existing pose .slp (not ported)."""
-    return _not_ported("sam", "10b")
+    return _not_ported("sam", "13b")
 
 
 @command("track-only", [

@@ -1,14 +1,16 @@
 """Training data pipeline: host datasets, the loader and the device render.
 
 Port of ``sleap_nn_tpu/data/pipeline.py`` for single-instance, centroid,
-centered-instance, bottom-up and identity (multi-class bottom-up and
-top-down) models. The host side indexes labeled
+centered-instance, bottom-up, identity (multi-class bottom-up and
+top-down) and segmentation (bottom-up, semantic and centered-instance)
+models. The host side indexes labeled
 frames, decodes and NaN-pads them (numpy); the render function built by
 :func:`make_render_fn` runs on the training device under
 ``torch.no_grad()``: normalize, channels, sizematch, scale, augment, pad to
 stride, then the model type's targets: confidence maps (the centroid and
 bottom-up maps through kernel 4 on CUDA), instance crops, part affinity
-fields, class maps and class vectors.
+fields, class maps and class vectors, and for segmentation the masks drawn
+from the keypoints, the foreground mask, the centre heatmap and offsets.
 
 Frame-level datasets take negative frames (labeled frames without an
 instance: all-NaN keypoints, so empty targets, and ``sample_weight`` =
@@ -17,8 +19,7 @@ centroids. Decoded frames stay in memory, or with ``cache_mode="disk"``
 go to ``.npy`` files read back per sample. ``TiledDataset`` wraps a
 frame-level dataset and draws fixed-size tiles of each frame per epoch
 (with a halo that the train render crops away after a geometric
-augmentation). Not ported yet: the render and datasets of the
-segmentation model types (they raise ``NotImplementedError``).
+augmentation).
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ from sleap_nn_tpu_torch.data.instance_cropping import (
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.providers import get_max_instances, process_lf
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_resizer, apply_sizematcher
+from sleap_nn_tpu_torch.data.segmentation_maps import (
+    generate_center_heatmap,
+    generate_center_offsets,
+    generate_foreground_mask,
+    render_masks_from_instances,
+)
 from sleap_nn_tpu_torch.data.tiling import (
     draw_tile_origin,
     extract_tile,
@@ -57,20 +64,8 @@ from sleap_nn_tpu_torch.ops.confmaps import generate_confmaps, generate_multicon
 from sleap_nn_tpu_torch.ops.edge_maps import generate_pafs
 from sleap_nn_tpu_torch.parallel.mesh import shard_rows
 
-# Model types of the JAX package that the port does not train yet, and the
-# ROADMAP.md section 1 item that ports each.
-_UNPORTED_TYPES = {
-    "bottomup_segmentation": 10, "semantic_segmentation": 10,
-    "centered_instance_segmentation": 10,
-}
 # Model types trained on crops around one instance.
-CROP_TYPES = ("centered_instance", "multi_class_topdown")
-
-
-def _unported(what: str, model_type: str) -> NotImplementedError:
-    item = _UNPORTED_TYPES.get(model_type)
-    where = f" (ROADMAP.md section 1, item {item})" if item else ""
-    return NotImplementedError(f"the {what} of {model_type!r} models is not ported yet{where}")
+CROP_TYPES = ("centered_instance", "multi_class_topdown", "centered_instance_segmentation")
 
 
 @dataclasses.dataclass
@@ -98,6 +93,13 @@ class PipelineContext:
     class_maps_sigma: float = 5.0
     class_maps_output_stride: int = 2
     anchor_ind: Optional[int] = None
+    # segmentation
+    seg_output_stride: int = 2
+    seg_maxpool: bool = False
+    center_sigma: float = 4.0
+    center_output_stride: int = 2
+    offsets_output_stride: int = 2
+    mask_radius: float = 12.0
     # augmentation
     use_augmentations: bool = False
     intensity: Optional[dict] = None
@@ -181,13 +183,26 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
     - ``multi_class_bottomup``: ``confmaps`` as ``bottomup`` and
       ``class_maps`` ``(B, H/cs, W/cs, n_classes)`` (plain per-instance
       confmaps at the class maps' sigma and stride, then the max over each
-      class's instances).
+      class's instances);
+    - ``bottomup_segmentation`` and ``semantic_segmentation``: instance
+      masks drawn from the (augmented) keypoints as capsules of
+      ``mask_radius`` around the edges, and their ``segmentation``
+      ``(B, H/s, W/s, 1)``; bottom-up adds ``center_heatmap``,
+      ``center_offsets`` and ``offsets_mask``;
+    - ``centered_instance_segmentation``: the crop of ``centered_instance``
+      and the ``segmentation`` of its instance's mask.
     """
     if ctx.model_type not in _DATASET_BY_TYPE:
-        raise _unported("render", ctx.model_type)
+        raise NotImplementedError(f"Render fn for model type {ctx.model_type}")
     # The edges, copied to each device once: a copy from host memory on
     # every call would wait for the device's queue.
     edge_inds: Dict[torch.device, torch.Tensor] = {}
+
+    def edges_on(device) -> torch.Tensor:
+        if device not in edge_inds:
+            edge_inds[device] = torch.tensor(
+                ctx.edge_inds, dtype=torch.long, device=device).reshape(-1, 2)
+        return edge_inds[device]
 
     @torch.no_grad()
     def fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
@@ -209,6 +224,34 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
             out["confmaps"] = generate_multiconfmaps(
                 centroids, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride,
                 is_centroids=True)
+
+        elif ctx.model_type in ("bottomup_segmentation", "semantic_segmentation"):
+            masks = render_masks_from_instances(
+                instances, (h, w), edges_on(image.device), ctx.mask_radius)  # (B, I, H, W)
+            valid = (~torch.isnan(instances[..., 0])).any(dim=-1)  # (B, I)
+            out["segmentation"] = generate_foreground_mask(
+                masks, valid, ctx.seg_output_stride, ctx.seg_maxpool)
+            if ctx.model_type == "bottomup_segmentation":
+                out["center_heatmap"] = generate_center_heatmap(
+                    masks, valid, ctx.center_output_stride, ctx.center_sigma)
+                out["center_offsets"], out["offsets_mask"] = generate_center_offsets(
+                    masks, valid, ctx.offsets_output_stride)
+
+        elif ctx.model_type == "centered_instance_segmentation":
+            rows = torch.arange(image.shape[0], device=image.device)
+            sel = batch["center_idx"].long()
+            centroids = generate_centroids(instances, ctx.anchor_ind)[rows, sel]  # (B, 2)
+            crop_size = int(round(ctx.crop_size * ctx.scale))
+            crop_size += (-crop_size) % ctx.max_stride
+            out["image"], inst, _ = generate_crops(
+                image, instances[rows, sel], centroids, crop_size)
+            out["instances"] = inst
+            masks = render_masks_from_instances(
+                inst[:, None], (crop_size, crop_size), edges_on(image.device),
+                ctx.mask_radius)  # (B, 1, crop, crop)
+            valid = (~torch.isnan(inst[..., 0])).any(dim=-1, keepdim=True)
+            out["segmentation"] = generate_foreground_mask(
+                masks, valid, ctx.seg_output_stride, ctx.seg_maxpool)
 
         elif ctx.model_type in CROP_TYPES:
             rows = torch.arange(image.shape[0], device=image.device)
@@ -235,11 +278,8 @@ def make_render_fn(ctx: PipelineContext, train: bool) -> Callable:
         else:  # bottomup
             out["confmaps"] = generate_multiconfmaps(
                 instances, (h, w), sigma=ctx.sigma, output_stride=ctx.output_stride)
-            if image.device not in edge_inds:
-                edge_inds[image.device] = torch.tensor(
-                    ctx.edge_inds, dtype=torch.long, device=image.device).reshape(-1, 2)
             out["pafs"] = generate_pafs(
-                instances, (h, w), edge_inds[image.device], sigma=ctx.pafs_sigma,
+                instances, (h, w), edges_on(image.device), sigma=ctx.pafs_sigma,
                 output_stride=ctx.pafs_output_stride)
         return out
 
@@ -436,8 +476,22 @@ class TopDownCenteredInstanceMultiClassDataset(CenteredInstanceDataset):
     instances' track ids."""
 
 
+class BottomUpSegmentationDataset(BaseDataset):
+    """One sample per labeled frame; foreground, centre heatmap and offsets."""
+
+
+class SemanticSegmentationDataset(BaseDataset):
+    """One sample per labeled frame; the foreground mask only."""
+
+
+class CenteredInstanceSegmentationDataset(CenteredInstanceDataset):
+    """One sample per (frame, instance); the crop's foreground mask."""
+
+
 class TiledDataset:
-    """Epoch-seeded tile sampler over a frame-level dataset.
+    """Epoch-seeded tile sampler over a frame-level dataset (the JAX
+    package's one wrapper for every frame-level type, the two whole-frame
+    segmentation datasets included).
 
     Each epoch draws ``samples_per_frame`` fixed-size tiles of each frame
     (the grid count of the first frame where unset), deterministic per
@@ -558,13 +612,16 @@ _DATASET_BY_TYPE = {
     "bottomup": BottomUpDataset,
     "multi_class_bottomup": BottomUpMultiClassDataset,
     "multi_class_topdown": TopDownCenteredInstanceMultiClassDataset,
+    "bottomup_segmentation": BottomUpSegmentationDataset,
+    "semantic_segmentation": SemanticSegmentationDataset,
+    "centered_instance_segmentation": CenteredInstanceSegmentationDataset,
 }
 
 
 def make_dataset(model_type: str, labels_list, ctx: PipelineContext, **kwargs) -> BaseDataset:
     """The model type's dataset; ``kwargs`` go to :class:`BaseDataset`."""
     if model_type not in _DATASET_BY_TYPE:
-        raise _unported("dataset", model_type)
+        raise NotImplementedError(f"No dataset for model type: {model_type}")
     return _DATASET_BY_TYPE[model_type](labels_list, ctx, **kwargs)
 
 
@@ -629,6 +686,21 @@ def build_pipeline_context(cfg, labels: Labels, model_type: str) -> PipelineCont
     cvec = getattr(head, "class_vectors", None)
     if cvec is not None:
         kw["n_classes"] = len(cvec.classes or labels.tracks)
+    seg = getattr(head, "segmentation", None)
+    if seg is not None:
+        kw["seg_output_stride"] = seg.output_stride
+        kw["seg_maxpool"] = bool(getattr(seg, "target_maxpool", False))
+        kw["edge_inds"] = tuple(skel.edge_inds)
+        anchor = getattr(seg, "anchor_part", None)
+        if anchor:
+            kw["anchor_ind"] = skel.node_names.index(anchor)
+    center = getattr(head, "center", None)
+    if center is not None:
+        kw["center_sigma"] = center.sigma
+        kw["center_output_stride"] = center.output_stride
+    offsets = getattr(head, "offsets", None)
+    if offsets is not None:
+        kw["offsets_output_stride"] = offsets.output_stride
 
     if model_type in CROP_TYPES and not kw["crop_size"]:
         rot_max, scale_max = 0.0, 1.0

@@ -1,16 +1,16 @@
-"""Evaluation metrics: OKS, PCK, VOC mAP/mAR, distances, visibility.
+"""Evaluation metrics: OKS, PCK, VOC mAP/mAR, distances, visibility, masks.
 
-Port of the pose and centroid half of ``sleap_nn_tpu/evaluation.py``:
-``compute_oks`` (cocoeval normalization), greedy score-ranked instance
-matching, VOC precision/recall interpolation, PCK and distance
-percentiles, the centroid match mode, ``run_evaluation`` and the npz
-metrics file (which each package's ``load_metrics`` reads from the
-other). Host numpy, as in the JAX package, with the same dtypes: OKS
+Port of ``sleap_nn_tpu/evaluation.py``: ``compute_oks`` (cocoeval
+normalization), greedy score-ranked instance matching, VOC
+precision/recall interpolation, PCK and distance percentiles, the
+centroid match mode, the mask match modes (``mask``: Hungarian IoU
+matching of each frame's masks, with boundary IoU, clDice, panoptic
+quality, over- and under-segmentation counts, size buckets and COCO-style
+mask AP; ``semantic``: the whole-frame foreground IoU), ``run_evaluation``
+and the npz metrics file (which each package's ``load_metrics`` reads
+from the other). Host numpy (and ``scipy.ndimage`` for the boundary
+bands and skeletons), as in the JAX package, with the same dtypes: OKS
 counts visible nodes in float32 and every ranking sort is a mergesort.
-
-The mask half waits for ``SegmentationMask`` (ROADMAP.md section 1, item
-10): the mask functions, the ``mask`` and ``semantic`` match methods and
-labels that carry masks raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,13 +22,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
-
-_MASKS = "mask evaluation needs SegmentationMask, which is not ported (ROADMAP.md section 1, item 10)"
-
-
-def _refuse_masks(what: str):
-    raise NotImplementedError(f"{what}: {_MASKS}")
-
 
 # ---------------------------------------------------------------------------
 # Core math
@@ -117,21 +110,17 @@ def find_frame_pairs(
     pairs = []
     pr_index: Dict[Tuple[int, int], LabeledFrame] = {}
     for lf in labels_pr.labeled_frames:
-        if getattr(lf, "masks", None):
-            _refuse_masks("predicted labels with masks")
         vi = labels_pr.videos.index(lf.video) if lf.video in labels_pr.videos else 0
         pr_index[(vi, lf.frame_idx)] = lf
 
     for lf_gt in labels_gt.labeled_frames:
-        if getattr(lf_gt, "masks", None):
-            _refuse_masks("ground-truth labels with masks")
         vi = labels_gt.videos.index(lf_gt.video) if lf_gt.video in labels_gt.videos else 0
         frame_gt = lf_gt
         if user_labels_only:
             user = lf_gt.user_instances
-            if not user:
+            if not user and not lf_gt.masks:
                 continue
-            frame_gt = LabeledFrame(lf_gt.video, lf_gt.frame_idx, user)
+            frame_gt = LabeledFrame(lf_gt.video, lf_gt.frame_idx, user, masks=lf_gt.masks)
         lf_pr = pr_index.get((vi, lf_gt.frame_idx))
         if lf_pr is not None:
             pairs.append((frame_gt, lf_pr))
@@ -241,7 +230,7 @@ def match_centroids(gt_pts: np.ndarray, pr_pts: np.ndarray, threshold: float = 5
 
 
 # ---------------------------------------------------------------------------
-# Size buckets and AP (shared with the mask metrics of item 10)
+# Mask and semantic metrics
 # ---------------------------------------------------------------------------
 
 
@@ -290,20 +279,109 @@ def _ap_from_pr(scores, matched, n_gt, recall_thresholds) -> Tuple[float, float]
     return float(precision.mean()), recall
 
 
-def mask_iou(a, b) -> float:
-    _refuse_masks("mask_iou")
+def _decode_frame_masks(frame) -> list:
+    """A frame's masks decoded to IMAGE resolution (by each mask's scale).
+
+    Stride-encoded masks (``SegmentationMask.scale != 1``) are nearest-
+    upsampled; plain arrays / scale-1 masks pass through untouched.
+    """
+    out = []
+    for m in getattr(frame, "masks", []) or []:
+        if hasattr(m, "decode"):
+            out.append(m.decode())
+        else:
+            out.append(np.asarray(getattr(m, "mask", m), bool))
+    return out
+
+
+def _pad_mask_to(m: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Zero-pad (bottom/right) to a common canvas; no-op when already there."""
+    if m.shape == (h, w):
+        return m
+    out = np.zeros((h, w), dtype=bool)
+    hh, ww = min(h, m.shape[0]), min(w, m.shape[1])
+    out[:hh, :ww] = m[:hh, :ww]
+    return out
+
+
+def mask_iou(a: np.ndarray, b: np.ndarray) -> float:
+    """Pixel IoU of two binary masks."""
+    a = np.asarray(a, bool)
+    b = np.asarray(b, bool)
+    union = np.logical_or(a, b).sum()
+    if union == 0:
+        return 0.0
+    return float(np.logical_and(a, b).sum() / union)
 
 
 def match_masks(gt_masks, pr_masks, iou_threshold: float = 0.5):
-    _refuse_masks("match_masks")
+    """Hungarian IoU matching of masks.
+
+    Returns (pairs [(gt_i, pr_j, iou)], fn_inds, fp_inds)."""
+    from scipy.optimize import linear_sum_assignment
+
+    if not gt_masks or not pr_masks:
+        return [], list(range(len(gt_masks))), list(range(len(pr_masks)))
+    iou = np.array([[mask_iou(g, p) for p in pr_masks] for g in gt_masks])
+    rows, cols = linear_sum_assignment(-iou)
+    pairs, used_g, used_p = [], set(), set()
+    for r, c in zip(rows, cols):
+        if iou[r, c] >= iou_threshold:
+            pairs.append((int(r), int(c), float(iou[r, c])))
+            used_g.add(int(r))
+            used_p.add(int(c))
+    fn = [i for i in range(len(gt_masks)) if i not in used_g]
+    fp = [j for j in range(len(pr_masks)) if j not in used_p]
+    return pairs, fn, fp
 
 
-def boundary_iou(gt, pr, dilation_ratio: float = 0.02) -> float:
-    _refuse_masks("boundary_iou")
+def _mask_to_boundary(mask: np.ndarray, dilation_ratio: float = 0.02) -> np.ndarray:
+    """Boundary band of a mask."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask, bool)
+    h, w = mask.shape
+    d = max(1, int(round(dilation_ratio * np.hypot(h, w))))
+    eroded = ndimage.binary_erosion(mask, iterations=d)
+    return mask & ~eroded
 
 
-def mask_cldice(pred, gt) -> float:
-    _refuse_masks("mask_cldice")
+def boundary_iou(gt: np.ndarray, pr: np.ndarray, dilation_ratio: float = 0.02) -> float:
+    """IoU restricted to boundary bands."""
+    return mask_iou(_mask_to_boundary(gt, dilation_ratio), _mask_to_boundary(pr, dilation_ratio))
+
+
+def _skeletonize(mask: np.ndarray, max_iters: int = 128) -> np.ndarray:
+    """Morphological skeleton via iterative erosion-opening (scipy-only
+    stand-in for skimage.skeletonize)."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask, bool)
+    skel = np.zeros_like(mask)
+    m = mask.copy()
+    for _ in range(max_iters):
+        if not m.any():
+            break
+        eroded = ndimage.binary_erosion(m)
+        opened = ndimage.binary_dilation(eroded)
+        skel |= m & ~opened
+        m = eroded
+    return skel
+
+
+def mask_cldice(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Centerline Dice (clDice) for thin structures."""
+    pred = np.asarray(pred, bool)
+    gt = np.asarray(gt, bool)
+    if not pred.any() or not gt.any():
+        return 0.0
+    sp = _skeletonize(pred)
+    sg = _skeletonize(gt)
+    tprec = (sp & gt).sum() / max(sp.sum(), 1)
+    tsens = (sg & pred).sum() / max(sg.sum(), 1)
+    if tprec + tsens == 0:
+        return 0.0
+    return float(2 * tprec * tsens / (tprec + tsens))
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +392,11 @@ def mask_cldice(pred, gt) -> float:
 class Evaluator:
     """Standard pose metrics from GT and predicted labels.
 
-    ``match_method``: ``"oks"`` (greedy score-ranked OKS matching) or
+    ``match_method``: ``"oks"`` (greedy score-ranked OKS matching),
     ``"centroid"`` (Hungarian centroid pairing under ``match_threshold``
-    px, 50 when 0); ``"mask"`` and ``"semantic"`` raise (item 10).
+    px, 50 when 0), ``"mask"`` (Hungarian IoU matching of each frame's
+    masks at ``match_threshold``, 0.5 when 0) or ``"semantic"`` (each
+    frame's union of masks against the ground truth's).
     """
 
     def __init__(
@@ -330,8 +410,6 @@ class Evaluator:
         match_method: str = "oks",
         anchor_part: Optional[str] = None,
     ):
-        if match_method in ("mask", "semantic"):
-            _refuse_masks(f"match_method={match_method!r}")
         self.labels_gt = ground_truth_instances
         self.labels_pr = predicted_instances
         self.oks_stddev = oks_stddev
@@ -346,6 +424,8 @@ class Evaluator:
         )
         if match_method == "centroid":
             self._process_frames_centroid()
+        elif match_method in ("mask", "semantic"):
+            self._process_frames_mask()
         else:
             self._process_frames()
 
@@ -392,15 +472,346 @@ class Evaluator:
             "video_paths": [p[0].video_path for p in self.positive_pairs],
         }
 
-    def mask_metrics(self) -> dict:
-        _refuse_masks("mask_metrics")
+    def _process_frames_mask(self):
+        """Pair GT/pred masks per frame (mask and semantic modes)."""
+        iou_thr = self.match_threshold if self.match_threshold > 0 else 0.5
+        self.positive_pairs, self.false_negatives = [], []
+        self.mask_pairs = []  # (gt_mask, pr_mask, iou)
+        self.semantic_frames = []  # (gt_union, pr_union)
+        self._mask_frames = []  # per-frame IoU/score/area payloads
+        for frame_gt, frame_pr in self.frame_pairs:
+            # Scale-aware compare. Uniform-scale frames (the common
+            # case: full-res GT vs full-res preds, or a stride-encoded
+            # retrack against stride-encoded pseudo-labels) compare at their
+            # NATIVE resolution — nearest upsampling by a common factor
+            # leaves IoU unchanged and costs stride^2 in memory/compute.
+            # Mixed scales decode to image pixels first. Either way, areas
+            # and intersections are reported in IMAGE px^2 (``area_unit``)
+            # so cross-frame size buckets stay consistent.
+            gt_scales = [float(getattr(m, "scale", 1.0) or 1.0)
+                         for m in getattr(frame_gt, "masks", []) or []]
+            pr_scales = [float(getattr(m, "scale", 1.0) or 1.0)
+                         for m in getattr(frame_pr, "masks", []) or []]
+            uniform = len({round(s, 6) for s in gt_scales + pr_scales}) <= 1
+            if uniform:
+                s = (gt_scales + pr_scales + [1.0])[0]
+                area_unit = s * s
+                gt_masks = [np.asarray(m.mask if hasattr(m, "mask") else m, bool)
+                            for m in getattr(frame_gt, "masks", []) or []]
+                pr_masks = [np.asarray(m.mask if hasattr(m, "mask") else m, bool)
+                            for m in getattr(frame_pr, "masks", []) or []]
+            else:
+                area_unit = 1.0
+                gt_masks = _decode_frame_masks(frame_gt)
+                pr_masks = _decode_frame_masks(frame_pr)
+            if gt_masks or pr_masks:
+                # Pad to one canvas so a smaller-extent mask never crops the
+                # other side to its top-left corner.
+                hh = max(m.shape[0] for m in gt_masks + pr_masks)
+                ww = max(m.shape[1] for m in gt_masks + pr_masks)
+                gt_masks = [_pad_mask_to(m, hh, ww) for m in gt_masks]
+                pr_masks = [_pad_mask_to(m, hh, ww) for m in pr_masks]
+            if self.match_method == "semantic":
+                def union(ms, like):
+                    if ms:
+                        out = np.zeros_like(ms[0], dtype=bool)
+                        for m in ms:
+                            out |= m
+                        return out
+                    return np.zeros_like(like, dtype=bool) if like is not None else None
 
-    def mask_voc_metrics(self, iou_thresholds=None, recall_thresholds=None,
-                         size_percentiles=(100 / 3.0, 200 / 3.0)) -> dict:
-        _refuse_masks("mask_voc_metrics")
+                g = union(gt_masks, pr_masks[0] if pr_masks else None)
+                p = union(pr_masks, gt_masks[0] if gt_masks else None)
+                if g is not None and p is not None:
+                    self.semantic_frames.append((g, p))
+                continue
+            pairs, fn, fp = match_masks(gt_masks, pr_masks, iou_thr)
+            # Per-frame payload for PQ / per-size / fragmentation / COCO mAP:
+            # the 1-to-1 Hungarian pairs above can't express those
+            #. One pixel pass per pair
+            # computes intersection; IoU derives from it and the areas (no
+            # second full-canvas mask_iou sweep).
+            n_p, n_g = len(pr_masks), len(gt_masks)
+            pr_areas = np.array([int(m.sum()) for m in pr_masks], dtype=float)
+            gt_areas_arr = np.array([int(m.sum()) for m in gt_masks], dtype=float)
+            iou_mat = np.zeros((n_p, n_g), dtype=float)
+            inter_mat = np.zeros((n_p, n_g), dtype=float)
+            for pj in range(n_p):
+                for gi in range(n_g):
+                    a, b = pr_masks[pj], gt_masks[gi]
+                    hh = min(a.shape[0], b.shape[0])
+                    ww = min(a.shape[1], b.shape[1])
+                    inter = float(np.logical_and(a[:hh, :ww], b[:hh, :ww]).sum())
+                    inter_mat[pj, gi] = inter
+                    union = pr_areas[pj] + gt_areas_arr[gi] - inter
+                    iou_mat[pj, gi] = inter / union if union > 0 else 0.0
+            # Report areas/intersections in IMAGE pixel units regardless of
+            # the resolution compared at (IoU is unit-free).
+            pr_areas = pr_areas * area_unit
+            gt_areas_arr = gt_areas_arr * area_unit
+            inter_mat = inter_mat * area_unit
+            self._mask_frames.append(
+                {
+                    "iou": iou_mat,
+                    "inter": inter_mat,
+                    "pred_scores": np.array(
+                        [float(getattr(m, "score", 0.0) or 0.0) for m in frame_pr.masks],
+                        dtype=float,
+                    ),
+                    "gt_areas": gt_areas_arr,
+                    "pred_areas": pr_areas,
+                }
+            )
+            gt_mi = get_instances(frame_gt)
+            for (gi, pj, iou) in pairs:
+                self.mask_pairs.append((gt_masks[gi], pr_masks[pj], iou))
+                self.positive_pairs.append(
+                    (
+                        MatchInstance(frame_gt.masks[gi], frame_gt.frame_idx),
+                        MatchInstance(frame_pr.masks[pj], frame_pr.frame_idx),
+                        iou,
+                    )
+                )
+            self.false_negatives.extend(
+                MatchInstance(frame_gt.masks[i], frame_gt.frame_idx) for i in fn
+            )
+            self.false_positives.extend(
+                MatchInstance(frame_pr.masks[j], frame_pr.frame_idx) for j in fp
+            )
+        self.dists_dict = {"dists": np.zeros((0, 1)), "frame_idxs": [], "video_paths": []}
+
+    def mask_metrics(self) -> dict:
+        """Matched-mask quality + PQ + fragmentation + per-size.
+
+        ``pq = sq * rq`` with ``sq`` = TP-only mean IoU and
+        ``rq = TP / (TP + 0.5*FP + 0.5*FN)`` (Kirillov et al. 2019);
+        ``per_size`` buckets GT masks by area under the dataset-relative
+        percentile scheme (primary) and the fixed COCO cutoffs (additional).
+        """
+        ious = np.array([iou for _, _, iou in self.mask_pairs])
+        bious = np.array(
+            [boundary_iou(g, p) for g, p, _ in self.mask_pairs]
+        ) if self.mask_pairs else np.array([])
+        cld = np.array(
+            [mask_cldice(p, g) for g, p, _ in self.mask_pairs]
+        ) if self.mask_pairs else np.array([])
+        n_tp = len(self.mask_pairs)
+        n_fp = len(self.false_positives)
+        n_fn = len(self.false_negatives)
+        over, under = self._fragmentation_counts()
+        results = {
+            "mean_iou": float(ious.mean()) if ious.size else np.nan,
+            "min": float(ious.min()) if ious.size else np.nan,
+            "max": float(ious.max()) if ious.size else np.nan,
+            "mean_boundary_iou": float(bious.mean()) if bious.size else np.nan,
+            "mean_cldice": float(cld.mean()) if cld.size else np.nan,
+            "mean_iou_all_gt": np.nan,
+            "pq": np.nan,
+            "sq": np.nan,
+            "rq": np.nan,
+            "oversegmentation": over,
+            "undersegmentation": under,
+            "per_size": self._mask_per_size_stats(),
+            "n_matched": n_tp,
+            "n_fp": n_fp,
+            "n_fn": n_fn,
+            "ious": ious,
+        }
+        for ptile in (25, 50, 75):
+            results[f"p{ptile}"] = (
+                float(np.percentile(ious, ptile)) if ious.size else np.nan
+            )
+        iou_sum = float(ious.sum()) if ious.size else 0.0
+        if n_tp + n_fn > 0:
+            results["mean_iou_all_gt"] = iou_sum / (n_tp + n_fn)
+        pq_denom = n_tp + 0.5 * n_fp + 0.5 * n_fn
+        if pq_denom > 0:
+            results["sq"] = results["mean_iou"]
+            results["rq"] = n_tp / pq_denom
+            results["pq"] = iou_sum / pq_denom
+        return results
+
+    def _fragmentation_counts(self, overlap_frac: float = 0.1) -> Tuple[int, int]:
+        """Over-/under-segmentation counts.
+
+        Over: GT masks covered (>= ``overlap_frac`` of GT area) by >= 2
+        predictions. Under: predictions covering >= 2 GT masks.
+        """
+        over = under = 0
+        for f in getattr(self, "_mask_frames", []):
+            inter, gt_areas = f["inter"], f["gt_areas"]
+            if inter.size == 0:
+                continue
+            covers = inter >= (overlap_frac * np.maximum(gt_areas, 1.0))[None, :]
+            over += int(np.count_nonzero(covers.sum(axis=0) >= 2))
+            under += int(np.count_nonzero(covers.sum(axis=1) >= 2))
+        return over, under
+
+    def _mask_per_size_stats(self) -> dict:
+        """Per-object-size GT/TP/IoU breakdown."""
+        gt_areas_all = np.array(
+            [a for f in getattr(self, "_mask_frames", []) for a in f["gt_areas"]],
+            dtype=float,
+        )
+        tp_iou = np.array([iou for _, _, iou in self.mask_pairs], dtype=float)
+        tp_gt_area = np.array(
+            [int(g.sum()) for g, _, _ in self.mask_pairs], dtype=float
+        )
+
+        def breakdown(edges):
+            out = {}
+            for i, bucket in enumerate(_SIZE_KEYS):
+                in_gt = _size_mask(gt_areas_all, i, edges)
+                in_tp = _size_mask(tp_gt_area, i, edges)
+                out[bucket] = {
+                    "n_gt": int(np.count_nonzero(in_gt)),
+                    "n_tp": int(np.count_nonzero(in_tp)),
+                    "mean_iou": (
+                        float(tp_iou[in_tp].mean()) if np.any(in_tp) else np.nan
+                    ),
+                }
+            return out
+
+        out = breakdown(_percentile_size_edges(gt_areas_all))
+        out["scheme"] = "percentile"
+        out["coco"] = breakdown(COCO_SIZE_EDGES)
+        return out
+
+    def _match_masks_coco(self, iou_threshold: float):
+        """Greedy score-ranked pred->GT matching per frame (pycocotools style).
+
+        Returns flat aligned arrays ``(scores, matched, matched_gt_area,
+        pred_area)`` over every prediction.
+        """
+        scores, matched, matched_gt_area, pred_area = [], [], [], []
+        for f in getattr(self, "_mask_frames", []):
+            iou = f["iou"]
+            n_pred, n_gt = iou.shape
+            order = (
+                np.argsort(-f["pred_scores"], kind="mergesort")
+                if n_pred
+                else np.array([], dtype=int)
+            )
+            gt_taken = np.zeros(n_gt, dtype=bool)
+            for p in order:
+                scores.append(float(f["pred_scores"][p]))
+                pred_area.append(float(f["pred_areas"][p]))
+                if n_gt == 0:
+                    matched.append(False)
+                    matched_gt_area.append(np.nan)
+                    continue
+                row = iou[p].copy()
+                row[gt_taken] = -1.0
+                g = int(np.argmax(row))
+                if row[g] >= iou_threshold:
+                    gt_taken[g] = True
+                    matched.append(True)
+                    matched_gt_area.append(float(f["gt_areas"][g]))
+                else:
+                    matched.append(False)
+                    matched_gt_area.append(np.nan)
+        return (
+            np.array(scores, dtype=float),
+            np.array(matched, dtype=bool),
+            np.array(matched_gt_area, dtype=float),
+            np.array(pred_area, dtype=float),
+        )
+
+    def mask_voc_metrics(
+        self,
+        iou_thresholds: np.ndarray = None,
+        recall_thresholds: np.ndarray = None,
+        size_percentiles: Tuple[float, float] = (100 / 3.0, 200 / 3.0),
+    ) -> dict:
+        """COCO-style mask AP/AR with dual per-size breakdowns.
+
+        Predictions are re-matched at each IoU threshold with greedy
+        score-ranked matching, the PR curve is 101-point interpolated, and
+        per-size APs follow pycocotools ``areaRng`` semantics (out-of-bucket
+        GT is ignored: TPs filter on matched-GT area, FPs on their own area).
+        """
+        if iou_thresholds is None:
+            iou_thresholds = np.linspace(0.5, 0.95, 10)
+        if recall_thresholds is None:
+            recall_thresholds = np.linspace(0, 1, 101)
+        iou_thresholds = np.asarray(iou_thresholds, dtype=float)
+        gt_areas_all = np.array(
+            [a for f in getattr(self, "_mask_frames", []) for a in f["gt_areas"]],
+            dtype=float,
+        )
+        npig = int(gt_areas_all.size)
+        schemes = {
+            "percentile": _percentile_size_edges(gt_areas_all, size_percentiles),
+            "coco": COCO_SIZE_EDGES,
+        }
+        n_gt_size = {
+            name: [
+                int(np.count_nonzero(_size_mask(gt_areas_all, i, edges)))
+                for i in range(len(_SIZE_KEYS))
+            ]
+            for name, edges in schemes.items()
+        }
+        ap_overall = np.full(iou_thresholds.size, np.nan)
+        recall_overall = np.full(iou_thresholds.size, np.nan)
+        ap_size = {
+            name: [np.full(iou_thresholds.size, np.nan) for _ in _SIZE_KEYS]
+            for name in schemes
+        }
+        for ti, thr in enumerate(iou_thresholds):
+            scores, matched, matched_gt_area, pred_area = self._match_masks_coco(
+                float(thr)
+            )
+            ap_overall[ti], recall_overall[ti] = _ap_from_pr(
+                scores, matched, npig, recall_thresholds
+            )
+            for name, edges in schemes.items():
+                for i in range(len(_SIZE_KEYS)):
+                    keep_tp = matched & _size_mask(matched_gt_area, i, edges)
+                    keep_fp = (~matched) & _size_mask(pred_area, i, edges)
+                    keep = keep_tp | keep_fp
+                    ap_size[name][i][ti], _ = _ap_from_pr(
+                        scores[keep], keep_tp[keep], n_gt_size[name][i],
+                        recall_thresholds,
+                    )
+
+        def _nanmean(arr):
+            return float(np.nanmean(arr)) if np.any(~np.isnan(arr)) else np.nan
+
+        def _at(target):
+            return float(ap_overall[int(np.argmin(np.abs(iou_thresholds - target)))])
+
+        results = {
+            "mask_voc.iou_thresholds": iou_thresholds,
+            "mask_voc.AP": ap_overall,
+            "mask_voc.recalls": recall_overall,
+            "mask_voc.mAP": _nanmean(ap_overall),
+            "mask_voc.AR": _nanmean(recall_overall),
+            "mask_voc.AP50": _at(0.5),
+            "mask_voc.AP75": _at(0.75),
+            "mask_voc.n_gt": npig,
+            "mask_voc.size_scheme": "percentile",
+            "mask_voc.size_edges": [float(e) for e in schemes["percentile"]],
+            "mask_voc.coco.size_edges": [float(e) for e in schemes["coco"]],
+        }
+        for name, prefix in (("percentile", "mask_voc."), ("coco", "mask_voc.coco.")):
+            for i, bucket in enumerate(_SIZE_KEYS):
+                results[f"{prefix}AP_{bucket}"] = _nanmean(ap_size[name][i])
+                results[f"{prefix}n_gt_{bucket}"] = n_gt_size[name][i]
+        return results
 
     def semantic_metrics(self) -> dict:
-        _refuse_masks("semantic_metrics")
+        """Matching-free whole-frame foreground metrics."""
+        if not getattr(self, "semantic_frames", None):
+            return {"fg_iou": np.nan, "boundary_iou": np.nan, "cldice": np.nan}
+        ious = [mask_iou(g, p) for g, p in self.semantic_frames]
+        bious = [boundary_iou(g, p) for g, p in self.semantic_frames]
+        cld = [mask_cldice(p, g) for g, p in self.semantic_frames]
+        return {
+            "fg_iou": float(np.mean(ious)),
+            "boundary_iou": float(np.mean(bious)),
+            "cldice": float(np.mean(cld)),
+            "n_frames": len(self.semantic_frames),
+        }
 
     # -- metrics ---------------------------------------------------------------
     def mOKS(self):
@@ -583,6 +994,14 @@ class Evaluator:
                 "detection_metrics": self.detection_metrics(),
                 "distance_metrics": self.distance_metrics(),
             }
+        if self.match_method == "mask":
+            return {
+                "detection_metrics": self.detection_metrics(),
+                "mask_metrics": self.mask_metrics(),
+                "mask_voc_metrics": self.mask_voc_metrics(),
+            }
+        if self.match_method == "semantic":
+            return {"semantic_metrics": self.semantic_metrics()}
         metrics = {}
         metrics["voc_metrics"] = self.voc_metrics(match_score_by="oks")
         metrics["voc_metrics"].update(self.voc_metrics(match_score_by="pck"))
@@ -615,10 +1034,8 @@ def run_evaluation(
 ) -> Optional[dict]:
     """Evaluate predictions against ground truth, each a ``Labels`` or a
     ``.slp`` path (read by ``load_slp``). Returns None when there is no
-    prediction; ``match_method="auto"`` picks ``centroid`` for a one-node
-    skeleton, else ``oks``."""
-    if match_method in ("mask", "semantic"):
-        _refuse_masks(f"match_method={match_method!r}")
+    prediction (for ``mask`` and ``semantic``, no mask); ``match_method="auto"``
+    picks ``centroid`` for a one-node skeleton, else ``oks``."""
     from sleap_nn_tpu_torch.io.slp import load_slp
 
     labels_gt = ground_truth_path if isinstance(ground_truth_path, Labels) else load_slp(
@@ -628,7 +1045,10 @@ def run_evaluation(
         predicted_path
     )
 
-    has_predictions = any(len(lf.instances) for lf in labels_pr)
+    if match_method in ("mask", "semantic"):
+        has_predictions = any(len(lf.masks) for lf in labels_pr)
+    else:
+        has_predictions = any(len(lf.instances) for lf in labels_pr)
     if not len(labels_pr) or not has_predictions:
         return None
 

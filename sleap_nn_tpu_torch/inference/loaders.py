@@ -63,7 +63,7 @@ class LoadedModel:
 def unported_model_type(model_type: str) -> Optional[str]:
     """Why a model of this type cannot be built by the port yet, or None."""
     if model_type not in MODEL_TYPES:
-        return f"model type {model_type!r} is not ported (ROADMAP.md section 1, item 10)"
+        return f"model type {model_type!r} is not a model type (one of {', '.join(MODEL_TYPES)})"
     return None
 
 

@@ -11,9 +11,10 @@ file, or a video object) and, with ``make_labels=True``, ``to_labels``
 turns the per-batch outputs into ``Labels`` of ``PredictedInstance``s
 (through the instance filters; an identity model's instances carry one
 ``Track`` per class; a centroid model's frames hold one-node instances,
-``PredictedCentroid`` records or both). The other model types and the
-knobs of features the port lacks raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+``PredictedCentroid`` records or both; a segmentation model's frames hold
+its ``SegmentationMask``s, and with ``mask_output`` ``"polygon"`` or
+``"both"`` their outlines as ``PredictedROI``s). The knobs of features
+the port lacks raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Pipeline on a CUDA device: the provider's thread decodes each batch and
 runs the host step on it (RGB to gray for a grayscale model; with
@@ -61,12 +62,19 @@ from sleap_nn_tpu_torch.inference.layers import (
 from sleap_nn_tpu_torch.inference.loaders import LoadedModel, load_model
 from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
 from sleap_nn_tpu_torch.inference.providers import LabelsProvider, VideoProvider
+from sleap_nn_tpu_torch.inference.segmentation import (
+    BottomUpSegmentationLayer,
+    SemanticSegmentationLayer,
+    TopDownSegmentationLayer,
+    mask_to_polygon,
+)
 from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
 from sleap_nn_tpu_torch.io.model import (
     LabeledFrame,
     Labels,
     PredictedCentroid,
     PredictedInstance,
+    PredictedROI,
     Skeleton,
     Track,
 )
@@ -77,20 +85,13 @@ logger = logging.getLogger("sleap_nn_tpu_torch")
 
 # Knobs of the JAX ``from_model_paths`` whose features the port lacks:
 # name -> (the value that asks for nothing, why another value raises).
-_SEGMENTATION = "segmentation is not ported (ROADMAP.md section 1, item 10)"
 UNPORTED_KNOBS = {
     "data_parallel": (False, "data-parallel inference over several cards is not ported "
                              "(ROADMAP.md section 1, item 13)"),
     "packed_level0": (None, "packed_level0 selects the JAX package's space-to-depth TPU "
                             "layout (ops/packed_conv.py), which the port has no copy of"),
-    **{name: (default, _SEGMENTATION) for name, default in (
-        ("merge_fragments", False), ("merge_method", "greedy"), ("min_mask_area", 0),
-        ("fg_threshold", 0.5), ("center_nms_kernel", 3), ("distance_gate_alpha", None),
-        ("mask_cleanup", True), ("mask_cleanup_radius", 0), ("merge_dilate", 1),
-        ("merge_w_valley", 1.0), ("merge_w_offset", 0.25),
-        ("merge_thresholds", (0.85, 0.6, 0.4)), ("full_res_masks", False),
-        ("mask_output", "mask"), ("polygon_epsilon", 0.01))},
 }
+SEGMENTATION_TYPES = ("bottomup_segmentation", "semantic_segmentation", "topdown_segmentation")
 
 
 def refuse_unported(knobs: Dict[str, Any], table: Dict[str, tuple], where: str) -> None:
@@ -124,13 +125,14 @@ def _pre_config(loaded: LoadedModel) -> PreprocessConfig:
     )
 
 
-def _crop_size(m: LoadedModel, crop_size: Optional[int], pre: PreprocessConfig) -> int:
+def _crop_size(m: LoadedModel, crop_size: Optional[int], pre: PreprocessConfig,
+               what: str = "centered-instance") -> int:
     """The stage-2 crop: the override or the config's, scaled (by the
     config's scale, also where the host resizes), rounded up to the max
     stride."""
     cs = crop_size or m.config.data_config.preprocessing.crop_size
     if cs is None:
-        raise ValueError("crop_size not set in centered-instance config.")
+        raise ValueError(f"crop_size not set in {what} config.")
     cs = int(round(cs * (pre.scale if m.host_scale is None else m.host_scale)))
     return cs + (-cs) % pre.max_stride
 
@@ -222,6 +224,11 @@ class Predictor:
         # centroids come from user instances only.
         self.gt_user_instances_only = False
         self.last_stats: Dict[str, float] = {}
+        # Set by from_model_paths: a segmentation model's frames keep their
+        # masks ("mask"), their outlines ("polygon") or both ("both"),
+        # outlines simplified by polygon_epsilon of their perimeter.
+        self.mask_output = "mask"
+        self.polygon_epsilon = 0.01
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -257,6 +264,21 @@ class Predictor:
         backbone_ckpt_path: Optional[Union[str, Path]] = None,
         head_ckpt_path: Optional[Union[str, Path]] = None,
         anchor_part: Optional[str] = None,
+        merge_fragments: bool = False,
+        merge_method: str = "greedy",
+        min_mask_area: int = 0,
+        fg_threshold: float = 0.5,
+        center_nms_kernel: int = 3,
+        distance_gate_alpha: Optional[float] = None,
+        mask_cleanup: bool = True,
+        mask_cleanup_radius: int = 0,
+        merge_dilate: int = 1,
+        merge_w_valley: float = 1.0,
+        merge_w_offset: float = 0.25,
+        merge_thresholds: Sequence[float] = (0.85, 0.6, 0.4),
+        full_res_masks: bool = False,
+        mask_output: str = "mask",
+        polygon_epsilon: float = 0.01,
         device="cuda",
         **unported,
     ) -> "Predictor":
@@ -265,7 +287,16 @@ class Predictor:
         centered_instance}`` (top-down), ``{centered_instance}`` (on the
         ground-truth centroids of a labels source, at the ``anchor_part``
         node where it is visible) or ``{bottomup}``; identity models:
-        ``{multi_class_bottomup}`` and ``{centroid, multi_class_topdown}``.
+        ``{multi_class_bottomup}`` and ``{centroid, multi_class_topdown}``;
+        segmentation models: ``{bottomup_segmentation}`` (with the
+        ``merge_*``, ``min_mask_area``, ``fg_threshold``,
+        ``center_nms_kernel``, ``distance_gate_alpha``, ``mask_cleanup*``
+        and ``full_res_masks`` knobs; ``max_instances`` 50 by default),
+        ``{semantic_segmentation}`` and ``{centroid,
+        centered_instance_segmentation}``. ``mask_output`` and
+        ``polygon_epsilon`` set what a segmentation model's frames hold.
+        The segmentation knobs do nothing for the other types, as in the
+        JAX package.
 
         ``backbone_ckpt_path`` / ``head_ckpt_path`` swap in the backbone /
         head weights of another model dir. The preprocessing overrides
@@ -331,19 +362,25 @@ class Predictor:
                     device=device, paf_workers=paf_workers, filters=filters)
             p.class_names = class_names
             p._host_transform = host_transform
+            p.mask_output = mask_output
+            p.polygon_epsilon = polygon_epsilon
             return p
 
-        def topdown_stages(mi):
-            """The centroid layer and the centered-instance layer of ``mi``,
-            with its crop size."""
+        def centroid_stage() -> CentroidLayer:
+            """The top-down pair's centroid layer."""
             mc = by_type["centroid"]
             post_c = post_for()
             post_c.max_instances = max_instances or 20
             if centroid_peak_threshold is not None:
                 post_c.peak_threshold = centroid_peak_threshold
-            centroid_layer = CentroidLayer(
+            return CentroidLayer(
                 backend_for(mc), _pre_config(mc), post_c,
                 output_stride=get_head_config(mc.config).confmaps.output_stride, device=device)
+
+        def topdown_stages(mi):
+            """The centroid layer and the centered-instance layer of ``mi``,
+            with its crop size."""
+            centroid_layer = centroid_stage()
             inst_pre = _pre_config(mi)
             instance_layer = CenteredInstanceLayer(
                 backend_for(mi), inst_pre, post_for(),
@@ -421,6 +458,45 @@ class Predictor:
                         f"anchor_part {anchor_part!r} is not a skeleton node; nodes: {nodes}.")
                 layer.anchor_ind = nodes.index(anchor_part)
             return make(layer, "topdown", mi)
+
+        if types == {"centroid", "centered_instance_segmentation"}:
+            ms = by_type["centered_instance_segmentation"]
+            seg_pre = _pre_config(ms)
+            layer = TopDownSegmentationLayer(
+                centroid_stage(), backend_for(ms), seg_pre,
+                seg_output_stride=get_head_config(ms.config).segmentation.output_stride,
+                fg_threshold=fg_threshold, max_instances=max_instances or 20,
+                crop_size=_crop_size(ms, crop_size, seg_pre,
+                                     "centered_instance_segmentation"),
+                device=device)
+            return make(layer, "topdown_segmentation", ms, skeleton=Skeleton(nodes=["centroid"]))
+
+        if types == {"bottomup_segmentation"}:
+            m = by_type["bottomup_segmentation"]
+            head = get_head_config(m.config)
+            layer = BottomUpSegmentationLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                seg_output_stride=head.segmentation.output_stride,
+                center_output_stride=head.center.output_stride,
+                offsets_output_stride=head.offsets.output_stride,
+                max_instances=max_instances or 50, min_mask_area=min_mask_area,
+                merge_fragments=merge_fragments, merge_method=merge_method,
+                fg_threshold=fg_threshold, center_nms_kernel=center_nms_kernel,
+                distance_gate_alpha=distance_gate_alpha, mask_cleanup=mask_cleanup,
+                mask_cleanup_radius=mask_cleanup_radius, merge_dilate=merge_dilate,
+                merge_w_valley=merge_w_valley, merge_w_offset=merge_w_offset,
+                merge_thresholds=merge_thresholds, full_res_masks=full_res_masks,
+                device=device)
+            return make(layer, "bottomup_segmentation", m,
+                        skeleton=Skeleton(nodes=["centroid"]))
+
+        if types == {"semantic_segmentation"}:
+            m = by_type["semantic_segmentation"]
+            layer = SemanticSegmentationLayer(
+                backend_for(m), _pre_config(m), post_for(),
+                seg_output_stride=get_head_config(m.config).segmentation.output_stride,
+                fg_threshold=fg_threshold, full_res_masks=full_res_masks, device=device)
+            return make(layer, "semantic_segmentation", m, skeleton=Skeleton(nodes=["fg"]))
         raise ValueError(f"Unsupported model type combination: {sorted(types)}")
 
     # -- prediction -----------------------------------------------------------
@@ -695,17 +771,22 @@ class Predictor:
             results, video=provider.video if isinstance(provider, VideoProvider) else None,
             labels_src=provider.labels if isinstance(provider, LabelsProvider) else None,
             precomputed_frames=stream_frames if writer is not None else None)
-        self._log_inference_summary(sum(len(lf.instances) for lf in labels.labeled_frames))
+        seg = self.model_type in SEGMENTATION_TYPES
+        self._log_inference_summary(
+            sum(len(lf.masks) if seg else len(lf.instances) for lf in labels.labeled_frames),
+            "masks" if seg else "instances")
         return labels
 
-    def _log_inference_summary(self, n_instances: Optional[int] = None) -> None:
-        """One log line after a run: frames, instances, time, frames/s and
-        whether the Labels will be tracked."""
+    def _log_inference_summary(self, n_objects: Optional[int] = None,
+                               object_label: str = "instances") -> None:
+        """One log line after a run: frames, instances (a segmentation
+        model's masks), time, frames/s and whether the Labels will be
+        tracked."""
         s = self.last_stats
         parts = [f"frames={s['n_frames']}"]
-        if n_instances is not None:
-            mean = n_instances / s["n_frames"] if s["n_frames"] else 0.0
-            parts.append(f"instances={n_instances} ({mean:.2f}/frame)")
+        if n_objects is not None:
+            mean = n_objects / s["n_frames"] if s["n_frames"] else 0.0
+            parts.append(f"{object_label}={n_objects} ({mean:.2f}/frame)")
         parts += [f"elapsed={s['elapsed_s']:.1f}s", f"throughput={s['fps']:.1f} fps",
                   f"tracking={self.tracking_active}"]
         logger.info("Inference complete | " + " | ".join(parts))
@@ -753,6 +834,25 @@ class Predictor:
             if not out["valid"][i]:
                 continue
             vid = videos[out["video_inds"][i]] if videos else None
+            frame_idx = int(out["frame_inds"][i])
+            if self.model_type in SEGMENTATION_TYPES:
+                # Masks, not filtered; a bottom-up model's frames also hold
+                # its centres as one-node instances.
+                instances = []
+                if self.model_type == "bottomup_segmentation":
+                    cents, vals = out["pred_centroids"][i], out["centroid_vals"][i]
+                    valid = out["centroid_valid"][i]
+                    for k in range(cents.shape[0]):
+                        if valid[k] and not np.all(np.isnan(cents[k])):
+                            instances.append(
+                                self._make_instance(cents[k][None], vals[k:k + 1], skel))
+                masks = out["pred_masks"][i]
+                if masks or instances:
+                    lf = LabeledFrame(video=vid, frame_idx=frame_idx, instances=instances,
+                                      masks=masks)
+                    self._apply_mask_output(lf, out.get("mask_scale", 1.0))
+                    lfs.append(lf)
+                continue
             instances = []
             if self.model_type == "single_instance":
                 pts, vals = out["pred_keypoints"][i], out["pred_peak_values"][i]
@@ -826,6 +926,23 @@ class Predictor:
                 lfs.append(LabeledFrame(video=vid, frame_idx=int(out["frame_inds"][i]),
                                         instances=instances))
         return lfs
+
+    def _apply_mask_output(self, lf: LabeledFrame, mask_scale: float = 1.0) -> None:
+        """``mask_output`` on one frame: ``"polygon"`` and ``"both"`` add
+        each mask's outline (``mask_to_polygon`` at ``polygon_epsilon``, in
+        image pixels by the mask's ``scale``, else ``mask_scale``) as a
+        ``PredictedROI``; ``"polygon"`` then drops the masks."""
+        if self.mask_output == "mask" or not lf.masks:
+            return
+        rois = []
+        for sm in lf.masks:
+            poly = mask_to_polygon(sm.mask, epsilon_frac=float(self.polygon_epsilon),
+                                   scale=getattr(sm, "scale", None) or mask_scale)
+            if poly is not None:
+                rois.append(PredictedROI(poly, score=sm.score, track=sm.track))
+        lf.rois = rois
+        if self.mask_output == "polygon":
+            lf.masks = []
 
     def _class_track(self, class_idx: int) -> Track:
         """The ``Track`` of an identity class (one per class and predictor),

@@ -27,7 +27,12 @@ import re
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
 
-from sleap_nn_tpu_torch.inference.predictor import UNPORTED_KNOBS, Predictor, refuse_unported
+from sleap_nn_tpu_torch.inference.predictor import (
+    SEGMENTATION_TYPES,
+    UNPORTED_KNOBS,
+    Predictor,
+    refuse_unported,
+)
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
 from sleap_nn_tpu_torch.io.video import HDF5VideoBackend, Video
 from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
@@ -134,6 +139,21 @@ def predict(
     restore_source_videos: bool = False,
     tracking: bool = False,
     tracker=None,
+    merge_fragments: bool = False,
+    merge_method: str = "greedy",
+    fg_threshold: float = 0.5,
+    min_mask_area: int = 0,
+    center_nms_kernel: int = 3,
+    distance_gate_alpha: Optional[float] = None,
+    mask_cleanup: bool = True,
+    mask_cleanup_radius: int = 0,
+    merge_dilate: int = 1,
+    merge_w_valley: float = 1.0,
+    merge_w_offset: float = 0.25,
+    merge_thresholds: Sequence[float] = (0.85, 0.6, 0.4),
+    full_res_masks: bool = False,
+    mask_output: str = "mask",
+    polygon_epsilon: float = 0.01,
     **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
@@ -151,8 +171,9 @@ def predict(
     ``restore_source_videos`` points a non-embedding save at the videos
     that embedded frames came from. ``tracking`` tracks the ``Labels`` with
     ``run_tracker`` and the other keyword arguments as its knobs
-    (``features`` and ``scoring_method`` left unset give centroids and
-    euclidean distances for a one-node skeleton); a ``tracker`` object's
+    (``features`` and ``scoring_method`` left unset give masks and mask
+    IoU for a segmentation model, else centroids and euclidean distances
+    for a one-node skeleton); a ``tracker`` object's
     ``track_labels`` is used instead when given. Keyword arguments that
     are the JAX package's knobs of unported features
     (``UNPORTED_RUN_KNOBS``) raise unless they hold their no-op value;
@@ -275,6 +296,21 @@ def predict(
         backbone_ckpt_path=backbone_ckpt_path,
         head_ckpt_path=head_ckpt_path,
         anchor_part=anchor_part,
+        merge_fragments=merge_fragments,
+        merge_method=merge_method,
+        fg_threshold=fg_threshold,
+        min_mask_area=min_mask_area,
+        center_nms_kernel=center_nms_kernel,
+        distance_gate_alpha=distance_gate_alpha,
+        mask_cleanup=mask_cleanup,
+        mask_cleanup_radius=mask_cleanup_radius,
+        merge_dilate=merge_dilate,
+        merge_w_valley=merge_w_valley,
+        merge_w_offset=merge_w_offset,
+        merge_thresholds=merge_thresholds,
+        full_res_masks=full_res_masks,
+        mask_output=mask_output,
+        polygon_epsilon=polygon_epsilon,
         device=device or "cuda",
     )
     predictor.centroid_output = centroid_output
@@ -307,11 +343,15 @@ def predict(
     if tracker is not None:
         result = tracker.track_labels(result)
     elif tracking:
-        if "features" not in tracker_kwargs and len(predictor.skeleton.nodes) == 1:
-            tracker_kwargs["features"] = "centroids"
-        if "scoring_method" not in tracker_kwargs \
-                and tracker_kwargs.get("features") == "centroids":
-            tracker_kwargs["scoring_method"] = "euclidean_dist"
+        if "features" not in tracker_kwargs:
+            if predictor.model_type in SEGMENTATION_TYPES:
+                tracker_kwargs["features"] = "masks"
+            elif predictor.model_type == "centroid" or len(predictor.skeleton.nodes) == 1:
+                tracker_kwargs["features"] = "centroids"
+        if "scoring_method" not in tracker_kwargs:
+            default = {"masks": "mask_iou", "centroids": "euclidean_dist"}
+            if tracker_kwargs.get("features") in default:
+                tracker_kwargs["scoring_method"] = default[tracker_kwargs["features"]]
         result = run_tracker(result, **tracker_kwargs)
 
     from sleap_nn_tpu_torch.inference.provenance import (
@@ -340,7 +380,8 @@ def predict(
     result.provenance = merge_provenance(dict(result.provenance or {}), run_prov,
                                          overwrite=False)
     if no_empty_frames:
-        result.labeled_frames = [lf for lf in result.labeled_frames if lf.instances]
+        result.labeled_frames = [lf for lf in result.labeled_frames
+                                 if lf.instances or lf.masks]
     if stream_writer is not None:
         stream_writer.provenance = dict(result.provenance)
         stream_writer.finalize()

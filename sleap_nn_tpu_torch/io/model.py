@@ -3,9 +3,10 @@
 Port of ``sleap_nn_tpu/io/model.py``: ``Skeleton`` (nodes / edges /
 symmetries), ``SuggestionFrame``, ``Track``, ``Instance`` /
 ``PredictedInstance``, ``PredictedCentroid`` / ``UserCentroid``,
-``PredictedROI``, ``LabeledFrame`` and the ``Labels`` container with its
-splits, edits and ``save`` (``io/slp.py``). ``SegmentationMask`` is not
-ported: its resize calls cv2 (ROADMAP.md section 1, item 10). A video is
+``PredictedROI``, ``SegmentationMask``, ``LabeledFrame`` (with its
+``masks``) and the ``Labels`` container with its splits, edits and
+``save`` (``io/slp.py``). A frame's masks travel with the frame through
+every ``Labels`` edit, as in the JAX package. A video is
 an ``io.video.Video`` or any object with ``video[frame_idx]`` returning an
 ``(H, W, C)`` uint8 frame and ``video.shape`` as ``(n_frames, H, W, C)``
 (or None).
@@ -288,15 +289,74 @@ class PredictedROI:
         return len(self.points)
 
 
+class SegmentationMask:
+    """A (predicted) instance or foreground mask of one frame.
+
+    ``scale`` is the factor from mask pixels to image pixels: a mask kept
+    at the model's output grid has ``scale`` above 1, and ``decode``
+    resizes it to the image (cv2 nearest neighbour).
+    """
+
+    def __init__(self, mask: np.ndarray, score: float = 0.0, track: Optional[Track] = None,
+                 scale: float = 1.0):
+        self.mask = np.asarray(mask, dtype=bool)
+        self.score = float(score)
+        self.track = track
+        self.scale = float(scale)
+
+    @property
+    def area(self) -> int:
+        return int(self.mask.sum())
+
+    @property
+    def image_area(self) -> float:
+        """Mask area in image pixels."""
+        return float(self.mask.sum()) * self.scale * self.scale
+
+    def decode(self, out_hw: Optional[tuple] = None) -> np.ndarray:
+        """The mask at image resolution (nearest neighbour), cropped or
+        zero-padded to ``out_hw`` where given."""
+        m = self.mask
+        if self.scale != 1.0:
+            import cv2
+
+            m = cv2.resize(
+                m.astype(np.uint8),
+                (max(1, int(round(m.shape[1] * self.scale))),
+                 max(1, int(round(m.shape[0] * self.scale)))),
+                interpolation=cv2.INTER_NEAREST,
+            ).astype(bool)
+        if out_hw is not None:
+            h, w = int(out_hw[0]), int(out_hw[1])
+            if m.shape != (h, w):
+                out = np.zeros((h, w), dtype=bool)
+                hh, ww = min(h, m.shape[0]), min(w, m.shape[1])
+                out[:hh, :ww] = m[:hh, :ww]
+                m = out
+        return m
+
+    def centroid(self) -> np.ndarray:
+        """Mean ``(x, y)`` of the mask's pixels (the mask's centre when empty)."""
+        ys, xs = np.nonzero(self.mask)
+        if len(xs) == 0:
+            return np.array([self.mask.shape[1] / 2.0, self.mask.shape[0] / 2.0])
+        return np.array([xs.mean(), ys.mean()])
+
+    def __repr__(self) -> str:
+        return f"SegmentationMask(area={self.area}, score={self.score:.3f})"
+
+
 class LabeledFrame:
     """All instances labeled/predicted on one frame of one video."""
 
     def __init__(self, video, frame_idx: int, instances: Optional[List[Instance]] = None,
+                 masks: Optional[List[SegmentationMask]] = None,
                  rois: Optional[List[PredictedROI]] = None,
                  centroids: Optional[List[PredictedCentroid]] = None):
         self.video = video
         self.frame_idx = int(frame_idx)
         self.instances: List[Instance] = list(instances or [])
+        self.masks: List[SegmentationMask] = list(masks or [])
         self.rois: List[PredictedROI] = list(rois or [])
         self.centroids: List[PredictedCentroid] = list(centroids or [])
 

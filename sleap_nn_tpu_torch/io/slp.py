@@ -5,9 +5,7 @@ sleap-io (format_id 1.2), read and written through the port's own
 HDF5 subset (``io/hdf5.py``), so the files are the JAX package's and no
 HDF5 library is needed. Embedded
 frames are PNG through ``io/png.py`` (the JAX package calls cv2). The
-per-frame segmentation masks of the JAX writer's extension are not ported
-(``SegmentationMask``, ROADMAP.md section 1, item 10): ``load_slp``
-raises on a file that holds them. The layout:
+layout:
 
 - ``frames``: compound (frame_id, video, frame_idx, instance_id_start/end)
 - ``instances``: compound (instance_id, instance_type {0=user,1=predicted},
@@ -18,6 +16,10 @@ raises on a file that holds them. The layout:
 - ``metadata`` group attrs: ``format_id`` and a ``json`` blob holding the
   skeletons in SLEAP's legacy jsonpickle-flavored graph encoding
 - ``videoN/video`` (+``frame_numbers``): optionally embedded encoded frames
+- ``pred_masks_json`` / ``pred_masks_data``: segmentation masks, one JSON
+  index row (frame, score, track, shape, scale) and one variable-length
+  ``uint8`` row of ``np.packbits`` per mask, written contiguously as
+  h5py writes a dataset without filters (the JAX package's extension)
 - ``pred_rois_json`` / ``pred_centroids_json``: polygon ROIs and centroid
   points, JSON rows (the JAX package's extension)
 """
@@ -37,6 +39,7 @@ from sleap_nn_tpu_torch.io.model import (
     PredictedCentroid,
     PredictedInstance,
     PredictedROI,
+    SegmentationMask,
     Skeleton,
     SuggestionFrame,
     Track,
@@ -257,10 +260,8 @@ def load_slp(path: Union[str, Path], open_videos: bool = True) -> Labels:
         )
         instances_ds = f["instances"][:] if "instances" in f else np.zeros(0, dtype=_INSTANCE_DTYPE)
         frames_ds = f["frames"][:] if "frames" in f else np.zeros(0, dtype=_FRAME_DTYPE)
-        if "pred_masks_json" in f:
-            raise NotImplementedError(
-                f"{path} holds segmentation masks; SegmentationMask is not ported "
-                "(ROADMAP.md section 1, item 10)")
+        mask_meta = f["pred_masks_json"][:] if "pred_masks_json" in f else []
+        mask_blobs = f["pred_masks_data"][:] if "pred_masks_data" in f else []
         roi_rows = f["pred_rois_json"][:] if "pred_rois_json" in f else []
         cent_rows = f["pred_centroids_json"][:] if "pred_centroids_json" in f else []
         sugg_rows = []
@@ -318,7 +319,22 @@ def load_slp(path: Union[str, Path], open_videos: bool = True) -> Labels:
             LabeledFrame(video=video, frame_idx=int(rec["frame_idx"]), instances=insts)
         )
 
-    # Re-attach polygon ROIs and centroid points (save_slp's extensions).
+    # Re-attach the masks, polygon ROIs and centroid points (save_slp's
+    # extensions).
+    for meta_row, blob in zip(mask_meta, mask_blobs):
+        meta = json.loads(meta_row)
+        fi = int(meta["frame"])
+        if not 0 <= fi < len(labeled_frames):
+            continue
+        h, w = meta["shape"]
+        mask = np.unpackbits(np.asarray(blob, np.uint8), count=h * w).reshape(h, w)
+        ti = int(meta.get("track", -1))
+        labeled_frames[fi].masks.append(SegmentationMask(
+            mask=mask.astype(bool),
+            score=float(meta.get("score", 0.0)),
+            track=tracks[ti] if 0 <= ti < len(tracks) else None,
+            scale=float(meta.get("scale", 1.0)),
+        ))
     for row in roi_rows:
         meta = json.loads(row)
         fi = int(meta["frame"])
@@ -554,8 +570,27 @@ def save_slp(path: Union[str, Path], labels: Labels, embed: bool = False):
         )
         f.create_dataset("frames", data=np.array(frame_rows, dtype=_FRAME_DTYPE))
 
-        # Polygon ROIs and centroid points: JSON-row extensions that readers
-        # which do not know them ignore.
+        # Masks, polygon ROIs and centroid points: extensions that readers
+        # which do not know them ignore. A mask is one JSON index row and
+        # one row of its packed bits.
+        mask_meta, mask_blobs = [], []
+        for fi, lf in enumerate(labels.labeled_frames):
+            for sm in getattr(lf, "masks", []) or []:
+                m = np.asarray(sm.mask, bool)
+                mask_meta.append(json.dumps({
+                    "frame": fi,
+                    "score": float(sm.score),
+                    "track": track_idx.get(id(sm.track), -1),
+                    "shape": [int(m.shape[0]), int(m.shape[1])],
+                    "scale": float(getattr(sm, "scale", 1.0)),
+                }).encode())
+                mask_blobs.append(np.packbits(m))
+        if mask_meta:
+            f.create_dataset("pred_masks_json", data=np.array(mask_meta))
+            blobs = np.empty(len(mask_blobs), dtype=hdf5.vlen_dtype(np.uint8))
+            for i, b in enumerate(mask_blobs):
+                blobs[i] = b
+            f.create_dataset("pred_masks_data", data=blobs)
         roi_meta = []
         for fi, lf in enumerate(labels.labeled_frames):
             for roi in getattr(lf, "rois", []) or []:

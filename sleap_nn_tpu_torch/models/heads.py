@@ -1,7 +1,8 @@
 """Model output heads for the ported model types.
 
-Port of the confidence-map, part-affinity-field, class-map and
-class-vector heads of ``sleap_nn_tpu/models/heads.py``: the head
+Port of the confidence-map, part-affinity-field, class-map,
+class-vector and segmentation (foreground, instance centre and centre
+offset) heads of ``sleap_nn_tpu/models/heads.py``: the head
 descriptors (frozen dataclasses keyed by ``name``), the 1x1 conv head
 layer and the class-vectors layer. The conv layer is an
 ``nn.Sequential`` whose conv sits at index 0, so a model's keys read
@@ -178,3 +179,54 @@ class ClassVectorsHead(Head):
         """``in_channels``: the dense input size (see ``ClassVectorsHeadLayer``)."""
         return ClassVectorsHeadLayer(in_channels, self.channels, self.num_fc_layers,
                                      self.num_fc_units, self.global_pool)
+
+
+@dataclass(frozen=True)
+class SegmentationHead(Head):
+    """Foreground probability (sigmoid), trained with BCE plus Dice."""
+
+    output_stride: int = 2
+    bce_weight: float = 0.5
+    dice_weight: float = 0.5
+    bce_pos_weight: Optional[float] = None
+
+    @property
+    def channels(self) -> int:
+        return 1
+
+    @property
+    def activation(self) -> str:
+        return "sigmoid"
+
+    @property
+    def loss_function(self) -> str:
+        return "bce_dice"
+
+
+@dataclass(frozen=True)
+class InstanceCenterHead(Head):
+    """Heatmap of instance centres (the mask centroids)."""
+
+    output_stride: int = 2
+    sigma: float = 4.0
+
+    @property
+    def channels(self) -> int:
+        return 1
+
+
+@dataclass(frozen=True)
+class CenterOffsetHead(Head):
+    """Per-pixel ``(dx, dy)`` to the pixel's instance centre, trained with a
+    masked smooth L1."""
+
+    output_stride: int = 2
+    loss_weight: float = 0.1
+
+    @property
+    def channels(self) -> int:
+        return 2
+
+    @property
+    def loss_function(self) -> str:
+        return "smooth_l1"

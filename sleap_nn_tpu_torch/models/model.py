@@ -2,7 +2,7 @@
 
 Port of ``sleap_nn_tpu/models/model.py`` for the UNet, ConvNeXt, SwinT and
 pretrained backbones and the single-instance, centroid, centered-instance,
-bottom-up and identity (multi-class) heads: ``get_backbone`` /
+bottom-up, identity (multi-class) and segmentation heads: ``get_backbone`` /
 ``get_head`` and the ``Model`` that binds each head's 1x1 conv to the
 decoder feature at that head's ``output_stride`` (a class-vectors head to
 the backbone's ``intermediate_feat``; every head of an encoder-only
@@ -19,18 +19,23 @@ from torch import nn
 
 from sleap_nn_tpu_torch.models.heads import (
     CenteredInstanceConfmapsHead,
+    CenterOffsetHead,
     CentroidConfmapsHead,
     ClassMapsHead,
     ClassVectorsHead,
     Head,
+    InstanceCenterHead,
     MultiInstanceConfmapsHead,
     PartAffinityFieldsHead,
+    SegmentationHead,
     SingleInstanceConfmapsHead,
 )
 from sleap_nn_tpu_torch.models.unet import UNet
 
 MODEL_TYPES = ("single_instance", "centroid", "centered_instance", "bottomup",
-               "multi_class_bottomup", "multi_class_topdown")
+               "multi_class_bottomup", "multi_class_topdown", "bottomup_segmentation",
+               "centered_instance_segmentation", "semantic_segmentation")
+_SEG_KEYS = ("output_stride", "loss_weight", "bce_weight", "dice_weight", "bce_pos_weight")
 
 
 def _cfg_get(cfg, key, default=None):
@@ -102,6 +107,16 @@ def get_head(model_type: str, head_config) -> Tuple[Head, ...]:
             ClassVectorsHead(**kw(cv, ("classes", "num_fc_layers", "num_fc_units", "global_pool",
                                        "output_stride", "loss_weight"))),
         )
+    if model_type == "bottomup_segmentation":
+        return (
+            SegmentationHead(**kw(_cfg_get(head_config, "segmentation"), _SEG_KEYS)),
+            InstanceCenterHead(**kw(_cfg_get(head_config, "center"),
+                                    ("sigma", "output_stride", "loss_weight"))),
+            CenterOffsetHead(**kw(_cfg_get(head_config, "offsets"),
+                                  ("output_stride", "loss_weight"))),
+        )
+    if model_type in ("centered_instance_segmentation", "semantic_segmentation"):
+        return (SegmentationHead(**kw(_cfg_get(head_config, "segmentation"), _SEG_KEYS)),)
     raise ValueError(
         f"{model_type} is not a ported model type. Choose one of {MODEL_TYPES}."
     )

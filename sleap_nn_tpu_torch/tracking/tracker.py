@@ -5,9 +5,9 @@ assign architecture, optical-flow candidate shifting (OpenCV's
 Lucas-Kanade, imported inside ``FlowShiftTracker._compute_optical_flow``:
 without cv2 that tracker raises ``ImportError``) and per-track EM-fit
 constant-velocity Kalman prediction (``tracking/kalman.py``), with
-``connect_single_breaks`` and ``run_tracker``. The ``"masks"`` feature and
-the ``mask_iou`` score wait for ``SegmentationMask`` and raise
-``NotImplementedError`` (ROADMAP.md section 1, item 10).
+``connect_single_breaks`` and ``run_tracker``. With ``features="masks"``
+a frame's ``SegmentationMask``s are tracked (scored by ``mask_iou``) and
+carry the tracks.
 """
 
 from __future__ import annotations
@@ -27,10 +27,10 @@ from sleap_nn_tpu_torch.tracking.candidates import (
     TrackedInstanceFeature,
 )
 from sleap_nn_tpu_torch.tracking.utils import (
-    MASKS_UNPORTED,
     compute_cosine_sim,
     compute_euclidean_distance,
     compute_iou,
+    compute_mask_iou,
     compute_oks_score,
     count_valid_points,
     cull_frame_instances,
@@ -38,6 +38,7 @@ from sleap_nn_tpu_torch.tracking.utils import (
     get_bbox,
     get_centroid,
     get_keypoints,
+    get_mask,
     greedy_matching,
     hungarian_matching,
 )
@@ -60,8 +61,6 @@ class Tracker:
         tracking_pre_cull_to_target: int = 0,
         tracking_pre_cull_iou_threshold: float = 0,
     ):
-        if features == "masks" or scoring_method == "mask_iou":
-            raise NotImplementedError(MASKS_UNPORTED)
         self.candidate = candidate or FixedWindowCandidates()
         self.is_local_queue = isinstance(self.candidate, LocalQueueCandidates)
         self.min_match_points = min_match_points
@@ -80,6 +79,7 @@ class Tracker:
         "keypoints": get_keypoints,
         "centroids": get_centroid,
         "bboxes": get_bbox,
+        "masks": get_mask,
     }
     _matching_methods = {"hungarian": hungarian_matching, "greedy": greedy_matching}
 
@@ -196,6 +196,7 @@ class Tracker:
             "iou": compute_iou,
             "cosine_sim": compute_cosine_sim,
             "euclidean_dist": compute_euclidean_distance,
+            "mask_iou": compute_mask_iou,
         }
         if self.scoring_method not in fns:
             raise ValueError(
@@ -271,6 +272,7 @@ class Tracker:
         if (
             self.tracking_target_instance_count
             and self.tracking_pre_cull_to_target
+            and self.features != "masks"  # the cull's boxes come from keypoints
         ):
             untracked_instances = cull_frame_instances(
                 untracked_instances,
@@ -307,6 +309,11 @@ class Tracker:
         needs_img = get_image or isinstance(self, FlowShiftTracker)
         for lf in lfs:
             img = lf.image if (needs_img and lf.video is not None) else None
+            if self.features == "masks":
+                # Segmentation output: the masks carry the tracks. Every
+                # frame is tracked, as below.
+                self.track([m for m in lf.masks if m.area > 0], lf.frame_idx, img)
+                continue
             # User-labeled instances take precedence for tracking; untracked
             # predictions are carried alongside.
             items = lf.user_instances if lf.has_user_instances else lf.predicted_instances

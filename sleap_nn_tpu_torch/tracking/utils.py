@@ -1,9 +1,10 @@
 """Tracking utilities: matching, features, scorers, NMS, culling.
 
-Port of ``sleap_nn_tpu/tracking/utils.py``. The ``"masks"`` feature
-(``MaskFeature``, ``get_mask``, ``is_segmentation_mask``,
-``compute_mask_iou``) waits for ``SegmentationMask`` and raises
-``NotImplementedError`` (ROADMAP.md section 1, item 10).
+Port of ``sleap_nn_tpu/tracking/utils.py``, with the ``"masks"``
+feature of segmentation output: ``MaskFeature`` (a mask's foreground
+bounding-box crop, origin, area and mask-to-image scale), ``get_mask``,
+``is_segmentation_mask``, the mask area as the support count of
+``count_valid_points`` and the ``mask_iou`` score ``compute_mask_iou``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,6 @@ from scipy.optimize import linear_sum_assignment
 
 from sleap_nn_tpu_torch.evaluation import compute_oks
 from sleap_nn_tpu_torch.io.model import PredictedInstance
-
-MASKS_UNPORTED = ("mask tracking needs SegmentationMask, which is not ported "
-                  "(ROADMAP.md section 1, item 10)")
 
 
 def hungarian_matching(cost_matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -63,26 +61,72 @@ def get_bbox(inst) -> np.ndarray:
 
 
 class MaskFeature:
-    """The ``"masks"`` tracking feature (item 10)."""
+    """A mask's foreground bounding-box crop, its origin ``(y0, x0)`` on the
+    mask's grid, its area and ``scale`` (mask px -> image px). IoU of two
+    such features touches only the overlap of their boxes."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(MASKS_UNPORTED)
+    __slots__ = ("crop", "y0", "x0", "area", "scale")
+
+    def __init__(self, crop: np.ndarray, y0: int, x0: int, area: int, scale: float = 1.0):
+        self.crop = crop
+        self.y0 = int(y0)
+        self.x0 = int(x0)
+        self.area = int(area)
+        self.scale = float(scale)
+
+    def rescaled(self, target_scale: float) -> "MaskFeature":
+        """This feature on a finer grid (cv2 nearest neighbour)."""
+        if self.scale == target_scale or self.area == 0:
+            return MaskFeature(self.crop, self.y0, self.x0, self.area, target_scale)
+        import cv2
+
+        f = self.scale / float(target_scale)
+        h = max(1, int(round(self.crop.shape[0] * f)))
+        w = max(1, int(round(self.crop.shape[1] * f)))
+        crop = cv2.resize(self.crop.astype(np.uint8), (w, h),
+                          interpolation=cv2.INTER_NEAREST).astype(bool)
+        return MaskFeature(crop, int(round(self.y0 * f)), int(round(self.x0 * f)),
+                           int(np.count_nonzero(crop)), target_scale)
+
+
+def _mask_feature_from_dense(data: np.ndarray, scale: float = 1.0) -> MaskFeature:
+    data = np.ascontiguousarray(data, dtype=bool)
+    rows = np.any(data, axis=1)
+    if not rows.any():
+        return MaskFeature(np.zeros((0, 0), dtype=bool), 0, 0, 0, scale)
+    cols = np.any(data, axis=0)
+    y0 = int(np.argmax(rows))
+    y1 = len(rows) - int(np.argmax(rows[::-1]))
+    x0 = int(np.argmax(cols))
+    x1 = len(cols) - int(np.argmax(cols[::-1]))
+    crop = data[y0:y1, x0:x1]
+    return MaskFeature(crop, y0, x0, int(np.count_nonzero(crop)), scale)
 
 
 def get_mask(obj) -> MaskFeature:
-    raise NotImplementedError(MASKS_UNPORTED)
+    """The ``"masks"`` feature of a ``SegmentationMask`` or a bool array."""
+    if isinstance(obj, MaskFeature):
+        return obj
+    if isinstance(obj, np.ndarray):
+        return _mask_feature_from_dense(obj)
+    data = getattr(obj, "mask", None)
+    if data is None:
+        raise TypeError(f"Cannot extract a mask feature from {type(obj).__name__}")
+    return _mask_feature_from_dense(np.asarray(data, dtype=bool),
+                                    scale=float(getattr(obj, "scale", 1.0) or 1.0))
 
 
 def is_segmentation_mask(obj) -> bool:
-    raise NotImplementedError(MASKS_UNPORTED)
-
-
-def compute_mask_iou(a, b) -> float:
-    raise NotImplementedError(MASKS_UNPORTED)
+    """True for a ``SegmentationMask`` or a ``MaskFeature``."""
+    return isinstance(obj, MaskFeature) or (hasattr(obj, "mask") and not hasattr(obj, "numpy"))
 
 
 def count_valid_points(inst) -> int:
-    """The number of nodes with both coordinates."""
+    """The number of nodes with both coordinates; for a mask, its area in
+    pixels (so ``min_new_track_points`` and ``min_match_points`` are areas
+    on the ``"masks"`` feature)."""
+    if is_segmentation_mask(inst):
+        return get_mask(inst).area
     pts = get_keypoints(inst)
     return int(np.sum(~np.isnan(pts).any(axis=-1)))
 
@@ -113,6 +157,30 @@ def compute_iou(a: np.ndarray, b: np.ndarray) -> float:
     inter = iw * ih
     union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - inter
     return float(inter / union) if union > 0 else 0.0
+
+
+def compute_mask_iou(a, b) -> float:
+    """Pixel IoU of two masks (the ``mask_iou`` score), over the overlap of
+    their boxes: both empty gives 1, one empty 0. Masks of different
+    scales compare on the finer grid."""
+    fa = a if isinstance(a, MaskFeature) else get_mask(a)
+    fb = b if isinstance(b, MaskFeature) else get_mask(b)
+    if fa.area == 0 or fb.area == 0:
+        return 1.0 if fa.area == fb.area else 0.0
+    if fa.scale != fb.scale:
+        fine = min(fa.scale, fb.scale)
+        fa, fb = fa.rescaled(fine), fb.rescaled(fine)
+    ay1, ax1 = fa.y0 + fa.crop.shape[0], fa.x0 + fa.crop.shape[1]
+    by1, bx1 = fb.y0 + fb.crop.shape[0], fb.x0 + fb.crop.shape[1]
+    oy0, oy1 = max(fa.y0, fb.y0), min(ay1, by1)
+    ox0, ox1 = max(fa.x0, fb.x0), min(ax1, bx1)
+    inter = 0
+    if oy1 > oy0 and ox1 > ox0:
+        ca = fa.crop[oy0 - fa.y0:oy1 - fa.y0, ox0 - fa.x0:ox1 - fa.x0]
+        cb = fb.crop[oy0 - fb.y0:oy1 - fb.y0, ox0 - fb.x0:ox1 - fb.x0]
+        inter = int(np.count_nonzero(ca & cb))
+    union = fa.area + fb.area - inter
+    return float(inter / union) if union else 1.0
 
 
 def compute_cosine_sim(a: np.ndarray, b: np.ndarray) -> float:

@@ -32,7 +32,12 @@ def _eval_split(
     """Predict a split's ground-truth frames and evaluate the predictions:
     ``labels_pr.{split}_{idx}.slp`` and ``metrics.{split}.{idx}.npz`` in
     ``model_dir``. A centered-instance model alone cannot run top-down, so
-    its splits are skipped (None), as in the JAX package."""
+    its splits are skipped (None), as in the JAX package. A segmentation
+    model takes the OKS branch, as in the JAX package: a semantic model's
+    frames hold no instance (None), a bottom-up segmentation model's
+    one-node centres fail ``compute_oks`` against the ground truth's nodes
+    (``ValueError``) where it finds any, and a lone centered-instance
+    segmentation dir is a type set ``from_model_paths`` refuses."""
     from sleap_nn_tpu_torch.inference.run import predict
 
     if model_type == "centered_instance":

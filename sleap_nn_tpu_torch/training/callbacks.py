@@ -3,8 +3,7 @@ evaluation.
 
 Port of the GUI-independent callbacks of
 ``sleap_nn_tpu/training/callbacks.py``. The ZMQ controller and reporter
-are not ported yet, nor the epoch-end evaluation of segmentation models
-(ROADMAP.md section 1, item 10).
+are not ported yet (ROADMAP.md section 1, item 7c).
 """
 
 from __future__ import annotations
@@ -129,8 +128,14 @@ class EpochEndEvaluationCallback(Callback):
     single-instance, centered-instance and multi-class top-down models;
     local peaks, at most 20, for the centroid model) and adds ``val/mOKS``, ``val/dist.avg`` and,
     for the centroid model, ``val/detection.f1`` to the epoch logs (and so
-    to the CSV row). Other model types add nothing. A failure is printed,
-    never raised: evaluation must not stop training.
+    to the CSV row). The segmentation types add ``val/fg_iou``: the
+    foreground IoU of ``sigmoid(SegmentationHead) > 0.5`` against the
+    rendered target over the real rows of the whole val set. The head's
+    output is a probability already, so this sigmoid is a second one, as
+    in the JAX package: it lies in (0.5, 0.731), so every pixel counts as
+    foreground (ROADMAP.md section 3). Other model types add nothing. A
+    failure is
+    printed, never raised: evaluation must not stop training.
     """
 
     def __init__(self, trainer, frequency: int = 1, oks_stddev: float = 0.025,
@@ -149,10 +154,33 @@ class EpochEndEvaluationCallback(Callback):
         except Exception as e:  # eval must never break training
             print(f"epoch-end eval failed at epoch {epoch}: {e}")
 
+    @staticmethod
+    def _evaluate_segmentation(trainer) -> Dict:
+        inter = union = 0.0
+        was_training = trainer.model.training
+        trainer.model.eval()
+        try:
+            for batch in getattr(trainer, "eval_loader", trainer.val_loader):
+                with torch.no_grad():
+                    processed = trainer.render(batch, train=False)
+                    probs = trainer.model(processed["image"])["SegmentationHead"][..., 0]
+                    fg = (torch.sigmoid(probs) > 0.5).cpu().numpy()
+                    gt = (processed["segmentation"][..., 0] > 0.5).cpu().numpy()
+                mask = np.asarray(batch["batch_mask"], bool)
+                fg, gt = fg[mask], gt[mask]
+                inter += float(np.logical_and(fg, gt).sum())
+                union += float(np.logical_or(fg, gt).sum())
+        finally:
+            trainer.model.train(was_training)
+        return {"val/fg_iou": inter / union if union else 0.0}
+
     def _evaluate(self, trainer) -> Dict:
         # The trainer's eval_loader: the whole val set, also where each
         # rank of a data-parallel run validates on its own rows.
         mtype = trainer.model_type
+        if mtype in ("bottomup_segmentation", "semantic_segmentation",
+                     "centered_instance_segmentation"):
+            return self._evaluate_segmentation(trainer)
         if mtype not in ("single_instance", "centered_instance", "multi_class_topdown",
                          "centroid"):
             return {}

@@ -1,8 +1,9 @@
 """Training orchestration.
 
 Port of ``sleap_nn_tpu/training/model_trainer.py`` for single-instance,
-centroid, centered-instance, bottom-up and identity (multi-class
-bottom-up and top-down) models with the UNet, ConvNeXt, SwinT and
+centroid, centered-instance, bottom-up, identity (multi-class
+bottom-up and top-down) and segmentation (bottom-up, semantic and
+centered-instance) models with the UNet, ConvNeXt, SwinT and
 pretrained backbones, on one device or several. A train step renders the
 batch's targets on the device under ``torch.no_grad()`` (kernel 4 on
 CUDA for the centroid and bottom-up confidence maps), runs
@@ -52,7 +53,7 @@ Lightning checkpoints. ``inference.loaders.load_model`` reads the
 directory back; so does the JAX package's ``load_model``.
 
 What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md): the segmentation model types, ZMQ, wandb, visualization and
+ROADMAP.md section 1, item 7c): ZMQ, wandb, visualization and
 device-trace profilers.
 """
 
@@ -384,8 +385,8 @@ class ModelTrainer:
         missing = _unsupported(config, self.model_type)
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, items 7c and "
-                "10b): " + "; ".join(missing))
+                "not ported to the PyTorch trainer yet (ROADMAP.md section 1, item 7c): "
+                + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
         self.current_epoch = 0

@@ -469,7 +469,7 @@ def test_eval_kwargs_and_summary_match(recorders, tmp_path, capsys, line, metric
 def test_unported_commands_exit_naming_their_item(tmp_path, capsys):
     f = tmp_path / "x.slp"
     f.touch()
-    for argv, item in ((["sam", "-i", str(f), "--mask-backend", "sam3"], "item 10b"),
+    for argv, item in ((["sam", "-i", str(f), "--mask-backend", "sam3"], "item 13b"),
                        (["config", str(f), "--auto"], "item 13b"),
                        (["config-generate", str(f)], "item 13b"),
                        (["export", str(tmp_path), "--format", "savedmodel"], "item 13b")):
@@ -488,10 +488,12 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
     for extra, match in ((["--runtime", "stablehlo"], "item 13"),
                          (["--data-parallel"], "item 13"),
                          (["--profile-dir", "p"], "item 13"),
-                         (["--mask-output", "polygon"], "item 10"),
                          (["--stream-mode", "stream"], "fetch_remote_data")):
         with pytest.raises(NotImplementedError, match=match):
             pcli.main(base + extra)
+    # The segmentation knobs are ported: on a pose model they do nothing, as
+    # in the JAX package.
+    assert pcli.main(base + ["--mask-output", "polygon", "--fg-threshold", "0.7"]) == 0
     with pytest.raises(NotImplementedError, match="item 13"):
         pcli.main(["predict", "-i", str(tmp_path / "x.slp"), "--mask-backend", "sam3",
                    "--device", "cpu"])

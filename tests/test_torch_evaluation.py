@@ -8,7 +8,8 @@ random scenes made from a numpy seed. Each builds the same ground-truth and
 predicted labels in both packages' ``Labels``; every metric must be exactly
 equal, of the same type, with NaNs in the same places. Each package's
 ``load_metrics`` reads the other's npz; ``run_evaluation`` agrees from
-``.slp`` paths (h5py). The mask half raises, naming ROADMAP item 10.
+``.slp`` paths (h5py). The mask half is held here in brief and in
+``tests/test_torch_segmentation_eval.py`` in full.
 """
 
 import json
@@ -387,29 +388,48 @@ def test_metrics_file_formats_match_jax(tmp_path):
     assert_same(jev._flatten(NESTED), pev._flatten(NESTED))
 
 
-# -- the mask half waits for item 10 ---------------------------------------------
+# -- the mask half (tests/test_torch_segmentation_eval.py holds it in full) --------
+
+
+def _with_masks(io, labels, seed):
+    """Each frame gets one mask per instance: a disk around its first node."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:200, :200]
+    for lf in labels.labeled_frames:
+        lf.masks = []
+        for inst in lf.instances:
+            c = np.nan_to_num(np.asarray(inst.points)[0]) + rng.uniform(-3, 3, 2)
+            lf.masks.append(io.SegmentationMask((xx - c[0]) ** 2 + (yy - c[1]) ** 2 < 150,
+                                                score=float(rng.random())))
+    return labels
 
 
 @pytest.mark.parametrize("call", [
-    lambda gt, pr: pev.Evaluator(gt, pr, match_method="mask"),
-    lambda gt, pr: pev.Evaluator(gt, pr, match_method="semantic"),
-    lambda gt, pr: pev.run_evaluation(gt, pr, match_method="semantic"),
-    lambda gt, pr: pev.Evaluator(gt, pr).mask_metrics(),
-    lambda gt, pr: pev.Evaluator(gt, pr).mask_voc_metrics(),
-    lambda gt, pr: pev.Evaluator(gt, pr).semantic_metrics(),
-    lambda gt, pr: pev.mask_iou(np.ones((4, 4), bool), np.ones((4, 4), bool)),
-    lambda gt, pr: pev.match_masks([np.ones((4, 4), bool)], [np.ones((4, 4), bool)]),
-    lambda gt, pr: pev.boundary_iou(np.ones((4, 4), bool), np.ones((4, 4), bool)),
-    lambda gt, pr: pev.mask_cldice(np.ones((4, 4), bool), np.ones((4, 4), bool)),
+    lambda ev, gt, pr: ev.Evaluator(gt, pr, match_method="mask").evaluate(),
+    lambda ev, gt, pr: ev.Evaluator(gt, pr, match_method="semantic").evaluate(),
+    lambda ev, gt, pr: ev.run_evaluation(gt, pr, match_method="semantic"),
+    lambda ev, gt, pr: ev.Evaluator(gt, pr, match_method="mask").mask_metrics(),
+    lambda ev, gt, pr: ev.Evaluator(gt, pr, match_method="mask").mask_voc_metrics(),
+    lambda ev, gt, pr: ev.Evaluator(gt, pr, match_method="semantic").semantic_metrics(),
+    lambda ev, gt, pr: ev.mask_iou(gt[0].masks[0].mask, pr[0].masks[0].mask),
+    lambda ev, gt, pr: ev.match_masks([m.mask for m in gt[0].masks],
+                                      [m.mask for m in pr[0].masks]),
+    lambda ev, gt, pr: ev.boundary_iou(gt[0].masks[0].mask, pr[0].masks[0].mask),
+    lambda ev, gt, pr: ev.mask_cldice(pr[0].masks[0].mask, gt[0].masks[0].mask),
 ])
 def test_mask_evaluation_raises_naming_item_10(call):
-    _, (pgt, ppr) = _labels_pair(SCENES["perfect"][0])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call(pgt, ppr)
+    # Mask evaluation is ported: each call gives what the JAX package gives.
+    (jgt, jpr), (pgt, ppr) = _labels_pair(SCENES["perfect"][0])
+    want = call(jev, _with_masks(jio, jgt, 0), _with_masks(jio, jpr, 1))
+    got = call(pev, _with_masks(pio, pgt, 0), _with_masks(pio, ppr, 1))
+    assert_same(want, got)
 
 
 def test_labels_with_masks_raise_naming_item_10():
-    _, (pgt, ppr) = _labels_pair(SCENES["perfect"][0])
+    # Labels that carry masks are evaluated, pose and masks alike, as in JAX.
+    (jgt, jpr), (pgt, ppr) = _labels_pair(SCENES["perfect"][0])
+    jgt.labeled_frames[0].masks = [np.ones((4, 4), bool)]
     pgt.labeled_frames[0].masks = [np.ones((4, 4), bool)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pev.Evaluator(pgt, ppr)
+    for method in ("oks", "mask"):
+        assert_same(jev.Evaluator(jgt, jpr, match_method=method).evaluate(),
+                    pev.Evaluator(pgt, ppr, match_method=method).evaluate())

@@ -6,8 +6,10 @@ through its own ``io/hdf5.py``), click or rich (its command line is
 argparse), safetensors or transformers (the pretrained backbones read HF
 snapshots with their own reader); the GPU machine has none of them. It imports PyYAML and cv2 only inside function
 bodies: the functions that read or write YAML, and those that decode
-video, resize frames on the host or compute optical flow, so a module of
-the port imports where either is missing. Only the modules that build and
+video, resize frames on the host, compute optical flow or resize and
+outline segmentation masks, so a module of the port imports where either
+is missing (``scipy.ndimage``, for mask clean-up, the fragment merge and
+the boundary metrics, is imported inside functions too). Only the modules that build and
 load native code (the CUDA kernels of ``ops/``, the C++ grouping of
 ``native/``) and the system report (which asks nvcc, g++ and nvidia-smi
 for their versions) start programs or load libraries (``subprocess``,

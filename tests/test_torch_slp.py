@@ -262,11 +262,16 @@ def test_both_packages_write_the_same_analysis_h5(tmp_path, tracked):
 
 
 def test_load_slp_refuses_segmentation_masks(tmp_path):
+    # Segmentation masks are ported: the port reads the JAX writer's mask
+    # rows bit for bit (tests/test_torch_segmentation_io.py holds both
+    # directions).
     labels = build_labels(jio, jvideo)
     labels.labeled_frames[0].masks = [jio.SegmentationMask(np.eye(4, dtype=bool), score=0.5)]
     jax_save_slp(tmp_path / "m.slp", labels)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_slp(tmp_path / "m.slp")
+    back = load_slp(tmp_path / "m.slp")
+    (m,) = back.labeled_frames[0].masks
+    np.testing.assert_array_equal(m.mask, np.eye(4, dtype=bool))
+    assert (m.score, m.scale, m.track) == (0.5, 1.0, None)
 
 
 def test_labels_save_and_the_incremental_writer(tmp_path):

@@ -158,8 +158,8 @@ def test_predictor_matches_jax_with_tail_batch(layers):
 
 def test_predictor_refuses_labels_output(layers):
     """Labels output is ported for the top-down model: ``predict`` returns
-    the instances of its raw outputs. A model type whose Labels output is
-    not ported still refuses it."""
+    the instances of its raw outputs. A model type that no package has
+    (every type of the JAX package is ported now) refuses it."""
     frames, _, tlayer = layers
     video = ArrayVideo(frames[:3])
     skeleton = Skeleton([f"n{i}" for i in range(N_NODES)])
@@ -172,4 +172,4 @@ def test_predictor_refuses_labels_output(layers):
         np.testing.assert_array_equal(np.stack([inst.points for inst in lf.instances]),
                                       want[lf.frame_idx])
     with pytest.raises(NotImplementedError, match="not ported"):
-        Predictor(tlayer, "bottomup_segmentation", skeleton, device="cpu").predict(video)
+        Predictor(tlayer, "no_such_type", skeleton, device="cpu").predict(video)
