@@ -333,6 +333,37 @@ Phases, each of which raises on failure (exit code != 0):
     of the mask); the host step fed the same device outputs gives the
     same masks, polygons and mask tracks on both.
 
+38. Training with the monitors (``run_monitored_training``, line
+    ``monitored_training_<type>``): phase 7's centroid and phase 10's
+    bottom-up trainings with the ZMQ publisher (events received on a
+    localhost SUB socket, in the JAX package's order), the ZMQ controller
+    (``set_lr`` and ``stop`` sent from a localhost PUB socket: the learning
+    rate from the next epoch on, the stop at its batch), the viz PNGs (the
+    val sample's render through kernel 4, its peaks through kernel 2), the
+    local wandb run and a ``torch.profiler`` trace whose device events name
+    kernels 4 and 2 as often as they launched; steps/s beside the same
+    trainings without the monitors. The ``monitor_imports`` line says which
+    optional packages import here; a monitor whose package is absent is
+    named there and left out (without matplotlib the viz's device half
+    still runs each epoch: its render and kernel 2, no PNG). The ``wandb``
+    package is blocked for the phase: the local run, no network.
+39. ``run.predict`` of phase 13's top-down dirs with ``profile_dir``
+    (``profiled_predict``): the trace names kernels 1 and 2 as often as
+    they launched; frames/s with and without the trace.
+40. Export (``run_export``, lines ``export``, ``export_kernel``): every type
+    trained or built above (phases 7, 10, 11, 17, 18, 34's dirs and a
+    single-instance dir) to ``model.pt2``, fp32 and bf16 at batch 4 (the
+    top-down and bottom-up bf16 also at batch 8), each verified; each
+    loaded program called once with the launch counters zeroed (kernels 1,
+    2 and 3 launch from the loaded graph through their registered
+    operators), every kernel call at a new signature held to its plain
+    version; ``run.predict`` from each export dir that
+    ``from_export_dir`` serves against the model dirs (counts, largest
+    point distance, masks; frames/s of both).
+41. The command line (``cli_export``): ``export`` of the top-down pair,
+    then ``predict`` and ``track`` on the export dir from an MJPG clip, in
+    process; each command's seconds.
+
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
 and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), and at the
@@ -5788,6 +5819,497 @@ def check_segmentation_against_cpu(smi):
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# Phases 38-41: the training monitors and traces, export, predict from an
+# export dir, the command line's export
+# --------------------------------------------------------------------------
+
+# Phase 38's controller commands: (epoch, batch) -> the message sent at that
+# batch's start (the controller reads it at the batch's end).
+MONITOR_LR = 3e-4
+MONITOR_PLAN = {(0, 1): {"command": "set_lr", "lr": MONITOR_LR}, (1, 2): {"command": "stop"}}
+# The port's kernels as a torch.profiler trace names them.
+TRACE_NAMES = {"fused_double_conv3x3": ("::tc::kernel<", "::f32::kernel("),
+               "nms_scores": ("nms_scores_kernel",), "paf_line_scores": ("paf_line_scores_kernel",),
+               "multi_confmaps": ("multi_confmaps_kernel",)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def monitor_imports():
+    """Whether each monitor's optional package imports on this machine."""
+    import importlib
+
+    out = {}
+    for name in ("zmq", "matplotlib", "wandb"):
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except ImportError:
+            out[name] = False
+    return out
+
+
+class GuiSockets:
+    """The SLEAP GUI's side of the ZMQ protocol on localhost: a SUB socket
+    bound for the trainer's events, a PUB socket bound for its commands."""
+
+    def __init__(self):
+        import zmq
+
+        self.zmq = zmq
+        self.ctx = zmq.Context()
+        self.pub_port, self.ctl_port = free_port(), free_port()
+        self.events = self.ctx.socket(zmq.SUB)
+        self.events.subscribe("")
+        self.events.bind(f"tcp://127.0.0.1:{self.pub_port}")
+        self.commands = self.ctx.socket(zmq.PUB)
+        self.commands.bind(f"tcp://127.0.0.1:{self.ctl_port}")
+
+    def pump(self, trainer, seconds=1.0):
+        """A ZMQ socket connects and subscribes only when it is used: poll
+        both ends of both links before the first message."""
+        ends = [self.events] + [cb.socket for cb in trainer.callbacks if hasattr(cb, "timeout")]
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for s in ends:
+                s.poll(5)
+
+    def received(self):
+        out = []
+        while self.events.poll(300):
+            out.append(json.loads(self.events.recv_string()))
+        return out
+
+    def close(self):
+        for s in (self.events, self.commands):
+            s.close(linger=0)
+        self.ctx.term()
+
+
+class Commander:
+    """A training callback that sends ``plan``'s commands at batch starts."""
+
+    def __init__(self, sockets, plan):
+        self.sockets, self.plan = sockets, plan
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_batch_start(self, trainer, batch_idx):
+        msg = self.plan.get((trainer.current_epoch, batch_idx))
+        if msg is not None:
+            self.sockets.commands.send_string(json.dumps(msg))
+
+
+class VizDeviceHalf:
+    """Where matplotlib is absent: ``VizCallback.peaks`` at each epoch end,
+    the viz's render of its sample and its peaks (kernel 2), without the
+    PNG."""
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_epoch_end(self, trainer, epoch, logs):
+        from sleap_nn_tpu_torch.training.viz import VizCallback
+
+        VizCallback.peaks(trainer, epoch)
+
+
+def trace_kernels(trace_dir):
+    """The one trace file of ``trace_dir``: its device kernel events by port
+    kernel, the device kernel events in all, and the file's MB."""
+    from sleap_nn_tpu_torch.profiling import trace_files
+
+    files = trace_files(trace_dir)
+    if len(files) != 1:
+        raise AssertionError(f"{trace_dir}: {len(files)} trace files, expected 1")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    device = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
+    counts = {k: sum(any(s in name for s in subs) for name in device)
+              for k, subs in TRACE_NAMES.items()}
+    return counts, len(device), files[0].stat().st_size / 2**20
+
+
+def expected_events(steps_per_epoch):
+    """JAX's event order for epochs of the given batch counts."""
+    out = ["train_begin"]
+    for n in steps_per_epoch:
+        out += ["epoch_begin"] + ["batch_start", "batch_end"] * n + ["epoch_end"]
+    return out + ["train_end"]
+
+
+def run_monitored_training(kernels, smi):
+    """Phase 38: phase 7's centroid and phase 10's bottom-up trainings
+    (medium_rf, batch 4, f32, 2 epochs of 5) with every monitor on: the
+    ZMQ events received on a localhost SUB socket, in JAX's order; the
+    controller driven from a localhost PUB socket (``set_lr`` at epoch 0's
+    second batch, ``stop`` at epoch 1's third); the viz PNGs (its render
+    through kernel 4, its peaks through kernel 2), the local wandb run and
+    a ``torch.profiler`` trace whose device events name kernel 4 and
+    kernel 2. The same trainings without the monitors come first, for
+    steps/s. A monitor whose package does not import here is named on
+    the ``monitor_imports`` line and left out of the config (without
+    matplotlib, the viz's device half, ``VizCallback.peaks``, still runs
+    at each epoch end: its render and kernel 2, no PNG). The ``wandb``
+    package is blocked for the phase, so the callback writes its local
+    run and nothing reaches the network."""
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    imports = monitor_imports()
+    not_run = [what for what, pkg in (("zmq events and commands", "zmq"),
+                                      ("viz PNGs", "matplotlib")) if not imports[pkg]]
+    log("monitor_imports " + json.dumps({
+        **imports, "not_run": not_run, "wandb_run": "local run directory (_LocalRun): the "
+        "wandb package is blocked for this phase, which makes no network call",
+        "viz_device_half": "VizCallback.peaks at each epoch end (the sample's render and "
+        "its peaks, kernel 2) without matplotlib: no PNG" if not imports["matplotlib"]
+        else None}))
+    labels = training_labels(TRAIN_FRAMES + VAL_FRAMES, TRAIN_IMG, N_NODES, MAX_INST, seed=4)
+    train = labels.extract(range(TRAIN_FRAMES))
+    val = labels.extract(range(TRAIN_FRAMES, TRAIN_FRAMES + VAL_FRAMES))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mt in ("centroid", "bottomup"):
+            base = dict(max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS, save_ckpt=True,
+                        ckpt_dir=tmp)
+            plain = ModelTrainer.get_model_trainer_from_config(
+                training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
+                                run_name=f"plain_{mt}", **base), [train], [val], device=DEVICE)
+            plain_hist = plain.train()
+            sockets = GuiSockets() if imports["zmq"] else None
+            monitors = dict(visualize_preds_during_training=imports["matplotlib"], keep_viz=True,
+                            use_wandb=True, wandb={"wandb_mode": "offline"}, profiler="pytorch")
+            if sockets is not None:
+                monitors["zmq"] = {"publish_port": sockets.pub_port,
+                                   "controller_port": sockets.ctl_port}
+            trainer = ModelTrainer.get_model_trainer_from_config(
+                training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
+                                run_name=f"monitored_{mt}", **base, **monitors),
+                [train], [val], device=DEVICE)
+            blocked = sys.modules.get("wandb")
+            sys.modules["wandb"] = None  # the local run: no network from this phase
+            try:
+                for k in kernels.values():
+                    k.launches = 0
+                trainer.setup()
+                if not imports["matplotlib"]:
+                    trainer.callbacks.append(VizDeviceHalf())
+                if sockets is not None:
+                    trainer.callbacks.append(Commander(sockets, MONITOR_PLAN))
+                    sockets.pump(trainer)
+                history = trainer.train()
+                sync()
+                launches = {name: k.launches for name, k in kernels.items()}
+                events = sockets.received() if sockets is not None else []
+            finally:
+                if blocked is None:
+                    del sys.modules["wandb"]
+                else:
+                    sys.modules["wandb"] = blocked
+                if sockets is not None:
+                    sockets.close()
+            run = trainer.ckpt_dir
+            steps = [TRAIN_STEPS, 3] if sockets is not None else [TRAIN_STEPS] * TRAIN_EPOCHS
+            n_val, n_viz = len(trainer.val_loader), len(steps)
+            renders = sum(steps) + len(steps) * n_val + 1 + n_viz
+            expect_launches(f"monitored {mt} training", launches, phase=38,
+                            multi_confmaps=renders, nms_scores=n_viz)
+            row = {"launches": launches, "n_batches": {"multi_confmaps": renders,
+                                                       "nms_scores": max(n_viz, 1)},
+                   "viz_nms_launches": launches["nms_scores"], "steps": steps}
+            if sockets is not None:
+                names = [ev["event"] for ev in events]
+                want = expected_events(steps)
+                if names != want and names != want[:-1]:  # train_end may not arrive
+                    raise AssertionError(f"phase 38 {mt}: events {names}, expected {want}")
+                stopped = [(ev["epoch"], ev["batch"]) for ev in events
+                           if ev["event"] == "batch_end"][-1]
+                lr = trainer.optimizer.param_groups[0]["lr"]
+                if stopped != (1, 2) or history[0]["learning_rate"] != MONITOR_LR \
+                        or lr != MONITOR_LR or len(history) != 2:
+                    raise AssertionError(f"phase 38 {mt}: stopped at {stopped}, lr "
+                                         f"{history[0]['learning_rate']} / {lr}")
+                row.update(events=len(events), event_order="jax", train_end_received=
+                           names[-1] == "train_end", stopped_at=list(stopped),
+                           lr_after_set_lr=lr, lr_logged=history[0]["learning_rate"])
+            pngs = sorted(p.name for p in (run / "viz").iterdir()) \
+                if imports["matplotlib"] else []
+            want_pngs = [f"epoch_{e:04d}{s}.png" for e in range(len(steps))
+                         for s in ("",) + (("_pafs",) if mt == "bottomup" else ())]
+            if imports["matplotlib"] and pngs != sorted(want_pngs):
+                raise AssertionError(f"phase 38 {mt}: viz files {pngs}")
+            (local,) = (run / "wandb").glob("offline-run-*")
+            wandb_files = sorted(p.name for p in local.iterdir())
+            if not {"config.json", "metrics.jsonl", "summary.json"} <= set(wandb_files):
+                raise AssertionError(f"phase 38 {mt}: local wandb run {wandb_files}")
+            counts, n_dev, trace_mb = trace_kernels(run / "profile")
+            # The trace starts with train(): setup's probe render is outside it.
+            if DEVICE != "cpu" and (counts["multi_confmaps"] != launches["multi_confmaps"] - 1
+                                    or counts["nms_scores"] != launches["nms_scores"]
+                                    or not counts["nms_scores"]):
+                raise AssertionError(f"phase 38 {mt}: trace kernels {counts}, launches "
+                                     f"{launches}")
+            row.update(
+                pngs=pngs, wandb_files=wandb_files, trace_kernel_events=counts,
+                trace_device_kernels=n_dev, trace_mb=trace_mb,
+                steps_per_sec_monitored=[h["train/steps_per_sec"] for h in history],
+                steps_per_sec_plain=[h["train/steps_per_sec"] for h in plain_hist],
+                smi=smi)
+            log(f"monitored_training_{mt} " + json.dumps(row))
+            out[f"monitored_train_{mt}"] = row
+    return out
+
+
+def run_profiled_predict(kernels, dirs, smi):
+    """Phase 39: ``run.predict`` of phase 13's top-down dirs with
+    ``profile_dir``, as phase 13 runs them (bf16, batch 8, threshold
+    -1e9): the trace's device events must name kernels 1 and 2 as many
+    times as they launched; frames/s with and without the trace."""
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, peak_threshold=DIR_PEAK_THRESHOLD,
+              max_instances=MAX_INST)
+    frames = smoke_frames()
+    predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
+    plain = predict(frame_labels(frames), dirs, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        traced, launches = run_counted(kernels, lambda: predict(
+            frame_labels(frames), dirs, profile_dir=Path(tmp) / "prof", **kw))
+        counts, n_dev, trace_mb = trace_kernels(Path(tmp) / "prof")
+    n_batches = -(-N_FRAMES // BATCH)
+    expect_launches("profiled top-down predict", launches, phase=39,
+                    fused_double_conv3x3=18 * n_batches, nms_scores=n_batches)
+    if DEVICE != "cpu" and any(counts[k] != launches[k] for k in counts):
+        raise AssertionError(f"phase 39: trace kernels {counts}, launches {launches}")
+    if [len(lf) for lf in traced] != [len(lf) for lf in plain]:
+        raise AssertionError("phase 39: the traced run's instances differ")
+    row = {"launches": launches, "n_batches": n_batches, "trace_kernel_events": counts,
+           "trace_device_kernels": n_dev, "trace_mb": trace_mb,
+           "fps_traced": traced.provenance["stats"]["fps"],
+           "fps_plain": plain.provenance["stats"]["fps"], "smi": smi}
+    log("profiled_predict " + json.dumps(row))
+    return {"profiled_topdown": row}
+
+
+# Phase 40's exports: name, the dirs (keys of the phase's dirs), export_model's
+# knobs, run.predict's knobs (for the export dir and the model dirs alike),
+# the launches of kernels 1, 2 and 3 per call of the loaded program, and
+# whether from_export_dir serves it (crop models run on cut crops).
+EXPORT_RUNS = (
+    ("single_instance", ("single_instance",), {"peak_threshold": DIR_PEAK_THRESHOLD},
+     {"peak_threshold": DIR_PEAK_THRESHOLD}, (9, 0, 0), True),
+    ("centroid", ("centroid",), {"peak_threshold": DIR_PEAK_THRESHOLD, "max_peaks": MAX_INST},
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST, "max_peaks": MAX_INST},
+     (9, 1, 0), True),
+    ("centered_instance", ("centered_instance",), {"peak_threshold": DIR_PEAK_THRESHOLD},
+     None, (9, 0, 0), False),
+    ("bottomup", ("bottomup",), {"peak_threshold": DIR_PEAK_THRESHOLD, "max_peaks": DIR_MAX_PEAKS},
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_peaks": DIR_MAX_PEAKS,
+      "min_line_scores": DIR_MIN_LINE, "max_instances": MAX_INST}, (9, 1, 1), True),
+    ("multi_class_bottomup", ("multi_class_bottomup",), {"peak_threshold": DIR_PEAK_THRESHOLD},
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST}, (9, 1, 0), True),
+    ("topdown", ("centroid", "centered_instance"),
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST},
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST}, (18, 1, 0), True),
+    ("multi_class_topdown", ("centroid", "multi_class_topdown"),
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST},
+     {"peak_threshold": DIR_PEAK_THRESHOLD, "max_instances": MAX_INST}, (18, 1, 0), True),
+    ("semantic_segmentation", ("semantic_segmentation",), {}, {}, (9, 0, 0), True),
+    ("bottomup_segmentation", ("bottomup_segmentation",), {"max_peaks": SEG_MAX_INST},
+     {"max_instances": SEG_MAX_INST}, (9, 1, 0), True),
+    ("centered_instance_segmentation", ("centered_instance_segmentation",), {}, None,
+     (9, 0, 0), False),
+)
+EXPORT_BATCH, EXPORT_FRAMES = 4, 8
+# Exported again at batch 8 (bf16): the paths' own batch.
+EXPORT_BATCH8 = ("topdown", "bottomup")
+EXPORT_WRAPPERS = (("_fused_double_conv3x3", "sleap_nn_tpu_torch.ops.fused_conv"),
+                   ("_nms_scores", "sleap_nn_tpu_torch.ops.kernels"),
+                   ("paf_line_scores", "sleap_nn_tpu_torch.ops.kernels"))
+
+
+def single_instance_dir(root):
+    """A medium_rf single-instance model dir with random weights (phase 9's
+    model type), for the export."""
+    cfg = dir_config(MEDIUM_RF, "single_instance", N_NODES)
+    model = random_model(cfg, seed=400)
+    random_init(model)
+    return write_port_dir(root / "single_instance", cfg, model)
+
+
+def labels_distance(a, b):
+    """(instance counts equal on every frame, largest distance of matched
+    points in px, masks equal): instances and masks in order."""
+    same_counts = [len(lf.instances) for lf in a] == [len(lf.instances) for lf in b] and \
+        [len(lf.masks) for lf in a] == [len(lf.masks) for lf in b] and \
+        [lf.frame_idx for lf in a] == [lf.frame_idx for lf in b]
+    dist, masks_equal = 0.0, True
+    if same_counts:
+        for fa, fb in zip(a.labeled_frames, b.labeled_frames):
+            for ia, ib in zip(fa.instances, fb.instances):
+                if not np.array_equal(np.isnan(ia.points), np.isnan(ib.points)):
+                    return same_counts, float("inf"), masks_equal
+                d = np.abs(np.nan_to_num(ia.points) - np.nan_to_num(ib.points))
+                dist = max(dist, float(d.max(initial=0.0)))
+            masks_equal &= all(np.array_equal(ma.mask, mb.mask)
+                               for ma, mb in zip(fa.masks, fb.masks))
+    return same_counts, dist, masks_equal
+
+
+def run_export(kernels, dirs, smi):
+    """Phase 40: ``export_model`` of every type the earlier phases trained or
+    built (phases 7, 10, 11, 17, 18 and 34's dirs, and a single-instance
+    dir), fp32 and bf16 at batch 4 (the top-down and bottom-up bf16 also
+    at batch 8), each verified by ``verify_export_numerics`` on the card;
+    each export loaded and called once on real frames with the launch
+    counters zeroed (every kernel call recorded at each new signature and
+    held to its plain version); then ``run.predict`` from each export dir
+    that ``from_export_dir`` serves, against ``run.predict`` from the
+    source dirs with the same knobs and precision: instance counts,
+    largest point distance, masks."""
+    from sleap_nn_tpu_torch.export import export_model, load_exported_model
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    frames = smoke_frames()[:EXPORT_FRAMES]
+    o = (IMG - CROP) // 2
+    crops = np.ascontiguousarray(frames[:EXPORT_BATCH, o:o + CROP, o:o + CROP])
+    runs, seen, calls, rows = {}, set(), [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dirs = dict(dirs, single_instance=single_instance_dir(tmp))
+        for name, sources, export_kw, predict_kw, per_call, loadable in EXPORT_RUNS:
+            crop_model = not loadable
+            for precision, batch in [("fp32", EXPORT_BATCH), ("bf16", EXPORT_BATCH)] + (
+                    [("bf16", BATCH)] if name in EXPORT_BATCH8 else []):
+                src = [dirs[s] for s in sources]
+                out = tmp / f"{name}_{precision}_b{batch}"
+                t0 = time.perf_counter()
+                export_model(src if len(src) > 1 else src[0], output_dir=out, batch_size=batch,
+                             precision=precision, input_height=IMG, input_width=IMG,
+                             device=DEVICE, **export_kw)
+                export_s = time.perf_counter() - t0
+                call, meta = load_exported_model(out, device=DEVICE)
+                x = crops if crop_model else frames[:EXPORT_BATCH]
+                if batch != len(x):
+                    x = np.concatenate([x] * (batch // len(x)))
+                call(x)  # warm-up
+                sync()
+                with recording_kernel_calls(seen, calls, EXPORT_WRAPPERS):
+                    _, launches = run_counted(kernels, lambda: call(x))
+                want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                                per_call))
+                expect_launches(f"the loaded {name} {precision} b{batch} program", launches,
+                                phase=40, **want)
+                key = f"export_{name}_{precision}_b{batch}"
+                runs[key] = {"launches": launches, "n_batches": 1}
+                row = {"name": name, "precision": precision, "batch": batch,
+                       "export_s": export_s, "pt2_mb": (out / "model.pt2").stat().st_size / 2**20,
+                       "input_shape": list(meta.input_shape), "launches_per_call": launches}
+                if loadable and batch == EXPORT_BATCH:
+                    kw = dict(predict_kw, batch_size=EXPORT_BATCH, device=DEVICE)
+                    for paths in ([out], src):  # warm-up
+                        predict(frame_labels(frames[:EXPORT_BATCH]), paths, make_labels=False,
+                                use_bf16=precision == "bf16" and paths is src, **kw)
+                    got, p_launches = run_counted(kernels, lambda: predict(
+                        frame_labels(frames), [out], **kw))
+                    want_labels = predict(frame_labels(frames), src,
+                                          use_bf16=precision == "bf16", **kw)
+                    same, dist, masks = labels_distance(got, want_labels)
+                    n_batches = -(-EXPORT_FRAMES // EXPORT_BATCH)
+                    expect_launches(f"run.predict from the {name} {precision} export dir",
+                                    p_launches, phase=40,
+                                    **{k: v * n_batches for k, v in want.items()})
+                    runs[f"export_dir_predict_{name}_{precision}"] = {
+                        "launches": p_launches, "n_batches": n_batches}
+                    n = sum(len(lf.instances) + len(lf.masks) for lf in got)
+                    # A CPU rehearsal's model-dir path runs plain convs, not the fused
+                    # conv's plain version: in bf16 their roundings differ.
+                    cpu_bf16 = DEVICE == "cpu" and precision == "bf16"
+                    near = same and masks and dist <= EXPORT_MAX_DIST
+                    if not ((near or cpu_bf16) and n):
+                        raise AssertionError(
+                            f"phase 40 {name} {precision}: from the export dir counts equal "
+                            f"{same}, masks equal {masks}, {n} instances / masks, largest "
+                            f"point distance {dist}")
+                    row.update(counts_equal=same, masks_equal=masks, max_point_dist=dist,
+                               objects=n, fps_export=got.provenance["stats"]["fps"],
+                               fps_model_dir=want_labels.provenance["stats"]["fps"])
+                log("export " + json.dumps(row))
+                rows.append(row)
+        held = check_recorded_calls([(n.lstrip("_"), a, k) for n, a, k in calls])
+        bad = [r for r in held if not r["ok"]]
+        log(f"export_kernel {len(held)} signatures held, "
+            + json.dumps({"bad": bad, "max_abs_err": {k: max((r["max_abs_err"] for r in held
+                                                              if r["kernel"] == k), default=None)
+                                                      for k in TRACE_NAMES}}))
+        if bad:
+            raise AssertionError(f"phase 40: kernel calls off their plain versions: {bad}")
+        cli_runs, cli_times = run_cli_export(kernels, dirs, tmp, frames, smi)
+    log("export_summary " + json.dumps({
+        "exports": len(rows), "export_s_total": sum(r["export_s"] for r in rows),
+        "worst_point_dist": max(r.get("max_point_dist", 0.0) for r in rows),
+        "cli_s": cli_times, "smi": smi}))
+    return {**runs, **cli_runs}, held, rows
+
+
+# run.predict from an export dir against the model dirs, in px: the same
+# kernels on the same inputs.
+EXPORT_MAX_DIST = 1e-3
+
+
+def run_cli_export(kernels, dirs, tmp, frames, smi):
+    """Phase 41: ``export`` of the top-down pair, then ``predict`` and
+    ``track`` on the export dir, through ``cli.main`` in process (counted),
+    on an MJPG clip of the frames; each command's seconds."""
+    import io
+
+    from sleap_nn_tpu_torch import cli
+    from sleap_nn_tpu_torch.io.slp import load_slp
+
+    clip = write_clip(tmp / "clip41.avi", frames, "MJPG")
+    out = tmp / "cli_export"
+    knobs = ["--peak-threshold", str(DIR_PEAK_THRESHOLD), "--max-instances", str(MAX_INST)]
+    device = ["--device", "cpu"] if DEVICE == "cpu" else []
+    times, runs = {}, {}
+    n_batches = -(-len(frames) // EXPORT_BATCH)
+    for name, argv, want in (
+            ("export", ["export", dirs["centroid"], dirs["centered_instance"], "-o", out,
+                        "--batch-size", EXPORT_BATCH, "--precision", "bf16", *knobs,
+                        *device], {"fused_double_conv3x3": 36, "nms_scores": 2}),
+            ("predict", ["predict", "-i", clip, "-m", out, "-o", tmp / "p41.slp", "--runtime",
+                         "pt2", *knobs, *device],
+             {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches}),
+            ("track", ["track", "-i", clip, "-m", out, "-o", tmp / "t41.slp", *knobs, *device],
+             {"fused_double_conv3x3": 18 * n_batches, "nms_scores": n_batches})):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            code, launches = run_counted(kernels, lambda: cli.main([str(a) for a in argv]))
+        times[name] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"phase 41 {name}: exit code {code}")
+        expect_launches(f"the command line's {name}", launches, phase=41, **want)
+        runs[f"cli_export_{name}"] = {"launches": launches,
+                                      "n_batches": 2 if name == "export" else n_batches}
+    predicted, tracked = load_slp(tmp / "p41.slp"), load_slp(tmp / "t41.slp")
+    if sum(len(lf) for lf in predicted) == 0 or \
+            any(i.track is None for lf in tracked for i in lf.instances):
+        raise AssertionError("phase 41: the export dir's predictions are empty or untracked")
+    log("cli_export " + json.dumps({"seconds": times, "instances": sum(
+        len(lf) for lf in predicted), "tracks": len(tracked.tracks), "smi": smi}))
+    return runs, times
+
+
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
                    held):
     """The ``kernels`` line: one entry per kernel, launches from the paths'
@@ -5815,6 +6337,9 @@ def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, c
         out = {"launches": sum(by_path.values()), "launches_by_path": by_path,
                "launches_per_batch": {path: n // batches(path, kernel) if n else 0
                                       for path, n in by_path.items()}}
+        # The calls made by loaded .pt2 programs (phases 40-41).
+        out["launches_from_pt2"] = sum(n for path, n in by_path.items() if path.startswith(
+            ("export_", "cli_export_predict", "cli_export_track")))
         for what, held_rows in held.items():
             rows = [r for r in held_rows if r["kernel"] == kernel]
             out[f"{what}_shapes_held"] = len(rows)
@@ -6108,7 +6633,6 @@ def main() -> int:
     tiled_train_runs, tiled_train_held = run_tiled_training(_build.KERNELS, smi)
     phase26_s = time.perf_counter() - t_phase
     log(f"phase 26: {phase26_s:.1f} s")
-    runs_dir.cleanup()
 
     # 27-30. The other backbones and SLEAP v1 dirs from model dirs at full
     # width (ConvNeXt top-down, SwinT bottom-up, the pretrained built-ins,
@@ -6149,7 +6673,6 @@ def main() -> int:
     # evaluate and track from their dirs.
     t_phase = time.perf_counter()
     seg_train_runs = run_segmentation_training(_build.KERNELS, smi, seg_dir_paths)
-    seg_tmp.cleanup()
     phase36_s = time.perf_counter() - t_phase
     log(f"phase 36: {phase36_s:.1f} s")
 
@@ -6158,6 +6681,33 @@ def main() -> int:
     check_segmentation_against_cpu(smi)
     phase37_s = time.perf_counter() - t_phase
     log(f"phase 37: {phase37_s:.1f} s")
+
+    # 38. The centroid and bottom-up trainings with the monitors: ZMQ events
+    # and commands, viz, the local wandb run, a torch.profiler trace.
+    t_phase = time.perf_counter()
+    monitored = run_monitored_training(_build.KERNELS, smi)
+    phase38_s = time.perf_counter() - t_phase
+    log(f"phase 38: {phase38_s:.1f} s")
+
+    # 39. run.predict of phase 13's top-down dirs with profile_dir.
+    t_phase = time.perf_counter()
+    profiled = run_profiled_predict(_build.KERNELS, [root / "centroid", root / "centered_instance"],
+                                    smi)
+    phase39_s = time.perf_counter() - t_phase
+    log(f"phase 39: {phase39_s:.1f} s")
+
+    # 40-41. Export of every type trained or built above, predict from the
+    # export dirs; export, predict and track on the command line.
+    t_phase = time.perf_counter()
+    export_dirs = {mt: root / mt for mt in ("centroid", "centered_instance", "bottomup",
+                                            "multi_class_bottomup", "multi_class_topdown")}
+    export_dirs.update({mt: seg_dir_paths[mt] for mt in (
+        "semantic_segmentation", "bottomup_segmentation", "centered_instance_segmentation")})
+    export_runs, export_held, export_rows = run_export(_build.KERNELS, export_dirs, smi)
+    phase40_s = time.perf_counter() - t_phase
+    log(f"phases 40-41: {phase40_s:.1f} s")
+    seg_tmp.cleanup()
+    runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
@@ -6171,14 +6721,14 @@ def main() -> int:
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
             **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
-            **ddp_runs, **seg_runs, **seg_train_runs}
+            **ddp_runs, **seg_runs, **seg_train_runs, **monitored, **profiled, **export_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
                                     "tiled_train": tiled_train_held,
                                     "backbone": backbone_held,
                                     "backbone_train": bb_train_held, "ddp": ddp_held,
-                                    "segmentation": seg_held})
+                                    "segmentation": seg_held, "export": export_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -6228,8 +6778,19 @@ def main() -> int:
         + f"; phase 36 {phase36_s:.1f} s, segmentation training (steps/s): "
         + ", ".join(f"{k.removeprefix('train_')} {v['steps_per_sec']:.2f}"
                     for k, v in seg_train_runs.items() if k.startswith("train_"))
-        + f"; phase 37 {phase37_s:.1f} s; "
-        f"total script {time.perf_counter() - t_start:.1f} s")
+        + f"; phase 37 {phase37_s:.1f} s; phase 38 {phase38_s:.1f} s, steps/s with the "
+        f"monitors / without (epoch 0): "
+        + ", ".join(f"{k.removeprefix('monitored_train_')} "
+                    f"{v['steps_per_sec_monitored'][0]:.2f} / {v['steps_per_sec_plain'][0]:.2f}"
+                    for k, v in monitored.items())
+        + f"; phase 39 {phase39_s:.1f} s, top-down frames/s traced "
+        f"{profiled['profiled_topdown']['fps_traced']:.2f} / plain "
+        f"{profiled['profiled_topdown']['fps_plain']:.2f}; phases 40-41 {phase40_s:.1f} s, "
+        f"{len(export_rows)} exports, from the export dir / the model dirs (frames/s, batch "
+        f"{EXPORT_BATCH}): "
+        + ", ".join(f"{r['name']} {r['precision']} {r['fps_export']:.2f} / "
+                    f"{r['fps_model_dir']:.2f}" for r in export_rows if "fps_export" in r)
+        + f"; total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -404,9 +404,10 @@ INFERENCE_OPTIONS = [
         O("--batch-size", "--batch_size", "-b", "batch_size",
             default=4, show_default=True),
         O("--runtime", default="auto", show_default=True,
-            choices=["auto", "stablehlo", "savedmodel"],
+            choices=["auto", "pt2", "stablehlo", "savedmodel"],
             help="Runtime for an exported model dir passed to "
-                 "--model-paths; ignored for trained checkpoints."),
+                 "--model-paths (pt2: a torch.export program; the JAX "
+                 "package's stablehlo and savedmodel are refused)."),
         O("--use-bf16/--no-use-bf16", "--use_bf16/--no-use_bf16",
             "use_bf16", default=False, show_default=True,
             help="bfloat16 forward pass (the card's fast path)."),
@@ -427,8 +428,8 @@ INFERENCE_OPTIONS = [
             default=None, type=int,
             help="[DEPRECATED] Use --paf-workers."),
         O("--profile-dir", default=None,
-            help="Write a profiler trace of the predict loop; not ported "
-                 "(ROADMAP.md section 1, item 13b): raises."),
+            help="Write a torch.profiler trace of the predict loop into this "
+                 "directory (TensorBoard / Perfetto)."),
         # -- frame / source scoping ---------------------------------------------
         O("--frames", default=None,
             help="Frame range like 0-100 or comma list."),
@@ -1294,8 +1295,8 @@ def config_cmd(**kw):
 @command("export", [
     Arg("model_dir", nargs=-1, exists=True),
     Opt("--output-dir", "--output", "-o", "output_dir", default=None),
-    Opt("--format", "fmt", default="stablehlo", show_default=True,
-        choices=["stablehlo", "savedmodel"]),
+    Opt("--format", "fmt", default="pt2", show_default=True,
+        choices=["pt2", "stablehlo", "savedmodel"]),
     Opt("--batch-size", "--max-batch-size", "batch_size", default=4,
         show_default=True, help="Batch size baked into the exported graph."),
     Opt("--peak-threshold", default=0.2, show_default=True),
@@ -1318,15 +1319,27 @@ def config_cmd(**kw):
     Opt("--verify/--no-verify", "verify", default=True, show_default=True,
         help="Numerically verify the serialized graph against eager."),
     Opt("--device", default=None, hidden=True,
-        help="[no-op] Retained for reference-CLI compatibility."),
+        help="Device to trace and verify on: the card unless 'cpu'."),
     Opt("--opset-version", default=None, type=int, hidden=True,
         help="[ONNX-only] Not applicable."),
     Opt("--workspace-size-gb", default=None, type=float, hidden=True,
         help="[TensorRT-only] Not applicable."),
 ])
-def export(**kw):
-    """Export trained model(s) with baked postprocessing (not ported)."""
-    return _not_ported("export", "13b")
+def export(model_dir, fmt, device, opset_version, workspace_size_gb, **kw):
+    """Export trained model(s) with baked postprocessing.
+
+    Pass one model dir, or a centroid + instance-model pair for the fused
+    topdown / multi_class_topdown composite program (model.pt2).
+    """
+    from sleap_nn_tpu_torch.export import export_model
+
+    if opset_version is not None or workspace_size_gb is not None:
+        echo("WARNING: --opset-version/--workspace-size-gb are ONNX/TensorRT "
+             "knobs; torch.export programs ignore them.", err=True)
+    dirs = list(model_dir)
+    out = export_model(dirs if len(dirs) > 1 else dirs[0], fmt=fmt,
+                       device=device or "cuda", **kw)
+    echo(f"Exported to: {out}")
 
 
 @command("config-generate", [

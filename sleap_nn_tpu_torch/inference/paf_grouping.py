@@ -27,6 +27,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 from sleap_nn_tpu_torch.native import paf_group_sample_native
+from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops.kernels import paf_line_scores
 
 
@@ -122,6 +123,10 @@ def score_paf_lines_dense(
     max_edge_length = max_edge_length_ratio * max(hp, wp, 2 * n_edges) * pafs_stride
     if t is None:
         t = line_fractions(n_line_points, device=pafs.device)
+    if library.tracing_active():  # the registered operator makes the inputs dense
+        return library.OPS["paf_line_scores"](pafs, grouped_peaks, grouped_mask, edge_inds, t,
+                                              float(pafs_stride), float(max_edge_length),
+                                              float(dist_penalty_weight))
     # The kernel takes dense inputs, pafs aligned to an (x, y) channel pair
     # and grouped_peaks to 8 bytes; any other layout is copied first. The
     # predict path's inputs already are such tensors (the PAF head's NHWC

@@ -46,6 +46,7 @@ import torch
 from sleap_nn_tpu_torch.config import get_head_config
 from sleap_nn_tpu_torch.inference.backends import TorchBackend, resolve_device
 from sleap_nn_tpu_torch.inference.filters import FilterPipeline
+from sleap_nn_tpu_torch.inference.identity import group_and_assemble
 from sleap_nn_tpu_torch.inference.layers import (
     BottomUpLayer,
     BottomUpMultiClassLayer,
@@ -68,7 +69,7 @@ from sleap_nn_tpu_torch.inference.segmentation import (
     TopDownSegmentationLayer,
     mask_to_polygon,
 )
-from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool
+from sleap_nn_tpu_torch.inference.streaming import PafGroupingPool, group_batch_host
 from sleap_nn_tpu_torch.io.model import (
     LabeledFrame,
     Labels,
@@ -967,3 +968,186 @@ class Predictor:
             point_scores=vals,
             score=score,
         )
+
+
+class ExportedLayer:
+    """A layer over a loaded export (``export.load_exported_model``): the
+    program holds the device work; the host step is the layer type's own.
+
+    ``predict_async`` pads a short batch to the baked batch size (repeating
+    its last frame), matches the baked channel count and calls the
+    program; ``postprocess_host`` drops the padded rows, then runs
+    ``finalize_fn`` (the host half of the model type) or, for
+    single-instance and bottom-up programs, the live layers' host step.
+    """
+
+    def __init__(self, call, meta, device="cuda", paf_scorer=None,
+                 max_instances: Optional[int] = None, finalize_fn=None):
+        self.call = call
+        self.meta = meta
+        self.device = resolve_device(device)
+        self.batch_size = int(meta.input_shape[0])
+        self.paf_scorer = paf_scorer
+        self.max_instances = max_instances
+        self.finalize_fn = finalize_fn
+
+    def predict_async(self, images) -> Dict[str, Any]:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        b, tb = images.shape[0], self.batch_size
+        if b > tb:
+            raise ValueError(f"Exported model compiled for batch {tb}; got {b}. "
+                             "Use batch_size <= the exported batch.")
+        pad = tb - b
+        if pad:
+            images = torch.cat([images, images[-1:].expand(pad, *images.shape[1:])])
+        want_c = self.meta.input_shape[-1]
+        if images.shape[-1] == 3 and want_c == 1:
+            images = torch.from_numpy(rgb_to_gray_uint8(images.cpu().numpy().astype(np.uint8)))
+        elif images.shape[-1] == 1 and want_c == 3:
+            images = images.expand(*images.shape[:-1], 3)
+        out = dict(self.call(images.to(self.device, torch.uint8).contiguous()))
+        out["_pad"] = pad
+        return out
+
+    def postprocess_host(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        pad = host.pop("_pad", 0)
+        out = {k: v[: len(v) - pad] if pad and np.ndim(v) else v for k, v in host.items()}
+        if self.finalize_fn is not None:
+            return self.finalize_fn(out)
+        if self.meta.model_type == "single_instance":
+            out["pred_keypoints"] = out["pred_keypoints"][:, None]
+            out["pred_peak_values"] = out["pred_peak_values"][:, None]
+        elif self.meta.model_type == "bottomup":
+            # The program holds the dense PAF scoring; the host grouping of
+            # the live BottomUpLayer runs here (peaks in original coords).
+            out = group_batch_host({"grouped_peaks": out["grouped_peaks"],
+                                    "grouped_vals": out["grouped_vals"],
+                                    "scores": out["paf_scores"], "lift": 1.0},
+                                   self.paf_scorer, self.max_instances)
+        return out
+
+    def finalize(self, device_out: Dict[str, Any]) -> Dict[str, Any]:
+        return self.postprocess_host(to_host(device_out))
+
+    def predict(self, images) -> Dict[str, Any]:
+        return self.finalize(self.predict_async(images))
+
+
+def from_export_dir(export_dir, batch_size: Optional[int] = None,
+                    max_instances: Optional[int] = None, min_line_scores: float = 0.25,
+                    runtime: str = "auto", device="cuda") -> Predictor:
+    """A ``Predictor`` over an export dir's program (``model.pt2``), run on
+    ``device`` (the card unless ``"cpu"``).
+
+    Every exported model type but the crop models: single-instance,
+    centroid (with its ``anchor_part``), bottom-up (the host grouping
+    rebuilt from the copied ``training_config.yaml``), multi-class
+    bottom-up, the topdown and multi-class topdown composites, semantic
+    and bottom-up segmentation. Centered-instance and centered-instance
+    segmentation exports run on crops cut beforehand and raise
+    ``NotImplementedError``: export the topdown composite instead.
+    """
+    import types
+
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+    from sleap_nn_tpu_torch.export import load_exported_model
+
+    device = resolve_device(device)
+    call, meta = load_exported_model(export_dir, runtime=runtime, device=device)
+    skel = Skeleton(nodes=list(meta.skeleton_nodes) or ["centroid"],
+                    edges=list(meta.skeleton_edges))
+
+    def load_cfg() -> TrainingJobConfig:
+        cfg_path = Path(export_dir) / "training_config.yaml"
+        if not cfg_path.exists():
+            raise FileNotFoundError(
+                f"{meta.model_type} export needs its training_config.yaml for host-side "
+                f"postprocessing; not found under {export_dir}.")
+        return TrainingJobConfig.load_yaml(str(cfg_path))
+
+    def make(layer, model_type, skeleton=skel, class_names=None) -> Predictor:
+        p = Predictor(layer, model_type, skeleton, [], batch_size or layer.batch_size,
+                      device=device)
+        p.class_names = class_names
+        p._host_grayscale = meta.input_shape[-1] == 1
+        return p
+
+    mt = meta.model_type
+    if mt == "bottomup":
+        head = get_head_config(load_cfg())
+        scorer = PAFScorer(part_names=head.confmaps.part_names,
+                           edges=[tuple(e) for e in head.pafs.edges],
+                           pafs_stride=head.pafs.output_stride, min_line_scores=min_line_scores)
+        return make(ExportedLayer(call, meta, device, paf_scorer=scorer,
+                                  max_instances=max_instances), "bottomup")
+
+    if mt == "multi_class_bottomup":
+        head = get_head_config(load_cfg())
+        n_nodes, n_classes = len(head.confmaps.part_names), len(head.class_maps.classes)
+
+        def finalize_mcbu(out):
+            b, k = out["vals"].shape
+            valid = out["valid"].reshape(-1)
+            pts_g, vals_g, probs_g = group_and_assemble(
+                out["points_grid"].reshape(-1, 2)[valid], out["vals"].reshape(-1)[valid],
+                np.repeat(np.arange(b), k)[valid], out["channels"].reshape(-1)[valid],
+                out["class_probs"].reshape(-1, n_classes)[valid], b, n_classes, n_nodes,
+                sort_keys=out["rough"].reshape(-1, 2)[valid])
+            return {"pred_keypoints": pts_g * out["lift"].reshape(b, 1, 1, 1),
+                    "pred_peak_values": vals_g, "pred_class_probs": probs_g}
+
+        return make(ExportedLayer(call, meta, device, finalize_fn=finalize_mcbu),
+                    "multi_class_bottomup", class_names=list(head.class_maps.classes))
+
+    if mt in ("topdown", "multi_class_topdown"):
+        if mt == "topdown":
+            return make(ExportedLayer(call, meta, device), "topdown")
+        classes = list(get_head_config(load_cfg()).class_vectors.classes)
+        # The live layer's host step reads only the outputs.
+        layer = ExportedLayer(call, meta, device, finalize_fn=lambda out: (
+            TopDownMultiClassLayer.postprocess_host(None, out)))
+        return make(layer, "multi_class_topdown", class_names=classes)
+
+    if mt in ("semantic_segmentation", "bottomup_segmentation"):
+        cfg = load_cfg()
+        head = get_head_config(cfg)
+        # The live layer's grid-to-image context: the head's stride and the
+        # baked preprocessing scale.
+        shim = types.SimpleNamespace(
+            seg_output_stride=head.segmentation.output_stride, fg_threshold=0.5,
+            pre=types.SimpleNamespace(scale=cfg.data_config.preprocessing.scale or 1.0),
+            full_res_masks=False, min_mask_area=0, merge_fragments=False,
+            merge_method="greedy", do_mask_cleanup=True, mask_cleanup_radius=0)
+        layer_cls = (SemanticSegmentationLayer if mt == "semantic_segmentation"
+                     else BottomUpSegmentationLayer)
+        layer = ExportedLayer(call, meta, device,
+                              finalize_fn=lambda out: layer_cls.postprocess_host(shim, out))
+        nodes = ["fg"] if mt == "semantic_segmentation" else ["centroid"]
+        return make(layer, mt, skeleton=Skeleton(nodes=nodes))
+
+    if mt in ("centered_instance", "centered_instance_segmentation"):
+        raise NotImplementedError(
+            f"from_export_dir does not support {mt!r} (centered-instance-style exports run "
+            "on pre-extracted crops; export the topdown composite instead).")
+    if mt not in ("single_instance", "centroid"):
+        raise ValueError(
+            f"Unrecognized model_type {mt!r} in this export dir's metadata.json — not a "
+            "model type this framework exports.")
+    layer = ExportedLayer(call, meta, device)
+    if mt == "single_instance":
+        return make(layer, mt)
+    # The node that anchored the training centroids; one missing from the
+    # node list marks a corrupt export.
+    anchor = meta.anchor_part
+    if anchor is not None:
+        nodes = list(meta.skeleton_nodes)
+        if anchor not in nodes:
+            raise ValueError(f"export metadata anchor_part {anchor!r} not found in skeleton "
+                             f"nodes {nodes}.")
+        layer.anchor_ind = nodes.index(anchor)
+    # One point per instance: the one-node skeleton of the live predictor.
+    return make(layer, mt, skeleton=Skeleton(nodes=["centroid"]))
+
+
+Predictor.from_export_dir = staticmethod(from_export_dir)

@@ -10,19 +10,24 @@ path, a video file's path (media, image, or an HDF5 dataset with
 ``only_labeled_frames``, ``only_predicted_frames``,
 ``only_suggested_frames``) narrow a labels source first. The run goes
 through ``Predictor.from_model_paths`` on ``device`` (the card unless
-``"cpu"``). With ``tracking=True`` (or a ``tracker``) the predicted
-``Labels`` are tracked on the host (``tracking.run_tracker``, its knobs
-passed as keyword arguments). What the port lacks raises
-``NotImplementedError`` naming its ROADMAP.md item: exported model dirs,
-SAM masks and profiling (item 13) and the ``from_model_paths`` knobs
-listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
+``"cpu"``); a lone export dir (``metadata.json`` + ``model.pt2``, from
+``export.export_model``) runs through ``Predictor.from_export_dir``
+instead, and the rest of the run is the same. With ``tracking=True`` (or
+a ``tracker``) the predicted ``Labels`` are tracked on the host
+(``tracking.run_tracker``, its knobs passed as keyword arguments).
+``profile_dir`` writes a ``torch.profiler`` trace of the predict loop
+(``profiling.trace``). What the port lacks raises ``NotImplementedError``
+naming its ROADMAP.md item: SAM masks (item 13) and the
+``from_model_paths`` knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
 refused: ``fetch_remote_data`` needs the network and stays out of the
 port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
+import logging
 import re
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
@@ -35,8 +40,10 @@ from sleap_nn_tpu_torch.inference.predictor import (
 )
 from sleap_nn_tpu_torch.io.model import LabeledFrame, Labels
 from sleap_nn_tpu_torch.io.video import HDF5VideoBackend, Video
+from sleap_nn_tpu_torch.profiling import trace
 from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
 
+logger = logging.getLogger("sleap_nn_tpu_torch")
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
 _ITEM13 = "(ROADMAP.md section 1, item 13)"
 
@@ -44,8 +51,6 @@ _ITEM13 = "(ROADMAP.md section 1, item 13)"
 # value that asks for nothing, why another value raises).
 UNPORTED_RUN_KNOBS = {
     **UNPORTED_KNOBS,
-    "runtime": ("auto", f"exported model dirs are not ported {_ITEM13}"),
-    "profile_dir": (None, f"profiling a predict run is not ported {_ITEM13}"),
     "headers": (None, "remote inputs need the network; fetch_remote_data is not ported"),
     "stream_mode": (None, "remote inputs need the network; fetch_remote_data is not ported"),
     **{name: (default, f"SAM prompted segmentation is not ported {_ITEM13}")
@@ -154,6 +159,8 @@ def predict(
     full_res_masks: bool = False,
     mask_output: str = "mask",
     polygon_epsilon: float = 0.01,
+    runtime: str = "auto",
+    profile_dir: Optional[Union[str, Path]] = None,
     **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
@@ -177,7 +184,12 @@ def predict(
     ``track_labels`` is used instead when given. Keyword arguments that
     are the JAX package's knobs of unported features
     (``UNPORTED_RUN_KNOBS``) raise unless they hold their no-op value;
-    a name that is neither raises ``TypeError``.
+    a name that is neither raises ``TypeError``. A lone model path that is
+    an export dir loads its program (``runtime`` ``"auto"`` or ``"pt2"``;
+    the JAX package's ``"stablehlo"`` / ``"savedmodel"`` raise
+    ``ValueError``); the program baked the peak threshold, refinement and
+    peak count, and a differing request is logged as ignored.
+    ``profile_dir`` traces the predict loop into that directory.
     """
     unported = {k: tracker_kwargs.pop(k) for k in list(tracker_kwargs)
                 if k in UNPORTED_RUN_KNOBS}
@@ -268,51 +280,76 @@ def predict(
             "not centroid records. Use centroid_output='instance' (the "
             "default) for tracking.")
 
-    predictor = Predictor.from_model_paths(
-        model_paths,
-        peak_threshold=peak_threshold,
-        refinement=refinement,
-        integral_patch_size=integral_patch_size,
-        max_instances=max_instances,
-        batch_size=batch_size,
-        use_bf16=use_bf16,
-        max_peaks=max_peaks,
-        min_line_scores=min_line_scores,
-        crop_size=crop_size,
-        filters=filters,
-        paf_workers=paf_workers,
-        centroid_peak_threshold=centroid_peak_threshold,
-        host_resize=host_resize,
-        centroid_only=centroid_only,
-        input_scale=input_scale,
-        max_height=max_height,
-        max_width=max_width,
-        ensure_rgb=ensure_rgb,
-        ensure_grayscale=ensure_grayscale,
-        max_edge_length_ratio=max_edge_length_ratio,
-        dist_penalty_weight=dist_penalty_weight,
-        n_points=n_points,
-        min_instance_peaks=min_instance_peaks,
-        backbone_ckpt_path=backbone_ckpt_path,
-        head_ckpt_path=head_ckpt_path,
-        anchor_part=anchor_part,
-        merge_fragments=merge_fragments,
-        merge_method=merge_method,
-        fg_threshold=fg_threshold,
-        min_mask_area=min_mask_area,
-        center_nms_kernel=center_nms_kernel,
-        distance_gate_alpha=distance_gate_alpha,
-        mask_cleanup=mask_cleanup,
-        mask_cleanup_radius=mask_cleanup_radius,
-        merge_dilate=merge_dilate,
-        merge_w_valley=merge_w_valley,
-        merge_w_offset=merge_w_offset,
-        merge_thresholds=merge_thresholds,
-        full_res_masks=full_res_masks,
-        mask_output=mask_output,
-        polygon_epsilon=polygon_epsilon,
-        device=device or "cuda",
-    )
+    mp = Path(model_paths[0]) if len(model_paths) == 1 else None
+    if mp is not None and (mp / "metadata.json").exists() and (
+            (mp / "model.pt2").exists() or (mp / "model.stablehlo").exists()
+            or (mp / "savedmodel").is_dir()):
+        # The artifact is checked against the metadata (and a JAX-written
+        # dir refused) by load_exported_model.
+        predictor = Predictor.from_export_dir(mp, max_instances=max_instances,
+                                              min_line_scores=min_line_scores,
+                                              runtime=runtime, device=device or "cuda")
+        predictor.filters = filters
+        predictor.mask_output = mask_output
+        predictor.polygon_epsilon = polygon_epsilon
+        meta = predictor.layer.meta
+        for flag, requested in (("peak_threshold", peak_threshold),
+                                ("refinement", refinement), ("max_peaks", max_peaks)):
+            baked = getattr(meta, flag, None)
+            if baked is not None and requested is not None and requested != baked:
+                logger.warning(
+                    "%s=%s ignored: this export dir baked %s into the compiled graph at "
+                    "export time — re-export with the desired value, or use filter flags "
+                    "for post-hoc screening.", flag, requested, baked)
+    else:
+        from sleap_nn_tpu_torch.export.exporter import check_runtime
+
+        check_runtime(runtime)
+        predictor = Predictor.from_model_paths(
+            model_paths,
+            peak_threshold=peak_threshold,
+            refinement=refinement,
+            integral_patch_size=integral_patch_size,
+            max_instances=max_instances,
+            batch_size=batch_size,
+            use_bf16=use_bf16,
+            max_peaks=max_peaks,
+            min_line_scores=min_line_scores,
+            crop_size=crop_size,
+            filters=filters,
+            paf_workers=paf_workers,
+            centroid_peak_threshold=centroid_peak_threshold,
+            host_resize=host_resize,
+            centroid_only=centroid_only,
+            input_scale=input_scale,
+            max_height=max_height,
+            max_width=max_width,
+            ensure_rgb=ensure_rgb,
+            ensure_grayscale=ensure_grayscale,
+            max_edge_length_ratio=max_edge_length_ratio,
+            dist_penalty_weight=dist_penalty_weight,
+            n_points=n_points,
+            min_instance_peaks=min_instance_peaks,
+            backbone_ckpt_path=backbone_ckpt_path,
+            head_ckpt_path=head_ckpt_path,
+            anchor_part=anchor_part,
+            merge_fragments=merge_fragments,
+            merge_method=merge_method,
+            fg_threshold=fg_threshold,
+            min_mask_area=min_mask_area,
+            center_nms_kernel=center_nms_kernel,
+            distance_gate_alpha=distance_gate_alpha,
+            mask_cleanup=mask_cleanup,
+            mask_cleanup_radius=mask_cleanup_radius,
+            merge_dilate=merge_dilate,
+            merge_w_valley=merge_w_valley,
+            merge_w_offset=merge_w_offset,
+            merge_thresholds=merge_thresholds,
+            full_res_masks=full_res_masks,
+            mask_output=mask_output,
+            polygon_epsilon=polygon_epsilon,
+            device=device or "cuda",
+        )
     predictor.centroid_output = centroid_output
     # Ground-truth centroids of a mixed frame come from its user instances
     # alone when only the user-labeled frames are predicted.
@@ -337,7 +374,11 @@ def predict(
         stream_writer = IncrementalLabelsWriter(stream_to_file,
                                                 flush_every=int(write_interval or 500))
         predictor.stream_writer = stream_writer
-    result = predictor.predict(data_path, frames=frames, make_labels=make_labels)
+    # A trace of the predict loop: the device's kernels and copies beside
+    # the host's decode and grouping (TensorBoard / Perfetto).
+    with (trace(profile_dir, predictor.device) if profile_dir is not None
+          else contextlib.nullcontext()):
+        result = predictor.predict(data_path, frames=frames, make_labels=make_labels)
     if not make_labels:
         return result
     if tracker is not None:

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops._build import Kernel
 
 _ACTS = ("relu", "identity")
@@ -267,8 +268,17 @@ def fused_double_conv3x3(
     w2: (3, 3, C_mid, C_out); biases (C) or None. Returns (B, H, W, C_out)
     in x's type. CUDA tensors launch the kernel, CPU tensors take the
     plain version. The kernel is forward only: on CUDA tensors it raises
-    when autograd is on and any input requires a gradient.
+    when autograd is on and any input requires a gradient. While
+    ``torch.export`` traces it calls the registered operator.
     """
+    if library.tracing_active():
+        return library.OPS["fused_double_conv3x3"](x, w1, b1, w2, b2, activation)
+    return _fused_double_conv3x3(x, w1, b1, w2, b2, activation)
+
+
+def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu"):
+    """:func:`fused_double_conv3x3`' body: the plain version on a CPU
+    tensor, kernel 1 on a CUDA tensor."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {_ACTS}, got {activation!r}")
     if x.ndim != 4 or w1.shape[:2] != (3, 3) or w2.shape[:2] != (3, 3) \

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops._build import Kernel
 
 NMS_SCORES = Kernel(
@@ -68,8 +69,17 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
     same shape: the value where it strictly exceeds its ``kernel x kernel``
     neighbourhood (outside cells count as -inf) and ``threshold``, -inf
     elsewhere. The output feeds the top-K of ``find_local_peaks_rough``. On
-    the card ``kernel`` is 3 to 9.
+    the card ``kernel`` is 3 to 9. While ``torch.export`` traces it calls
+    the registered operator.
     """
+    if library.tracing_active():
+        return library.OPS["nms_scores"](cms, float(threshold), int(kernel))
+    return _nms_scores(cms, threshold, kernel)
+
+
+def _nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Tensor:
+    """:func:`nms_scores`' body: the plain version on a CPU tensor, kernel
+    2 on a CUDA tensor."""
     if kernel % 2 != 1 or kernel < 3:
         raise ValueError(f"NMS kernel must be an odd int >= 3, got {kernel}")
     if cms.ndim != 4:

@@ -1,14 +1,17 @@
-"""Training callbacks: CSV logging, early stopping, progress, epoch-end
-evaluation.
+"""Training callbacks: CSV logging, early stopping, progress, the ZMQ GUI
+protocol, epoch-end evaluation.
 
-Port of the GUI-independent callbacks of
-``sleap_nn_tpu/training/callbacks.py``. The ZMQ controller and reporter
-are not ported yet (ROADMAP.md section 1, item 7c).
+Port of ``sleap_nn_tpu/training/callbacks.py``. The ZMQ messages (JSON
+dicts with ``what`` / ``event`` / ``logs`` published on a PUB socket;
+``{"command": "stop"}`` and ``{"command": "set_lr", "lr": x}`` read from a
+SUB socket) are the SLEAP GUI's contract, kept exactly: the same events,
+keys and order. ``zmq`` is imported where a socket is made.
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import math
 import time
 from pathlib import Path
@@ -117,6 +120,91 @@ class ProgressCallback(Callback):
             f"{k}={v:.5g}" for k, v in sorted(logs.items()) if isinstance(v, (int, float))
         )
         print(f"{msg} ({dt:.1f}s)", flush=True)
+
+
+class TrainingControllerZMQ(Callback):
+    """SUB socket for the GUI's commands, polled after each batch:
+    ``{"command": "stop"}`` stops training at this batch; ``{"command":
+    "set_lr", "lr": x}`` sets ``trainer.lr_override``, which the trainer
+    applies at the end of the epoch."""
+
+    def __init__(self, address="tcp://127.0.0.1:9000", topic="", poll_timeout=10):
+        import zmq
+
+        self.address = address
+        self.timeout = poll_timeout
+        self.context = zmq.Context()
+        self.socket = self.context.socket(zmq.SUB)
+        self.socket.subscribe(topic)
+        self.socket.connect(self.address)
+        self._zmq = zmq
+
+    def close(self):
+        self.socket.close()
+        self.context.term()
+
+    def on_batch_end(self, trainer, batch_idx: int, logs: Dict):
+        if self.socket.poll(self.timeout, self._zmq.POLLIN):
+            msg = json.loads(self.socket.recv_string())
+            if msg.get("command") == "stop":
+                trainer.should_stop = True
+            elif msg.get("command") == "set_lr":
+                trainer.lr_override = float(msg["lr"])
+
+
+class ProgressReporterZMQ(Callback):
+    """PUB socket publishing the run's events for the GUI: ``train_begin``,
+    ``epoch_begin``, ``batch_start``, ``batch_end``, ``epoch_end``,
+    ``train_end``."""
+
+    def __init__(self, address="tcp://127.0.0.1:9001", what=""):
+        import zmq
+
+        self.address = address
+        self.what = what
+        self.context = zmq.Context()
+        self.socket = self.context.socket(zmq.PUB)
+        self.socket.connect(self.address)
+        self._zmq = zmq
+
+    def close(self):
+        self.socket.setsockopt(self._zmq.LINGER, 0)
+        self.socket.close()
+        self.context.term()
+
+    def send(self, event: str, logs=None, **kwargs):
+        msg = dict(what=self.what, event=event, logs=logs, **kwargs)
+        self.socket.send_string(json.dumps(msg))
+
+    def on_train_start(self, trainer):
+        self.send("train_begin", wandb_url=None)
+
+    def on_train_end(self, trainer):
+        self.send("train_end")
+
+    def on_epoch_start(self, trainer, epoch: int):
+        self.send("epoch_begin", epoch=epoch)
+
+    def on_epoch_end(self, trainer, epoch: int, logs: Dict):
+        self.send("epoch_end", epoch=epoch, logs=_sanitize(logs))
+
+    def on_batch_start(self, trainer, batch_idx: int):
+        self.send("batch_start", batch=batch_idx)
+
+    def on_batch_end(self, trainer, batch_idx: int, logs: Dict):
+        self.send("batch_end", epoch=trainer.current_epoch, batch=batch_idx,
+                  logs=_sanitize(logs))
+
+
+def _sanitize(logs: Dict) -> Dict:
+    """Log values as JSON floats where they convert."""
+    out = {}
+    for k, v in (logs or {}).items():
+        try:
+            out[k] = float(v)
+        except (TypeError, ValueError):
+            out[k] = v
+    return out
 
 
 class EpochEndEvaluationCallback(Callback):

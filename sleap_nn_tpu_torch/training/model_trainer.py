@@ -52,13 +52,24 @@ A checkpoint is
 Lightning checkpoints. ``inference.loaders.load_model`` reads the
 directory back; so does the JAX package's ``load_model``.
 
-What the port does not train yet raises ``NotImplementedError`` (listed in
-ROADMAP.md section 1, item 7c): ZMQ, wandb, visualization and
-device-trace profilers.
+The monitors, as in the JAX trainer: ``trainer_config.zmq``'s
+``publish_port`` publishes the SLEAP GUI's events and ``controller_port``
+takes its ``stop`` and ``set_lr`` commands (``training/callbacks.py``);
+``visualize_preds_during_training`` draws ``viz/epoch_NNNN*.png``
+(deleted after training unless ``keep_viz``); ``use_wandb`` logs to wandb
+or, without the package, to a local run directory
+(``training/wandb_logging.py``). Under data parallelism rank 0 alone
+publishes, draws and logs, and broadcasts the controller's commands after
+each batch, so every rank stops, and takes the new learning rate, at the
+same step. ``trainer_config.profiler``: ``simple`` and ``advanced`` print
+an epoch-time summary; any other value but ``passthrough`` writes a
+``torch.profiler`` trace of the run into ``<model_dir>/profile``
+(``profiling.trace``: TensorBoard / Perfetto, with the card's kernels).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -105,12 +116,15 @@ from sleap_nn_tpu_torch.parallel import (
     sync_cache_fill_status,
 )
 from sleap_nn_tpu_torch.parallel import distributed
+from sleap_nn_tpu_torch.profiling import trace
 from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
     EarlyStopping,
     EpochEndEvaluationCallback,
     ProgressCallback,
+    ProgressReporterZMQ,
+    TrainingControllerZMQ,
 )
 from sleap_nn_tpu_torch.training.losses import compute_loss, weighted_total
 from sleap_nn_tpu_torch.training.schedulers import make_scheduler
@@ -347,18 +361,10 @@ def sample_weights(batch: Dict[str, torch.Tensor], train: bool = True) -> Option
 
 
 def _unsupported(cfg: TrainingJobConfig, model_type: str) -> List[str]:
-    """What this configuration asks for that the port does not train yet."""
-    tc = cfg.trainer_config
-    checks = [
-        (model_type not in MODEL_TYPES,
-         f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"),
-        (tc.zmq is not None and bool(tc.zmq.controller_port or tc.zmq.publish_port), "ZMQ"),
-        (bool(tc.use_wandb), "wandb"),
-        (bool(tc.visualize_preds_during_training), "visualization during training"),
-        (tc.profiler not in (None, "simple", "advanced", "passthrough"),
-         f"profiler={tc.profiler!r}"),
-    ]
-    return [what for bad, what in checks if bad]
+    """What this configuration asks for that the port does not train."""
+    if model_type not in MODEL_TYPES:
+        return [f"model type {model_type!r} (ported: {', '.join(MODEL_TYPES)})"]
+    return []
 
 
 class ModelTrainer:
@@ -389,6 +395,9 @@ class ModelTrainer:
                 + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
+        # Set by the ZMQ controller's set_lr: the learning rate from the
+        # next epoch on, in place of the scheduler's.
+        self.lr_override: Optional[float] = None
         self.current_epoch = 0
         self.ckpt_dir: Optional[Path] = None
         self.callbacks: List[Callback] = []
@@ -709,6 +718,25 @@ class ModelTrainer:
             self.callbacks.insert(0, EpochEndEvaluationCallback(
                 self, frequency=tc.eval.frequency, oks_stddev=tc.eval.oks_stddev,
                 match_threshold=tc.eval.match_threshold))
+        if tc.visualize_preds_during_training and self.ckpt_dir is not None and lead:
+            from sleap_nn_tpu_torch.training.viz import VizCallback
+
+            self.callbacks.append(VizCallback(self, self.ckpt_dir / "viz"))
+        if tc.use_wandb and lead:
+            from sleap_nn_tpu_torch.training.wandb_logging import WandbLoggerCallback
+
+            self.callbacks.append(WandbLoggerCallback(self))
+        zmq_cfg = tc.zmq
+        if zmq_cfg is not None and zmq_cfg.controller_port and lead:
+            self.callbacks.append(TrainingControllerZMQ(
+                address=f"tcp://127.0.0.1:{zmq_cfg.controller_port}",
+                poll_timeout=zmq_cfg.controller_polling_timeout))
+        if zmq_cfg is not None and zmq_cfg.publish_port and lead:
+            self.callbacks.append(
+                ProgressReporterZMQ(address=f"tcp://127.0.0.1:{zmq_cfg.publish_port}"))
+        # Every rank takes rank 0's controller commands after each batch.
+        self._sync_control = self.distributed and zmq_cfg is not None \
+            and bool(zmq_cfg.controller_port)
         self._setup_done = True
 
     def _join_or_launch_ranks(self):
@@ -1036,11 +1064,20 @@ class ModelTrainer:
         for cb in self.callbacks:
             getattr(cb, hook)(self, *args)
 
+    def _sync_controller(self) -> None:
+        """Rank 0's ``should_stop`` and ``lr_override`` on every rank."""
+        self.should_stop, self.lr_override = broadcast_object(
+            (self.should_stop, self.lr_override))
+
     def train(self):
         """Run the training loop; returns the per-epoch history."""
         self.setup()
         tc = self.config.trainer_config
         self._log_all("on_train_start")
+        # A device trace of the whole run for any profiler but the
+        # epoch-time summaries.
+        traced = tc.profiler not in (None, "simple", "advanced", "passthrough")
+        stack = contextlib.ExitStack()
         # An explicit train_steps_per_epoch wins, then tiling.steps_per_epoch;
         # otherwise small datasets re-draw batches up to
         # min_train_steps_per_epoch.
@@ -1054,6 +1091,8 @@ class ModelTrainer:
 
         failed = False
         try:
+            if traced:
+                stack.enter_context(trace((self.ckpt_dir or Path(".")) / "profile", self.device))
             for epoch in range(self.current_epoch, tc.max_epochs):
                 self.current_epoch = epoch
                 self._log_all("on_epoch_start", epoch)
@@ -1079,6 +1118,8 @@ class ModelTrainer:
                     n_steps += 1
                     n_samples += int(batch.get("n_real", np.sum(batch["batch_mask"])))
                     self._log_all("on_batch_end", n_steps - 1, {})
+                    if self._sync_control:
+                        self._sync_controller()
                     if self.should_stop or (steps_cap and n_steps >= steps_cap):
                         break
                 if hasattr(data_iter, "close"):
@@ -1098,6 +1139,9 @@ class ModelTrainer:
                 val_loss = _mean(val_losses)
 
                 lr = self.scheduler.step(epoch + 1, val_metric=val_loss)
+                if self.lr_override is not None:
+                    lr = self.lr_override
+                # Only the rate changes: Adam's moments stay.
                 for group in self.optimizer.param_groups:
                     group["lr"] = lr
 
@@ -1138,6 +1182,15 @@ class ModelTrainer:
             raise
         finally:
             self._log_all("on_train_end")
+            for cb in self.callbacks:
+                if hasattr(cb, "close"):
+                    cb.close()
+            if self.ckpt_dir is not None and not tc.keep_viz and self.rank == 0 \
+                    and (self.ckpt_dir / "viz").exists():
+                import shutil
+
+                shutil.rmtree(self.ckpt_dir / "viz", ignore_errors=True)
+            stack.close()
             if tc.profiler in ("simple", "advanced") and self.history:
                 times = [h["epoch_time_s"] for h in self.history]
                 sps = [h["train/steps_per_sec"] for h in self.history]

@@ -93,6 +93,14 @@ def _click_commands():
     return {name: jcli.cli.get_command(ctx, name) for name in jcli.cli.list_commands(ctx)}
 
 
+# Choices and defaults where the port differs on purpose: its export is a
+# torch.export program (pt2); the JAX package's formats parse, and raise.
+PORT_CHOICES = {("export", "fmt"): ["pt2", "stablehlo", "savedmodel"],
+                **{(cmd, "runtime"): ["auto", "pt2", "stablehlo", "savedmodel"]
+                   for cmd in ("predict", "track", "infer")}}
+PORT_DEFAULTS = {("export", "fmt"): "pt2"}
+
+
 @pytest.mark.parametrize("name", sorted(_click_commands()))
 def test_parser_parity_with_the_click_group(name):
     want = _click_commands()[name]
@@ -115,7 +123,7 @@ def test_parser_parity_with_the_click_group(name):
         assert _port_type(prm) == _click_type(p), p.name
         assert prm.exists == bool(getattr(p.type, "exists", False)), p.name
         if isinstance(p.type, click.Choice):
-            choices = [_device(c) for c in p.type.choices]
+            choices = PORT_CHOICES.get((name, p.name), [_device(c) for c in p.type.choices])
             assert prm.choices == choices, p.name
             assert prm.case_sensitive == p.type.case_sensitive, p.name
         assert bool(prm.help) == bool(p.help), p.name
@@ -137,7 +145,7 @@ def test_defaults_match_the_click_group(name, tmp_path):
     argv = _minimal_argv(name, tmp_path)
     want = _click_commands()[name].make_context(name, list(argv)).params
     got = pcli.COMMANDS[name].parse(list(argv))
-    assert got == {k: _device(v) for k, v in want.items()}
+    assert got == {k: PORT_DEFAULTS.get((name, k), _device(v)) for k, v in want.items()}
 
 
 def test_group_level_behaviour_matches(capsys):
@@ -472,7 +480,11 @@ def test_unported_commands_exit_naming_their_item(tmp_path, capsys):
     for argv, item in ((["sam", "-i", str(f), "--mask-backend", "sam3"], "item 13b"),
                        (["config", str(f), "--auto"], "item 13b"),
                        (["config-generate", str(f)], "item 13b"),
-                       (["export", str(tmp_path), "--format", "savedmodel"], "item 13b")):
+                       (["export", str(tmp_path), "--format", "savedmodel"], "JAX package")):
+        if argv[0] == "export":  # ported: the JAX package's formats raise
+            with pytest.raises(ValueError, match=item):
+                pcli.main(argv)
+            continue
         assert pcli.main(argv) == 1
         assert item in capsys.readouterr().err
     # Their usage errors are click's.
@@ -485,11 +497,16 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
     clip = write_clip(tmp_path / "clip.avi", frames)
     base = ["predict", "-i", clip, "-m", str(dirs["single_instance"].cond), "--device", "cpu",
             "-o", str(tmp_path / "o.slp")]
-    for extra, match in ((["--runtime", "stablehlo"], "item 13"),
+    for extra, match in ((["--runtime", "stablehlo"], "JAX package"),
                          (["--data-parallel"], "item 13"),
-                         (["--profile-dir", "p"], "item 13"),
+                         (["--profile-dir", str(tmp_path / "p")], None),
                          (["--stream-mode", "stream"], "fetch_remote_data")):
-        with pytest.raises(NotImplementedError, match=match):
+        if match is None:  # ported: a trace of the run
+            assert pcli.main(base + extra) == 0
+            assert len(list((tmp_path / "p").glob("*.pt.trace.json"))) == 1
+            continue
+        error = ValueError if "--runtime" in extra else NotImplementedError
+        with pytest.raises(error, match=match):
             pcli.main(base + extra)
     # The segmentation knobs are ported: on a pose model they do nothing, as
     # in the JAX package.

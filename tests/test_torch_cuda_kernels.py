@@ -518,3 +518,125 @@ def test_bottomup_predict_groups_natively_on_the_card(cuda, paf_workers):
                 np.testing.assert_array_equal(g, w, err_msg=key)  # in the same order
         n_inst += sum(len(k) for k in out["pred_keypoints"])
     assert n_inst >= 8
+
+
+# -- the registered operators (ops/library.py) that exported programs call --------
+
+
+def _op_args(op, dtype, dev, rng):
+    """Inputs of each operator at the export paths' shapes (batch 4)."""
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa
+    if op == "fused_double_conv3x3":
+        return (t(4, 256, 256, 24).to(dtype), t(3, 3, 24, 36) * 0.1, t(36),
+                t(3, 3, 36, 36) * 0.1, t(36), "relu")
+    if op == "nms_scores":
+        return (t(4, 512, 512, 15).to(dtype), 0.2, 3)
+    peaks = torch.from_numpy(rng.uniform(0, 1024, (4, 15, 20, 2)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random((4, 15, 20)) < 0.7).to(dev)
+    edges = torch.tensor([[i, i + 1] for i in range(14)], dtype=torch.int32, device=dev)
+    return (t(4, 256, 256, 28).to(dtype), peaks, mask, edges,
+            line_fractions(10, device=dev), 4.0, 256.0, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["fused_double_conv3x3", "nms_scores", "paf_line_scores"])
+def test_registered_operator_equals_the_kernel_wrapper(cuda, op, dtype):
+    from sleap_nn_tpu_torch.ops import kernels, library
+
+    wrapper = {"fused_double_conv3x3": fused_double_conv3x3, "nms_scores": kernels.nms_scores,
+               "paf_line_scores": kernels.paf_line_scores}[op]
+    kernel = {"fused_double_conv3x3": KERNEL, "nms_scores": NMS_SCORES,
+              "paf_line_scores": PAF_LINE_SCORES}[op]
+    args = _op_args(op, dtype, cuda, np.random.default_rng(0))
+    with torch.inference_mode():
+        want = wrapper(*args)
+        before = kernel.launches
+        got = library.OPS[op](*args)
+        torch.cuda.synchronize()
+    assert kernel.launches == before + 1  # the operator launched the kernel
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+class _Frames:
+    """An in-memory video of blob frames (the labels model's and the
+    predictor's interface)."""
+
+    def __init__(self, frames):
+        self.frames, self.shape, self.filename = frames, frames.shape, "frames.mp4"
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, idx):
+        return self.frames[idx]
+
+    def get_frame(self, idx, fmt=None):
+        return self.frames[idx]
+
+
+def _blob_frames(n, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:64, :64]
+    out = np.zeros((n, 64, 64, 1), np.float32)
+    for i in range(n):
+        for _ in range(2):
+            cy, cx = rng.uniform(12, 52, 2)
+            out[i, ..., 0] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0)
+    return (np.clip(out, 0, 1) * 255).astype(np.uint8)
+
+
+def test_exported_program_launches_the_kernels_where_it_is_loaded(cuda, tmp_path):
+    """A narrow bottom-up model exported on the CPU runs on the card when
+    loaded there: its graph's tensors move, kernels 1, 2 and 3 launch,
+    and its outputs are those of the program exported on the card and of
+    the untraced wrapper there, bit for bit."""
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+    from sleap_nn_tpu_torch.export import export_model, load_exported_model
+    from sleap_nn_tpu_torch.export.exporter import _build_wrapper
+    from sleap_nn_tpu_torch.inference.loaders import load_model
+    from sleap_nn_tpu_torch.io import model as pio
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    rng = np.random.default_rng(2)
+    video = _Frames(_blob_frames(8, seed=2))
+    skel = pio.Skeleton(["n0", "n1", "n2"], edges=[(0, 1), (1, 2)])
+    labels = pio.Labels([pio.LabeledFrame(video, f, [
+        pio.Instance(rng.uniform(12, 52, 2) + rng.normal(0, 4, (3, 2)), skel)
+        for _ in range(2)]) for f in range(8)])
+    cfg = TrainingJobConfig.from_dict({
+        "data_config": {"validation_fraction": 0.25, "use_augmentations_train": False},
+        "model_config": {
+            "backbone_config": {"unet": {"filters": 8, "filters_rate": 1.5, "max_stride": 8,
+                                         "output_stride": 2}},
+            "head_configs": {"bottomup": {"confmaps": {"sigma": 2.5, "output_stride": 2},
+                                          "pafs": {"sigma": 15.0, "output_stride": 4}}}},
+        "trainer_config": {"max_epochs": 1, "train_steps_per_epoch": 1, "save_ckpt": True,
+                           "ckpt_dir": str(tmp_path), "run_name": "bottomup",
+                           "enable_progress_bar": False, "train_data_loader": {"batch_size": 2},
+                           "val_data_loader": {"batch_size": 2}}})
+    trainer = ModelTrainer.get_model_trainer_from_config(cfg, [labels], device="cpu")
+    trainer.train()
+    cpu_dir = export_model(trainer.ckpt_dir, output_dir=tmp_path / "cpu", device="cpu",
+                           peak_threshold=-1e9)
+    card_dir = export_model(trainer.ckpt_dir, output_dir=tmp_path / "card", device="cuda",
+                            peak_threshold=-1e9)
+    x = _blob_frames(4, seed=3)
+    moved, _ = load_exported_model(cpu_dir, device="cuda")
+    native, _ = load_exported_model(card_dir, device="cuda")
+    kernels = (KERNEL, NMS_SCORES, PAF_LINE_SCORES)
+    counts = {k.name: k.launches for k in kernels}
+    got = moved(x)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches - counts[k.name] for k in kernels} == {
+        "fused_double_conv3x3": 5, "nms_scores": 1, "paf_line_scores": 1}
+    program, _, _ = _build_wrapper(load_model(trainer.ckpt_dir), -1e9, 4, 200, device="cuda")
+    with torch.inference_mode():
+        eager = program(torch.from_numpy(x).cuda())
+    for want in (native(x), eager):
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].device.type == "cuda"
+            assert torch.equal(torch.isnan(got[k]), torch.isnan(v)), k
+            assert torch.equal(torch.nan_to_num(got[k]), torch.nan_to_num(v)), k

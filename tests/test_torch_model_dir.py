@@ -507,8 +507,8 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"tracking": True, "scoring_method": "mask_iou"}, None),
     ({"sam_model_id": "facebook/sam-vit-base"}, "item 13"),
     ({"mask_backend": "sam"}, "item 13"),
-    ({"runtime": "onnx"}, "item 13"),
-    ({"profile_dir": "prof"}, "item 13"),
+    ({"runtime": "onnx"}, "Unknown runtime"),
+    ({"profile_dir": "<tmp>/prof"}, None),
     ({"sam_prompt_mode": "box"}, "item 13"),
     ({"sam_anchor_ind": 0}, "item 13"),
     ({"data_path": "s3://bucket/a.slp"}, "fetch_remote_data"),
@@ -524,8 +524,10 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"merge_thresholds": (0.9, 0.5, 0.3)}, None),
     ({"polygon_epsilon": 0.05}, None),
 ])
-def test_run_predict_refuses_unported_features(dirs, kwargs, match):
-    kwargs = {"data_path": _video(), **kwargs}
+def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
+    kwargs = {"data_path": _video(),
+              **{k: tmp_path / v[6:] if str(v).startswith("<tmp>/") else v
+                 for k, v in kwargs.items()}}
     if match is None:
         # Mask tracking and the segmentation knobs are ported: on a pose
         # model's frames (no masks) the port gives what the JAX package
@@ -536,17 +538,24 @@ def test_run_predict_refuses_unported_features(dirs, kwargs, match):
         got = prun.predict(pio.Labels([pio.LabeledFrame(FrameVideo(frames), i)
                                        for i in range(N_FRAMES)]),
                            model_paths=paths, device="cpu", **kwargs)
+        # A profiler trace of the port's run; the JAX run goes untraced.
+        trace_dir = kwargs.pop("profile_dir", None)
         want = jax_predict(jio.Labels([jio.LabeledFrame(FrameVideo(frames), i)
                                        for i in range(N_FRAMES)]),
                            model_paths=paths, **kwargs)
         _assert_same_labels(got, want)
+        assert trace_dir is None or len(list(trace_dir.glob("*.pt.trace.json"))) == 1
         assert [t.name for t in got.tracks] == [t.name for t in want.tracks]
         def names(labels):
             return [getattr(i.track, "name", None) for lf in labels for i in lf.instances]
 
         assert names(got) == names(want)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    # The runtime of a model dir that is not an export dir: "auto" or
+    # "pt2"; others raise ValueError, the unported features
+    # NotImplementedError.
+    error = ValueError if "runtime" in kwargs else NotImplementedError
+    with pytest.raises(error, match=match):
         prun.predict(model_paths=_paths(dirs, "single_instance"), device="cpu", **kwargs)
 
 
@@ -575,9 +584,11 @@ def test_run_predict_streams_to_file_and_scopes_labels(dirs, tmp_path):
     back = load_slp(tmp_path / "s.slp")
     assert [lf.frame_idx for lf in back] == [lf.frame_idx for lf in streamed]
     assert seen[-1] == N_FRAMES and back.provenance["model_type"] == "single_instance"
-    # The JAX predict's options of unported features are refused, never ignored.
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        prun.predict(labels, paths, batch_size=4, device="cpu", profile_dir="prof")
+    # profile_dir traces the run and changes nothing in it.
+    traced = prun.predict(labels, paths, batch_size=4, device="cpu",
+                          profile_dir=tmp_path / "prof")
+    assert [lf.frame_idx for lf in traced] == [lf.frame_idx for lf in streamed]
+    assert len(list((tmp_path / "prof").glob("*.pt.trace.json"))) == 1
     # At their no-op values they are accepted.
     quiet = prun.predict(labels, paths, batch_size=4, device="cpu",
                          **{k: v for k, (v, _) in prun.UNPORTED_RUN_KNOBS.items()})

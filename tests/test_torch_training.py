@@ -403,13 +403,53 @@ def test_train_on_cpu_writes_the_model_dir(tmp_path):
     {"trainer_config": {"zmq": {"publish_port": 9001}}},
     {"trainer_config": {"visualize_preds_during_training": True}},
 ], ids=lambda o: next(iter(next(iter(o.values())))))
-def test_unported_features_raise(override):
-    d = cfg_dict()
+def test_unported_features_raise(override, tmp_path):
+    """The monitors the trainer once refused now run: a profiler trace, the
+    local wandb run, the ZMQ events (on a free port bound here) and the
+    viz PNGs (kept with ``keep_viz``). ``tests/test_torch_monitoring.py``
+    holds them to the JAX trainer."""
+    import json
+    import socket
+
+    import zmq
+
+    d = cfg_dict(max_epochs=1, train_steps_per_epoch=1, save_ckpt=True, ckpt_dir=str(tmp_path),
+                 run_name="run", keep_viz=True)
     for section, val in override.items():
         d[section] = {**d[section], **val}
-    with pytest.raises(NotImplementedError):
-        ModelTrainer.get_model_trainer_from_config(PConfig.from_dict(d), [make_labels(pio)],
-                                                   device="cpu")
+    ctx = zmq.Context()
+    events = ctx.socket(zmq.SUB)
+    events.subscribe("")
+    if "zmq" in override["trainer_config"]:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        d["trainer_config"]["zmq"] = {"publish_port": port}
+        events.bind(f"tcp://127.0.0.1:{port}")
+    try:
+        trainer = ModelTrainer.get_model_trainer_from_config(PConfig.from_dict(d),
+                                                             [make_labels(pio)], device="cpu")
+        trainer.setup()
+        for _ in range(50):  # the socket subscribes once it is used
+            events.poll(10)
+        trainer.train()
+        got = []
+        while events.poll(200):
+            got.append(json.loads(events.recv_string())["event"])
+    finally:
+        events.close(linger=0)
+        ctx.term()
+    run = trainer.ckpt_dir
+    key = next(iter(override["trainer_config"]))
+    if key == "profiler":
+        assert len(list((run / "profile").glob("*.pt.trace.json"))) == 1
+    elif key == "use_wandb":
+        (local,) = (run / "wandb").glob("offline-run-*")
+        assert {"config.json", "metrics.jsonl", "summary.json"} <= {p.name for p in local.iterdir()}
+    elif key == "zmq":
+        assert got[:4] == ["train_begin", "epoch_begin", "batch_start", "batch_end"]
+    else:
+        assert sorted(p.name for p in (run / "viz").iterdir()) == ["epoch_0000.png"]
 
 
 def test_labels_from_paths_and_cuda_without_card_raise(monkeypatch):
