@@ -280,8 +280,9 @@ Phases, each of which raises on failure (exit code != 0):
     loads from a local HF snapshot the phase writes, ``freeze: true`` (the
     encoder and every ``FrozenBatchNorm`` buffer bit-identical after
     training; every other leaf moved, but SwinT's patch-embedding and
-    stage-0 biases that an inf Adam second moment stopped), on 1024x1024 frames of phase 27's animals, batch 4, f32, 2
-    epochs of 5 steps; launches counted, each new kernel signature held
+    stage-0 biases that an inf Adam second moment stopped), on 1024x1024
+    frames of phase 27's animals, batch 4, f32, 2 epochs of 3 steps;
+    launches counted, each new kernel signature held
     against its plain version; steps/s, peak memory and stage times of each
     model; then ``run.predict`` from each trained dir (kernels 2 and 3 on
     SwinT's).
@@ -352,8 +353,8 @@ Phases, each of which raises on failure (exit code != 0):
     they launched; frames/s with and without the trace.
 40. Export (``run_export``, lines ``export``, ``export_kernel``): every type
     trained or built above (phases 7, 10, 11, 17, 18, 34's dirs and a
-    single-instance dir) to ``model.pt2``, fp32 and bf16 at batch 4 (the
-    top-down and bottom-up bf16 also at batch 8), each verified; each
+    single-instance dir) to ``model.pt2``, bf16 at batch 4 (the top-down
+    and bottom-up also fp32, and bf16 at batch 8), each verified; each
     loaded program called once with the launch counters zeroed (kernels 1,
     2 and 3 launch from the loaded graph through their registered
     operators), every kernel call at a new signature held to its plain
@@ -363,6 +364,28 @@ Phases, each of which raises on failure (exit code != 0):
 41. The command line (``cli_export``): ``export`` of the top-down pair,
     then ``predict`` and ``track`` on the export dir from an MJPG clip, in
     process; each command's seconds.
+42. Data-parallel predict (``run_data_parallel_predict``, lines
+    ``data_parallel_predict``, ``data_parallel_kernel``): top-down,
+    bottom-up, single-instance, multi-class bottom-up and semantic
+    segmentation from the dirs above, batch 8, bf16: ``run.predict(...,
+    data_parallel=True)`` over every card (one replica a card; the launch
+    counts of the plain run, and its ``Labels``), then two replicas on
+    ``cuda:0`` (launches doubled; bit for bit the plain predictor at batch
+    4, the replica's rows; what batch 8 changes is recorded); each new
+    kernel signature held to its plain version; frames/s of the three.
+43. The config tooling (``run_config_tooling``, line ``config_tooling``): a
+    synthetic 1024x1024 ``.slp`` (15 nodes, 1-6 instances); ``config-generate``,
+    ``config --auto`` (quality and throughput presets) and ``config`` on the
+    YAML written; ``train()`` without ``config_path`` from ``get_config``
+    keyword arguments at the recommended widths (a centroid model, quality
+    and throughput knobs, a few steps; kernel 4), its peak memory beside
+    ``estimate_memory``'s total; the pipeline's centered-instance stage
+    trained from each generated YAML (the throughput one at crop 128);
+    ``run.predict`` of each preset's top-down pair (kernels 1 and 2, every
+    call held), frames/s side by side.
+44. The legacy shim (``run_legacy_shim``, line ``legacy_shim``):
+    ``TopDownPredictor.from_trained_models`` on phase 7 + 11's dirs warns
+    once and gives ``Predictor.from_model_paths``' ``Labels`` bit for bit.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -383,6 +406,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import re
 import subprocess
@@ -3069,9 +3093,9 @@ def check_video_against_cpu(dirs, second_centroid, tmp):
     sent = []
     send = Predictor._send
 
-    def recording_send(self, frames, h2d):
+    def recording_send(self, frames, h2d, device):
         sent.append((frames.shape, frames.tobytes()))
-        return send(self, frames, h2d)
+        return send(self, frames, h2d, device)
 
     def run_both(paths, kw):
         """Both devices' batch outputs and the frames each sent."""
@@ -4639,6 +4663,9 @@ BACKBONE_TRAIN_RUNS = (("convnext_centroid", CONVNEXT_TINY, "centroid", MAX_INST
                        ("swint_bottomup", SWINT_TINY, "bottomup", MAX_INST, False),
                        ("resnet50_single_instance", None, "single_instance", 1, False))
 BACKBONE_TRAIN_FRAMES, BACKBONE_TRAIN_VAL = 12, 4
+# Steps an epoch of phase 31's trainings (fewer than the UNets' TRAIN_STEPS:
+# a ConvNeXt-T step takes about 1.5 s).
+BACKBONE_TRAIN_STEPS = 3
 # The trained leaves of phase 31's runs that may end where they started
 # (every other trained leaf must move). SwinT's patch-embedding and stage-0
 # biases: a window that the rotation filled with zeros feeds each
@@ -4752,8 +4779,9 @@ def run_backbone_training(kernels, smi):
     """Phase 31: ``ModelTrainer.train`` with the other backbones at published
     widths on ``BACKBONE_TRAIN_FRAMES`` 1024x1024 frames of phase 27's
     animals (``BACKBONE_TRAIN_VAL`` of them val), batch 4, f32, geometric
-    augmentation, 2 epochs of 5 steps: ConvNeXt tiny centroid (kernel 4 in
-    every render, kernel 2 in the epoch-end evaluation), SwinT tiny, window
+    augmentation, 2 epochs of ``BACKBONE_TRAIN_STEPS`` steps: ConvNeXt tiny
+    centroid (kernel 4 in every render, kernel 2 in the epoch-end
+    evaluation), SwinT tiny, window
     7, bottom-up (kernel 4 and the PAF render) and a pretrained ResNet-50
     single-instance model, one animal a frame, whose encoder loads from a
     local snapshot the phase writes, with ``freeze: true`` (its encoder and
@@ -4785,7 +4813,8 @@ def run_backbone_training(kernels, smi):
                                        "freeze": True}}
         cfg = training_config(0, 32, TRAIN_IMG, TRAIN_BATCH, augment=True,
                               model_type=model_type, backbone=backbone,
-                              max_epochs=TRAIN_EPOCHS, train_steps_per_epoch=TRAIN_STEPS,
+                              max_epochs=TRAIN_EPOCHS,
+                              train_steps_per_epoch=BACKBONE_TRAIN_STEPS,
                               save_ckpt=True, ckpt_dir=str(root), run_name=name,
                               eval={"enabled": evaluate, "frequency": 1,
                                     "match_threshold": EVAL_MATCH_THRESHOLD})
@@ -4809,7 +4838,7 @@ def run_backbone_training(kernels, smi):
             history, launches = run_counted(kernels, train)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
         n_val = len(trainer.val_loader)
-        renders = TRAIN_EPOCHS * (TRAIN_STEPS + n_val) + 1
+        renders = TRAIN_EPOCHS * (BACKBONE_TRAIN_STEPS + n_val) + 1
         eval_renders = TRAIN_EPOCHS * n_val if evaluate else 0
         renders_k4 = renders + eval_renders if model_type != "single_instance" else 0
         expect_launches(f"{name} training", launches, phase=31, multi_confmaps=renders_k4,
@@ -6134,6 +6163,9 @@ EXPORT_RUNS = (
 EXPORT_BATCH, EXPORT_FRAMES = 4, 8
 # Exported again at batch 8 (bf16): the paths' own batch.
 EXPORT_BATCH8 = ("topdown", "bottomup")
+# Also exported in fp32: the top-down composite and bottom-up (the other
+# types are exported in bf16 only, for the script's time).
+EXPORT_FP32 = ("bottomup", "topdown")
 EXPORT_WRAPPERS = (("_fused_double_conv3x3", "sleap_nn_tpu_torch.ops.fused_conv"),
                    ("_nms_scores", "sleap_nn_tpu_torch.ops.kernels"),
                    ("paf_line_scores", "sleap_nn_tpu_torch.ops.kernels"))
@@ -6170,8 +6202,9 @@ def labels_distance(a, b):
 def run_export(kernels, dirs, smi):
     """Phase 40: ``export_model`` of every type the earlier phases trained or
     built (phases 7, 10, 11, 17, 18 and 34's dirs, and a single-instance
-    dir), fp32 and bf16 at batch 4 (the top-down and bottom-up bf16 also
-    at batch 8), each verified by ``verify_export_numerics`` on the card;
+    dir), bf16 at batch 4 (the ``EXPORT_FP32`` types also fp32, the
+    ``EXPORT_BATCH8`` types bf16 also at batch 8), each verified by
+    ``verify_export_numerics`` on the card;
     each export loaded and called once on real frames with the launch
     counters zeroed (every kernel call recorded at each new signature and
     held to its plain version); then ``run.predict`` from each export dir
@@ -6190,8 +6223,9 @@ def run_export(kernels, dirs, smi):
         dirs = dict(dirs, single_instance=single_instance_dir(tmp))
         for name, sources, export_kw, predict_kw, per_call, loadable in EXPORT_RUNS:
             crop_model = not loadable
-            for precision, batch in [("fp32", EXPORT_BATCH), ("bf16", EXPORT_BATCH)] + (
-                    [("bf16", BATCH)] if name in EXPORT_BATCH8 else []):
+            for precision, batch in ([("fp32", EXPORT_BATCH)] if name in EXPORT_FP32 else []) \
+                    + [("bf16", EXPORT_BATCH)] + ([("bf16", BATCH)] if name in EXPORT_BATCH8
+                                                  else []):
                 src = [dirs[s] for s in sources]
                 out = tmp / f"{name}_{precision}_b{batch}"
                 t0 = time.perf_counter()
@@ -6308,6 +6342,403 @@ def run_cli_export(kernels, dirs, tmp, frames, smi):
     log("cli_export " + json.dumps({"seconds": times, "instances": sum(
         len(lf) for lf in predicted), "tracks": len(tracked.tracks), "smi": smi}))
     return runs, times
+
+
+# --------------------------------------------------------------------------
+# Phases 42-44: data-parallel predict, the config tooling, the legacy shim
+# --------------------------------------------------------------------------
+
+
+# Phase 42's paths: name, the dirs (phase 7-18 model types, or "seg:" one of
+# phase 34's), run.predict's knobs, the launches a replica's batch of kernels
+# 1-3, whether the frames are phase 34's animals.
+DP_RUNS = (
+    ("topdown", ("centroid", "centered_instance"), {}, (18, 1, 0), False),
+    ("bottomup", ("bottomup",), {"min_line_scores": DIR_MIN_LINE, "max_peaks": DIR_MAX_PEAKS,
+                                 "paf_workers": 0}, (9, 1, 1), False),
+    ("single_instance", ("single_instance",), {}, (9, 0, 0), False),
+    ("multi_class_bottomup", ("multi_class_bottomup",), {}, (9, 1, 0), False),
+    ("semantic_segmentation", ("seg:semantic_segmentation",), {}, (9, 0, 0), True),
+)
+# Frames a frames/s figure of phase 42 runs over (8 batches).
+DP_FPS_FRAMES = 64
+
+
+def labels_masks_differ(a, b):
+    """The largest share of pixels in which two ``Labels``' masks differ,
+    masks taken in order (0 where no frame holds one)."""
+    worst = 0.0
+    for fa, fb in zip(a.labeled_frames, b.labeled_frames):
+        for ma, mb in zip(fa.masks, fb.masks):
+            worst = max(worst, float(np.mean(np.asarray(ma.mask) != np.asarray(mb.mask))))
+    return worst
+
+
+def run_data_parallel_predict(kernels, root, seg_dir_paths, smi):
+    """Phase 42: data-parallel predict at full width (UNet medium_rf, 1024x1024
+    frames, batch 8, bf16) for top-down, bottom-up, single-instance,
+    multi-class bottom-up and semantic segmentation, from the dirs of phases
+    7-18 and 34 (and a random-init single-instance dir).
+
+    Per path: ``run.predict(..., data_parallel=True)`` over every card the
+    process sees (one replica a card), counted, must equal the ``Labels``
+    of the plain run at a replica's batch (``BATCH`` over the card count)
+    bit for bit; then an explicit two-replica predictor on one card
+    (``data_parallel=["cuda:0", "cuda:0"]``: each replica its own weights
+    and streams, each batch split 4 + 4 and joined before the host step),
+    run twice and counted (every kernel call recorded at each new signature
+    and held to its plain version), must give bit for bit what a
+    single-device predictor at batch 4 gives on the same frames (the same
+    calls on the same rows: the tolerance is 0). Against the plain
+    predictor at batch 8 the line records the difference a batch of 4
+    makes (the largest point distance, masks, and the maps' largest
+    difference in bf16 ulps of their magnitude): at another batch kernel 1
+    plans its tiles and cuDNN picks its algorithms for another shape, and
+    at peak threshold -1e9 a near-tie among random-weight peaks reorders
+    the instances. Frames/s of the plain predictor, one replica a card and
+    two replicas on one card, over ``DP_FPS_FRAMES`` frames."""
+    import torch
+
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.run import predict
+
+    n_cards = torch.cuda.device_count() if DEVICE != "cpu" else 1
+    two = [DEVICE if DEVICE == "cpu" else "cuda:0"] * 2
+    n_batches = -(-N_FRAMES // BATCH)
+    runs, rows, seen, calls = {}, [], set(), []
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {"single_instance": single_instance_dir(Path(tmp))}
+        for name, sources, knobs, per_batch, animals in DP_RUNS:
+            paths = [seg_dir_paths[s[4:]] if s.startswith("seg:") else dirs.get(s, root / s)
+                     for s in sources]
+            frames = seg_frames(N_FRAMES, seed=42) if animals else smoke_frames()
+            kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE,
+                      peak_threshold=DIR_PEAK_THRESHOLD, max_instances=MAX_INST, **knobs)
+            predict(frame_labels(frames[:BATCH]), paths, make_labels=False,
+                    data_parallel=True, **kw)  # warm-up
+            sync()
+            got, launches = run_counted(kernels, lambda: predict(
+                frame_labels(frames), paths, data_parallel=True, **kw))
+            want = dict(zip(("fused_double_conv3x3", "nms_scores", "paf_line_scores"),
+                            (n * n_batches for n in per_batch)))
+            expect_launches(f"{name} run.predict(data_parallel=True) on one card", launches,
+                            phase=42, **{k: v * n_cards if n_cards > 1 else v
+                                         for k, v in want.items()})
+            runs[f"dp_{name}_run_predict"] = {"launches": launches, "n_batches": n_batches}
+            # A card's replica predicts BATCH / n_cards rows of each batch.
+            plain = predict(frame_labels(frames), paths, **dict(kw, batch_size=BATCH // n_cards))
+            same, dist, masks = labels_distance(got, plain)
+            if not (same and dist == 0.0 and masks):
+                raise AssertionError(f"phase 42 {name}: one replica a card differs from the "
+                                     f"plain run at batch {BATCH // n_cards}: counts {same}, "
+                                     f"{dist} px, masks {masks}")
+            pred_kw = {k: v for k, v in kw.items() if k not in ("paf_workers",)}
+            two_rep = Predictor.from_model_paths(paths, data_parallel=two, **pred_kw)
+            assert len(two_rep.replicas) == 2 and two_rep.replicas[0] is not two_rep.replicas[1]
+            two_rep.predict(frame_labels(frames[:BATCH]), make_labels=False)  # warm-up
+            sync()
+            twice = []
+            for _ in range(2):
+                with recording_kernel_calls(seen, calls):
+                    labels2, l2 = run_counted(kernels, lambda: two_rep.predict(
+                        frame_labels(frames)))
+                expect_launches(f"{name} two replicas on one card", l2, phase=42,
+                                **{k: 2 * v for k, v in want.items()})
+                twice.append(labels2)
+            runs[f"dp_{name}_two_replicas"] = {"launches": l2, "n_batches": n_batches}
+            half = Predictor.from_model_paths(paths, **dict(pred_kw, batch_size=BATCH // 2))
+            at_half = half.predict(frame_labels(frames))
+            full = Predictor.from_model_paths(paths, **pred_kw)
+            at_full = full.predict(frame_labels(frames))
+            exact = [labels_distance(t, at_half) for t in twice]
+            if not all(s and d == 0.0 and m for s, d, m in exact):
+                raise AssertionError(f"phase 42 {name}: two replicas differ from the plain "
+                                     f"predictor at batch {BATCH // 2}: {exact}")
+            # Against the plain predictor at batch 8 (a record): what a batch
+            # of 4 changes, the maps' largest difference where the layer
+            # returns them.
+            same8, dist8, masks8 = labels_distance(twice[0], at_full)
+            mask_frac = labels_masks_differ(twice[0], at_full)
+            maps = {}
+            for label, p in (("b4", half), ("b8", full)):
+                outs = p.predict(frame_labels(frames[:BATCH]), make_labels=False,
+                                 return_confmaps=True)
+                maps[label] = {k: np.concatenate([o[k] for o in outs]) for k in ("confmaps",
+                                                                                  "pafs")
+                               if k in outs[0]}
+            map_err = {k: float(np.abs(maps["b4"][k] - maps["b8"][k]).max())
+                       for k in maps["b8"]}
+            map_top = {k: float(np.abs(maps["b8"][k]).max()) for k in maps["b8"]}
+            many = frame_labels(np.concatenate([frames] * (-(-DP_FPS_FRAMES // len(frames))))
+                                [:DP_FPS_FRAMES])
+            fps, fps_runs = {}, {}
+            for label, p in (("plain", full), ("one_replica_a_card", Predictor.from_model_paths(
+                    paths, data_parallel=True, **pred_kw)), ("two_replicas_one_card", two_rep)):
+                fps_runs[label] = []
+                for _ in range(2):
+                    p.predict(many, make_labels=False)
+                    fps_runs[label].append(p.last_stats["fps"])
+                fps[label] = max(fps_runs[label])
+            n_obj = sum(len(lf.instances) + len(lf.masks) for lf in twice[0])
+            row = {"name": name, "launches_run_predict": launches, "launches_two_replicas": l2,
+                   "objects": n_obj, "two_replicas_equal_batch4": True,
+                   "vs_batch8": {"counts_equal": same8, "max_point_dist": dist8,
+                                 "masks_equal": masks8, "mask_pixels_differ": mask_frac,
+                                 "map_max_abs_diff": map_err, "map_max_abs": map_top,
+                                 "map_diff_bf16_ulps": {k: map_err[k] / bf16_ulp(map_top[k])
+                                                        for k in map_err if map_top[k] > 0}},
+                   "fps": fps, "fps_runs": fps_runs, "cards": n_cards, "smi": smi}
+            log("data_parallel_predict " + json.dumps(row))
+            rows.append(row)
+    held = check_recorded_calls(calls)
+    bad = [r for r in held if not r["ok"]]
+    log(f"data_parallel_kernel {len(held)} signatures held, " + json.dumps(
+        {"bad": bad, "shapes": sorted({json.dumps(r['shapes']) for r in held})}))
+    if bad:
+        raise AssertionError(f"phase 42: kernel calls off their plain versions: {bad}")
+    return runs, held, rows
+
+
+# Phase 43: the synthetic dataset (15 nodes, 1-6 instances a 1024x1024
+# frame) and the trainings from get_config keyword arguments.
+CFG_FRAMES, CFG_STEPS = 12, 5
+
+
+@contextlib.contextmanager
+def peak_of(owner, attr, into):
+    """Within the block, each call of ``getattr(owner, attr)`` starts the
+    card's peak memory count anew and appends its peak in GiB to ``into``
+    (nothing on the CPU)."""
+    import torch
+
+    real = getattr(owner, attr)
+
+    def measured(*args, **kw):
+        if DEVICE == "cpu":
+            return real(*args, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return real(*args, **kw)
+        finally:
+            into.append(torch.cuda.max_memory_allocated() / 2**30)
+
+    setattr(owner, attr, measured)
+    try:
+        yield into
+    finally:
+        setattr(owner, attr, real)
+
+
+def run_config_tooling(kernels, smi):
+    """Phase 43: the config tooling on the card. A synthetic ``.slp``
+    (``CFG_FRAMES`` frames of 1024x1024, 15 nodes, 1-6 instances, embedded,
+    from a seed); ``config-generate`` and ``config --auto`` with the quality
+    and the throughput presets, and ``config`` on the YAML written (each
+    exit 0, the YAMLs equal to ``generate_config``'s); then ``train()``
+    without ``config_path``, from ``get_config`` keyword arguments at the
+    recommended widths (UNet filters 32, the recommended max stride, sigma,
+    scale and batch), a centroid model (the generated top-down pipeline's
+    first stage) for ``CFG_STEPS`` steps on the card, once with the quality
+    knobs and once with the throughput preset's (heads at output stride 4,
+    frames scaled to 384 px); kernel 4 renders its targets (every call held
+    to its plain version), and ``estimate_memory``'s total is printed beside
+    ``torch.cuda.max_memory_allocated`` of the whole ``train()`` call and
+    of its training loop alone (a record, not a gate); then the pipeline's
+    second stage, the centered-instance model of the generated top-down
+    YAML of each preset (the throughput one at crop 128), trained from that
+    YAML for ``CFG_STEPS`` steps (no kernel launches in its training, and
+    ``run_training`` evaluates no lone centered-instance model); then
+    ``run.predict`` of each preset's top-down pair, counted (kernels 1 and
+    2, every call held), with the two configs' frames/s side by side."""
+    import torch
+    import yaml
+
+    from sleap_nn_tpu_torch import cli
+    from sleap_nn_tpu_torch.config import TrainingJobConfig
+    from sleap_nn_tpu_torch.config_generator import (
+        analyze_slp, estimate_memory, generate_config, recommend_config)
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.io.slp import save_slp
+    from sleap_nn_tpu_torch.train import train
+    from sleap_nn_tpu_torch.training import ModelTrainer
+
+    runs, rows, seen, calls = {}, {}, set(), []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        slp = str(tmp / "animals.pkg.slp")
+        save_slp(slp, training_labels(CFG_FRAMES, IMG, N_NODES, MAX_INST, seed=43), embed=True)
+        stats = analyze_slp(slp)
+        rec = recommend_config(stats)
+        t0, printed = time.perf_counter(), {}
+        for preset in ("quality", "throughput"):
+            for argv in (["config-generate", slp, "-o", str(tmp / f"gen_{preset}.yaml"),
+                          "--preset", preset],
+                         ["config", slp, "--auto", "-o", str(tmp / f"auto_{preset}.yaml"),
+                          "--preset", preset],
+                         ["config", str(tmp / f"auto_{preset}.yaml")]):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    code = cli.main(argv)
+                if code != 0:
+                    raise AssertionError(f"phase 43: {' '.join(argv[:1] + argv[2:])} failed")
+                printed[argv[0] + (" --auto" if "--auto" in argv else "")
+                        + f" {preset}"] = out.getvalue()
+            want = generate_config(slp, preset=preset).to_dict()
+            for f in (f"gen_{preset}.yaml", f"auto_{preset}.yaml"):
+                got = TrainingJobConfig.load_yaml(tmp / f).to_dict()
+                if dict(got, filename="") != dict(want, filename=""):
+                    raise AssertionError(f"phase 43: {f} is not generate_config's YAML")
+        cli_s = time.perf_counter() - t0
+        generated = json.loads(printed["config-generate quality"])
+        if generated["pipeline"] != rec.pipeline.pipeline or yaml.safe_load(
+                printed["config quality"])["filename"] != str(tmp / "auto_quality.yaml"):
+            raise AssertionError("phase 43: config-generate or config printed another config")
+        quality = yaml.safe_load((tmp / "auto_quality.yaml").read_text())
+        fast = rec.throughput_preset
+        trained = {}
+        for preset, scale, stride in (("quality", rec.scale, 2),
+                                      ("throughput", min(rec.scale, fast["scale"]),
+                                       fast["output_stride"])):
+            kwargs = dict(train_labels_path=slp, backbone_config="unet",
+                          filters=32, filters_rate=1.5, max_stride=rec.max_stride,
+                          output_stride=stride,
+                          head_configs={"centroid": {"confmaps": {"sigma": rec.sigma}}},
+                          scale=scale, ensure_grayscale=True, batch_size=rec.batch_size,
+                          max_epochs=1, train_steps_per_epoch=CFG_STEPS, save_ckpt=True,
+                          ckpt_dir=str(tmp), run_name=f"centroid_{preset}",
+                          trainer_accelerator="cpu" if DEVICE == "cpu" else "auto")
+            if DEVICE != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            t0, train_peak = time.perf_counter(), []
+            with recording_kernel_calls(seen, calls, PATH_WRAPPERS + TRAIN_WRAPPERS), \
+                    peak_of(ModelTrainer, "train", train_peak):
+                trainer, t_launches = run_counted(kernels, lambda: train(**kwargs))
+            train_s = time.perf_counter() - t0
+            if t_launches["multi_confmaps"] < CFG_STEPS and DEVICE != "cpu":
+                raise AssertionError(f"phase 43 {preset}: kernel 4 launched "
+                                     f"{t_launches['multi_confmaps']} times in {CFG_STEPS} steps")
+            peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE != "cpu" else None
+            est = estimate_memory(IMG, IMG, channels=1, batch_size=rec.batch_size, filters=32,
+                                  filters_rate=1.5, max_stride=rec.max_stride,
+                                  output_stride=stride, scale=scale, n_heads_channels=1)
+            cfg = trainer.config
+            assert cfg.model_config.backbone_config.unet.output_stride == stride
+            assert cfg.model_config.head_configs.centroid.confmaps.output_stride == stride
+            # One "batch": the whole train() call (training, then the
+            # post-training predict and evaluation of each split).
+            runs[f"config_train_{preset}"] = {"launches": t_launches, "n_batches": 1}
+            trained[preset] = Path(trainer.ckpt_dir)
+            rows[preset] = {"scale": scale, "output_stride": stride, "train_s": train_s,
+                            "steps_per_sec": trainer.history[-1]["train/steps_per_sec"],
+                            "train_launches": t_launches, "peak_gib": peak,
+                            "train_loop_peak_gib": train_peak[0] if train_peak else None,
+                            "estimate_total_gib": est.total_device_gb * 1e9 / 2**30,
+                            "estimate": str(est)}
+        stage = {}
+        for preset in trained:
+            t0 = time.perf_counter()
+            with recording_kernel_calls(seen, calls, PATH_WRAPPERS + TRAIN_WRAPPERS):
+                trainer, t_launches = run_counted(kernels, lambda: train(
+                    config_path=str(tmp / f"auto_{preset}.yaml"), max_epochs=1,
+                    train_steps_per_epoch=CFG_STEPS, save_ckpt=True, ckpt_dir=str(tmp),
+                    run_name=f"centered_instance_{preset}",
+                    trainer_accelerator="cpu" if DEVICE == "cpu" else "auto"))
+            train_s = time.perf_counter() - t0
+            pre = trainer.config.data_config.preprocessing
+            if trainer.model_type != "centered_instance" or (
+                    preset == "throughput" and pre.crop_size != fast["crop_size"]):
+                raise AssertionError(f"phase 43 {preset}: the generated YAML trained a "
+                                     f"{trainer.model_type} at crop {pre.crop_size}")
+            expect_launches(f"the {preset} centered-instance stage's training", t_launches,
+                            phase=43)
+            runs[f"config_train_centered_instance_{preset}"] = {"launches": t_launches,
+                                                                 "n_batches": 1}
+            stage[preset] = Path(trainer.ckpt_dir)
+            rows[preset].update(instance_crop=pre.crop_size, instance_scale=pre.scale,
+                                instance_train_s=train_s, instance_train_launches=t_launches,
+                                instance_steps_per_sec=trainer.history[-1][
+                                    "train/steps_per_sec"])
+        frames = smoke_frames()
+        kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE,
+                  peak_threshold=DIR_PEAK_THRESHOLD, max_instances=MAX_INST)
+        n_batches = -(-N_FRAMES // BATCH)
+        for preset, d in trained.items():
+            pair = [d, stage[preset]]
+            predict(frame_labels(frames[:BATCH]), pair, make_labels=False, **kw)  # warm-up
+            sync()
+            with recording_kernel_calls(seen, calls):
+                labels, launches = run_counted(kernels, lambda: predict(
+                    frame_labels(frames), pair, **kw))
+            if DEVICE != "cpu" and (launches["nms_scores"] != n_batches
+                                    or launches["fused_double_conv3x3"] % n_batches
+                                    or not launches["fused_double_conv3x3"]
+                                    or launches["paf_line_scores"] + launches["multi_confmaps"]):
+                raise AssertionError(f"phase 43 {preset}: predict launches {launches}")
+            if len(labels.labeled_frames) != N_FRAMES:
+                raise AssertionError(f"phase 43 {preset}: predictions on "
+                                     f"{len(labels.labeled_frames)} of {N_FRAMES} frames")
+            runs[f"config_predict_{preset}"] = {"launches": launches, "n_batches": n_batches}
+            rows[preset].update(predict_launches=launches,
+                                fps=labels.provenance["stats"]["fps"],
+                                instances=sum(len(lf) for lf in labels.labeled_frames))
+    held = check_recorded_calls(calls)
+    bad = [r for r in held if not r["ok"]]
+    log("config_tooling " + json.dumps({
+        "recommendation": {k: v for k, v in rec.summary().items() if k != "throughput_preset"},
+        "throughput_preset": {k: v for k, v in fast.items() if k != "note"},
+        "quality_yaml_heads": [k for k, v in quality["model_config"]["head_configs"].items()
+                               if v],
+        "cli_s": cli_s, "runs": rows, "signatures_held": len(held), "bad": bad, "smi": smi}))
+    if bad:
+        raise AssertionError(f"phase 43: kernel calls off their plain versions: {bad}")
+    return runs, held, rows
+
+
+def run_legacy_shim(kernels, root, smi):
+    """Phase 44: ``TopDownPredictor.from_trained_models`` on phase 7 + 11's
+    dirs (f32: the legacy keywords hold no precision) warns once with a
+    ``DeprecationWarning`` and gives the ``Labels`` that
+    ``Predictor.from_model_paths`` gives with the same knobs, bit for bit;
+    counted (kernels 1 and 2, every call held to its plain version)."""
+    import warnings
+
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+    from sleap_nn_tpu_torch.inference.predictors import TopDownPredictor
+
+    frames = smoke_frames()
+    kw = dict(batch_size=BATCH, peak_threshold=DIR_PEAK_THRESHOLD, max_instances=MAX_INST,
+              device=DEVICE)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        legacy = TopDownPredictor.from_trained_models(
+            centroid_ckpt_path=str(root / "centroid"),
+            confmap_ckpt_path=str(root / "centered_instance"), **kw)
+    deps = [str(w.message) for w in caught if issubclass(w.category, DeprecationWarning)]
+    if len(deps) != 1 or "TopDownPredictor.from_trained_models is deprecated" not in deps[0]:
+        raise AssertionError(f"phase 44: deprecation warnings {deps}")
+    legacy.predict(frame_labels(frames[:BATCH]), make_labels=False)  # warm-up
+    sync()
+    seen, calls = set(), []
+    with recording_kernel_calls(seen, calls):
+        got, launches = run_counted(kernels, lambda: legacy.predict(frame_labels(frames)))
+    n_batches = -(-N_FRAMES // BATCH)
+    expect_launches("the legacy TopDownPredictor", launches, phase=44,
+                    fused_double_conv3x3=18 * n_batches, nms_scores=n_batches)
+    want = Predictor.from_model_paths([root / "centroid", root / "centered_instance"],
+                                      **kw).predict(frame_labels(frames))
+    same, dist, masks = labels_distance(got, want)
+    if not (same and dist == 0.0):
+        raise AssertionError(f"phase 44: the shim's Labels differ: counts {same}, {dist} px")
+    held = check_recorded_calls(calls)
+    bad = [r for r in held if not r["ok"]]
+    log("legacy_shim " + json.dumps({
+        "warning": deps[0], "launches": launches, "instances": sum(len(lf) for lf in got),
+        "fps": got.provenance["stats"]["fps"], "signatures_held": len(held), "bad": bad,
+        "smi": smi}))
+    if bad:
+        raise AssertionError(f"phase 44: kernel calls off their plain versions: {bad}")
+    return {"shim_topdown": {"launches": launches, "n_batches": n_batches}}, held
+
 
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
@@ -6706,7 +7137,28 @@ def main() -> int:
     export_runs, export_held, export_rows = run_export(_build.KERNELS, export_dirs, smi)
     phase40_s = time.perf_counter() - t_phase
     log(f"phases 40-41: {phase40_s:.1f} s")
+
+    # 42. Data-parallel predict from the dirs above: one replica a card, and
+    # two replicas on one card, against the plain predictor.
+    t_phase = time.perf_counter()
+    dp_runs, dp_held, dp_rows = run_data_parallel_predict(_build.KERNELS, root, seg_dir_paths,
+                                                          smi)
+    phase42_s = time.perf_counter() - t_phase
+    log(f"phase 42: {phase42_s:.1f} s")
     seg_tmp.cleanup()
+
+    # 43. The config tooling: config-generate, config --auto, config, then
+    # train() from get_config keyword arguments and predict from its dirs.
+    t_phase = time.perf_counter()
+    cfg_runs, cfg_held, cfg_rows = run_config_tooling(_build.KERNELS, smi)
+    phase43_s = time.perf_counter() - t_phase
+    log(f"phase 43: {phase43_s:.1f} s")
+
+    # 44. The legacy TopDownPredictor on phase 7 + 11's dirs.
+    t_phase = time.perf_counter()
+    shim_runs, shim_held = run_legacy_shim(_build.KERNELS, root, smi)
+    phase44_s = time.perf_counter() - t_phase
+    log(f"phase 44: {phase44_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -6721,14 +7173,17 @@ def main() -> int:
             "model_dir_multi_class_bottomup": dir_mbu, "model_dir_multi_class_topdown": dir_mtd,
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
             **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
-            **ddp_runs, **seg_runs, **seg_train_runs, **monitored, **profiled, **export_runs}
+            **ddp_runs, **seg_runs, **seg_train_runs, **monitored, **profiled, **export_runs,
+            **dp_runs, **cfg_runs, **shim_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
                                     "tiled_train": tiled_train_held,
                                     "backbone": backbone_held,
                                     "backbone_train": bb_train_held, "ddp": ddp_held,
-                                    "segmentation": seg_held, "export": export_held})
+                                    "segmentation": seg_held, "export": export_held,
+                                    "data_parallel": dp_held, "config_tooling": cfg_held,
+                                    "legacy_shim": shim_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -6790,6 +7245,21 @@ def main() -> int:
         f"{EXPORT_BATCH}): "
         + ", ".join(f"{r['name']} {r['precision']} {r['fps_export']:.2f} / "
                     f"{r['fps_model_dir']:.2f}" for r in export_rows if "fps_export" in r)
+        + f"; phase 42 {phase42_s:.1f} s, data-parallel frames/s (plain / one replica a card / "
+        f"two replicas on one card): "
+        + ", ".join(f"{r['name']} {r['fps']['plain']:.2f} / {r['fps']['one_replica_a_card']:.2f}"
+                    f" / {r['fps']['two_replicas_one_card']:.2f}" for r in dp_rows)
+        + f"; phase 43 {phase43_s:.1f} s, centroid from get_config keywords (quality / "
+        f"throughput): {cfg_rows['quality']['steps_per_sec']:.2f} / "
+        f"{cfg_rows['throughput']['steps_per_sec']:.2f} steps/s, peak "
+        f"{cfg_rows['quality']['peak_gib'] or 0:.2f} / {cfg_rows['throughput']['peak_gib'] or 0:.2f}"
+        f" GiB against an estimate of {cfg_rows['quality']['estimate_total_gib']:.2f} / "
+        f"{cfg_rows['throughput']['estimate_total_gib']:.2f} GiB, centered-instance stage "
+        f"(crop {cfg_rows['quality']['instance_crop']} / {cfg_rows['throughput']['instance_crop']})"
+        f" {cfg_rows['quality']['instance_steps_per_sec']:.2f} / "
+        f"{cfg_rows['throughput']['instance_steps_per_sec']:.2f} steps/s, top-down predict "
+        f"{cfg_rows['quality']['fps']:.2f} / {cfg_rows['throughput']['fps']:.2f} frames/s; "
+        f"phase 44 {phase44_s:.1f} s; {smi}"
         + f"; total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

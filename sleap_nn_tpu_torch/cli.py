@@ -11,8 +11,9 @@ port's ``train.run_training``, ``inference.run.predict``,
 ``tracking.run_tracker`` and ``evaluation.run_evaluation``. ``--device``
 takes ``auto|cuda|cpu`` where JAX takes ``auto|tpu|cpu``: unset and
 ``auto`` mean the card (and raise without one); only ``cpu`` runs on the
-CPU. ``sam``, ``config``, ``config-generate`` and ``export`` parse their
-options as in JAX, then exit with 1 naming their ROADMAP item. Knobs of
+CPU. ``config`` and ``config-generate`` run the port's config generator
+(``config_generator/``) and ``export`` the port's exporter; ``sam`` parses
+its options as in JAX, then exits with 1 naming its ROADMAP item. Knobs of
 features the port lacks reach ``run.predict``, which refuses them. The
 interactive progress is one rewritten stderr line with a rolling
 frames/s.
@@ -339,6 +340,9 @@ def _comma_floats(value: str) -> Tuple[float, ...]:
         raise argparse.ArgumentTypeError(f"{value!r} is not a comma-separated float list")
 
 
+_comma_floats.param_name = "floats"  # click's name of the JAX command's type
+
+
 def _int_list(value: str) -> List[int]:
     """'1,3,5' -> [1, 3, 5]."""
     try:
@@ -414,8 +418,11 @@ INFERENCE_OPTIONS = [
         O("--data-parallel/--no-data-parallel",
             "--data_parallel/--no-data_parallel", "data_parallel",
             default=False, show_default=True,
-            help="Data-parallel inference over all local cards; not ported "
-                 "(ROADMAP.md section 1, item 13b): raises."),
+            help="Data-parallel inference over all local cards: each batch's "
+                 "rows split evenly over one replica of the models per card. "
+                 "--batch-size must divide by the card count. Currently "
+                 "slower than one card: one host thread enqueues every "
+                 "replica's work."),
         O("--host-resize/--no-host-resize", "host_resize",
             default=False, show_default=True,
             help="Downscale frames on the host before transfer "
@@ -1287,9 +1294,62 @@ def info(model_dir):
              "(output_stride=4, <=384 px scale, crop 128)."),
     Arg("overrides", required=False, nargs=-1),
 ])
-def config_cmd(**kw):
-    """Validate a config YAML, or generate one from a SLEAP file (not ported)."""
-    return _not_ported("config", "13b")
+def config_cmd(path, output, auto, pipeline, show_yaml, preset, overrides):
+    """Validate a config YAML, or generate one from a SLEAP file.
+
+    With a YAML argument: validate and print it (with optional dotted
+    OVERRIDES). With an .slp argument: generate a recommended training
+    config, with ``--auto`` without questions, otherwise in the interactive
+    front end.
+    """
+    from sleap_nn_tpu_torch.config.base import to_yaml
+
+    if path is not None and str(path).endswith((".yaml", ".yml", ".json")):
+        from sleap_nn_tpu_torch.config import TrainingJobConfig, verify_training_cfg
+
+        cfg = TrainingJobConfig.load_yaml(path, overrides=_parse_overrides(overrides))
+        verify_training_cfg(cfg)
+        echo(to_yaml(cfg))
+        return None
+    if not auto:
+        from sleap_nn_tpu_torch.config_generator.tui import launch_tui
+
+        launch_tui(path, output_path=output)
+        return None
+    if not path:
+        raise UsageError("SLP_PATH is required for --auto mode.")
+    from sleap_nn_tpu_torch.config_generator import (
+        analyze_slp,
+        generate_config,
+        recommend_config,
+    )
+    from sleap_nn_tpu_torch.config_generator.recommender import recommend_throughput_preset
+
+    stats = analyze_slp(path)
+    rec = recommend_config(stats)
+    if pipeline:
+        rec.pipeline.pipeline = pipeline
+        # The preset's knobs depend on the pipeline (a crop only for the
+        # top-down families): recompute them for the one asked for.
+        rec.throughput_preset = recommend_throughput_preset(stats, pipeline, rec.backbone)
+    _require_preset(preset, rec)
+    if show_yaml:
+        echo(to_yaml(generate_config(path, output_path=None, stats=stats,
+                                     recommendation=rec, preset=preset)))
+        return None
+    out = output or str(Path(path).parent / f"{Path(path).stem}_config.yaml")
+    generate_config(path, output_path=out, stats=stats, recommendation=rec, preset=preset)
+    if preset == "throughput":
+        echo(f"Throughput preset: {rec.throughput_preset['note']}")
+    echo(f"Saved config to: {out}")
+    return None
+
+
+def _require_preset(preset: str, rec) -> None:
+    if preset == "throughput" and rec.throughput_preset is None:
+        raise UsageError(
+            f"No measured throughput preset for the recommended backbone "
+            f"({rec.backbone}); rerun without --preset.")
 
 
 @command("export", [
@@ -1351,9 +1411,26 @@ def export(model_dir, fmt, device, opset_version, workspace_size_gb, **kw):
         help="'throughput' applies the fast-inference knobs "
              "(output_stride=4, <=384 px scale, crop 128)."),
 ])
-def config_generate(**kw):
-    """Analyze a dataset and generate a recommended training config (not ported)."""
-    return _not_ported("config-generate", "13b")
+def config_generate(slp_path, output, max_epochs, preset):
+    """Analyze a dataset and generate a recommended training config."""
+    from sleap_nn_tpu_torch.config_generator import (
+        analyze_slp,
+        generate_config,
+        recommend_config,
+    )
+
+    stats = analyze_slp(slp_path)
+    rec = recommend_config(stats)
+    _require_preset(preset, rec)
+    generate_config(slp_path, output_path=output, stats=stats, recommendation=rec,
+                    max_epochs=max_epochs, preset=preset)
+    echo(json.dumps({
+        "pipeline": rec.pipeline.pipeline,
+        "reason": rec.pipeline.reason,
+        "recommendation": rec.summary(),
+        "preset": preset,
+        "output": output,
+    }, indent=2))
 
 
 def _group_help() -> str:

@@ -56,6 +56,7 @@
 namespace {
 
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a block may take
+constexpr int MAX_DEVICES = 64;      // devices whose shared-memory limit is tracked
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores, 8 x 16 output tile, halo staged 16 channels at a time,
@@ -632,12 +633,18 @@ cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w
     return cudaErrorMisalignedAddress;
   const size_t smem = layout(th, tw, c_in, c_mid, c_out).total;
   if (smem > MAX_SMEM) return cudaErrorInvalidConfiguration;
-  static bool attr_set = false;  // the limit is per function: raise it once
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel<MINB, WNMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  // The limit belongs to the function on one device: raise it once a device
+  // (the current one, which the wrapper sets to the tensors').
+  static bool attr_set[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!attr_set[device]) {
+    err = cudaFuncSetAttribute(kernel<MINB, WNMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MAX_SMEM);
     if (err != cudaSuccess) return err;
-    attr_set = true;
+    attr_set[device] = true;
   }
   const int tiles_w = (W + tw - 1) / tw, tiles_h = (H + th - 1) / th;
   kernel<MINB, WNMAX><<<dim3(tiles_h * tiles_w, B), THREADS, smem, stream>>>(

@@ -434,8 +434,9 @@ class BottomUpMultiClassLayer(InferenceLayer):
             return_rough=True,
         )
         # Class-map grid coordinates. A 0-dim tensor divisor: ATen's CUDA
-        # division by a Python scalar multiplies by its reciprocal.
-        stride = torch.tensor(float(self.class_maps_output_stride), device=points.device)
+        # division by a Python scalar multiplies by its reciprocal. Filled on
+        # the card: a tensor copied from the host would wait for the stream.
+        stride = torch.full((), float(self.class_maps_output_stride), device=points.device)
         grid = points * self.cm_output_stride / stride
         b, h, w, _ = class_maps.shape
         xy = torch.round(torch.nan_to_num(grid)).long()

@@ -24,7 +24,10 @@ a second copy stream brings the outputs back into pinned buffers and
 records an event; a fetch thread waits on each event in submission order,
 converts to numpy and runs the layer's host step (``postprocess_host``:
 the PAF grouping of a bottom-up layer), then lifts host-resized
-coordinates back. With ``paf_workers > 0`` a bottom-up layer's grouping
+coordinates back. With ``data_parallel``, the main thread copies and
+enqueues each replica's rows of the batch in turn (each replica past the
+first on streams of its own), and the fetch thread joins the replicas'
+outputs in row order before the host step. With ``paf_workers > 0`` a bottom-up layer's grouping
 runs in a process pool instead, and results keep submission order.
 """
 
@@ -38,12 +41,12 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from sleap_nn_tpu_torch.config import get_head_config
+from sleap_nn_tpu_torch.config import get_backbone_type_from_cfg, get_head_config
 from sleap_nn_tpu_torch.inference.backends import TorchBackend, resolve_device
 from sleap_nn_tpu_torch.inference.filters import FilterPipeline
 from sleap_nn_tpu_torch.inference.identity import group_and_assemble
@@ -81,18 +84,28 @@ from sleap_nn_tpu_torch.io.model import (
 )
 from sleap_nn_tpu_torch.io.video import rgb_to_gray_uint8
 from sleap_nn_tpu_torch.models.model import swap_subtrees
+from sleap_nn_tpu_torch.parallel.mesh import get_mesh, replicate, shard_batch_spec
 
 logger = logging.getLogger("sleap_nn_tpu_torch")
 
 # Knobs of the JAX ``from_model_paths`` whose features the port lacks:
 # name -> (the value that asks for nothing, why another value raises).
 UNPORTED_KNOBS = {
-    "data_parallel": (False, "data-parallel inference over several cards is not ported "
-                             "(ROADMAP.md section 1, item 13)"),
     "packed_level0": (None, "packed_level0 selects the JAX package's space-to-depth TPU "
                             "layout (ops/packed_conv.py), which the port has no copy of"),
 }
 SEGMENTATION_TYPES = ("bottomup_segmentation", "semantic_segmentation", "topdown_segmentation")
+
+
+class _Built(NamedTuple):
+    """What ``from_model_paths`` builds on one device: the layer, and the
+    model type, model, class names and skeleton of its predictor."""
+
+    layer: Any
+    model_type: str
+    model: LoadedModel
+    class_names: Optional[List[str]] = None
+    skeleton: Optional[Skeleton] = None
 
 
 def refuse_unported(knobs: Dict[str, Any], table: Dict[str, tuple], where: str) -> None:
@@ -180,6 +193,61 @@ def _move_resize_to_host(loaded: Sequence[LoadedModel], types) -> Optional[tuple
     return transform
 
 
+def _host_numpy(done, host: Dict[str, Any]) -> Dict[str, Any]:
+    """Wait for a batch's copies to the host (``done``: their event, or
+    None), then its outputs as numpy."""
+    if done is not None:
+        done.synchronize()
+    return {k: (np.array(v.numpy()) if torch.is_tensor(v) else v) for k, v in host.items()}
+
+
+class _Replicas:
+    """The replicas of one ``predict`` run: a layer a device of the mesh.
+    The first is the predictor's own layer, on its device's current stream
+    and the predictor's copy streams; every other replica has copy and
+    compute streams of its own on a card, so that two replicas on one card
+    overlap as two cards do.
+
+    :meth:`enqueue` splits a batch into contiguous rows, one block a
+    replica (the batch divides: the providers pad every batch to the
+    predictor's batch size, which ``from_model_paths`` checks), sends each
+    replica its rows and enqueues its device work and its copy back, one
+    replica after another on the calling thread; :meth:`join` puts the
+    fetched outputs together in row order, so the layer's host step sees
+    one batch. Row outputs are the layer's device tensors of one or more
+    dimensions; anything else (a 0-d tensor, an array the layer made on the
+    host such as the frames' size) is the same on every replica."""
+
+    def __init__(self, layers: Sequence, mesh: Sequence[torch.device], h2d, d2h):
+        self.layers = list(layers)
+        self.mesh = list(mesh)
+        self.streams = [(h2d, d2h, None)] + [
+            tuple(torch.cuda.Stream(d) for _ in range(3)) if d.type == "cuda" else (None,) * 3
+            for d in self.mesh[1:]]
+
+    def enqueue(self, predictor: "Predictor", arrays: List[np.ndarray]) -> List[tuple]:
+        """Each replica's fetch: (event or None, host dict, names of the row
+        outputs)."""
+        fetched = []
+        for layer, device, (h2d, d2h, compute), rows in zip(
+                self.layers, self.mesh, self.streams, shard_batch_spec(len(arrays[0]), self.mesh)):
+            with torch.cuda.stream(compute) if compute is not None else contextlib.nullcontext():
+                out = layer.predict_async(*[predictor._send(a[rows], h2d, device) for a in arrays])
+                fetched.append((*predictor._fetch_async(out, d2h, device),
+                                {k for k, v in out.items() if torch.is_tensor(v) and v.ndim}))
+        return fetched
+
+    @staticmethod
+    def join(fetched: List[tuple]) -> Dict[str, Any]:
+        """The replicas' outputs as numpy, one batch in row order."""
+        outs = [_host_numpy(done, host) for done, host, _ in fetched]
+        if len(outs) == 1:
+            return outs[0]
+        row_keys = fetched[0][2]
+        return {k: np.concatenate([o[k] for o in outs]) if k in row_keys else first
+                for k, first in outs[0].items()}
+
+
 class Predictor:
     """Runs batched inference of one layer over a frame source.
 
@@ -230,6 +298,10 @@ class Predictor:
         # outlines simplified by polygon_epsilon of their perimeter.
         self.mask_output = "mask"
         self.polygon_epsilon = 0.01
+        # The devices of the replicas and their layers (``replicas[0]`` is
+        # ``layer``): one unless from_model_paths(data_parallel=...).
+        self.mesh: List[torch.device] = [self.device]
+        self.replicas: List = [layer]
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -280,6 +352,7 @@ class Predictor:
         full_res_masks: bool = False,
         mask_output: str = "mask",
         polygon_epsilon: float = 0.01,
+        data_parallel: Union[bool, Sequence] = False,
         device="cuda",
         **unported,
     ) -> "Predictor":
@@ -306,7 +379,16 @@ class Predictor:
         scale to the host (cv2 ``INTER_AREA``, before the copy to the
         device), for the keypoint type sets on full frames whose stages
         preprocess alike. The layers run on ``device`` (the card unless
-        ``"cpu"``); the fused double-conv kernel runs there on a card."""
+        ``"cpu"``); the fused double-conv kernel runs there on a card.
+
+        ``data_parallel=True`` builds one replica of every backend and
+        layer on each CUDA device this process sees (one on the CPU), or
+        on each device of a list (``parallel.get_mesh(devices=...)``; a
+        device may repeat). Each batch splits into contiguous rows, one
+        block a replica, and the outputs join in row order before the
+        host step; ``batch_size`` must divide by the replica count. One
+        host thread enqueues every replica's work, which makes several
+        cards slower than one today."""
         refuse_unported(unported, UNPORTED_KNOBS, "from_model_paths")
         device = resolve_device(device)
         loaded = [load_model(p) for p in model_paths]
@@ -339,183 +421,214 @@ class Predictor:
         types = set(by_type)
         host_transform = _move_resize_to_host(loaded, types) if host_resize else None
 
-        def post_for() -> PostprocessConfig:
-            return PostprocessConfig(
-                peak_threshold=peak_threshold,
-                refinement=refinement,
-                integral_patch_size=integral_patch_size,
-                max_instances=max_instances,
-                max_peaks=max_peaks,
-                k_per_node=k_per_node,
-                min_line_scores=min_line_scores,
-                return_confmaps=return_confmaps,
-                return_paf_graph=return_paf_graph,
-            )
+        def build(device):
+            """The layer of the type set, on ``device``."""
+            def post_for() -> PostprocessConfig:
+                return PostprocessConfig(
+                    peak_threshold=peak_threshold,
+                    refinement=refinement,
+                    integral_patch_size=integral_patch_size,
+                    max_instances=max_instances,
+                    max_peaks=max_peaks,
+                    k_per_node=k_per_node,
+                    min_line_scores=min_line_scores,
+                    return_confmaps=return_confmaps,
+                    return_paf_graph=return_paf_graph,
+                )
 
-        def backend_for(m: LoadedModel) -> TorchBackend:
-            return TorchBackend(m.model, m.params, use_bf16=use_bf16, device=device)
+            def backend_for(m: LoadedModel) -> TorchBackend:
+                return TorchBackend(m.model, m.params, use_bf16=use_bf16, device=device)
 
-        def skeleton_for(m: LoadedModel) -> Skeleton:
-            return Skeleton(nodes=m.skeleton_nodes, edges=m.skeleton_edges)
+            def centroid_stage() -> CentroidLayer:
+                """The top-down pair's centroid layer."""
+                mc = by_type["centroid"]
+                post_c = post_for()
+                post_c.max_instances = max_instances or 20
+                if centroid_peak_threshold is not None:
+                    post_c.peak_threshold = centroid_peak_threshold
+                return CentroidLayer(
+                    backend_for(mc), _pre_config(mc), post_c,
+                    output_stride=get_head_config(mc.config).confmaps.output_stride, device=device)
 
-        def make(layer, model_type, m, class_names=None, skeleton=None):
-            p = cls(layer, model_type, skeleton or skeleton_for(m), loaded, batch_size,
-                    device=device, paf_workers=paf_workers, filters=filters)
-            p.class_names = class_names
-            p._host_transform = host_transform
-            p.mask_output = mask_output
-            p.polygon_epsilon = polygon_epsilon
-            return p
+            def topdown_stages(mi):
+                """The centroid layer and the centered-instance layer of ``mi``,
+                with its crop size."""
+                centroid_layer = centroid_stage()
+                inst_pre = _pre_config(mi)
+                instance_layer = CenteredInstanceLayer(
+                    backend_for(mi), inst_pre, post_for(),
+                    output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
+                return dict(centroid_layer=centroid_layer, instance_layer=instance_layer,
+                            max_instances=max_instances or 20,
+                            crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
 
-        def centroid_stage() -> CentroidLayer:
-            """The top-down pair's centroid layer."""
-            mc = by_type["centroid"]
-            post_c = post_for()
-            post_c.max_instances = max_instances or 20
-            if centroid_peak_threshold is not None:
-                post_c.peak_threshold = centroid_peak_threshold
-            return CentroidLayer(
-                backend_for(mc), _pre_config(mc), post_c,
-                output_stride=get_head_config(mc.config).confmaps.output_stride, device=device)
+            if types == {"single_instance"}:
+                m = by_type["single_instance"]
+                layer = SingleInstanceLayer(
+                    backend_for(m), _pre_config(m), post_for(),
+                    output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
+                return _Built(layer, "single_instance", m)
 
-        def topdown_stages(mi):
-            """The centroid layer and the centered-instance layer of ``mi``,
-            with its crop size."""
-            centroid_layer = centroid_stage()
-            inst_pre = _pre_config(mi)
-            instance_layer = CenteredInstanceLayer(
-                backend_for(mi), inst_pre, post_for(),
-                output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
-            return dict(centroid_layer=centroid_layer, instance_layer=instance_layer,
-                        max_instances=max_instances or 20,
-                        crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
+            if types == {"centroid"}:
+                m = by_type["centroid"]
+                layer = CentroidLayer(
+                    backend_for(m), _pre_config(m), post_for(),
+                    output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
+                return _Built(layer, "centroid", m, skeleton=Skeleton(nodes=["centroid"]))
 
-        if types == {"single_instance"}:
-            m = by_type["single_instance"]
-            layer = SingleInstanceLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
-            return make(layer, "single_instance", m)
+            if types == {"centroid", "centered_instance"}:
+                mi = by_type["centered_instance"]
+                return _Built(TopDownLayer(**topdown_stages(mi)), "topdown", mi)
 
-        if types == {"centroid"}:
-            m = by_type["centroid"]
-            layer = CentroidLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                output_stride=get_head_config(m.config).confmaps.output_stride, device=device)
-            return make(layer, "centroid", m, skeleton=Skeleton(nodes=["centroid"]))
+            if types == {"centroid", "multi_class_topdown"}:
+                mi = by_type["multi_class_topdown"]
+                classes = list(get_head_config(mi.config).class_vectors.classes)
+                layer = TopDownMultiClassLayer(**topdown_stages(mi), n_classes=len(classes))
+                return _Built(layer, "multi_class_topdown", mi, classes)
 
-        if types == {"centroid", "centered_instance"}:
-            mi = by_type["centered_instance"]
-            return make(TopDownLayer(**topdown_stages(mi)), "topdown", mi)
+            if types == {"multi_class_bottomup"}:
+                m = by_type["multi_class_bottomup"]
+                head = get_head_config(m.config)
+                classes = list(head.class_maps.classes)
+                layer = BottomUpMultiClassLayer(
+                    backend_for(m), _pre_config(m), post_for(),
+                    n_nodes=len(head.confmaps.part_names), n_classes=len(classes),
+                    cm_output_stride=head.confmaps.output_stride,
+                    class_maps_output_stride=head.class_maps.output_stride, device=device)
+                return _Built(layer, "multi_class_bottomup", m, classes)
 
-        if types == {"centroid", "multi_class_topdown"}:
-            mi = by_type["multi_class_topdown"]
-            classes = list(get_head_config(mi.config).class_vectors.classes)
-            layer = TopDownMultiClassLayer(**topdown_stages(mi), n_classes=len(classes))
-            return make(layer, "multi_class_topdown", mi, classes)
+            if types == {"bottomup"}:
+                m = by_type["bottomup"]
+                head = get_head_config(m.config)
+                scorer = PAFScorer(
+                    part_names=head.confmaps.part_names,
+                    edges=[tuple(e) for e in head.pafs.edges],
+                    pafs_stride=head.pafs.output_stride,
+                    max_edge_length_ratio=max_edge_length_ratio,
+                    dist_penalty_weight=dist_penalty_weight,
+                    n_points=n_points,
+                    min_instance_peaks=min_instance_peaks,
+                    min_line_scores=min_line_scores,
+                    k_per_node=k_per_node,
+                )
+                layer = BottomUpLayer(backend_for(m), _pre_config(m), post_for(), paf_scorer=scorer,
+                                      cm_output_stride=head.confmaps.output_stride, device=device)
+                return _Built(layer, "bottomup", m)
 
-        if types == {"multi_class_bottomup"}:
-            m = by_type["multi_class_bottomup"]
-            head = get_head_config(m.config)
-            classes = list(head.class_maps.classes)
-            layer = BottomUpMultiClassLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                n_nodes=len(head.confmaps.part_names), n_classes=len(classes),
-                cm_output_stride=head.confmaps.output_stride,
-                class_maps_output_stride=head.class_maps.output_stride, device=device)
-            return make(layer, "multi_class_bottomup", m, classes)
+            if types == {"centered_instance"}:
+                mi = by_type["centered_instance"]
+                inst_pre = _pre_config(mi)
+                instance_layer = CenteredInstanceLayer(
+                    backend_for(mi), inst_pre, post_for(),
+                    output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
+                layer = GTCentroidTopDownLayer(
+                    instance_layer, max_instances=max_instances or 20,
+                    crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
+                if anchor_part is not None:
+                    nodes = list(mi.skeleton_nodes)
+                    if anchor_part not in nodes:
+                        raise ValueError(
+                            f"anchor_part {anchor_part!r} is not a skeleton node; nodes: {nodes}.")
+                    layer.anchor_ind = nodes.index(anchor_part)
+                return _Built(layer, "topdown", mi)
 
-        if types == {"bottomup"}:
-            m = by_type["bottomup"]
-            head = get_head_config(m.config)
-            scorer = PAFScorer(
-                part_names=head.confmaps.part_names,
-                edges=[tuple(e) for e in head.pafs.edges],
-                pafs_stride=head.pafs.output_stride,
-                max_edge_length_ratio=max_edge_length_ratio,
-                dist_penalty_weight=dist_penalty_weight,
-                n_points=n_points,
-                min_instance_peaks=min_instance_peaks,
-                min_line_scores=min_line_scores,
-                k_per_node=k_per_node,
-            )
-            layer = BottomUpLayer(backend_for(m), _pre_config(m), post_for(), paf_scorer=scorer,
-                                  cm_output_stride=head.confmaps.output_stride, device=device)
-            return make(layer, "bottomup", m)
+            if types == {"centroid", "centered_instance_segmentation"}:
+                ms = by_type["centered_instance_segmentation"]
+                seg_pre = _pre_config(ms)
+                layer = TopDownSegmentationLayer(
+                    centroid_stage(), backend_for(ms), seg_pre,
+                    seg_output_stride=get_head_config(ms.config).segmentation.output_stride,
+                    fg_threshold=fg_threshold, max_instances=max_instances or 20,
+                    crop_size=_crop_size(ms, crop_size, seg_pre,
+                                         "centered_instance_segmentation"),
+                    device=device)
+                return _Built(layer, "topdown_segmentation", ms,
+                              skeleton=Skeleton(nodes=["centroid"]))
 
-        if types == {"centered_instance"}:
-            mi = by_type["centered_instance"]
-            inst_pre = _pre_config(mi)
-            instance_layer = CenteredInstanceLayer(
-                backend_for(mi), inst_pre, post_for(),
-                output_stride=get_head_config(mi.config).confmaps.output_stride, device=device)
-            layer = GTCentroidTopDownLayer(
-                instance_layer, max_instances=max_instances or 20,
-                crop_size=_crop_size(mi, crop_size, inst_pre), device=device)
-            if anchor_part is not None:
-                nodes = list(mi.skeleton_nodes)
-                if anchor_part not in nodes:
-                    raise ValueError(
-                        f"anchor_part {anchor_part!r} is not a skeleton node; nodes: {nodes}.")
-                layer.anchor_ind = nodes.index(anchor_part)
-            return make(layer, "topdown", mi)
+            if types == {"bottomup_segmentation"}:
+                m = by_type["bottomup_segmentation"]
+                head = get_head_config(m.config)
+                layer = BottomUpSegmentationLayer(
+                    backend_for(m), _pre_config(m), post_for(),
+                    seg_output_stride=head.segmentation.output_stride,
+                    center_output_stride=head.center.output_stride,
+                    offsets_output_stride=head.offsets.output_stride,
+                    max_instances=max_instances or 50, min_mask_area=min_mask_area,
+                    merge_fragments=merge_fragments, merge_method=merge_method,
+                    fg_threshold=fg_threshold, center_nms_kernel=center_nms_kernel,
+                    distance_gate_alpha=distance_gate_alpha, mask_cleanup=mask_cleanup,
+                    mask_cleanup_radius=mask_cleanup_radius, merge_dilate=merge_dilate,
+                    merge_w_valley=merge_w_valley, merge_w_offset=merge_w_offset,
+                    merge_thresholds=merge_thresholds, full_res_masks=full_res_masks,
+                    device=device)
+                return _Built(layer, "bottomup_segmentation", m,
+                            skeleton=Skeleton(nodes=["centroid"]))
 
-        if types == {"centroid", "centered_instance_segmentation"}:
-            ms = by_type["centered_instance_segmentation"]
-            seg_pre = _pre_config(ms)
-            layer = TopDownSegmentationLayer(
-                centroid_stage(), backend_for(ms), seg_pre,
-                seg_output_stride=get_head_config(ms.config).segmentation.output_stride,
-                fg_threshold=fg_threshold, max_instances=max_instances or 20,
-                crop_size=_crop_size(ms, crop_size, seg_pre,
-                                     "centered_instance_segmentation"),
-                device=device)
-            return make(layer, "topdown_segmentation", ms, skeleton=Skeleton(nodes=["centroid"]))
+            if types == {"semantic_segmentation"}:
+                m = by_type["semantic_segmentation"]
+                layer = SemanticSegmentationLayer(
+                    backend_for(m), _pre_config(m), post_for(),
+                    seg_output_stride=get_head_config(m.config).segmentation.output_stride,
+                    fg_threshold=fg_threshold, full_res_masks=full_res_masks, device=device)
+                return _Built(layer, "semantic_segmentation", m, skeleton=Skeleton(nodes=["fg"]))
+            raise ValueError(f"Unsupported model type combination: {sorted(types)}")
 
-        if types == {"bottomup_segmentation"}:
-            m = by_type["bottomup_segmentation"]
-            head = get_head_config(m.config)
-            layer = BottomUpSegmentationLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                seg_output_stride=head.segmentation.output_stride,
-                center_output_stride=head.center.output_stride,
-                offsets_output_stride=head.offsets.output_stride,
-                max_instances=max_instances or 50, min_mask_area=min_mask_area,
-                merge_fragments=merge_fragments, merge_method=merge_method,
-                fg_threshold=fg_threshold, center_nms_kernel=center_nms_kernel,
-                distance_gate_alpha=distance_gate_alpha, mask_cleanup=mask_cleanup,
-                mask_cleanup_radius=mask_cleanup_radius, merge_dilate=merge_dilate,
-                merge_w_valley=merge_w_valley, merge_w_offset=merge_w_offset,
-                merge_thresholds=merge_thresholds, full_res_masks=full_res_masks,
-                device=device)
-            return make(layer, "bottomup_segmentation", m,
-                        skeleton=Skeleton(nodes=["centroid"]))
-
-        if types == {"semantic_segmentation"}:
-            m = by_type["semantic_segmentation"]
-            layer = SemanticSegmentationLayer(
-                backend_for(m), _pre_config(m), post_for(),
-                seg_output_stride=get_head_config(m.config).segmentation.output_stride,
-                fg_threshold=fg_threshold, full_res_masks=full_res_masks, device=device)
-            return make(layer, "semantic_segmentation", m, skeleton=Skeleton(nodes=["fg"]))
-        raise ValueError(f"Unsupported model type combination: {sorted(types)}")
+        mesh = [device]
+        if data_parallel:
+            # One replica of every backend and layer a device of the mesh,
+            # each predicting its contiguous rows of every batch.
+            mesh = get_mesh(devices=None if data_parallel is True else data_parallel,
+                            device=device)
+            if batch_size % len(mesh) != 0:
+                raise ValueError(
+                    f"data_parallel inference needs batch_size divisible "
+                    f"by the device count: batch_size={batch_size}, "
+                    f"devices={len(mesh)}.")
+            mesh = [resolve_device(d) for d in mesh]
+            device = mesh[0]
+        built = build(device)
+        p = cls(built.layer, built.model_type,
+                built.skeleton or Skeleton(nodes=built.model.skeleton_nodes,
+                                           edges=built.model.skeleton_edges),
+                loaded, batch_size, device=device, paf_workers=paf_workers, filters=filters)
+        p.class_names = built.class_names
+        p._host_transform = host_transform
+        p.mask_output = mask_output
+        p.polygon_epsilon = polygon_epsilon
+        p.mesh = mesh
+        p.replicas = [built.layer] + [r.layer for r in replicate(build, mesh[1:])]
+        logger.info("Loaded inference model | " + " | ".join([
+            f"type={'+'.join(m.model_type for m in loaded)}",
+            f"backbone={get_backbone_type_from_cfg(loaded[0].config)}",
+            f"nodes={len(p.skeleton.nodes)}",
+            f"device={device}",
+            f"replicas={len(mesh)}",
+            f"batch_size={batch_size}",
+            f"peak_threshold={peak_threshold}",
+            f"max_instances={max_instances}",
+            f"integral_refinement={refinement}",
+            f"paf_workers={paf_workers}",
+        ]))
+        return p
 
     # -- prediction -----------------------------------------------------------
-    def _scoped_postprocess_layer(self, **overrides):
-        """The layer with the given ``return_confmaps`` /
-        ``return_paf_graph`` (None: as built): a shallow copy of it and of
-        its stage layers, sharing their backends, with post configs of
-        their own; the predictor's own layer when nothing changes. So
-        concurrent calls on one predictor cannot clobber each other."""
-        stages = [n for n in ("centroid_layer", "instance_layer") if hasattr(self.layer, n)]
-        posts = [getattr(self.layer, n).post for n in stages]
-        if hasattr(self.layer, "post"):
-            posts.append(self.layer.post)
+    def _scoped_postprocess_layer(self, layer=None, **overrides):
+        """The layer (the predictor's, or ``layer``) with the given
+        ``return_confmaps`` / ``return_paf_graph`` (None: as built): a
+        shallow copy of it and of its stage layers, sharing their backends,
+        with post configs of their own; the layer itself when nothing
+        changes. So concurrent calls on one predictor cannot clobber each
+        other."""
+        layer = self.layer if layer is None else layer
+        stages = [n for n in ("centroid_layer", "instance_layer") if hasattr(layer, n)]
+        posts = [getattr(layer, n).post for n in stages]
+        if hasattr(layer, "post"):
+            posts.append(layer.post)
         overrides = {k: bool(v) for k, v in overrides.items()
                      if v is not None and any(getattr(p, k) != bool(v) for p in posts)}
         if not overrides:
-            return self.layer
-        scoped = copy.copy(self.layer)
+            return layer
+        scoped = copy.copy(layer)
         for name in stages:
             stage = copy.copy(getattr(scoped, name))
             stage.post = dataclasses.replace(stage.post, **overrides)
@@ -613,27 +726,29 @@ class Predictor:
                                      for peaks, e, ep, ls in graphs]
         return out
 
-    def _send(self, frames: np.ndarray, h2d) -> torch.Tensor:
-        """Host frames -> device, through pinned memory on the copy stream."""
+    def _send(self, frames: np.ndarray, h2d, device: torch.device) -> torch.Tensor:
+        """Host frames -> ``device``, through pinned memory on the copy
+        stream, for that device's current stream."""
         host = torch.from_numpy(np.ascontiguousarray(frames))
         if h2d is None:
-            return host.to(self.device)
+            return host.to(device)
         host = host.pin_memory()
-        compute = torch.cuda.current_stream(self.device)
+        compute = torch.cuda.current_stream(device)
         with torch.cuda.stream(h2d):
-            dev = host.to(self.device, non_blocking=True)
+            dev = host.to(device, non_blocking=True)
         compute.wait_stream(h2d)
         dev.record_stream(compute)
         return dev
 
-    def _fetch_async(self, out: Dict[str, Any], d2h):
-        """Enqueue device -> pinned host copies; returns (event or None, host dict).
+    def _fetch_async(self, out: Dict[str, Any], d2h, device: torch.device):
+        """Enqueue device -> pinned host copies after ``device``'s current
+        stream; returns (event or None, host dict).
 
         bf16 tensors come back as f32 (exact): numpy has no bfloat16.
         """
         if d2h is None:
             return None, to_host(out)
-        d2h.wait_stream(torch.cuda.current_stream(self.device))
+        d2h.wait_stream(torch.cuda.current_stream(device))
         host = {}
         with torch.cuda.stream(d2h):
             for k, v in out.items():
@@ -669,6 +784,10 @@ class Predictor:
         if scoped_layer is not self.layer:
             scoped = copy.copy(self)
             scoped.layer = scoped_layer
+            scoped.replicas = [scoped_layer] + [
+                self._scoped_postprocess_layer(r, return_confmaps=return_confmaps,
+                                               return_paf_graph=return_paf_graph)
+                for r in self.replicas[1:]]
             return scoped.predict(data, frames, make_labels, provider)
         provider = provider or self._make_provider(data, frames)
         videos = self._provider_videos(provider)
@@ -682,6 +801,7 @@ class Predictor:
         cuda = self.device.type == "cuda"
         h2d = torch.cuda.Stream(self.device) if cuda else None
         d2h = torch.cuda.Stream(self.device) if cuda else None
+        replicas = _Replicas(self.replicas, self.mesh, h2d, d2h)
         results: List[Dict[str, Any]] = []
         errors: List[Exception] = []
         fetch_q: "queue.Queue" = queue.Queue(maxsize=3)
@@ -717,11 +837,8 @@ class Predictor:
                 if errors:
                     continue  # keep draining so the producer never blocks
                 try:
-                    (done, host), batch, factor = item
-                    if done is not None:
-                        done.synchronize()
-                    out = {k: (np.array(v.numpy()) if torch.is_tensor(v) else v)
-                           for k, v in host.items()}
+                    fetched, batch, factor = item
+                    out = replicas.join(fetched)  # one batch again, before the host step
                     if pool is None:
                         emit(self.layer.postprocess_host(out), batch, factor)
                         continue
@@ -742,13 +859,12 @@ class Predictor:
                 for batch, frames_b, factor in batches:
                     if errors:
                         break
-                    args = [self._send(frames_b, h2d)]
+                    arrays = [frames_b]
                     if getattr(self.layer, "needs_gt_centroids", False):
                         # The centroids of every row, padded ones too.
-                        args += [self._send(a, h2d) for a in (
-                            batch.gt_centroids, batch.gt_centroid_valid, batch.gt_centroid_vals)]
-                    out = self.layer.predict_async(*args)
-                    fetch_q.put((self._fetch_async(out, d2h), batch, factor))
+                        arrays += [batch.gt_centroids, batch.gt_centroid_valid,
+                                   batch.gt_centroid_vals]
+                    fetch_q.put((replicas.enqueue(self, arrays), batch, factor))
             finally:
                 fetch_q.put(None)
                 thread.join()

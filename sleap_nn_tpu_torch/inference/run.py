@@ -17,7 +17,7 @@ a ``tracker``) the predicted ``Labels`` are tracked on the host
 (``tracking.run_tracker``, its knobs passed as keyword arguments).
 ``profile_dir`` writes a ``torch.profiler`` trace of the predict loop
 (``profiling.trace``). What the port lacks raises ``NotImplementedError``
-naming its ROADMAP.md item: SAM masks (item 13) and the
+naming its ROADMAP.md item: SAM masks (item 13b) and the
 ``from_model_paths`` knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
 refused: ``fetch_remote_data`` needs the network and stays out of the
 port.
@@ -45,7 +45,7 @@ from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
 
 logger = logging.getLogger("sleap_nn_tpu_torch")
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
-_ITEM13 = "(ROADMAP.md section 1, item 13)"
+_ITEM13 = "(ROADMAP.md section 1, item 13b)"
 
 # Knobs of the JAX ``predict`` whose features the port lacks: name -> (the
 # value that asks for nothing, why another value raises).
@@ -161,6 +161,7 @@ def predict(
     polygon_epsilon: float = 0.01,
     runtime: str = "auto",
     profile_dir: Optional[Union[str, Path]] = None,
+    data_parallel: bool = False,
     **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
@@ -190,6 +191,10 @@ def predict(
     ``ValueError``); the program baked the peak threshold, refinement and
     peak count, and a differing request is logged as ignored.
     ``profile_dir`` traces the predict loop into that directory.
+    ``data_parallel`` predicts with one replica of the models on each card
+    this process sees (``Predictor.from_model_paths``); an export dir
+    ignores it, as in the JAX package. It is currently slower than one
+    card: one host thread enqueues every replica's work.
     """
     unported = {k: tracker_kwargs.pop(k) for k in list(tracker_kwargs)
                 if k in UNPORTED_RUN_KNOBS}
@@ -348,6 +353,7 @@ def predict(
             full_res_masks=full_res_masks,
             mask_output=mask_output,
             polygon_epsilon=polygon_epsilon,
+            data_parallel=data_parallel,
             device=device or "cuda",
         )
     predictor.centroid_output = centroid_output

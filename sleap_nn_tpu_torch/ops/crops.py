@@ -69,13 +69,15 @@ def crop_bboxes(
     dev = images.device
     top_left = bboxes[:, 0, :]  # (n, 2) (x, y)
     invalid = torch.isnan(top_left).any(dim=-1)
-    # The reference's legacy floor, trunc(x + half) - half.
-    half = torch.tensor([crop_width // 2, crop_height // 2], device=dev)
-    tl = torch.trunc(torch.nan_to_num(top_left) + half.to(top_left.dtype)).long() - half
-    # Invalid crops start at the corner of the zero padding.
-    tl = torch.where(invalid[:, None], -torch.tensor([crop_width, crop_height], device=dev), tl)
-    start_y = _dynamic_slice_start(tl[:, 1] + crop_height, h + 2 * crop_height, crop_height)
-    start_x = _dynamic_slice_start(tl[:, 0] + crop_width, w + 2 * crop_width, crop_width)
+    # The reference's legacy floor, trunc(x + half) - half; invalid crops
+    # start at the corner of the zero padding. Python scalars, not tensors
+    # made on the host: copying one to the card would wait for its stream.
+    start = []
+    for i, size, dim in ((1, crop_height, h), (0, crop_width, w)):
+        corner = torch.trunc(torch.nan_to_num(top_left[:, i]) + size // 2).long() - size // 2
+        corner = torch.where(invalid, -size, corner)
+        start.append(_dynamic_slice_start(corner + size, dim + 2 * size, size))
+    start_y, start_x = start
     ys = start_y[:, None] - crop_height + torch.arange(crop_height, device=dev)
     xs = start_x[:, None] - crop_width + torch.arange(crop_width, device=dev)
     inside = (((ys >= 0) & (ys < h))[:, :, None] & ((xs >= 0) & (xs < w))[:, None, :])

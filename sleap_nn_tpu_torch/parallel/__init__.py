@@ -1,4 +1,5 @@
-"""Data-parallel training over processes (DDP).
+"""Data-parallel training over processes (DDP), and the replicas of
+data-parallel inference (``mesh.get_mesh``).
 
 Port of ``sleap_nn_tpu/parallel/``: where the JAX package shards a batch
 over a 1-D ``data`` mesh and lets XLA all-reduce the gradients, each
@@ -21,7 +22,10 @@ from sleap_nn_tpu_torch.parallel.distributed import (
 )
 from sleap_nn_tpu_torch.parallel.mesh import (
     available_devices,
+    get_mesh,
     num_devices,
+    replicate,
+    shard_batch_spec,
     shard_rows,
 )
 
@@ -30,6 +34,7 @@ __all__ = [
     "available_devices",
     "barrier",
     "broadcast_object",
+    "get_mesh",
     "initialize_distributed",
     "is_multiprocess",
     "local_batch_size",
@@ -37,6 +42,8 @@ __all__ = [
     "num_devices",
     "process_count",
     "process_index",
+    "replicate",
+    "shard_batch_spec",
     "shard_rows",
     "sync_cache_fill_status",
 ]

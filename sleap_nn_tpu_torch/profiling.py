@@ -29,7 +29,14 @@ def trace(trace_dir, device=None):
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(str(trace_dir))) as prof:
-        yield prof
+        try:
+            yield prof
+        finally:
+            if cuda:
+                # The block's last kernels finish inside the trace: CUPTI
+                # records a kernel once it completes, and a block may end
+                # with work still queued (a training's last epoch-end viz).
+                torch.cuda.synchronize(device)
 
 
 def trace_files(trace_dir):

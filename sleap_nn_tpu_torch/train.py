@@ -103,28 +103,44 @@ def train(
     overrides: Optional[Dict] = None,
     **kwargs,
 ) -> ModelTrainer:
-    """Train from a YAML config: ``config_path`` loaded with ``overrides``,
+    """Train from a YAML config, or from keyword arguments.
+
+    With ``config_path``: the YAML loaded with ``overrides``,
     ``train_labels_path`` (one path or a list) in place of the config's,
-    and each keyword argument set on ``trainer_config``; then
+    and each keyword argument set on ``trainer_config``. Without it, the
+    keyword arguments build the config through ``config.get_config`` (a
+    ``backbone_config`` preset name or ``{"unet" | "convnext" | "swint" |
+    "pretrained": {...}}`` dict, ``head_configs``, preprocessing,
+    augmentation and every trainer knob), then ``overrides`` apply. Then
     :func:`run_training`, on the card, or on the CPU where
     ``trainer_config.trainer_accelerator`` is ``"cpu"`` (the JAX trainer's
     switch to its CPU backend).
-
-    Without ``config_path`` the JAX package builds the config from keyword
-    arguments (``config/get_config.py``), which is not ported (ROADMAP.md
-    section 1, item 13b): that raises ``NotImplementedError``.
     """
-    if config_path is None:
-        raise NotImplementedError(
-            "train() without config_path builds the config from keyword arguments through "
-            "config/get_config.py, which is not ported (ROADMAP.md section 1, item 13b): "
-            "pass config_path")
-    config = TrainingJobConfig.load_yaml(config_path, overrides=overrides)
-    if train_labels_path:
-        config.data_config.train_labels_path = (
-            [train_labels_path] if isinstance(train_labels_path, (str, Path))
-            else list(train_labels_path))
-    for key, value in kwargs.items():
-        setattr(config.trainer_config, key, value)
+    if isinstance(train_labels_path, (str, Path)):
+        train_labels_path = [train_labels_path]
+    if config_path is not None:
+        config = TrainingJobConfig.load_yaml(config_path, overrides=overrides)
+        if train_labels_path:
+            config.data_config.train_labels_path = list(train_labels_path)
+        for key, value in kwargs.items():
+            setattr(config.trainer_config, key, value)
+    else:
+        from sleap_nn_tpu_torch.config.base import apply_overrides
+        from sleap_nn_tpu_torch.config.get_config import get_config
+
+        # The reference's keyword names -> get_config's.
+        for ref_name, name in (("backbone_config", "backbone"),
+                               ("geometry_aug", "geometric_aug"),
+                               ("init_weight", "init_weights")):
+            if ref_name in kwargs:
+                kwargs[name] = kwargs.pop(ref_name)
+        use_aug = kwargs.pop("use_augmentations_train", None)
+        if train_labels_path:
+            kwargs["train_labels_path"] = list(train_labels_path)
+        config = get_config(**kwargs)
+        if use_aug is not None:
+            config.data_config.use_augmentations_train = bool(use_aug)
+        if overrides:
+            apply_overrides(config, overrides)
     accel = (config.trainer_config.trainer_accelerator or "auto").lower()
     return run_training(config, device="cpu" if accel == "cpu" else "cuda")

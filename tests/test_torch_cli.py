@@ -477,9 +477,8 @@ def test_eval_kwargs_and_summary_match(recorders, tmp_path, capsys, line, metric
 def test_unported_commands_exit_naming_their_item(tmp_path, capsys):
     f = tmp_path / "x.slp"
     f.touch()
+    # config and config-generate are ported (tests/test_torch_config_tooling.py).
     for argv, item in ((["sam", "-i", str(f), "--mask-backend", "sam3"], "item 13b"),
-                       (["config", str(f), "--auto"], "item 13b"),
-                       (["config-generate", str(f)], "item 13b"),
                        (["export", str(tmp_path), "--format", "savedmodel"], "JAX package")):
         if argv[0] == "export":  # ported: the JAX package's formats raise
             with pytest.raises(ValueError, match=item):
@@ -498,12 +497,15 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
     base = ["predict", "-i", clip, "-m", str(dirs["single_instance"].cond), "--device", "cpu",
             "-o", str(tmp_path / "o.slp")]
     for extra, match in ((["--runtime", "stablehlo"], "JAX package"),
-                         (["--data-parallel"], "item 13"),
+                         (["--data-parallel"], None),
                          (["--profile-dir", str(tmp_path / "p")], None),
                          (["--stream-mode", "stream"], "fetch_remote_data")):
-        if match is None:  # ported: a trace of the run
+        if match is None:  # ported: one replica on the CPU; a trace of the run
+            (tmp_path / "o.slp").unlink(missing_ok=True)
             assert pcli.main(base + extra) == 0
-            assert len(list((tmp_path / "p").glob("*.pt.trace.json"))) == 1
+            assert (tmp_path / "o.slp").exists()
+            if "--profile-dir" in extra:
+                assert len(list((tmp_path / "p").glob("*.pt.trace.json"))) == 1
             continue
         error = ValueError if "--runtime" in extra else NotImplementedError
         with pytest.raises(error, match=match):

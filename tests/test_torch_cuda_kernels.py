@@ -640,3 +640,89 @@ def test_exported_program_launches_the_kernels_where_it_is_loaded(cuda, tmp_path
             assert got[k].device.type == "cuda"
             assert torch.equal(torch.isnan(got[k]), torch.isnan(v)), k
             assert torch.equal(torch.nan_to_num(got[k]), torch.nan_to_num(v)), k
+
+
+def test_every_kernel_runs_on_every_card(cuda):
+    """Each kernel on each card the process sees, the last first, against
+    its plain version on that card: what a launch sets on a device (kernel
+    1's raised shared-memory limit) must be set on each, not once for the
+    first (data-parallel predict puts a replica on every card)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(11)
+    for i in reversed(range(n)):
+        dev = torch.device("cuda", i)
+        x = torch.from_numpy(rng.standard_normal((2, 37, 45, 90), dtype=np.float32))
+        w1 = rng.standard_normal((3, 3, 90, 36), dtype=np.float32) / np.sqrt(9 * 90)
+        w2 = rng.standard_normal((3, 3, 36, 36), dtype=np.float32) / np.sqrt(9 * 36)
+        b1, b2 = (rng.standard_normal(36, dtype=np.float32) * 0.1 for _ in range(2))
+        conv = [x.to(dev, torch.bfloat16)] + [torch.from_numpy(a).to(dev)
+                                              for a in (w1, b1, w2, b2)]
+        got, want = fused_double_conv3x3(*conv), _plain_double_conv(*conv)
+        top = want.float().abs().max().item()
+        assert got.device == dev
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (np.floor(np.log2(top))
+                                                                          - 7)
+        cms = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(dev)
+        assert torch.equal(nms_scores(cms, 0.2), _plain_nms_scores(cms, 0.2))
+        pafs, peaks, mask, edges = _paf_inputs(i, 2, 64, 80, 15, 20, 14, 4, dev)
+        args = (pafs.to(torch.bfloat16), peaks, mask, edges, line_fractions(10, dev), 4,
+                80.0, 1.0)
+        got, want = paf_line_scores(*args), _plain_paf_line_scores(*args)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=1e-5)
+        pts = torch.from_numpy(rng.uniform(0, 512, (4, 6, 15, 2)).astype(np.float32)).to(dev)
+        xv, yv = make_grid_vectors(256, 256, 2, device=dev)
+        torch.testing.assert_close(multi_confmaps(pts, xv, yv, 5.0),
+                                   _plain_multi_confmaps(pts, xv, yv, 5.0), rtol=0, atol=1e-6)
+
+
+def test_the_predict_path_never_waits_for_the_card(cuda):
+    """Local and global peaks, the integral refinement and the crop gather
+    enqueue their work without a host sync (``set_sync_debug_mode``
+    raises on one): a sync in a layer's ``predict_async`` serializes the
+    replicas of data-parallel predict. ``crop_bboxes`` once copied
+    host-made tensors to the card, which waits for the stream."""
+    from sleap_nn_tpu_torch.ops.crops import crop_bboxes, make_centered_bboxes
+    from sleap_nn_tpu_torch.ops.peaks import find_global_peaks, find_local_peaks
+
+    rng = np.random.default_rng(5)
+    cms = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(cuda,
+                                                                              torch.bfloat16)
+    images = torch.from_numpy(rng.random((2, 128, 128, 1), dtype=np.float32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        points, vals, channels, valid = find_local_peaks(cms, 0.2, "integral", 5, max_peaks=20)
+        find_global_peaks(cms, 0.2, "integral", 5)
+        bboxes = make_centered_bboxes(points.reshape(-1, 2) * 2, 32, 32)  # NaN: empty crops
+        sample_inds = torch.arange(2, device=cuda).repeat_interleave(20)
+        crops = crop_bboxes(images, bboxes, sample_inds, 32, 32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert crops.shape == (40, 32, 32, 1)
+
+
+def test_a_trace_holds_the_last_kernels_of_its_block(cuda, tmp_path):
+    """``profiling.trace`` ends after the block's queued work: a block that
+    ends with kernels still queued behind a long one (no sync, as a
+    training's last epoch-end viz) has every launch in its trace."""
+    import json
+
+    from sleap_nn_tpu_torch.profiling import trace, trace_files
+
+    big = torch.randn(8192, 8192, device=cuda)
+    cms = torch.rand(8, 512, 512, 1, device=cuda)
+    torch.cuda.synchronize()
+    with trace(tmp_path, cuda):
+        for _ in range(4):
+            big = big @ big / 8192.0  # a few ms each, queued ahead of the kernels
+        for _ in range(5):
+            nms_scores(cms, 0.2)
+    (path,) = trace_files(tmp_path)
+    events = json.loads(path.read_text())["traceEvents"]
+    launched = [ev for ev in events if ev.get("cat") == "kernel"
+                and "nms_scores_kernel" in ev["name"]]
+    assert len(launched) == 5

@@ -11,7 +11,8 @@ outline segmentation masks, so a module of the port imports where either
 is missing (``scipy.ndimage``, for mask clean-up, the fragment merge and
 the boundary metrics, is imported inside functions too). So are the
 training monitors' optional packages: ``zmq`` (the GUI's sockets),
-``matplotlib`` (the viz PNGs) and ``wandb`` (absent: the local run). Only the modules that build and
+``matplotlib`` (the viz PNGs) and ``wandb`` (absent: the local run), and
+``curses``, which only the config generator's front end draws with. Only the modules that build and
 load native code (the CUDA kernels of ``ops/``, the C++ grouping of
 ``native/``) and the system report (which asks nvcc, g++ and nvidia-smi
 for their versions) start programs or load libraries (``subprocess``,
@@ -30,7 +31,7 @@ PORT = ROOT / "sleap_nn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx",
              "h5py", "click", "rich", "safetensors", "transformers")
 # Blocked while importing every port module; only a function body may import it.
-LAZY = ("yaml", "cv2", "zmq", "matplotlib", "wandb")
+LAZY = ("yaml", "cv2", "zmq", "matplotlib", "wandb", "curses")
 # The modules that may start a compiler or load a shared library.
 NATIVE = ("subprocess", "ctypes")
 NATIVE_OK = {"sleap_nn_tpu_torch/ops/_build.py", "sleap_nn_tpu_torch/ops/kernels.py",

@@ -458,7 +458,7 @@ def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
 
 @pytest.mark.parametrize("knob,value,match", [
     ("merge_method", "iou", None),
-    ("data_parallel", True, "item 13"),
+    ("data_parallel", True, None),
     ("packed_level0", True, "TPU layout"),
     ("min_mask_area", 10, None),
     ("center_nms_kernel", 5, None),
@@ -470,13 +470,17 @@ def test_jax_trained_orbax_dir_loads_and_predicts_alike(tmp_path):
 def test_from_model_paths_refuses_unported_knobs(dirs, knob, value, match):
     if match is None:
         # A segmentation knob (ported): on a pose model it does nothing, in
-        # the JAX package as in the port.
+        # the JAX package as in the port. data_parallel (ported): one
+        # replica on the CPU, the plain outputs; the JAX package's batch
+        # must divide its 8 virtual devices (tests/test_torch_data_parallel.py
+        # holds the port's replicas against it).
         video = _video()
         got = Predictor.from_model_paths(_paths(dirs, "single_instance"), device="cpu",
                                          **{knob: value}).predict(video, make_labels=False)
         plain = Predictor.from_model_paths(_paths(dirs, "single_instance"),
                                            device="cpu").predict(video, make_labels=False)
-        JaxPredictor.from_model_paths(_paths(dirs, "single_instance"), **{knob: value})
+        JaxPredictor.from_model_paths(_paths(dirs, "single_instance"), **{knob: value},
+                                      **({"batch_size": 8} if knob == "data_parallel" else {}))
         _assert_same(got, plain)
         return
     with pytest.raises(NotImplementedError, match=match):
@@ -518,7 +522,7 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"sam_backend": "jax"}, "item 13"),
     ({"headers": {"Authorization": "x"}}, "fetch_remote_data"),
     ({"stream_mode": "stream"}, "fetch_remote_data"),
-    ({"data_parallel": True}, "item 13"),
+    ({"data_parallel": True, "batch_size": 8}, None),
     ({"merge_method": "iou"}, None),
     ({"min_mask_area": 5}, None),
     ({"merge_thresholds": (0.9, 0.5, 0.3)}, None),
@@ -529,9 +533,9 @@ def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
               **{k: tmp_path / v[6:] if str(v).startswith("<tmp>/") else v
                  for k, v in kwargs.items()}}
     if match is None:
-        # Mask tracking and the segmentation knobs are ported: on a pose
-        # model's frames (no masks) the port gives what the JAX package
-        # gives, tracks included.
+        # Mask tracking, the segmentation knobs and data_parallel are
+        # ported: on a pose model's frames (no masks) the port gives what
+        # the JAX package gives, tracks included.
         paths = _paths(dirs, "single_instance")
         frames = blob_frames(N_FRAMES, seed=9)
         kwargs.pop("data_path")

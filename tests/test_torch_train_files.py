@@ -304,6 +304,21 @@ def test_train_from_a_config_path_matches_jax(files, tmp_path):
     _assert_same_splits(want, got)
 
 
-def test_train_without_config_path_names_item_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        ptrain.train(["x.slp"], max_epochs=1)
+def test_train_without_config_path_builds_it_from_keywords_like_jax(files):
+    """``train()`` without ``config_path``: the keyword arguments (the
+    reference's aliases ``backbone_config`` and ``geometry_aug`` among
+    them) build the config through ``get_config``, then ``overrides``
+    apply; the same config, splits and epochs as the JAX package's."""
+    kwargs = dict(backbone_config={"unet": {"filters": 8, "max_stride": 8}},
+                  head_configs={"centroid": {"confmaps": {"sigma": 2.5}}},
+                  geometry_aug="rotation", ensure_grayscale=True, batch_size=2,
+                  max_epochs=3, train_steps_per_epoch=1, trainer_accelerator="cpu",
+                  overrides={"trainer_config.max_epochs": 2, "trainer_config.seed": 5})
+    want = jtrain.train(str(files / "emb.pkg.slp"), **copy.deepcopy(kwargs))
+    got = ptrain.train(str(files / "emb.pkg.slp"), **copy.deepcopy(kwargs))
+    assert got.device.type == "cpu"
+    assert len(got.history) == len(want.history) == 2
+    assert got.config.to_dict() == want.config.to_dict()
+    assert got.config.model_config.backbone_config.unet.filters == 8
+    assert got.config.data_config.augmentation_config.geometric.affine_p == 1.0
+    _assert_same_splits(want, got)
