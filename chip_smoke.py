@@ -386,6 +386,19 @@ Phases, each of which raises on failure (exit code != 0):
 44. The legacy shim (``run_legacy_shim``, line ``legacy_shim``):
     ``TopDownPredictor.from_trained_models`` on phase 7 + 11's dirs warns
     once and gives ``Predictor.from_model_paths``' ``Labels`` bit for bit.
+45. SAM prompted masks (``run_sam_review``, lines ``sam_card_vs_cpu`` and
+    ``sam_review``): a top-down ``run.predict`` from phase 7 + 11's dirs
+    writes a pose ``.slp`` of 8 frames (kernels 1 and 2 counted, every call
+    held); the script writes a random-init SAM snapshot at the published
+    ViT-H widths (1280 wide, 32 layers, 16 heads, global attention at 7,
+    15, 23 and 31, window 14, a 64x64 grid), runs ``sam -i poses.slp
+    --mask-backend sam_jax --sam-model-id SNAPSHOT --overlay-path ...`` in
+    process (float32) and ``JaxSamBackend(use_bf16=True)`` on the same
+    frames; one mask a prompted instance, the poses kept, the
+    ``.masks.slp`` read back equal, the overlay written, a 4-layer witness
+    (the last global) card against CPU, bf16 IoU scores near float32's.
+    Prints the encoder, decode and host ms a frame, the command's frames/s
+    and the peak device memory.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -5957,17 +5970,24 @@ class VizDeviceHalf:
 
 def trace_kernels(trace_dir):
     """The one trace file of ``trace_dir``: its device kernel events by port
-    kernel, the device kernel events in all, and the file's MB."""
+    kernel, the device kernel events in all, the file's MB, and the kernel
+    launches the trace records on the host with no device event (records
+    the profiler dropped: where the GPU's and the host's clocks disagree,
+    Kineto drops GPU records it times outside the trace's window, counting
+    them "Out-of-range" in its log; F5 in ROADMAP section 3)."""
     from sleap_nn_tpu_torch.profiling import trace_files
 
     files = trace_files(trace_dir)
     if len(files) != 1:
         raise AssertionError(f"{trace_dir}: {len(files)} trace files, expected 1")
     events = json.loads(files[0].read_text())["traceEvents"]
-    device = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
-    counts = {k: sum(any(s in name for s in subs) for name in device)
+    device = [ev for ev in events if ev.get("cat") == "kernel"]
+    counts = {k: sum(any(s in ev["name"] for s in subs) for ev in device)
               for k, subs in TRACE_NAMES.items()}
-    return counts, len(device), files[0].stat().st_size / 2**20
+    seen = {ev.get("args", {}).get("correlation") for ev in device}
+    lost = sum(1 for ev in events if ev.get("cat") == "cuda_runtime" and "LaunchKernel" in
+               ev.get("name", "") and ev.get("args", {}).get("correlation") not in seen)
+    return counts, len(device), files[0].stat().st_size / 2**20, lost
 
 
 def expected_events(steps_per_epoch):
@@ -6016,82 +6036,91 @@ def run_monitored_training(kernels, smi):
                 training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
                                 run_name=f"plain_{mt}", **base), [train], [val], device=DEVICE)
             plain_hist = plain.train()
-            sockets = GuiSockets() if imports["zmq"] else None
-            monitors = dict(visualize_preds_during_training=imports["matplotlib"], keep_viz=True,
-                            use_wandb=True, wandb={"wandb_mode": "offline"}, profiler="pytorch")
-            if sockets is not None:
-                monitors["zmq"] = {"publish_port": sockets.pub_port,
-                                   "controller_port": sockets.ctl_port}
-            trainer = ModelTrainer.get_model_trainer_from_config(
-                training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
-                                run_name=f"monitored_{mt}", **base, **monitors),
-                [train], [val], device=DEVICE)
-            blocked = sys.modules.get("wandb")
-            sys.modules["wandb"] = None  # the local run: no network from this phase
-            try:
-                for k in kernels.values():
-                    k.launches = 0
-                trainer.setup()
-                if not imports["matplotlib"]:
-                    trainer.callbacks.append(VizDeviceHalf())
+            for attempt in (1, 2):
+                sockets = GuiSockets() if imports["zmq"] else None
+                monitors = dict(visualize_preds_during_training=imports["matplotlib"], keep_viz=True,
+                                use_wandb=True, wandb={"wandb_mode": "offline"}, profiler="pytorch")
                 if sockets is not None:
-                    trainer.callbacks.append(Commander(sockets, MONITOR_PLAN))
-                    sockets.pump(trainer)
-                history = trainer.train()
-                sync()
-                launches = {name: k.launches for name, k in kernels.items()}
-                events = sockets.received() if sockets is not None else []
-            finally:
-                if blocked is None:
-                    del sys.modules["wandb"]
-                else:
-                    sys.modules["wandb"] = blocked
+                    monitors["zmq"] = {"publish_port": sockets.pub_port,
+                                       "controller_port": sockets.ctl_port}
+                trainer = ModelTrainer.get_model_trainer_from_config(
+                    training_config(24, 32, TRAIN_IMG, TRAIN_BATCH, augment=True, model_type=mt,
+                                    run_name=f"monitored_{mt}" + "_again" * (attempt - 1),
+                                    **base, **monitors),
+                    [train], [val], device=DEVICE)
+                blocked = sys.modules.get("wandb")
+                sys.modules["wandb"] = None  # the local run: no network from this phase
+                try:
+                    for k in kernels.values():
+                        k.launches = 0
+                    trainer.setup()
+                    if not imports["matplotlib"]:
+                        trainer.callbacks.append(VizDeviceHalf())
+                    if sockets is not None:
+                        trainer.callbacks.append(Commander(sockets, MONITOR_PLAN))
+                        sockets.pump(trainer)
+                    history = trainer.train()
+                    sync()
+                    launches = {name: k.launches for name, k in kernels.items()}
+                    events = sockets.received() if sockets is not None else []
+                finally:
+                    if blocked is None:
+                        del sys.modules["wandb"]
+                    else:
+                        sys.modules["wandb"] = blocked
+                    if sockets is not None:
+                        sockets.close()
+                run = trainer.ckpt_dir
+                steps = [TRAIN_STEPS, 3] if sockets is not None else [TRAIN_STEPS] * TRAIN_EPOCHS
+                n_val, n_viz = len(trainer.val_loader), len(steps)
+                renders = sum(steps) + len(steps) * n_val + 1 + n_viz
+                expect_launches(f"monitored {mt} training", launches, phase=38,
+                                multi_confmaps=renders, nms_scores=n_viz)
+                row = {"launches": launches, "n_batches": {"multi_confmaps": renders,
+                                                           "nms_scores": max(n_viz, 1)},
+                       "viz_nms_launches": launches["nms_scores"], "steps": steps}
                 if sockets is not None:
-                    sockets.close()
-            run = trainer.ckpt_dir
-            steps = [TRAIN_STEPS, 3] if sockets is not None else [TRAIN_STEPS] * TRAIN_EPOCHS
-            n_val, n_viz = len(trainer.val_loader), len(steps)
-            renders = sum(steps) + len(steps) * n_val + 1 + n_viz
-            expect_launches(f"monitored {mt} training", launches, phase=38,
-                            multi_confmaps=renders, nms_scores=n_viz)
-            row = {"launches": launches, "n_batches": {"multi_confmaps": renders,
-                                                       "nms_scores": max(n_viz, 1)},
-                   "viz_nms_launches": launches["nms_scores"], "steps": steps}
-            if sockets is not None:
-                names = [ev["event"] for ev in events]
-                want = expected_events(steps)
-                if names != want and names != want[:-1]:  # train_end may not arrive
-                    raise AssertionError(f"phase 38 {mt}: events {names}, expected {want}")
-                stopped = [(ev["epoch"], ev["batch"]) for ev in events
-                           if ev["event"] == "batch_end"][-1]
-                lr = trainer.optimizer.param_groups[0]["lr"]
-                if stopped != (1, 2) or history[0]["learning_rate"] != MONITOR_LR \
-                        or lr != MONITOR_LR or len(history) != 2:
-                    raise AssertionError(f"phase 38 {mt}: stopped at {stopped}, lr "
-                                         f"{history[0]['learning_rate']} / {lr}")
-                row.update(events=len(events), event_order="jax", train_end_received=
-                           names[-1] == "train_end", stopped_at=list(stopped),
-                           lr_after_set_lr=lr, lr_logged=history[0]["learning_rate"])
-            pngs = sorted(p.name for p in (run / "viz").iterdir()) \
-                if imports["matplotlib"] else []
-            want_pngs = [f"epoch_{e:04d}{s}.png" for e in range(len(steps))
-                         for s in ("",) + (("_pafs",) if mt == "bottomup" else ())]
-            if imports["matplotlib"] and pngs != sorted(want_pngs):
-                raise AssertionError(f"phase 38 {mt}: viz files {pngs}")
-            (local,) = (run / "wandb").glob("offline-run-*")
-            wandb_files = sorted(p.name for p in local.iterdir())
-            if not {"config.json", "metrics.jsonl", "summary.json"} <= set(wandb_files):
-                raise AssertionError(f"phase 38 {mt}: local wandb run {wandb_files}")
-            counts, n_dev, trace_mb = trace_kernels(run / "profile")
-            # The trace starts with train(): setup's probe render is outside it.
-            if DEVICE != "cpu" and (counts["multi_confmaps"] != launches["multi_confmaps"] - 1
-                                    or counts["nms_scores"] != launches["nms_scores"]
-                                    or not counts["nms_scores"]):
-                raise AssertionError(f"phase 38 {mt}: trace kernels {counts}, launches "
-                                     f"{launches}")
+                    names = [ev["event"] for ev in events]
+                    want = expected_events(steps)
+                    if names != want and names != want[:-1]:  # train_end may not arrive
+                        raise AssertionError(f"phase 38 {mt}: events {names}, expected {want}")
+                    stopped = [(ev["epoch"], ev["batch"]) for ev in events
+                               if ev["event"] == "batch_end"][-1]
+                    lr = trainer.optimizer.param_groups[0]["lr"]
+                    if stopped != (1, 2) or history[0]["learning_rate"] != MONITOR_LR \
+                            or lr != MONITOR_LR or len(history) != 2:
+                        raise AssertionError(f"phase 38 {mt}: stopped at {stopped}, lr "
+                                             f"{history[0]['learning_rate']} / {lr}")
+                    row.update(events=len(events), event_order="jax", train_end_received=
+                               names[-1] == "train_end", stopped_at=list(stopped),
+                               lr_after_set_lr=lr, lr_logged=history[0]["learning_rate"])
+                pngs = sorted(p.name for p in (run / "viz").iterdir()) \
+                    if imports["matplotlib"] else []
+                want_pngs = [f"epoch_{e:04d}{s}.png" for e in range(len(steps))
+                             for s in ("",) + (("_pafs",) if mt == "bottomup" else ())]
+                if imports["matplotlib"] and pngs != sorted(want_pngs):
+                    raise AssertionError(f"phase 38 {mt}: viz files {pngs}")
+                (local,) = (run / "wandb").glob("offline-run-*")
+                wandb_files = sorted(p.name for p in local.iterdir())
+                if not {"config.json", "metrics.jsonl", "summary.json"} <= set(wandb_files):
+                    raise AssertionError(f"phase 38 {mt}: local wandb run {wandb_files}")
+                counts, n_dev, trace_mb, lost = trace_kernels(run / "profile")
+                # The trace starts with train(): setup's probe render is outside it.
+                if DEVICE != "cpu" and (counts["multi_confmaps"] != launches["multi_confmaps"] - 1
+                                        or counts["nms_scores"] != launches["nms_scores"]
+                                        or not counts["nms_scores"]):
+                    if lost and attempt == 1:  # the profiler dropped device records (F5)
+                        log(f"monitored_training_{mt}_trace_lost " + json.dumps(
+                            {"lost_device_records": lost, "trace_kernel_events": counts,
+                             "launches": launches}))
+                        continue
+                    raise AssertionError(f"phase 38 {mt}: trace kernels {counts}, launches "
+                                         f"{launches}, device records lost {lost}")
+                break
             row.update(
                 pngs=pngs, wandb_files=wandb_files, trace_kernel_events=counts,
-                trace_device_kernels=n_dev, trace_mb=trace_mb,
+                trace_device_kernels=n_dev, trace_mb=trace_mb, trace_attempts=attempt,
+                trace_device_records_lost=lost,
                 steps_per_sec_monitored=[h["train/steps_per_sec"] for h in history],
                 steps_per_sec_plain=[h["train/steps_per_sec"] for h in plain_hist],
                 smi=smi)
@@ -6113,18 +6142,29 @@ def run_profiled_predict(kernels, dirs, smi):
     predict(frame_labels(frames[:BATCH]), dirs, make_labels=False, **kw)  # warm-up
     plain = predict(frame_labels(frames), dirs, **kw)
     with tempfile.TemporaryDirectory() as tmp:
-        traced, launches = run_counted(kernels, lambda: predict(
-            frame_labels(frames), dirs, profile_dir=Path(tmp) / "prof", **kw))
-        counts, n_dev, trace_mb = trace_kernels(Path(tmp) / "prof")
+        for attempt in (1, 2):
+            prof = Path(tmp) / f"prof{attempt}"
+            traced, launches = run_counted(kernels, lambda: predict(
+                frame_labels(frames), dirs, profile_dir=prof, **kw))
+            counts, n_dev, trace_mb, lost = trace_kernels(prof)
+            if not (DEVICE != "cpu" and lost and attempt == 1
+                    and any(counts[k] != launches[k] for k in counts)):
+                break
+            # The profiler dropped device records (F5): trace the run again.
+            log("profiled_predict_trace_lost " + json.dumps(
+                {"lost_device_records": lost, "trace_kernel_events": counts,
+                 "launches": launches}))
     n_batches = -(-N_FRAMES // BATCH)
     expect_launches("profiled top-down predict", launches, phase=39,
                     fused_double_conv3x3=18 * n_batches, nms_scores=n_batches)
     if DEVICE != "cpu" and any(counts[k] != launches[k] for k in counts):
-        raise AssertionError(f"phase 39: trace kernels {counts}, launches {launches}")
+        raise AssertionError(f"phase 39: trace kernels {counts}, launches {launches}, "
+                             f"device records lost {lost}")
     if [len(lf) for lf in traced] != [len(lf) for lf in plain]:
         raise AssertionError("phase 39: the traced run's instances differ")
     row = {"launches": launches, "n_batches": n_batches, "trace_kernel_events": counts,
-           "trace_device_kernels": n_dev, "trace_mb": trace_mb,
+           "trace_device_kernels": n_dev, "trace_mb": trace_mb, "trace_attempts": attempt,
+           "trace_device_records_lost": lost,
            "fps_traced": traced.provenance["stats"]["fps"],
            "fps_plain": plain.provenance["stats"]["fps"], "smi": smi}
     log("profiled_predict " + json.dumps(row))
@@ -6740,6 +6780,364 @@ def run_legacy_shim(kernels, root, smi):
     return {"shim_topdown": {"launches": launches, "n_batches": n_batches}}, held
 
 
+# --------------------------------------------------------------------------
+# Phase 45: SAM prompted masks (the mask-review workflow)
+# --------------------------------------------------------------------------
+
+# The published facebook/sam-vit-huge architecture (its config.json's widths):
+# ViT-H image encoder, 1024x1024 input, patches of 16 (a 64x64 grid).
+SAM_CONFIG = {
+    "model_type": "sam",
+    "vision_config": {"hidden_size": 1280, "num_hidden_layers": 32, "num_attention_heads": 16,
+                      "mlp_dim": 5120, "global_attn_indexes": [7, 15, 23, 31],
+                      "image_size": 1024, "patch_size": 16, "window_size": 14,
+                      "output_channels": 256, "num_pos_feats": 128, "num_channels": 3,
+                      "layer_norm_eps": 1e-6, "use_rel_pos": True, "use_abs_pos": True},
+    "prompt_encoder_config": {"hidden_size": 256, "image_size": 1024, "patch_size": 16,
+                              "mask_input_channels": 16, "num_point_embeddings": 4},
+    "mask_decoder_config": {"hidden_size": 256, "num_hidden_layers": 2,
+                            "num_attention_heads": 8, "mlp_dim": 2048, "iou_head_depth": 3,
+                            "iou_head_hidden_dim": 256, "num_multimask_outputs": 3,
+                            "attention_downsample_rate": 2},
+}
+SAM_FRAMES = 8
+# The card-against-CPU witness: the published widths with the depth cut to
+# 4 layers, the last one global, so that the CPU run stays short.
+SAM_WITNESS_LAYERS = 4
+# float32 logits and IoU scores, card against CPU: 1e-4 of the largest
+# magnitude (the CPU tests' 1e-4 absolute, at this width's scale); a mask
+# pixel may differ only where the card's upscaled logit is that close to 0.
+SAM_F32_REL_TOL = 1e-4
+# bfloat16 against float32 IoU scores (the same frames and prompts): within
+# 0.1 of the float32 scores' largest magnitude.
+SAM_BF16_IOU_REL_TOL = 0.1
+
+
+def sam_config(num_layers=None):
+    """``SAM_CONFIG``, or its depth cut to ``num_layers`` with the last global."""
+    cfg = json.loads(json.dumps(SAM_CONFIG))
+    if num_layers is not None:
+        cfg["vision_config"].update(num_hidden_layers=num_layers,
+                                    global_attn_indexes=[num_layers - 1])
+    return cfg
+
+
+# The tables of embeddings and tokens among SAM's weights (std 1); every
+# other weight of 2 or more dimensions is a linear or conv kernel.
+SAM_EMBEDDINGS = ("point_embed.", "no_mask_embed.", "iou_token.", "mask_tokens.",
+                  "positional_embedding")
+
+
+def sam_state(arch, seed):
+    """Random upstream-keyed float32 weights of a ``SamArch`` from an explicit
+    seeded generator: linear and conv weights of std fan_in^-0.5, norms near 1,
+    biases of 0.1, the relative-position tables and ``pos_embed`` of std 0.5
+    (upstream initialises those to zero, which would leave them unused),
+    embeddings and tokens of std 1."""
+    import torch
+
+    from sleap_nn_tpu_torch.models.sam_jax import TIED_KEYS, SamModel
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in SamModel(arch).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape in shapes.items():
+        if key in TIED_KEYS:
+            continue
+        v = rng.standard_normal(shape, dtype=np.float32)
+        if "layer_norm" in key and key.endswith(".weight"):
+            v = 1.0 + 0.1 * v
+        elif key.endswith(".bias"):
+            v *= 0.1
+        elif "rel_pos" in key or key.endswith("pos_embed"):
+            v *= 0.5
+        elif len(shape) >= 2 and not any(m in key for m in SAM_EMBEDDINGS):
+            v *= (shape[0] if "upscale" in key else int(np.prod(shape[1:]))) ** -0.5
+        out[key] = v
+    return out
+
+
+def sam_encoder_flops(arch):
+    """Multiply-adds x 2 of one frame through the image encoder: the linears
+    (windowed layers on their zero-padded tokens), the attention products,
+    the patch embedding and the neck."""
+    g, c, ws = arch.grid, arch.hidden_size, arch.window_size
+    padded = -(-g // ws) * ws
+    total = 2 * g * g * 3 * arch.patch_size ** 2 * c
+    for i in range(arch.num_hidden_layers):
+        glob = i in arch.global_attn_indexes
+        tokens = g * g if glob else padded * padded
+        total += 2 * tokens * 4 * c * c + 2 * g * g * 2 * c * arch.mlp_dim
+        total += 4 * g ** 4 * c if glob else 4 * (padded // ws) ** 2 * ws ** 4 * c
+    o = arch.output_channels
+    return total + 2 * g * g * (c * o + 9 * o * o)
+
+
+@contextlib.contextmanager
+def sam_stage_times(into):
+    """Within the block, ``JaxSamBackend`` appends to ``into`` per frame the
+    seconds of its encoder (synchronised), its batched decode (which ends in
+    the copy to the host) and all of ``masks``, with the decode's outputs,
+    and counts under ``"empty"`` the chosen masks that hold no pixel (the
+    layer drops those, as in JAX)."""
+    from sleap_nn_tpu_torch.inference.sam.backends import JaxSamBackend
+
+    real = {name: getattr(JaxSamBackend, name) for name in ("_encode", "_decode", "masks")}
+
+    def timed(name):
+        def wrapper(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kw)
+            if name == "_encode":
+                sync()
+            into.setdefault(name, []).append(time.perf_counter() - t0)
+            if name == "_decode":
+                into.setdefault("decoded", []).append(out)
+            if name == "masks":
+                into["empty"] = into.get("empty", 0) + sum(not m.any() for m in out[0])
+            return out
+        return wrapper
+
+    for name in real:
+        setattr(JaxSamBackend, name, timed(name))
+    try:
+        yield into
+    finally:
+        for name, fn in real.items():
+            setattr(JaxSamBackend, name, fn)
+
+
+def sam_per_frame_ms(times):
+    """Median ms a frame of the encoder, the decode and the host's share of
+    ``masks`` (CLAHE, the resizes, the pick), from ``sam_stage_times``."""
+    enc, dec, tot = (np.array(times[k]) * 1e3 for k in ("_encode", "_decode", "masks"))
+    return {"encoder_ms": float(np.median(enc)), "decode_ms": float(np.median(dec)),
+            "host_ms": float(np.median(tot - enc - dec)),
+            "encoder_ms_first": float(enc[0]), "frames": len(tot)}
+
+
+def sam_logits_agree(got, want, rel_tol):
+    """(largest abs error, tolerance, ok) of two arrays, the tolerance
+    ``rel_tol`` of ``want``'s largest magnitude."""
+    err = float(np.abs(got - want).max())
+    tol = rel_tol * max(float(np.abs(want).max()), 1.0)
+    return err, tol, err <= tol
+
+
+def check_sam_against_cpu(frame, prompts, seed):
+    """Phase 45's witness: one frame and its prompts through ``JaxSamBackend``
+    in float32 at the published widths, depth cut to ``SAM_WITNESS_LAYERS``,
+    on the card and on the host's CPU. Low-res logits and IoU scores
+    within ``SAM_F32_REL_TOL``; masks equal except where the card's upscaled
+    logit lies within that tolerance of 0."""
+    import cv2
+
+    from sleap_nn_tpu_torch.inference.sam.backends import JaxSamBackend
+    from sleap_nn_tpu_torch.models.sam_jax import SamArch
+
+    arch = SamArch.from_hf_config(sam_config(SAM_WITNESS_LAYERS))
+    state = sam_state(arch, seed)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        backend = JaxSamBackend(state, arch, device=device)
+        times = {}
+        with sam_stage_times(times):
+            masks, scores = backend.masks(frame, prompts)
+        out[device] = (masks, scores, times["decoded"][0])
+        del backend
+    (cm, cs, (cl, ci)), (hm, hs, (hl, hi)) = out[DEVICE], out["cpu"]
+    logit_err, logit_tol, logit_ok = sam_logits_agree(cl, hl, SAM_F32_REL_TOL)
+    iou_err, iou_tol, iou_ok = sam_logits_agree(ci, hi, SAM_F32_REL_TOL)
+    h, w = frame.shape[:2]
+    scale = arch.image_size / max(h, w)
+    nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+    off_pixels, off_far = 0, 0
+    for i, (a, b) in enumerate(zip(cm, hm)):
+        pick = int(np.flatnonzero(ci[i] == cs[i])[0])
+        up = cv2.resize(cl[i, pick], (arch.image_size, arch.image_size),
+                        interpolation=cv2.INTER_LINEAR)[:nh, :nw]
+        full = cv2.resize(up, (w, h), interpolation=cv2.INTER_LINEAR)
+        off_pixels += int((a != b).sum())
+        off_far += int((np.abs(full[a != b]) > logit_tol).sum())
+    row = {"layers": SAM_WITNESS_LAYERS, "global_attn_indexes": list(arch.global_attn_indexes),
+           "prompts": len(prompts), "logits_max_abs_err": logit_err, "logits_tol": logit_tol,
+           "iou_max_abs_err": iou_err, "iou_tol": iou_tol, "mask_pixels_off": off_pixels,
+           "mask_pixels_off_beyond_tol": off_far}
+    log("sam_card_vs_cpu " + json.dumps(row))
+    if not (logit_ok and iou_ok and off_far == 0):
+        raise AssertionError(f"phase 45: the card's SAM differs from the CPU's: {row}")
+    return row
+
+
+def run_sam_review(kernels, root, smi):
+    """Phase 45: the mask-review workflow on the card. A top-down
+    ``run.predict`` from phase 7 + 11's dirs writes a pose ``.slp`` of
+    ``SAM_FRAMES`` 1024x1024 frames (kernels 1 and 2 counted, every call held
+    to its plain version); a random-init SAM snapshot at ViT-H widths
+    (``config.json`` and a ``model.safetensors`` this script writes) serves
+    ``sam -i poses.slp --mask-backend sam_jax --sam-model-id SNAPSHOT
+    --overlay-path ...`` in process, in float32; ``JaxSamBackend(use_bf16=True)``
+    runs the same frames through ``run_sam_segmentation``. Checks: exit code
+    0, one mask per prompted instance with the poses kept, the ``.masks.slp``
+    read back equal, the overlay written, the witness card against CPU
+    (``check_sam_against_cpu``), bf16 IoU scores within
+    ``SAM_BF16_IOU_REL_TOL`` of float32's. Prints the encoder, decode and host
+    ms a frame, the command's frames/s and the peak device memory."""
+    import torch
+
+    from sleap_nn_tpu_torch import cli
+    from sleap_nn_tpu_torch.inference import sam as sam_pkg
+    from sleap_nn_tpu_torch.inference.run import predict
+    from sleap_nn_tpu_torch.inference.sam.backends import JaxSamBackend
+    from sleap_nn_tpu_torch.inference.sam.prompts import visible_keypoints
+    from sleap_nn_tpu_torch.io.slp import load_slp
+    from sleap_nn_tpu_torch.models.sam_jax import SamArch
+
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    frames = smoke_frames()[:SAM_FRAMES]
+    dirs = [root / "centroid", root / "centered_instance"]
+    kw = dict(batch_size=BATCH, use_bf16=True, device=DEVICE, peak_threshold=DIR_PEAK_THRESHOLD,
+              max_instances=MAX_INST)
+
+    # 1. The pose predictions, counted.
+    seen, calls = set(), []
+    with recording_kernel_calls(seen, calls):
+        poses, launches = run_counted(kernels, lambda: predict(
+            frame_labels(frames), dirs, output_path=d / "poses.slp", embed=True, **kw))
+    n_batches = -(-SAM_FRAMES // BATCH)
+    expect_launches("the pose predict", launches, phase=45,
+                    fused_double_conv3x3=18 * n_batches, nms_scores=n_batches)
+    held = check_recorded_calls(calls)
+    bad = [r for r in held if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 45: kernel calls off their plain versions: {bad}")
+    n_prompted = sum(len(visible_keypoints(i.numpy()[:, :2])) > 0 for lf in poses for i in lf)
+
+    # 2. The snapshot.
+    t0 = time.perf_counter()
+    snap = d / "sam-vit-huge-random"
+    snap.mkdir()
+    (snap / "config.json").write_text(json.dumps(sam_config()))
+    arch = SamArch.from_hf_config(sam_config())
+    write_safetensors(snap / "model.safetensors", sam_state(arch, seed=45))
+    snapshot_s = time.perf_counter() - t0
+
+    # 3. The sam command, float32, its Labels kept as run_sam_segmentation
+    # returned them.
+    returned, f32_times = [], {}
+    real_run = sam_pkg.run_sam_segmentation
+
+    def keep(*a, **k):
+        returned.append(real_run(*a, **k))
+        return returned[-1]
+
+    argv = ["sam", "-i", str(d / "poses.slp"), "--mask-backend", "sam_jax", "--sam-model-id",
+            str(snap), "--overlay-path", str(d / "overlay.png")]
+    real_get = sam_pkg.get_mask_backend
+    if DEVICE != "cuda":  # a CPU rehearsal: the command's backend on the CPU
+        sam_pkg.get_mask_backend = lambda name, **k: real_get(name, **{**k, "device": DEVICE})
+    sam_pkg.run_sam_segmentation = keep
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    stdout = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with sam_stage_times(f32_times), contextlib.redirect_stdout(stdout):
+            code = cli.main(argv)
+        command_s = time.perf_counter() - t0
+    finally:
+        sam_pkg.run_sam_segmentation, sam_pkg.get_mask_backend = real_run, real_get
+    peak_f32 = torch.cuda.max_memory_allocated() / 2 ** 30 if DEVICE == "cuda" else None
+    out_path = d / "poses.masks.slp"
+    if code != 0 or not out_path.exists():
+        raise AssertionError(f"phase 45: sam exited {code}: {stdout.getvalue()}")
+    masked = returned[0]
+    n_masks = sum(len(lf.masks) for lf in masked)
+    if stdout.getvalue().strip() != f"Masked {len(masked)} frames, {n_masks} masks -> {out_path}":
+        raise AssertionError(f"phase 45: the command printed {stdout.getvalue()!r}")
+    # One mask a prompted instance; a chosen mask with no pixel is dropped.
+    if n_masks + f32_times.get("empty", 0) != n_prompted or n_masks == 0:
+        raise AssertionError(f"phase 45: {n_masks} masks (and {f32_times.get('empty', 0)} "
+                             f"empty) for {n_prompted} prompted instances")
+    if [(lf.frame_idx, len(lf)) for lf in masked] != [(lf.frame_idx, len(lf)) for lf in poses] \
+            or not all(np.array_equal(a.points, b.points, equal_nan=True)
+                       for fa, fb in zip(masked, poses) for a, b in zip(fa, fb)):
+        raise AssertionError("phase 45: the poses were not kept")
+    back = load_slp(out_path)
+    same, dist, masks_equal = labels_distance(back, masked)
+    scores_equal = all(np.float32(a.score) == np.float32(b.score) for fa, fb in zip(back, masked)
+                       for a, b in zip(fa.masks, fb.masks))
+    if not (same and dist == 0.0 and masks_equal and scores_equal):
+        raise AssertionError(f"phase 45: the .masks.slp reads back different: counts {same}, "
+                             f"{dist} px, masks {masks_equal}, scores {scores_equal}")
+    import cv2
+
+    overlay = cv2.imread(str(d / "overlay.png"))
+    if overlay is None or overlay.shape != (IMG, IMG, 3):
+        raise AssertionError("phase 45: no overlay PNG")
+
+    # bf16 on the same frames.
+    bf16_times = {}
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bf16 = JaxSamBackend.from_pretrained(str(snap), device=DEVICE, use_bf16=True)
+    load_bf16_s = time.perf_counter() - t0
+    with sam_stage_times(bf16_times):
+        masked_bf16 = sam_pkg.run_sam_segmentation(str(d / "poses.slp"), "sam_jax", backend=bf16)
+    peak_bf16 = torch.cuda.max_memory_allocated() / 2 ** 30 if DEVICE == "cuda" else None
+    del bf16
+    iou32 = np.concatenate([iou.ravel() for _, iou in f32_times["decoded"]])
+    iou16 = np.concatenate([iou.ravel() for _, iou in bf16_times["decoded"]])
+    bf16_err, bf16_tol, bf16_ok = sam_logits_agree(iou16, iou32, SAM_BF16_IOU_REL_TOL)
+    bf16_masks = sum(len(lf.masks) for lf in masked_bf16)
+
+    # 4. The witness, card against CPU, on the first frame's prompts (as the
+    # layer builds them).
+    from sleap_nn_tpu_torch.inference.sam.backends import MaskBackend
+    from sleap_nn_tpu_torch.inference.sam.mask_layer import SamSegmentationLayer
+
+    class PromptRecorder(MaskBackend):
+        def masks(self, image, prompts):
+            self.prompts = prompts
+            return [], []
+
+    recorder = PromptRecorder()
+    SamSegmentationLayer(recorder).masks_for_frame(frames[0], poses.labeled_frames[0].instances)
+    witness = check_sam_against_cpu(frames[0][..., 0], recorder.prompts, seed=46)
+
+    flops = sam_encoder_flops(arch)
+    f32_ms, bf16_ms = sam_per_frame_ms(f32_times), sam_per_frame_ms(bf16_times)
+    row = {
+        "frames": SAM_FRAMES, "instances": int(sum(len(lf) for lf in poses)),
+        "prompted": int(n_prompted), "masks_f32": n_masks, "masks_bf16": bf16_masks,
+        "empty_f32": f32_times.get("empty", 0), "empty_bf16": bf16_times.get("empty", 0),
+        "mask_area_fraction_median": float(np.median([m.mask.mean() for lf in masked
+                                                      for m in lf.masks])),
+        "arch": {"hidden": arch.hidden_size, "layers": arch.num_hidden_layers,
+                 "heads": arch.num_attention_heads, "global": list(arch.global_attn_indexes),
+                 "grid": arch.grid},
+        "encoder_gflop_per_frame": flops / 1e9,
+        "f32": {**f32_ms, "tflops": flops / f32_ms["encoder_ms"] / 1e9,
+                "floor_ms": flops / PEAK_F32 * 1e3, "peak_gib": peak_f32},
+        "bf16": {**bf16_ms, "tflops": flops / bf16_ms["encoder_ms"] / 1e9,
+                 "floor_ms": flops / PEAK_BF16 * 1e3, "peak_gib": peak_bf16,
+                 "load_s": load_bf16_s},
+        "command_s": command_s, "command_fps": SAM_FRAMES / command_s,
+        "masks_fps_f32": SAM_FRAMES / float(np.sum(f32_times["masks"])),
+        "masks_fps_bf16": SAM_FRAMES / float(np.sum(bf16_times["masks"])),
+        "snapshot_write_s": snapshot_s,
+        "bf16_iou_max_abs_err": bf16_err, "bf16_iou_tol": bf16_tol,
+        "pose_launches": launches, "signatures_held": len(held), "witness": witness, "smi": smi}
+    log("sam_review " + json.dumps(row))
+    if not bf16_ok:
+        raise AssertionError(f"phase 45: bf16 IoU scores off float32's by {bf16_err} > {bf16_tol}")
+    tmp.cleanup()
+    return {"sam_pose_predict": {"launches": launches, "n_batches": n_batches}}, held, row
+
+
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
                    held):
@@ -7159,6 +7557,14 @@ def main() -> int:
     shim_runs, shim_held = run_legacy_shim(_build.KERNELS, root, smi)
     phase44_s = time.perf_counter() - t_phase
     log(f"phase 44: {phase44_s:.1f} s")
+
+    # 45. SAM prompted masks: a pose .slp from phase 7 + 11's dirs, then the
+    # sam command from a random-init ViT-H snapshot (f32), bf16, and a
+    # 4-layer witness card against CPU.
+    t_phase = time.perf_counter()
+    sam_runs, sam_held, sam_row = run_sam_review(_build.KERNELS, root, smi)
+    phase45_s = time.perf_counter() - t_phase
+    log(f"phase 45: {phase45_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -7174,7 +7580,7 @@ def main() -> int:
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
             **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
             **ddp_runs, **seg_runs, **seg_train_runs, **monitored, **profiled, **export_runs,
-            **dp_runs, **cfg_runs, **shim_runs}
+            **dp_runs, **cfg_runs, **shim_runs, **sam_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
@@ -7183,7 +7589,7 @@ def main() -> int:
                                     "backbone_train": bb_train_held, "ddp": ddp_held,
                                     "segmentation": seg_held, "export": export_held,
                                     "data_parallel": dp_held, "config_tooling": cfg_held,
-                                    "legacy_shim": shim_held})
+                                    "legacy_shim": shim_held, "sam_review": sam_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -7259,7 +7665,12 @@ def main() -> int:
         f" {cfg_rows['quality']['instance_steps_per_sec']:.2f} / "
         f"{cfg_rows['throughput']['instance_steps_per_sec']:.2f} steps/s, top-down predict "
         f"{cfg_rows['quality']['fps']:.2f} / {cfg_rows['throughput']['fps']:.2f} frames/s; "
-        f"phase 44 {phase44_s:.1f} s; {smi}"
+        f"phase 44 {phase44_s:.1f} s; phase 45 {phase45_s:.1f} s, SAM ViT-H ms a frame "
+        f"(encoder f32 / bf16, decode, host): {sam_row['f32']['encoder_ms']:.2f} / "
+        f"{sam_row['bf16']['encoder_ms']:.2f}, {sam_row['f32']['decode_ms']:.2f}, "
+        f"{sam_row['f32']['host_ms']:.2f}; sam command {sam_row['command_fps']:.3f} frames/s "
+        f"({sam_row['masks_fps_f32']:.2f} frames/s masking), peak {sam_row['f32']['peak_gib'] or 0:.2f}"
+        f" GiB f32 / {sam_row['bf16']['peak_gib'] or 0:.2f} GiB bf16; {smi}"
         + f"; total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

@@ -12,9 +12,10 @@ port's ``train.run_training``, ``inference.run.predict``,
 takes ``auto|cuda|cpu`` where JAX takes ``auto|tpu|cpu``: unset and
 ``auto`` mean the card (and raise without one); only ``cpu`` runs on the
 CPU. ``config`` and ``config-generate`` run the port's config generator
-(``config_generator/``) and ``export`` the port's exporter; ``sam`` parses
-its options as in JAX, then exits with 1 naming its ROADMAP item. Knobs of
-features the port lacks reach ``run.predict``, which refuses them. The
+(``config_generator/``), ``export`` the port's exporter and ``sam`` (and
+``predict --mask-backend``) the port's SAM prompted masks
+(``inference/sam``), on the card. Knobs of features the port lacks reach
+``run.predict``, which refuses them. The
 interactive progress is one rewritten stderr line with a rolling
 frames/s.
 """
@@ -935,7 +936,7 @@ def _run_inference(**kw):
     if fc.enabled():
         kw["filters"] = fc
 
-    # SAM prompted masks: handed on, and refused by run.predict (item 13b).
+    # SAM prompted masks: poses from the input .slp, no trained model.
     mask_backend = kw.pop("mask_backend")
     sam_checkpoint = kw.pop("sam_checkpoint")
     kw.pop("sam_model_type")
@@ -1123,12 +1124,6 @@ def track(**kw):
     _run_inference(**kw)
 
 
-def _not_ported(name: str, item: str) -> int:
-    echo(f"Error: `{PROG} {name}` is not ported to PyTorch yet "
-         f"(ROADMAP.md section 1, item {item}).", err=True)
-    return 1
-
-
 @command("sam", [
     Opt("--data-path", "-i", required=True, exists=True,
         help="Pose .slp/.pkg.slp to produce masks for."),
@@ -1145,9 +1140,26 @@ def _not_ported(name: str, item: str) -> int:
     Opt("--overlay-path", default=None, help="Review overlay PNG path."),
     Opt("--frames", default=None, help="Frame subset, e.g. 0-100 or 3,7,9."),
 ])
-def sam_cmd(**kw):
-    """Predict per-instance SAM masks for an existing pose .slp (not ported)."""
-    return _not_ported("sam", "13b")
+def sam_cmd(data_path, mask_backend, output_path, prompt_mode, sam_model_id,
+            anchor_ind, disjointify, overlay_path, frames):
+    """Predict per-instance SAM masks for an existing pose .slp (review workflow)."""
+    from sleap_nn_tpu_torch.inference.sam import run_sam_segmentation
+
+    if output_path is None:
+        output_path = str(Path(data_path).with_suffix("")) + ".masks.slp"
+    labels = run_sam_segmentation(
+        data_path,
+        mask_backend,
+        prompt_mode=prompt_mode,
+        sam_model_id=sam_model_id,
+        anchor_ind=anchor_ind,
+        disjointify_masks=disjointify,
+        output_path=output_path,
+        overlay_path=overlay_path,
+        frames=_parse_frames(frames),
+    )
+    n_masks = sum(len(lf.masks) for lf in labels)
+    echo(f"Masked {len(labels)} frames, {n_masks} masks -> {output_path}")
 
 
 @command("track-only", [

@@ -16,11 +16,13 @@ instead, and the rest of the run is the same. With ``tracking=True`` (or
 a ``tracker``) the predicted ``Labels`` are tracked on the host
 (``tracking.run_tracker``, its knobs passed as keyword arguments).
 ``profile_dir`` writes a ``torch.profiler`` trace of the predict loop
-(``profiling.trace``). What the port lacks raises ``NotImplementedError``
-naming its ROADMAP.md item: SAM masks (item 13b) and the
-``from_model_paths`` knobs listed in ``predictor.UNPORTED_KNOBS``. Remote inputs (``http://...``) are
-refused: ``fetch_remote_data`` needs the network and stays out of the
-port.
+(``profiling.trace``). With ``mask_backend`` the call is SAM prompted
+segmentation of the poses already in a labels source
+(``inference.sam.run_sam_segmentation``, on ``device``) and no model runs.
+What the port lacks raises ``NotImplementedError``: the
+``from_model_paths`` knobs listed in ``predictor.UNPORTED_KNOBS``. Remote
+inputs (``http://...``) are refused: ``fetch_remote_data`` needs the
+network and stays out of the port.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from sleap_nn_tpu_torch.tracking.tracker import Tracker, run_tracker
 
 logger = logging.getLogger("sleap_nn_tpu_torch")
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
-_ITEM13 = "(ROADMAP.md section 1, item 13b)"
 
 # Knobs of the JAX ``predict`` whose features the port lacks: name -> (the
 # value that asks for nothing, why another value raises).
@@ -53,11 +54,6 @@ UNPORTED_RUN_KNOBS = {
     **UNPORTED_KNOBS,
     "headers": (None, "remote inputs need the network; fetch_remote_data is not ported"),
     "stream_mode": (None, "remote inputs need the network; fetch_remote_data is not ported"),
-    **{name: (default, f"SAM prompted segmentation is not ported {_ITEM13}")
-       for name, default in (("mask_backend", None), ("sam_model_id", "facebook/sam-vit-huge"),
-                             ("sam_prompt_mode", "pose"), ("sam_anchor_ind", None),
-                             ("sam_disjointify_masks", False), ("sam_overlay_path", None),
-                             ("sam_backend", None))},
 }
 
 
@@ -162,6 +158,13 @@ def predict(
     runtime: str = "auto",
     profile_dir: Optional[Union[str, Path]] = None,
     data_parallel: bool = False,
+    mask_backend: Optional[str] = None,
+    sam_model_id: str = "facebook/sam-vit-huge",
+    sam_prompt_mode: str = "pose",
+    sam_anchor_ind: Optional[int] = None,
+    sam_disjointify_masks: bool = False,
+    sam_overlay_path: Optional[Union[str, Path]] = None,
+    sam_backend=None,
     **tracker_kwargs,
 ):
     """Run inference on a labels or video source with one or two trained
@@ -195,6 +198,12 @@ def predict(
     this process sees (``Predictor.from_model_paths``); an export dir
     ignores it, as in the JAX package. It is currently slower than one
     card: one host thread enqueues every replica's work.
+
+    When ``mask_backend`` is set, ``data_path`` is a pose ``.slp`` (or
+    ``Labels``) and ``model_paths`` must be empty: the poses it holds prompt
+    one SAM mask per instance (``run_sam_segmentation`` with the
+    ``sam_*`` knobs, ``output_path`` and ``frames``, on ``device``: the
+    card unless ``"cpu"``).
     """
     unported = {k: tracker_kwargs.pop(k) for k in list(tracker_kwargs)
                 if k in UNPORTED_RUN_KNOBS}
@@ -284,6 +293,30 @@ def predict(
             f"{centroid_output!r}: tracking operates on PredictedInstance, "
             "not centroid records. Use centroid_output='instance' (the "
             "default) for tracking.")
+
+    if mask_backend is not None:
+        if model_paths:
+            # Prompted segmentation uses the poses already in the .slp, so a
+            # trained model makes the request ambiguous.
+            raise ValueError(
+                "mask_backend cannot be combined with model_paths: SAM "
+                "prompted segmentation reads poses from the input .slp. "
+                "Drop model_paths, or run predict without mask_backend.")
+        from sleap_nn_tpu_torch.inference.sam import run_sam_segmentation
+
+        return run_sam_segmentation(
+            data_path,
+            mask_backend,
+            backend=sam_backend,
+            prompt_mode=sam_prompt_mode,
+            sam_model_id=sam_model_id,
+            device=device,
+            anchor_ind=sam_anchor_ind,
+            disjointify_masks=sam_disjointify_masks,
+            output_path=output_path,
+            overlay_path=sam_overlay_path,
+            frames=frames,
+        )
 
     mp = Path(model_paths[0]) if len(model_paths) == 1 else None
     if mp is not None and (mp / "metadata.json").exists() and (

@@ -217,3 +217,49 @@ def flax_to_torch_state(params: Mapping[str, Any], model: nn.Module) -> Dict[str
     if errors:
         raise ValueError("flax -> torch weight conversion failed:\n  " + "\n  ".join(errors))
     return out
+
+
+# ── SAM: the JAX package's flat params -> the port's SamModel state_dict ─────
+
+# The JAX importer's layout rules (``sleap_nn_tpu/models/sam_jax.py``'s
+# ``convert_sam_state_dict``), copied here and run backwards.
+_SAM_CONV_SUFFIXES = (
+    "patch_embed.projection.weight",
+    "neck.conv1.weight",
+    "neck.conv2.weight",
+    "mask_embed.conv1.weight",
+    "mask_embed.conv2.weight",
+    "mask_embed.conv3.weight",
+)
+_SAM_CONVT_SUFFIXES = ("upscale_conv1.weight", "upscale_conv2.weight")
+_SAM_DIRECT_2D_MARKERS = (
+    "rel_pos_h",
+    "rel_pos_w",
+    "positional_embedding",
+    "iou_token.weight",
+    "mask_tokens.weight",
+    "not_a_point_embed.weight",
+    "no_mask_embed.weight",
+)
+
+
+def sam_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's flat SAM params (arrays keyed by the upstream
+    names, NHWC layouts) -> the port's ``SamModel`` state dict: conv
+    kernels HWIO -> OIHW, linear kernels (in, out) -> (out, in); the
+    transposed-conv weights, embeddings, norms and relative-position tables
+    as they are. The inverse of the JAX ``convert_sam_state_dict``."""
+    out = {}
+    for key, value in params.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if any(key.endswith(s) for s in _SAM_CONV_SUFFIXES):
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif any(key.endswith(s) for s in _SAM_CONVT_SUFFIXES):
+            pass  # (in, out, kh, kw) in both
+        elif "point_embed" in key and key.endswith(".weight"):
+            pass  # nn.Embedding rows
+        elif arr.ndim == 2 and key.endswith(".weight") and not any(
+                m in key for m in _SAM_DIRECT_2D_MARKERS):
+            arr = arr.T  # nn.Linear
+        out[key] = torch.from_numpy(np.array(arr))  # own, contiguous copy
+    return out

@@ -474,18 +474,35 @@ def test_eval_kwargs_and_summary_match(recorders, tmp_path, capsys, line, metric
     assert recorders.port_eval.calls == recorders.jax_eval.calls
 
 
+def pose_slp(path):
+    """A one-frame pose ``.slp`` with its frame embedded."""
+    from sleap_nn_tpu_torch.io.slp import save_slp
+
+    skel = pio.Skeleton(["n0", "n1"])
+    frames = blob_frames(1, seed=3)
+    save_slp(path, pio.Labels([pio.LabeledFrame(FrameVideo(frames), 0, [
+        pio.PredictedInstance.from_numpy(points=np.array([[8.0, 9.0], [20.0, 22.0]]),
+                                         point_scores=np.ones(2), skeleton=skel, score=0.9)])],
+        skeletons=[skel]), embed=True)
+    return str(path)
+
+
 def test_unported_commands_exit_naming_their_item(tmp_path, capsys):
     f = tmp_path / "x.slp"
     f.touch()
-    # config and config-generate are ported (tests/test_torch_config_tooling.py).
-    for argv, item in ((["sam", "-i", str(f), "--mask-backend", "sam3"], "item 13b"),
+    # config and config-generate are ported (tests/test_torch_config_tooling.py);
+    # export and sam are ported: the JAX package's export formats raise, and
+    # sam's backend sam3 raises the JAX package's ImportError in both (the
+    # workflow itself: tests/test_torch_sam_workflow.py).
+    src = pose_slp(tmp_path / "poses.slp")
+    for argv, item in ((["sam", "-i", src, "--mask-backend", "sam3"], "mask_backend='sam3'"),
                        (["export", str(tmp_path), "--format", "savedmodel"], "JAX package")):
-        if argv[0] == "export":  # ported: the JAX package's formats raise
-            with pytest.raises(ValueError, match=item):
-                pcli.main(argv)
-            continue
-        assert pcli.main(argv) == 1
-        assert item in capsys.readouterr().err
+        error = ImportError if argv[0] == "sam" else ValueError
+        if argv[0] == "sam":
+            want = CliRunner().invoke(jcli.cli, argv)
+            assert isinstance(want.exception, error) and item in str(want.exception)
+        with pytest.raises(error, match=item):
+            pcli.main(argv)
     # Their usage errors are click's.
     assert pcli.main(["sam", "-i", str(f)]) == 2
     assert pcli.main(["export"]) == 2
@@ -513,9 +530,14 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
     # The segmentation knobs are ported: on a pose model they do nothing, as
     # in the JAX package.
     assert pcli.main(base + ["--mask-output", "polygon", "--fg-threshold", "0.7"]) == 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pcli.main(["predict", "-i", str(tmp_path / "x.slp"), "--mask-backend", "sam3",
-                   "--device", "cpu"])
+    # --mask-backend reaches run.predict's SAM short-circuit: sam3 raises the
+    # JAX package's ImportError in both.
+    argv = ["predict", "-i", pose_slp(tmp_path / "poses.slp"), "--mask-backend", "sam3",
+            "--device", "cpu"]
+    want = CliRunner().invoke(jcli.cli, argv)
+    assert isinstance(want.exception, ImportError) and "sam3" in str(want.exception)
+    with pytest.raises(ImportError, match="mask_backend='sam3' requires"):
+        pcli.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         pcli.main(base[:-4] + ["-o", str(tmp_path / "o.slp")])  # no --device: the card
 

@@ -3,8 +3,9 @@ JAX package (nor does chip_smoke.py). It never imports networkx or orbax
 (which imports JAX; ``tools/orbax_to_torch.py`` converts a JAX trainer's
 checkpoints), nor h5py (``.slp``, analysis and Keras ``.h5`` files go
 through its own ``io/hdf5.py``), click or rich (its command line is
-argparse), safetensors or transformers (the pretrained backbones read HF
-snapshots with their own reader); the GPU machine has none of them. It imports PyYAML and cv2 only inside function
+argparse), safetensors, transformers or segment_anything (the pretrained
+backbones and SAM read HF snapshots with their own reader; the other SAM
+loaders refuse without importing theirs); the GPU machine has none of them. It imports PyYAML and cv2 only inside function
 bodies: the functions that read or write YAML, and those that decode
 video, resize frames on the host, compute optical flow or resize and
 outline segmentation masks, so a module of the port imports where either
@@ -29,7 +30,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sleap_nn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sleap_nn_tpu", "networkx",
-             "h5py", "click", "rich", "safetensors", "transformers")
+             "h5py", "click", "rich", "safetensors", "transformers", "segment_anything")
 # Blocked while importing every port module; only a function body may import it.
 LAZY = ("yaml", "cv2", "zmq", "matplotlib", "wandb", "curses")
 # The modules that may start a compiler or load a shared library.
@@ -101,7 +102,15 @@ def test_every_port_module_imports_with_jax_blocked():
             "sleap_nn_tpu_torch.inference.tile_merger",
             "sleap_nn_tpu_torch.parallel",
             "sleap_nn_tpu_torch.parallel.distributed",
-            "sleap_nn_tpu_torch.parallel.mesh"} <= set(mods)
+            "sleap_nn_tpu_torch.parallel.mesh",
+            "sleap_nn_tpu_torch.models.sam_jax",
+            "sleap_nn_tpu_torch.inference.sam",
+            "sleap_nn_tpu_torch.inference.sam.backends",
+            "sleap_nn_tpu_torch.inference.sam.mask_layer",
+            "sleap_nn_tpu_torch.inference.sam.overlay",
+            "sleap_nn_tpu_torch.inference.sam.prompts",
+            "sleap_nn_tpu_torch.inference.sam.reconciliation",
+            "sleap_nn_tpu_torch.inference.sam.retrack"} <= set(mods)
     code = (
         "import sys\n"
         "for name in %r: sys.modules[name] = None\n"

@@ -509,17 +509,17 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
 @pytest.mark.parametrize("kwargs,match", [
     ({"tracking": True, "features": "masks"}, None),
     ({"tracking": True, "scoring_method": "mask_iou"}, None),
-    ({"sam_model_id": "facebook/sam-vit-base"}, "item 13"),
-    ({"mask_backend": "sam"}, "item 13"),
+    ({"sam_model_id": "facebook/sam-vit-base"}, None),
+    ({"mask_backend": "sam"}, "cannot be combined with model_paths"),
     ({"runtime": "onnx"}, "Unknown runtime"),
     ({"profile_dir": "<tmp>/prof"}, None),
-    ({"sam_prompt_mode": "box"}, "item 13"),
-    ({"sam_anchor_ind": 0}, "item 13"),
+    ({"sam_prompt_mode": "box"}, None),
+    ({"sam_anchor_ind": 0}, None),
     ({"data_path": "s3://bucket/a.slp"}, "fetch_remote_data"),
     ({"data_path": "https://example.com/a.slp"}, "fetch_remote_data"),
-    ({"sam_disjointify_masks": True}, "item 13"),
-    ({"sam_overlay_path": "overlay.mp4"}, "item 13"),
-    ({"sam_backend": "jax"}, "item 13"),
+    ({"sam_disjointify_masks": True}, None),
+    ({"sam_overlay_path": "overlay.mp4"}, None),
+    ({"sam_backend": "jax"}, None),
     ({"headers": {"Authorization": "x"}}, "fetch_remote_data"),
     ({"stream_mode": "stream"}, "fetch_remote_data"),
     ({"data_parallel": True, "batch_size": 8}, None),
@@ -533,9 +533,10 @@ def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
               **{k: tmp_path / v[6:] if str(v).startswith("<tmp>/") else v
                  for k, v in kwargs.items()}}
     if match is None:
-        # Mask tracking, the segmentation knobs and data_parallel are
-        # ported: on a pose model's frames (no masks) the port gives what
-        # the JAX package gives, tracks included.
+        # Mask tracking, the segmentation knobs, data_parallel and the SAM
+        # knobs (which do nothing without mask_backend) are ported: on a
+        # pose model's frames (no masks) the port gives what the JAX
+        # package gives, tracks included.
         paths = _paths(dirs, "single_instance")
         frames = blob_frames(N_FRAMES, seed=9)
         kwargs.pop("data_path")
@@ -556,11 +557,14 @@ def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
         assert names(got) == names(want)
         return
     # The runtime of a model dir that is not an export dir: "auto" or
-    # "pt2"; others raise ValueError, the unported features
-    # NotImplementedError.
-    error = ValueError if "runtime" in kwargs else NotImplementedError
+    # "pt2"; others raise ValueError, as mask_backend with model dirs does
+    # in both packages; the unported features NotImplementedError.
+    error = ValueError if {"runtime", "mask_backend"} & set(kwargs) else NotImplementedError
     with pytest.raises(error, match=match):
         prun.predict(model_paths=_paths(dirs, "single_instance"), device="cpu", **kwargs)
+    if "mask_backend" in kwargs:
+        with pytest.raises(error, match=match):
+            jax_predict(model_paths=_paths(dirs, "single_instance"), **kwargs)
 
 
 def test_dir_predictor_runs_on_the_card_unless_asked(dirs, monkeypatch):
