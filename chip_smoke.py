@@ -400,6 +400,20 @@ Phases, each of which raises on failure (exit code != 0):
     Prints the encoder, decode and host ms a frame, the command's frames/s
     and the peak device memory.
 
+46. Remote inputs and the top-level API (``run_remote_and_api``, line
+    ``remote_and_api``): an MJPG clip of 16 smoke frames and a ``.slp`` of
+    its top-down predictions, served by ``http.server`` on 127.0.0.1 in a
+    thread, through ``sleap_nn_tpu_torch.predict`` of phase 7 + 11's dirs
+    (bf16, batch 8) from ``http://`` with a header and from ``file://``:
+    ``Labels`` bit for bit the local path's, the header seen by the
+    server, the downloads removed at exit (a subprocess leaves none);
+    ``load_models`` against ``Predictor.from_model_paths`` (outputs bit for
+    bit); ``PAFScorer.from_config`` of phase 10's dir on one batch's
+    scoring inputs, equal to the layer's own grouping. Launches 18 and 1 a
+    top-down batch, kernel 3 once for ``PAFScorer.predict``; every kernel
+    call held to its plain version; frames/s from each source and the
+    download ms.
+
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
 and the bottom-up one (4, 6, 15, 2) -> (4, 512, 512, 15), and at the
@@ -7138,6 +7152,237 @@ def run_sam_review(kernels, root, smi):
     return {"sam_pose_predict": {"launches": launches, "n_batches": n_batches}}, held, row
 
 
+# --------------------------------------------------------------------------
+# Phase 46: remote inputs and the top-level API
+# --------------------------------------------------------------------------
+REMOTE_FRAMES = 16  # two batches of 8 from a clip of the smoke frames
+REMOTE_HEADERS = {"X-Smoke": "46"}
+PROXY_VARS = ("http_proxy", "https_proxy", "all_proxy", "HTTP_PROXY", "HTTPS_PROXY",
+              "ALL_PROXY", "no_proxy", "NO_PROXY")
+
+
+@contextlib.contextmanager
+def loopback_server(directory):
+    """``directory`` served by a ``ThreadingHTTPServer`` on 127.0.0.1 from a
+    daemon thread, with proxies bypassed for the block (a request to the
+    loopback address goes straight to it). Yields the base URL and the list
+    of each GET's ``(path, headers)``, header names in lower case."""
+    import http.server
+    import os
+
+    seen = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, directory=str(directory), **kwargs)
+
+        def do_GET(self):
+            seen.append((self.path, {k.lower(): v for k, v in self.headers.items()}))
+            super().do_GET()
+
+        def log_message(self, *args):
+            pass
+
+    saved = {k: os.environ.pop(k) for k in PROXY_VARS if k in os.environ}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "*"
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_port}", seen
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        for k in ("no_proxy", "NO_PROXY"):
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+def run_remote_and_api(kernels, root, smi):
+    """Phase 46: remote inputs and the top-level API on the card. An MJPG
+    clip of ``REMOTE_FRAMES`` smoke frames and a ``.slp`` of its top-down
+    predictions, served by ``loopback_server``, go through
+    ``sleap_nn_tpu_torch.predict`` of phase 7 + 11's dirs (bf16, batch 8)
+    from ``http://127.0.0.1`` with ``REMOTE_HEADERS`` and from ``file://``:
+    each run's ``Labels`` equal the local path's bit for bit, the server saw
+    the headers, the downloads wait for the interpreter's exit (a subprocess
+    shows none is left behind). ``load_models`` builds
+    ``Predictor.from_model_paths``' predictor (outputs bit for bit), and
+    ``PAFScorer.from_config`` of phase 10's dir, fed the inputs of one
+    bottom-up batch's scoring, groups exactly as the layer does. Launches
+    counted (kernel 1 18 and kernel 2 1 a top-down batch, kernel 3 once for
+    ``PAFScorer.predict``), every kernel call of the phase held to its plain
+    version."""
+    import os
+    from urllib.parse import quote
+
+    import sleap_nn_tpu_torch
+    from sleap_nn_tpu_torch.config import TrainingJobConfig, get_head_config
+    from sleap_nn_tpu_torch.inference import run as prun
+    from sleap_nn_tpu_torch.inference.layers import to_host
+    from sleap_nn_tpu_torch.inference.paf_grouping import PAFScorer
+    from sleap_nn_tpu_torch.inference.predictor import Predictor
+
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    frames = smoke_frames()[:REMOTE_FRAMES]
+    n_frames = len(frames)
+    clip = write_clip(d / "clip.avi", frames, "MJPG")
+    dirs = [root / "centroid", root / "centered_instance"]
+    # The top-level API runs on the card unless asked (a CPU rehearsal asks).
+    kw = dict(batch_size=BATCH, use_bf16=True, peak_threshold=DIR_PEAK_THRESHOLD,
+              max_instances=MAX_INST, **({} if DEVICE == "cuda" else {"device": DEVICE}))
+    # No warm-up: phase 45 has just predicted from the same dirs.
+    n_batches = -(-n_frames // BATCH)
+    pending = lambda: set(Path(tempfile.gettempdir()).glob("sleap_nn_tpu_torch_remote_*"))  # noqa: E731
+    before = pending()
+    seen, calls, runs, fetch_s, steps_s = set(), [], {}, {}, {}
+
+    def counted(name, source, **extra):
+        t0 = time.perf_counter()
+        with recording_kernel_calls(seen, calls), \
+                timing_calls({"fetch_s": (prun, "fetch_remote_data")}, fetch_s):
+            fetch_s["fetch_s"] = 0.0
+            labels, launches = run_counted(kernels, lambda: sleap_nn_tpu_torch.predict(
+                data_path=source, model_paths=dirs, **kw, **extra))
+        expect_launches(f"predict from {name}", launches, phase=46,
+                        fused_double_conv3x3=18 * n_batches, nms_scores=n_batches)
+        if labels.provenance.get("backend") != DEVICE:
+            raise AssertionError(f"phase 46 {name}: predicted on "
+                                 f"{labels.provenance.get('backend')}, not {DEVICE}")
+        runs[f"remote_{name}"] = {"launches": launches, "n_batches": n_batches,
+                                  "fps": labels.provenance["stats"]["fps"],
+                                  "fetch_ms": fetch_s["fetch_s"] * 1e3}
+        steps_s[name] = time.perf_counter() - t0
+        return labels
+
+    # 1. The local clip and a .slp of its predictions (the clip named by
+    # its path), then both from the loopback server and from file:// URLs.
+    # Meanwhile a fresh process fetches both from the server and exits:
+    # its downloads must be gone from its temp directory.
+    sub = d / "subprocess_tmp"
+    sub.mkdir()
+    code = ("import sys; from pathlib import Path; "
+            "from sleap_nn_tpu_torch.inference.run import fetch_remote_data; "
+            "print([Path(fetch_remote_data(u, headers={'X-Smoke': '46'})).stat().st_size "
+            "for u in sys.argv[1:]])")
+    local_clip = counted("local_clip", str(clip))
+    local_clip.save(str(d / "clip.slp"))
+    with loopback_server(d) as (url, requests):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, f"{url}/clip.avi", f"{url}/clip.slp"],
+            env={**os.environ, "TMPDIR": str(sub), "PYTHONPATH": str(ROOT)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            local_slp = counted("local_slp", str(d / "clip.slp"))
+            got = {"http_clip": counted("http_clip", f"{url}/clip.avi", headers=REMOTE_HEADERS),
+                   "http_slp": counted("http_slp", f"{url}/clip.slp", headers=REMOTE_HEADERS)}
+            for scheme in ("clip", "slp"):
+                path = clip if scheme == "clip" else d / "clip.slp"
+                got[f"file_{scheme}"] = counted(f"file_{scheme}", "file://" + quote(str(path)))
+            sizes, errors = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        subprocess_s = time.perf_counter() - t0
+    left_behind = sorted(p.name for p in sub.iterdir())
+    downloads = sorted(p.name for p in pending() - before)
+    sizes = sizes.strip()
+    if proc.returncode or sizes != str([clip.stat().st_size, (d / "clip.slp").stat().st_size]) \
+            or left_behind:
+        raise AssertionError(f"phase 46: the subprocess exited {proc.returncode}, downloaded "
+                             f"{sizes}, left behind {left_behind}: {errors[-2000:]}")
+    if len(downloads) != 2:
+        raise AssertionError(f"phase 46: {len(downloads)} downloads pending, expected 2")
+    headers_seen = sorted((path, h.get("x-smoke")) for path, h in requests)
+    if headers_seen != [("/clip.avi", "46")] * 2 + [("/clip.slp", "46")] * 2:
+        raise AssertionError(f"phase 46: the server saw {headers_seen}")
+    for name, labels in got.items():
+        want = local_clip if name.endswith("clip") else local_slp
+        if not labels_equal(labels, want) or len(labels.labeled_frames) != n_frames:
+            raise AssertionError(f"phase 46 {name}: the Labels differ from the local path's")
+
+    # 2. load_models against Predictor.from_model_paths.
+    t0 = time.perf_counter()
+    batch = frame_labels(frames[:BATCH])
+    by_api = sleap_nn_tpu_torch.load_models(dirs, **kw)
+    plain = Predictor.from_model_paths(dirs, **kw)
+    with recording_kernel_calls(seen, calls):
+        api_out, api_launches = run_counted(
+            kernels, lambda: by_api.predict(batch, make_labels=False))
+    expect_launches("load_models' predictor", api_launches, phase=46,
+                    fused_double_conv3x3=18, nms_scores=1)
+    runs["remote_load_models"] = {"launches": api_launches, "n_batches": 1}
+    if type(by_api.layer) is not type(plain.layer) or str(by_api.device) != str(plain.device):
+        raise AssertionError("phase 46: load_models' predictor differs from from_model_paths'")
+    assert_same_outputs(api_out, plain.predict(batch, make_labels=False))
+    steps_s["load_models"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # 3. PAFScorer.from_config on one bottom-up batch's scoring inputs.
+    bu = Predictor.from_model_paths([root / "bottomup"], batch_size=BATCH, use_bf16=True,
+                                    peak_threshold=DIR_PEAK_THRESHOLD,
+                                    min_line_scores=DIR_MIN_LINE, max_peaks=DIR_MAX_PEAKS,
+                                    **({} if DEVICE == "cuda" else {"device": DEVICE}))
+    layer = bu.layer
+    head = get_head_config(TrainingJobConfig.load_yaml(root / "bottomup" / "training_config.yaml"))
+    leaf = {"part_names": head.confmaps.part_names, "edges": head.pafs.edges,
+            "output_stride": head.pafs.output_stride}
+    scorer = PAFScorer.from_config(leaf, min_line_scores=DIR_MIN_LINE,
+                                   k_per_node=layer.paf_scorer.k_per_node)
+    fields = ("edge_inds", "sorted_edge_inds", "pafs_stride", "n_points",
+              "max_edge_length_ratio", "dist_penalty_weight", "min_instance_peaks",
+              "min_line_scores", "k_per_node")
+    if any(getattr(scorer, f) != getattr(layer.paf_scorer, f) for f in fields):
+        raise AssertionError("phase 46: from_config's scorer differs from the layer's")
+    inputs = []
+    real = layer.paf_scorer.score_on_device
+    layer.paf_scorer.score_on_device = lambda *a: inputs.append(a) or real(*a)
+    try:
+        dev = layer.predict_async(frames[:BATCH])
+    finally:
+        del layer.paf_scorer.score_on_device
+    host = to_host(dev)
+    own = layer.postprocess_host(host)
+    lift = layer.host_payload(host)["lift"]
+    with recording_kernel_calls(seen, calls):
+        grouped, paf_launches = run_counted(kernels, lambda: scorer.predict(*inputs[0]))
+    expect_launches("PAFScorer.predict", paf_launches, phase=46, paf_line_scores=1)
+    runs["remote_paf_scorer"] = {"launches": paf_launches,
+                                 "n_batches": {"paf_line_scores": 1}}
+    n_inst = sum(len(g[0]) for g in grouped)
+    same = len(grouped) == BATCH and n_inst > 0 and all(
+        np.array_equal(pts * lift, own["pred_keypoints"][i], equal_nan=True)
+        and np.array_equal(vals, own["pred_peak_values"][i], equal_nan=True)
+        and np.array_equal(scores, own["pred_instance_scores"][i])
+        for i, (pts, vals, scores) in enumerate(grouped))
+    if not same:
+        raise AssertionError(f"phase 46: PAFScorer.predict differs from the layer's grouping "
+                             f"({n_inst} instances)")
+    steps_s["paf_scorer"] = time.perf_counter() - t0
+
+    held = check_recorded_calls(calls)
+    bad = [r for r in held if not r["ok"]]
+    row = {"fps": {k.removeprefix("remote_"): v["fps"] for k, v in runs.items() if "fps" in v},
+           "download_ms": {k.removeprefix("remote_"): v["fetch_ms"] for k, v in runs.items()
+                           if k.startswith("remote_http")},
+           "launches": {k.removeprefix("remote_"): v["launches"] for k, v in runs.items()},
+           "headers_seen": headers_seen, "downloads_pending_until_exit": len(downloads),
+           "subprocess_left_behind": len(left_behind), "subprocess_s": subprocess_s,
+           "steps_s": steps_s,
+           "clip_bytes": clip.stat().st_size, "slp_bytes": (d / "clip.slp").stat().st_size,
+           "paf_scorer_instances": n_inst, "signatures_held": len(held), "bad": bad,
+           "smi": smi}
+    log("remote_and_api " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"phase 46: kernel calls off their plain versions: {bad}")
+    tmp.cleanup()
+    return runs, held, row
+
+
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
                    held):
@@ -7565,6 +7810,13 @@ def main() -> int:
     sam_runs, sam_held, sam_row = run_sam_review(_build.KERNELS, root, smi)
     phase45_s = time.perf_counter() - t_phase
     log(f"phase 45: {phase45_s:.1f} s")
+
+    # 46. Remote inputs and the top-level API: predict from http:// and
+    # file:// URLs of a clip and a .slp, load_models, PAFScorer.from_config.
+    t_phase = time.perf_counter()
+    remote_runs, remote_held, remote_row = run_remote_and_api(_build.KERNELS, root, smi)
+    phase46_s = time.perf_counter() - t_phase
+    log(f"phase 46: {phase46_s:.1f} s")
     runs_dir.cleanup()
 
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
@@ -7580,7 +7832,7 @@ def main() -> int:
             **{f"video_{path}": row for path, row in video.items()}, **file_runs, **cli_runs,
             **tiled_runs, **gt_runs, **tiled_train_runs, **backbone_runs, **bb_train_runs,
             **ddp_runs, **seg_runs, **seg_train_runs, **monitored, **profiled, **export_runs,
-            **dp_runs, **cfg_runs, **shim_runs, **sam_runs}
+            **dp_runs, **cfg_runs, **shim_runs, **sam_runs, **remote_runs}
     summary = kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows,
                              runs, {"video_path": video_held, "file_train": file_held,
                                     "cli": cli_held, "tiled": tiled_held, "gt": gt_held,
@@ -7589,7 +7841,8 @@ def main() -> int:
                                     "backbone_train": bb_train_held, "ddp": ddp_held,
                                     "segmentation": seg_held, "export": export_held,
                                     "data_parallel": dp_held, "config_tooling": cfg_held,
-                                    "legacy_shim": shim_held, "sam_review": sam_held})
+                                    "legacy_shim": shim_held, "sam_review": sam_held,
+                                    "remote_and_api": remote_held})
     summary["kernels"][0]["sass_tensor_ops"] = sass
     training = "; ".join(
         f"{name} {run['steps_per_sec']:.2f} steps/s, {run['samples_per_sec']:.2f} samples/s "
@@ -7670,7 +7923,13 @@ def main() -> int:
         f"{sam_row['bf16']['encoder_ms']:.2f}, {sam_row['f32']['decode_ms']:.2f}, "
         f"{sam_row['f32']['host_ms']:.2f}; sam command {sam_row['command_fps']:.3f} frames/s "
         f"({sam_row['masks_fps_f32']:.2f} frames/s masking), peak {sam_row['f32']['peak_gib'] or 0:.2f}"
-        f" GiB f32 / {sam_row['bf16']['peak_gib'] or 0:.2f} GiB bf16; {smi}"
+        f" GiB f32 / {sam_row['bf16']['peak_gib'] or 0:.2f} GiB bf16; phase 46 "
+        f"{phase46_s:.1f} s, top-down frames/s from http / file:// / the local path (clip; "
+        f".slp): {remote_row['fps']['http_clip']:.2f} / {remote_row['fps']['file_clip']:.2f} / "
+        f"{remote_row['fps']['local_clip']:.2f}; {remote_row['fps']['http_slp']:.2f} / "
+        f"{remote_row['fps']['file_slp']:.2f} / {remote_row['fps']['local_slp']:.2f}, download "
+        f"ms {remote_row['download_ms']['http_clip']:.2f} (clip) / "
+        f"{remote_row['download_ms']['http_slp']:.2f} (.slp); {smi}"
         + f"; total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

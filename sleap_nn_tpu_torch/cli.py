@@ -976,11 +976,10 @@ def _run_inference(**kw):
     if output_path is None:
         output_path = _default_predictions_path(data_path)
 
+    # Remote-input options: the JSON --headers string as a dict; a remote
+    # input is read download-first unless --stream-mode says otherwise.
     kw["headers"] = _parse_headers(kw.get("headers"))
-    # Download-first, the read of a remote input that the command line
-    # defaults to, asks for nothing of the local inputs the port reads.
-    if kw.get("stream_mode") in (None, "download"):
-        kw.pop("stream_mode", None)
+    kw["stream_mode"] = kw.get("stream_mode") or "download"
 
     try:
         labels = run.predict(

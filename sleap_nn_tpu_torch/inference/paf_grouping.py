@@ -11,6 +11,9 @@ Port of ``sleap_nn_tpu/inference/paf_grouping.py``:
   C++ library of ``native/`` runs it in one call per sample; the scipy
   path below is the fallback where no compiler builds the library.
 
+``PAFScorer`` holds both halves for one skeleton (``from_config`` builds it
+from a PAF head leaf; ``predict`` runs a batch through both).
+
 The edge order comes from this module's own breadth-first walk, which
 gives networkx's order (the JAX package calls networkx, which the GPU
 machine does not have).
@@ -327,6 +330,23 @@ class PAFScorer:
         state["_device_t"] = {}
         return state
 
+    @classmethod
+    def from_config(cls, config, max_edge_length_ratio=0.25, dist_penalty_weight=1.0,
+                    n_points=10, min_instance_peaks=0, min_line_scores=0.25, k_per_node=20):
+        """Build from a PAF head config leaf: a mapping with ``part_names``
+        (filled in from the confmaps head), ``edges`` and ``output_stride``."""
+        return cls(
+            part_names=config["part_names"],
+            edges=config["edges"],
+            pafs_stride=config["output_stride"],
+            max_edge_length_ratio=max_edge_length_ratio,
+            dist_penalty_weight=dist_penalty_weight,
+            n_points=n_points,
+            min_instance_peaks=min_instance_peaks,
+            min_line_scores=min_line_scores,
+            k_per_node=k_per_node,
+        )
+
     # Both made once: a copy from pageable host memory on every batch would
     # wait for the device's queue, and building t takes three launches.
     def _edge_inds_on(self, device: torch.device) -> torch.Tensor:
@@ -422,3 +442,20 @@ class PAFScorer:
         if return_matches:
             return inst + (matches,)
         return inst
+
+    def predict(self, pafs, peaks, peak_vals, channel_inds, valid):
+        """A batch end to end: scoring on pafs' device, one copy of the
+        grouped peaks, values and scores to the host, then
+        :meth:`group_sample` for each sample. Returns a list of ``(points,
+        vals, instance_scores)``, one per sample."""
+        grouped_peaks, grouped_vals, _, scores = self.score_on_device(
+            pafs, peaks, peak_vals, channel_inds, valid)
+        b = grouped_peaks.shape[0]
+        parts = (grouped_peaks, grouped_vals, scores)
+        # One copy to the host, as f32 (it holds bf16 values exactly; numpy
+        # has no bfloat16).
+        flat = torch.cat([t.reshape(b, -1).float() for t in parts], dim=1).cpu().numpy()
+        widths = [int(np.prod(t.shape[1:])) for t in parts]
+        gp, gv, sc = (a.reshape(t.shape) for a, t in
+                      zip(np.split(flat, np.cumsum(widths)[:-1], axis=1), parts))
+        return [self.group_sample(gp[i], gv[i], sc[i]) for i in range(b)]

@@ -19,18 +19,22 @@ a ``tracker``) the predicted ``Labels`` are tracked on the host
 (``profiling.trace``). With ``mask_backend`` the call is SAM prompted
 segmentation of the poses already in a labels source
 (``inference.sam.run_sam_segmentation``, on ``device``) and no model runs.
-What the port lacks raises ``NotImplementedError``: the
-``from_model_paths`` knobs listed in ``predictor.UNPORTED_KNOBS``. Remote
-inputs (``http://...``) are refused: ``fetch_remote_data`` needs the
-network and stays out of the port.
+A ``scheme://`` source is first made local by ``fetch_remote_data``:
+``file://`` in place, ``http(s)://`` downloaded (with ``headers``) to a
+temporary file removed at exit. What the port lacks raises
+``NotImplementedError``: the ``from_model_paths`` knobs listed in
+``predictor.UNPORTED_KNOBS``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import inspect
 import logging
 import re
+import shutil
+import tempfile
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Union
 
@@ -49,17 +53,64 @@ logger = logging.getLogger("sleap_nn_tpu_torch")
 _URL_RE = re.compile(r"^[a-zA-Z][a-zA-Z0-9+.-]*://")
 
 # Knobs of the JAX ``predict`` whose features the port lacks: name -> (the
-# value that asks for nothing, why another value raises).
-UNPORTED_RUN_KNOBS = {
-    **UNPORTED_KNOBS,
-    "headers": (None, "remote inputs need the network; fetch_remote_data is not ported"),
-    "stream_mode": (None, "remote inputs need the network; fetch_remote_data is not ported"),
-}
+# value that asks for nothing, why another value raises). They are all
+# ``from_model_paths``' own.
+UNPORTED_RUN_KNOBS = UNPORTED_KNOBS
 
 
 def is_remote_url(path: str) -> bool:
     """True for ``scheme://`` inputs, False for local paths (``C:\\...`` too)."""
     return bool(_URL_RE.match(path)) and "://" in path
+
+
+def fetch_remote_data(
+    url: str,
+    headers: Optional[Dict[str, str]] = None,
+    stream_mode: str = "download",
+    timeout: float = 60.0,
+) -> str:
+    """A remote data URL as a local file path.
+
+    ``file://`` resolves in place (no copy). ``http(s)://`` downloads to a
+    temporary file that keeps the URL's full suffix (``.pkg.slp`` stays
+    ``.pkg.slp``), so that ``.slp`` and video routing work on it, with
+    ``headers`` on the request; the file is removed at interpreter exit.
+    Any other scheme (``s3``, ``gs``, ...) needs a credentialed client and
+    raises ``ValueError``. ``stream_mode="stream"`` downloads first too.
+    """
+    # Imported here, so that a patch of ``urllib.request.urlopen`` reaches it.
+    from urllib.parse import unquote, urlparse
+    from urllib.request import Request, url2pathname, urlopen
+
+    parsed = urlparse(url)
+    scheme = parsed.scheme.lower()
+    if scheme == "file":
+        return url2pathname(parsed.path)
+    if scheme in ("http", "https"):
+        name = unquote(Path(parsed.path).name) or "remote_data"
+        suffix = name[name.index("."):] if "." in name else ""
+        req = Request(url, headers=dict(headers or {}))
+        # The connection opens before the file is made, so a failed request
+        # (404, DNS, a stall) leaves no empty file; ``timeout`` bounds the
+        # connect and each read.
+        with urlopen(req, timeout=timeout) as resp:
+            tmp = tempfile.NamedTemporaryFile(
+                suffix=suffix, prefix="sleap_nn_tpu_torch_remote_", delete=False)
+            try:
+                with tmp:
+                    shutil.copyfileobj(resp, tmp)
+            except BaseException:
+                Path(tmp.name).unlink(missing_ok=True)
+                raise
+        # The copy backs this process's run only: repeated runs must not
+        # pile full-size copies up in the temporary directory.
+        atexit.register(lambda p=tmp.name: Path(p).unlink(missing_ok=True))
+        return tmp.name
+    raise ValueError(
+        f"Remote scheme {scheme!r} needs a credentialed client this build "
+        f"does not ship (got {url!r}); download the file and pass a local "
+        "path, or use an http(s):// URL."
+    )
 
 
 def _validate_tracker_kwargs(kwargs: Dict) -> None:
@@ -135,6 +186,8 @@ def predict(
     write_interval: Optional[int] = None,
     video_dataset: Optional[str] = None,
     video_input_format: str = "channels_last",
+    headers: Optional[Dict[str, str]] = None,
+    stream_mode: Optional[str] = None,
     queue_maxsize: Optional[int] = None,
     progress_callback=None,
     restore_source_videos: bool = False,
@@ -193,7 +246,11 @@ def predict(
     the JAX package's ``"stablehlo"`` / ``"savedmodel"`` raise
     ``ValueError``); the program baked the peak threshold, refinement and
     peak count, and a differing request is logged as ignored.
-    ``profile_dir`` traces the predict loop into that directory.
+    ``profile_dir`` traces the predict loop into that directory. A
+    ``scheme://`` ``data_path`` is made local first by
+    ``fetch_remote_data`` (``headers`` ride an ``http(s)`` request;
+    ``stream_mode`` ``"stream"`` downloads first too); ``headers`` on a
+    local path are ignored, as in the JAX package.
     ``data_parallel`` predicts with one replica of the models on each card
     this process sees (``Predictor.from_model_paths``); an export dir
     ignores it, as in the JAX package. It is currently slower than one
@@ -210,8 +267,7 @@ def predict(
     refuse_unported(unported, UNPORTED_RUN_KNOBS, "predict")
     formats = _normalize_output_formats(output_format)
     if isinstance(data_path, (str, Path)) and is_remote_url(str(data_path)):
-        raise NotImplementedError(
-            f"{data_path}: remote inputs need the network; fetch_remote_data is not ported")
+        data_path = fetch_remote_data(str(data_path), headers=headers, stream_mode=stream_mode)
 
     if video_dataset is not None and isinstance(data_path, (str, Path)):
         # Frames of a dataset inside an HDF5 file.

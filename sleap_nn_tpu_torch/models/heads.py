@@ -88,6 +88,10 @@ class Head:
     def activation(self) -> str:
         return "identity"
 
+    @property
+    def loss_function(self) -> str:
+        return "mse"
+
     def make_layer(self, in_channels: int) -> nn.Module:
         return ConvHeadLayer(in_channels, self.channels, self.activation)
 
@@ -174,6 +178,10 @@ class ClassVectorsHead(Head):
     @property
     def activation(self) -> str:
         return "softmax"
+
+    @property
+    def loss_function(self) -> str:
+        return "categorical_crossentropy"
 
     def make_layer(self, in_channels: int) -> nn.Module:
         """``in_channels``: the dense input size (see ``ClassVectorsHeadLayer``)."""

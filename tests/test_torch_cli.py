@@ -181,10 +181,7 @@ def _norm(value):
 
 
 def _norm_kwargs(kwargs):
-    # JAX's command line passes its download-first default (a remote
-    # input's read) always; the port's passes a stream mode only otherwise.
-    return {k: (_device(v) if k == "device" else _norm(v)) for k, v in kwargs.items()
-            if (k, v) != ("stream_mode", "download")}
+    return {k: (_device(v) if k == "device" else _norm(v)) for k, v in kwargs.items()}
 
 
 @pytest.fixture
@@ -516,8 +513,10 @@ def test_unported_knobs_reach_run_predict_and_raise(dirs, tmp_path):  # noqa: F8
     for extra, match in ((["--runtime", "stablehlo"], "JAX package"),
                          (["--data-parallel"], None),
                          (["--profile-dir", str(tmp_path / "p")], None),
-                         (["--stream-mode", "stream"], "fetch_remote_data")):
-        if match is None:  # ported: one replica on the CPU; a trace of the run
+                         (["--stream-mode", "stream"], None)):
+        # Ported: one replica on the CPU; a trace of the run; a stream mode
+        # (a local clip is read in place whatever the mode).
+        if match is None:
             (tmp_path / "o.slp").unlink(missing_ok=True)
             assert pcli.main(base + extra) == 0
             assert (tmp_path / "o.slp").exists()

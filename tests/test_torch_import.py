@@ -17,7 +17,8 @@ training monitors' optional packages: ``zmq`` (the GUI's sockets),
 load native code (the CUDA kernels of ``ops/``, the C++ grouping of
 ``native/``) and the system report (which asks nvcc, g++ and nvidia-smi
 for their versions) start programs or load libraries (``subprocess``,
-``ctypes``)."""
+``ctypes``), and only ``fetch_remote_data`` opens a connection
+(``urllib.request``, imported in its body); the port serves nothing."""
 
 import ast
 import os
@@ -141,6 +142,27 @@ def test_native_code_is_built_and_loaded_only_where_expected(path):
     used = {m.split(".")[0] for m in _imported_roots(path)} & set(NATIVE)
     assert not used or str(path.relative_to(ROOT)) in NATIVE_OK, \
         f"{path.name} imports {sorted(used)}"
+
+
+# The port's one network client is ``fetch_remote_data``'s ``urllib.request``,
+# imported in its body; it serves nothing (``http.server`` is for the tests
+# and ``chip_smoke.py``).
+CLIENT, SERVER = "urllib.request", ("http.server", "socketserver")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_network_code_only_in_fetch_remote_data(path):
+    roots = set(_imported_roots(path))
+    assert not roots & set(SERVER), f"{path.name} imports a server"
+    if str(path.relative_to(ROOT)) != "sleap_nn_tpu_torch/inference/run.py":
+        assert CLIENT not in roots, f"{path.name} imports {CLIENT}"
+        return
+    tree = ast.parse(path.read_text(), str(path))
+    where = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+             for node in ast.walk(fn)
+             if isinstance(node, ast.ImportFrom) and node.module == CLIENT]
+    assert CLIENT not in set(_imported_roots(path, outside_functions=True))
+    assert where == ["fetch_remote_data"]
 
 
 def test_native_grouping_imports_without_h5py_or_a_compiler(tmp_path):

@@ -27,6 +27,7 @@ and that predicts what the JAX package predicts on the orbax dir.
 import copy
 import importlib.util
 import shutil
+import urllib.request
 from pathlib import Path
 from types import SimpleNamespace as ns
 
@@ -515,23 +516,52 @@ def test_from_model_paths_refuses_unported_type_sets(dirs, types, error, match):
     ({"profile_dir": "<tmp>/prof"}, None),
     ({"sam_prompt_mode": "box"}, None),
     ({"sam_anchor_ind": 0}, None),
-    ({"data_path": "s3://bucket/a.slp"}, "fetch_remote_data"),
-    ({"data_path": "https://example.com/a.slp"}, "fetch_remote_data"),
+    ({"data_path": "s3://bucket/a.slp"}, "'s3'"),
+    ({"data_path": "https://example.com/videos/clip.avi"}, "<fetched>"),
     ({"sam_disjointify_masks": True}, None),
     ({"sam_overlay_path": "overlay.mp4"}, None),
     ({"sam_backend": "jax"}, None),
-    ({"headers": {"Authorization": "x"}}, "fetch_remote_data"),
-    ({"stream_mode": "stream"}, "fetch_remote_data"),
+    ({"headers": {"Authorization": "x"}}, "<fetched>"),
+    ({"stream_mode": "stream"}, "<fetched>"),
     ({"data_parallel": True, "batch_size": 8}, None),
     ({"merge_method": "iou"}, None),
     ({"min_mask_area": 5}, None),
     ({"merge_thresholds": (0.9, 0.5, 0.3)}, None),
     ({"polygon_epsilon": 0.05}, None),
 ])
-def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
+def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path, monkeypatch):
     kwargs = {"data_path": _video(),
               **{k: tmp_path / v[6:] if str(v).startswith("<tmp>/") else v
                  for k, v in kwargs.items()}}
+    if match == "<fetched>":
+        # Remote inputs are ported: an https URL is downloaded through
+        # urllib's urlopen (patched here for both packages, so nothing
+        # leaves the machine), with the headers on its request; headers on
+        # a local clip are ignored, and "stream" downloads first too. The
+        # Labels equal the local clip's, and the JAX package's from the
+        # same source.
+        from tests.test_torch_run_video import assert_same_labels, write_clip
+
+        clip = write_clip(tmp_path / "clip.avi", blob_frames(N_FRAMES, seed=9))
+        requests = []
+
+        def urlopen(req, timeout=None):
+            requests.append(req)
+            return open(clip, "rb")
+
+        monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+        if not isinstance(kwargs["data_path"], str):
+            kwargs["data_path"] = clip
+        paths = _paths(dirs, "single_instance")
+        call = {"headers": {"Authorization": "x"}, **kwargs}
+        got = prun.predict(model_paths=paths, device="cpu", batch_size=4, **call)
+        assert_same_labels(got, prun.predict(clip, paths, device="cpu", batch_size=4))
+        assert_same_labels(got, jax_predict(model_paths=paths, batch_size=4, **call))
+        remote = kwargs["data_path"] != clip
+        assert [r.full_url for r in requests] == ([kwargs["data_path"]] * 2 if remote else [])
+        assert not remote or all(r.get_header("Authorization") == "x" for r in requests)
+        assert sum(len(lf) for lf in got) >= 3
+        return
     if match is None:
         # Mask tracking, the segmentation knobs, data_parallel and the SAM
         # knobs (which do nothing without mask_backend) are ported: on a
@@ -557,12 +587,15 @@ def test_run_predict_refuses_unported_features(dirs, kwargs, match, tmp_path):
         assert names(got) == names(want)
         return
     # The runtime of a model dir that is not an export dir: "auto" or
-    # "pt2"; others raise ValueError, as mask_backend with model dirs does
-    # in both packages; the unported features NotImplementedError.
-    error = ValueError if {"runtime", "mask_backend"} & set(kwargs) else NotImplementedError
+    # "pt2"; others raise ValueError, as mask_backend with model dirs and a
+    # cloud scheme's URL do in both packages; the unported features
+    # NotImplementedError.
+    cloud = str(kwargs["data_path"]).startswith("s3://")
+    error = (ValueError if {"runtime", "mask_backend"} & set(kwargs) or cloud
+             else NotImplementedError)
     with pytest.raises(error, match=match):
         prun.predict(model_paths=_paths(dirs, "single_instance"), device="cpu", **kwargs)
-    if "mask_backend" in kwargs:
+    if "mask_backend" in kwargs or cloud:
         with pytest.raises(error, match=match):
             jax_predict(model_paths=_paths(dirs, "single_instance"), **kwargs)
 
