@@ -413,6 +413,16 @@ Phases, each of which raises on failure (exit code != 0):
     top-down batch, kernel 3 once for ``PAFScorer.predict``; every kernel
     call held to its plain version; frames/s from each source and the
     download ms.
+47. The subpackages' re-exports and masks through the geometric
+    augmentation (``run_mask_augmentation``, line ``mask_augmentation``):
+    every name of ``sleap_nn_tpu_torch.{config,io,ops,models,data}.__all__``
+    is its port module's own object; ``apply_geometric_augmentation`` with
+    6 instance masks (uint8 and f32) on a batch of 4 1024x1024 frames,
+    flipped, rotated, scaled and moved half a pixel, on the card and on the
+    CPU given the same drawn values: masks equal but at counted ties of the
+    nearest rounding, images within 1e-5 (4 ulps of a coordinate on the
+    one-pixel ramp to the zero padding), no port kernel launched. Prints
+    ``warp_image``'s ms a call, nearest and bilinear.
 
 Phase 3 also holds kernel 4 (multi-instance confmaps) against its plain
 version at the centroid training shape (4, 6, 1, 2) -> (4, 512, 512, 1)
@@ -7383,6 +7393,181 @@ def run_remote_and_api(kernels, root, smi):
     return runs, held, row
 
 
+# --------------------------------------------------------------------------
+# Phase 47: the subpackages' re-exports, and masks through the geometric
+# augmentation
+# --------------------------------------------------------------------------
+
+REEXPORT_PACKAGES = ("config", "io", "ops", "models", "data")
+# A mask pixel whose source coordinate (in f64, from the CPU's matrices)
+# lies within this many pixels of a half-integer is a tie that the card's
+# and the CPU's f32 coordinates may round apart (a few ulps at 1024 px).
+MASK_TIE_PX = 1e-3
+# Image tolerance card against CPU: 1e-5 inside; where the source lies
+# within a pixel outside the frame, bilinear ramps from the edge pixel to
+# the zero padding over one pixel, so a coordinate's ulps (1.2e-4 px between
+# 1024 and 2048) show at full strength: 4 of them there.
+IMAGE_TOL, IMAGE_RAMP_TOL = 1e-5, 4 * 2.0 ** -13
+
+
+def check_reexports():
+    """Every name of the five subpackages' ``__all__`` is the object of the
+    port module that defines it (not a wrapper). Returns the names held."""
+    import importlib
+
+    held = 0
+    for sub in REEXPORT_PACKAGES:
+        pkg = importlib.import_module(f"sleap_nn_tpu_torch.{sub}")
+        for name in pkg.__all__:
+            obj = getattr(pkg, name)
+            homes = [m for k, m in list(sys.modules.items())
+                     if k.startswith(pkg.__name__ + ".") and getattr(m, name, None) is obj]
+            home = getattr(obj, "__module__", None)
+            if not homes or (home and home.startswith("sleap_nn_tpu_torch")
+                             and getattr(sys.modules[home], name, None) is not obj):
+                raise AssertionError(f"phase 47: {pkg.__name__}.{name} is not a port "
+                                     f"module's own object")
+            held += 1
+    return held
+
+
+@contextlib.contextmanager
+def drawn_values(aug, flip, affine):
+    """The augmentation chain's flip and affine samplers return ``flip``
+    and ``affine`` (moved to the generator's device) in place of a draw."""
+    saved = aug.sample_flip, aug.sample_affine
+    aug.sample_flip = lambda generator, batch, p: flip.to(generator.device)
+    aug.sample_affine = lambda generator, batch, *args: {
+        k: v.to(generator.device) for k, v in affine.items()}
+    try:
+        yield
+    finally:
+        aug.sample_flip, aug.sample_affine = saved
+
+
+def source_coords(mats, h, w):
+    """``(sx, sy)``, each ``(B, H, W)`` f64: each output pixel's source
+    coordinate under the inverse of ``mats``."""
+    inv = np.linalg.inv(mats.astype(np.float64))
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                         indexing="ij")
+    return tuple(inv[:, r, 0, None, None] * xx + inv[:, r, 1, None, None] * yy
+                 + inv[:, r, 2, None, None] for r in range(2))
+
+
+def run_mask_augmentation(kernels, smi):
+    """Phase 47: the five subpackages' re-exports are the port modules'
+    own objects (``check_reexports``), then ``apply_geometric_augmentation``
+    with masks at the training smoke's shape (batch ``TRAIN_BATCH``,
+    ``TRAIN_IMG``^2, ``MAX_INST`` instance masks, uint8 and f32) on the card
+    and on the CPU, given the same drawn values (``drawn_values``): row 0
+    flipped and moved half a pixel right, row 1 rotated 30 degrees and
+    scaled 1.1, row 2 flipped and scaled 0.5 (every source coordinate a
+    tie), row 3 rotated -12.5 degrees, scaled 0.9 and moved (3.25, 0.5).
+    Masks equal the CPU's exactly on rows 0 and 2 and elsewhere but at
+    pixels within ``MASK_TIE_PX`` of a tie (counted and printed); images
+    within ``IMAGE_TOL`` (``IMAGE_RAMP_TOL`` on the one-pixel ramp to the
+    zero padding), points within 1e-3 px; the chain without masks gives the
+    same image and points bit for bit. No kernel of the port launches.
+    Times ``warp_image`` a call: nearest (``order=0``) on the uint8 and f32
+    masks, bilinear (``order=1``) on the f32 masks and on the image, and
+    the chain with masks."""
+    import torch
+
+    from sleap_nn_tpu_torch.data import augmentation as aug
+
+    reexports_held = check_reexports()
+    b, h, w, m = TRAIN_BATCH, TRAIN_IMG, TRAIN_IMG, MAX_INST
+    rng = np.random.default_rng(47)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    # A smooth image (broad blobs), so that an ulp between the card's and
+    # the CPU's matrices moves a bilinear tap by far less than 1e-5.
+    image = np.zeros((b, h, w, 1), np.float32)
+    for k in range(b):
+        for cx, cy, s in zip(*rng.uniform(0, w, (2, 6)), rng.uniform(0.1, 0.3, 6) * w):
+            image[k, :, :, 0] += np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))
+    image = np.clip(image / image.max(), 0, 1)
+    points = rng.uniform(0, w, (b, m, N_NODES, 2)).astype(np.float32)
+    centres, radii = rng.uniform(0.1 * w, 0.9 * w, (b, m, 2)), rng.uniform(0.03, 0.15, (b, m)) * w
+    masks = ((xx[None, :, :, None] - centres[:, None, None, :, 0]) ** 2
+             + (yy[None, :, :, None] - centres[:, None, None, :, 1]) ** 2
+             <= radii[:, None, None, :] ** 2).astype(np.uint8)  # (B, H, W, M)
+    flip = torch.tensor([True, False, True, False])
+    affine = {"angle": torch.tensor([0.0, 30.0, 0.0, -12.5]) * (np.pi / 180.0),
+              "scale": torch.tensor([1.0, 1.1, 0.5, 0.9]),
+              "tx": torch.tensor([0.5, 0.0, 0.0, 3.25]), "ty": torch.tensor([0.0, 0.0, 0.0, 0.5])}
+    kw = dict(flip_p=0.5, rotation_p=1.0, scale_p=1.0, translate_p=1.0)
+    exact_rows = [0, 2]
+
+    def chain(device, mask_dtype, with_masks=True):
+        gen = torch.Generator(device=device).manual_seed(47)
+        mk = torch.from_numpy(masks).to(device, mask_dtype) if with_masks else None
+        with drawn_values(aug, flip, affine):
+            out = aug.apply_geometric_augmentation(
+                gen, torch.from_numpy(image).to(device), torch.from_numpy(points).to(device),
+                masks=mk, **kw)
+        return [t.cpu() for t in out]
+
+    for k in kernels.values():
+        k.launches = 0
+    mats = aug.affine_matrices(**affine, height=h, width=w)
+    sx, sy = source_coords(mats.numpy(), h, w)
+    ties = np.zeros(sx.shape, bool)
+    for src in (sx, sy):
+        ties |= np.abs(src - np.floor(src) - 0.5) < MASK_TIE_PX
+    ramp = ((sx > -1) & (sx < 0)) | ((sx > w - 1) & (sx < w)) | ((sy > -1) & (sy < 0)) \
+        | ((sy > h - 1) & (sy < h))
+    row = {"shape": [b, h, w, m], "reexports_held": reexports_held, "masks": {}}
+    for dtype_name, dtype in (("uint8", torch.uint8), ("float32", torch.float32)):
+        card, cpu = chain(DEVICE, dtype), chain("cpu", dtype)
+        if card[2].dtype != dtype or cpu[2].dtype != dtype:
+            raise AssertionError(f"phase 47 {dtype_name}: masks came back "
+                                 f"{card[2].dtype} / {cpu[2].dtype}")
+        img_diff = (card[0] - cpu[0]).abs().amax(-1).numpy()
+        img_err = float(img_diff[~ramp].max(initial=0.0))
+        ramp_err = float(img_diff[ramp].max(initial=0.0))
+        pts_err = float((card[1] - cpu[1]).nan_to_num().abs().max())
+        differ = (card[2] != cpu[2]).any(-1).numpy()
+        row["masks"][dtype_name] = {
+            "image_max_abs_err": img_err, "image_max_abs_err_edge_ramp": ramp_err,
+            "edge_ramp_pixels": int(ramp.sum()), "points_max_abs_err": pts_err,
+            "pixels_differing": int(differ.sum()),
+            "pixels_differing_off_ties": int((differ & ~ties).sum()),
+            "pixels_differing_exact_rows": int(differ[exact_rows].sum()),
+            "tie_pixels": int(ties.sum()), "mask_pixels_on": int(cpu[2].sum())}
+        if img_err > IMAGE_TOL or ramp_err > IMAGE_RAMP_TOL or pts_err > 1e-3 \
+                or (differ & ~ties).any() \
+                or differ[exact_rows].any():
+            raise AssertionError(f"phase 47 {dtype_name}: the card's augmentation differs from "
+                                 f"the CPU's: {row['masks'][dtype_name]}")
+        plain = chain(DEVICE, dtype, with_masks=False)
+        if len(plain) != 2 or not (torch.equal(plain[0], card[0])
+                                   and torch.equal(plain[1].nan_to_num(), card[1].nan_to_num())):
+            raise AssertionError(f"phase 47 {dtype_name}: masks changed the image or the points")
+    launches = {name: k.launches for name, k in kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase 47: the augmentation launched port kernels: {launches}")
+
+    dev_mats = mats.to(DEVICE)
+    dev_image = torch.from_numpy(image).to(DEVICE)
+    dev_masks = {n: torch.from_numpy(masks).to(DEVICE, t)
+                 for n, t in (("uint8", torch.uint8), ("float32", torch.float32))}
+    gen = torch.Generator(device=DEVICE).manual_seed(47)
+    row["ms"] = {
+        "order0_uint8": cuda_ms(lambda: aug.warp_image(dev_masks["uint8"], dev_mats, order=0), 20),
+        "order0_float32": cuda_ms(lambda: aug.warp_image(dev_masks["float32"], dev_mats,
+                                                         order=0), 20),
+        "order1_float32_masks": cuda_ms(lambda: aug.warp_image(dev_masks["float32"], dev_mats),
+                                        20),
+        "order1_image": cuda_ms(lambda: aug.warp_image(dev_image, dev_mats), 20),
+        "chain_with_uint8_masks": cuda_ms(lambda: aug.apply_geometric_augmentation(
+            gen, dev_image, torch.from_numpy(points).to(DEVICE), masks=dev_masks["uint8"],
+            **kw), 20)}
+    row["launches"], row["smi"] = launches, smi
+    log("mask_augmentation " + json.dumps(row))
+    return row
+
+
 
 def kernel_summary(fused_rows, nms_rows, nms_bu_rows, paf_rows, paf_breakdown, cm_rows, runs,
                    held):
@@ -7819,6 +8004,13 @@ def main() -> int:
     log(f"phase 46: {phase46_s:.1f} s")
     runs_dir.cleanup()
 
+    # 47. The subpackages' re-exports, then masks through the geometric
+    # augmentation, card against CPU on the same drawn values.
+    t_phase = time.perf_counter()
+    mask_row = run_mask_augmentation(_build.KERNELS, smi)
+    phase47_s = time.perf_counter() - t_phase
+    log(f"phase 47: {phase47_s:.1f} s")
+
     # Phase 3's breakdown of the paf_scoring stage runs last: it opens a
     # torch.profiler window, which must not slow the timed phases above.
     paf_breakdown = paf_scoring_breakdown(bu_layer, smoke_frames()[:BATCH])
@@ -7929,7 +8121,12 @@ def main() -> int:
         f"{remote_row['fps']['local_clip']:.2f}; {remote_row['fps']['http_slp']:.2f} / "
         f"{remote_row['fps']['file_slp']:.2f} / {remote_row['fps']['local_slp']:.2f}, download "
         f"ms {remote_row['download_ms']['http_clip']:.2f} (clip) / "
-        f"{remote_row['download_ms']['http_slp']:.2f} (.slp); {smi}"
+        f"{remote_row['download_ms']['http_slp']:.2f} (.slp); phase 47 {phase47_s:.1f} s, "
+        f"warp_image ms a call at {mask_row['shape']} (nearest uint8 / f32 masks, bilinear f32 "
+        f"masks / image): {mask_row['ms']['order0_uint8']:.3f} / "
+        f"{mask_row['ms']['order0_float32']:.3f}, {mask_row['ms']['order1_float32_masks']:.3f} / "
+        f"{mask_row['ms']['order1_image']:.3f}, chain with masks "
+        f"{mask_row['ms']['chain_with_uint8_masks']:.3f}; {smi}"
         + f"; total script {time.perf_counter() - t_start:.1f} s")
     log("slp_io " + json.dumps(slp_io))
     log(json.dumps(summary))

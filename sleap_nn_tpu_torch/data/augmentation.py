@@ -1,4 +1,4 @@
-"""Device-side augmentation of image batches and their keypoints.
+"""Device-side augmentation of image batches, their keypoints and masks.
 
 Port of ``sleap_nn_tpu/data/augmentation.py``: flip (with the symmetric
 node swap), affine (rotation / scale / translation, with independent or
@@ -20,7 +20,8 @@ global batch of ``global_batch`` rows), the chains draw the values of the
 whole global batch, as a single process does, and keep those rows. Mixup
 blends a row with the one before it in the global batch, which ``rows``
 must then hold too. Conventions: image ``(B, H, W, C)`` f32 in
-[0, 1]; instances ``(B, ..., 2)`` ``(x, y)`` pixels; NaN stays NaN.
+[0, 1]; instances ``(B, ..., 2)`` ``(x, y)`` pixels; NaN stays NaN;
+masks ``(B, H, W, M)`` of any dtype, 0 or 1.
 """
 
 from __future__ import annotations
@@ -124,14 +125,29 @@ def transform_points(points: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
     return out.reshape(points.shape)
 
 
-def warp_image(image: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest integer, ties away from zero (``lax.round``);
+    ``torch.round`` alone rounds ties to even."""
+    t = torch.trunc(x)
+    return torch.where((x - t).abs() == 0.5, t + torch.sign(x), torch.round(x))
+
+
+def warp_image(image: torch.Tensor, mats: torch.Tensor, order: int = 1) -> torch.Tensor:
     """Warp ``(B, H, W, C)`` images by the inverse of the forward affines.
 
-    Bilinear, zeros outside: each of the four taps that falls outside the
-    image contributes 0 (``map_coordinates(order=1, cval=0)``), which is
-    ``grid_sample`` with ``padding_mode="zeros"`` and ``align_corners=True``
-    on coordinates normalised by ``W - 1`` and ``H - 1``.
+    ``order=1``: bilinear, zeros outside: each of the four taps that falls
+    outside the image contributes 0 (``map_coordinates(order=1, cval=0)``),
+    which is ``grid_sample`` with ``padding_mode="zeros"`` and
+    ``align_corners=True`` on coordinates normalised by ``W - 1`` and
+    ``H - 1``.
+
+    ``order=0``: nearest, for masks of any dtype (kept): the source pixel is
+    the source coordinate rounded half away from zero, 0 where that pixel
+    lies outside the image (``map_coordinates(order=0, cval=0)``). It is an
+    explicit gather: ``grid_sample``'s nearest mode rounds ties to even.
     """
+    if order not in (0, 1):
+        raise NotImplementedError(f"warp_image supports order 0 and 1, not {order}")
     b, h, w, _ = image.shape
     inv = torch.linalg.inv(mats.float())[:, :, :, None, None]  # (B, 3, 3, 1, 1)
     yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=image.device),
@@ -139,6 +155,12 @@ def warp_image(image: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
                             indexing="ij")
     sx = inv[:, 0, 0] * xx + inv[:, 0, 1] * yy + inv[:, 0, 2]  # (B, H, W)
     sy = inv[:, 1, 0] * xx + inv[:, 1, 1] * yy + inv[:, 1, 2]
+    if order == 0:
+        ix, iy = _round_half_away(sx).long(), _round_half_away(sy).long()
+        outside = (ix < 0) | (ix >= w) | (iy < 0) | (iy >= h)
+        rows = torch.arange(b, device=image.device)[:, None, None]
+        out = image[rows, iy.clamp(0, h - 1), ix.clamp(0, w - 1)]  # (B, H, W, C)
+        return out.masked_fill(outside[..., None], 0)
     grid = torch.stack([sx * (2.0 / max(w - 1, 1)) - 1.0, sy * (2.0 / max(h - 1, 1)) - 1.0],
                        dim=-1)
     out = F.grid_sample(image.permute(0, 3, 1, 2), grid, mode="bilinear",
@@ -157,8 +179,13 @@ def sample_flip(generator: torch.Generator, batch: int, flip_p: float) -> torch.
 
 
 def apply_flip(image: torch.Tensor, instances: torch.Tensor, do: torch.Tensor,
-               symmetric_inds: Optional[Sequence[Tuple[int, int]]] = None):
-    """Left/right mirror of the samples where ``do``; symmetric nodes swap."""
+               symmetric_inds: Optional[Sequence[Tuple[int, int]]] = None,
+               masks: Optional[torch.Tensor] = None):
+    """Left/right mirror of the samples where ``do``; symmetric nodes swap.
+
+    Returns ``(image, instances)``, or ``(image, instances, masks)`` with
+    ``(B, H, W, M)`` ``masks`` mirrored alongside the image.
+    """
     b, _, w, _ = image.shape
     image = torch.where(do[:, None, None, None], image.flip(2), image)
     flipped = torch.stack([(w - 1) - instances[..., 0], instances[..., 1]], dim=-1)
@@ -168,7 +195,25 @@ def apply_flip(image: torch.Tensor, instances: torch.Tensor, do: torch.Tensor,
             perm[i], perm[j] = perm[j], perm[i]
         flipped = flipped[..., perm, :]
     do_b = do.reshape((b,) + (1,) * (instances.ndim - 1))
-    return image, torch.where(do_b, flipped, instances)
+    instances = torch.where(do_b, flipped, instances)
+    if masks is None:
+        return image, instances
+    return image, instances, torch.where(do[:, None, None, None], masks.flip(2), masks)
+
+
+def apply_flip_augmentation(generator: torch.Generator, image: torch.Tensor,
+                            instances: torch.Tensor,
+                            symmetric_inds: Optional[Sequence[Tuple[int, int]]] = None,
+                            flip_p: float = 0.0, masks: Optional[torch.Tensor] = None,
+                            rows: Optional[torch.Tensor] = None,
+                            global_batch: Optional[int] = None):
+    """Random left/right mirror with the symmetric node swap: ``sample_flip``
+    then ``apply_flip``; ``rows`` of a ``global_batch`` as the module doc
+    says. Always ``(image, instances, masks)``, masks None if not given."""
+    b = image.shape[0] if rows is None else global_batch
+    out = apply_flip(image, instances, _keep(sample_flip(generator, b, flip_p), rows),
+                     symmetric_inds, masks)
+    return out if masks is not None else out + (None,)
 
 
 def sample_random_erase(generator: torch.Generator, batch: int, height: int, width: int,
@@ -239,15 +284,22 @@ def apply_geometric_augmentation(
     symmetric_inds: Optional[Sequence[Tuple[int, int]]] = None,
     rows: Optional[torch.Tensor] = None,
     global_batch: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    masks: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
     """The geometric chain: flip, affine, erase, mixup (each when enabled);
-    ``rows`` of a ``global_batch`` as the module doc says."""
+    ``rows`` of a ``global_batch`` as the module doc says.
+
+    ``(B, H, W, M)`` ``masks`` follow the flip and the affine (a nearest
+    warp, thresholded at 0.5, in the masks' dtype) but not erase or mixup;
+    given masks, the chain returns ``(image, instances, masks)``, else
+    ``(image, instances)``.
+    """
     b, h, w, _ = image.shape
     if rows is not None:
         b = global_batch
     if flip_p > 0:
-        image, instances = apply_flip(
-            image, instances, _keep(sample_flip(generator, b, flip_p), rows), symmetric_inds)
+        image, instances, masks = apply_flip_augmentation(
+            generator, image, instances, symmetric_inds, flip_p, masks, rows, global_batch)
     if affine_p > 0 or (rotation_p or 0) > 0 or (scale_p or 0) > 0 or (translate_p or 0) > 0:
         mats = affine_matrices(**_keep(sample_affine(
             generator, b, h, w, rotation_min, rotation_max, rotation_p, scale_min, scale_max,
@@ -255,6 +307,8 @@ def apply_geometric_augmentation(
             height=h, width=w)
         image = warp_image(image, mats)
         instances = transform_points(instances, mats)
+        if masks is not None:
+            masks = (warp_image(masks, mats, order=0) > 0.5).to(masks.dtype)
     if erase_p > 0:
         image = apply_random_erase(image, _keep(sample_random_erase(
             generator, b, h, w, erase_scale_min, erase_scale_max, erase_ratio_min,
@@ -262,6 +316,8 @@ def apply_geometric_augmentation(
     if mixup_p > 0:
         image = apply_mixup(image, _keep(sample_mixup(generator, b, mixup_lambda_min,
                                                       mixup_lambda_max, mixup_p), rows))
+    if masks is not None:
+        return image, instances, masks
     return image, instances
 
 

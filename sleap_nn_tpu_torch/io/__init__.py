@@ -11,6 +11,7 @@ from sleap_nn_tpu_torch.io.model import (
     PredictedCentroid,
     PredictedInstance,
     PredictedROI,
+    SegmentationMask,
     Skeleton,
     SuggestionFrame,
     Symmetry,
@@ -23,8 +24,8 @@ from sleap_nn_tpu_torch.io.video import Video
 
 __all__ = [
     "Edge", "Instance", "LabeledFrame", "Labels", "Node", "PredictedCentroid",
-    "PredictedInstance", "PredictedROI", "Skeleton", "SuggestionFrame", "Symmetry", "Track",
-    "UserCentroid", "Video", "is_negative_frame", "load_slp", "save_slp",
+    "PredictedInstance", "PredictedROI", "SegmentationMask", "Skeleton", "SuggestionFrame",
+    "Symmetry", "Track", "UserCentroid", "Video", "is_negative_frame", "load_slp", "save_slp",
 ]
 
 

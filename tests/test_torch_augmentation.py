@@ -18,6 +18,7 @@ import torch
 
 from sleap_nn_tpu.data import augmentation as ja
 from sleap_nn_tpu_torch.data import augmentation as pa
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 
@@ -283,3 +284,216 @@ def test_geometric_chain_keeps_shapes_and_nan():
                                             flip_p=0.5, erase_p=0.5, mixup_p=0.5,
                                             symmetric_inds=[(0, 1)])
     assert torch.equal(again[0], out_img)  # one seed, one draw
+
+
+# --- masks: nearest warp, flip and the chain ------------------------------
+
+MASK_DTYPES = {"uint8": (np.uint8, torch.uint8), "bool": (np.bool_, torch.bool),
+               "float32": (np.float32, torch.float32)}
+# The JAX warp jitted once per shape and dtype (eager map_coordinates
+# compiles op by op); the same function.
+_ja_warp = jax.jit(ja.warp_image, static_argnames="order")
+
+
+def _masks(b, h, w, m, dtype, seed=0):
+    """``(B, H, W, M)`` masks: random 0/1 (random [0, 1) values for
+    float32), every border pixel on so that the border's rounding shows."""
+    rng = np.random.default_rng(seed)
+    if dtype == "float32":
+        out = rng.random((b, h, w, m), dtype=np.float32)
+    else:
+        out = (rng.random((b, h, w, m)) < 0.5).astype(MASK_DTYPES[dtype][0])
+    out[:, [0, -1]] = 1
+    out[:, :, [0, -1]] = 1
+    return out
+
+
+def _shift_scale_rot(h, w):
+    """Matrices whose source coordinates are exact in f32: the identity,
+    integer and half-pixel shifts (ties at every pixel, rounding to -1 and
+    to W at the borders), scale 2 (ties at every other pixel) and 0.5
+    about the centre, and rotations by +-90 degrees about the centre."""
+    cx, cy = (w - 1) / 2, (h - 1) / 2
+    mats = np.tile(np.eye(3, dtype=np.float32), (8, 1, 1))
+    mats[1, :2, 2] = [3, -2]
+    mats[2, :2, 2] = [0.5, 0]
+    mats[3, :2, 2] = [-0.5, 0.5]
+    for i, s in ((4, 2.0), (5, 0.5)):
+        mats[i, :2, :2] = np.eye(2) * s
+        mats[i, :2, 2] = [cx - s * cx, cy - s * cy]
+    for i, sgn in ((6, 1), (7, -1)):  # x' = cx - sgn (y - cy), y' = cy + sgn (x - cx)
+        mats[i, :2, :2] = [[0, -sgn], [sgn, 0]]
+        mats[i, :2, 2] = [cx + sgn * cy, cy - sgn * cx]
+    return mats
+
+
+@pytest.mark.parametrize("dtype", sorted(MASK_DTYPES))
+def test_warp_nearest_matches_jax_exactly(dtype):
+    h, w = 15, 21  # odd: W - 0.5 rounds to W - 1 under ties-to-even, to W away from zero
+    mats, masks = _shift_scale_rot(h, w), _masks(8, h, w, 3, dtype)
+    want = np.asarray(_ja_warp(jnp.asarray(masks), jnp.asarray(mats), order=0))
+    got = pa.warp_image(_t(masks), _t(mats), order=0)
+    assert got.dtype == MASK_DTYPES[dtype][1] and want.dtype == masks.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[0].numpy(), masks[0])  # identity
+    np.testing.assert_array_equal(got[1, :-2, 3:].numpy(), masks[1, 2:, :-3])  # (3, -2)
+    # +0.5: column 0's source -0.5 rounds to -1 (outside); -0.5: column
+    # W - 1's source W - 0.5 rounds to W (outside). Ties to even would keep both.
+    assert not got[2, :, 0].any() and not got[3, :, -1].any()
+    np.testing.assert_array_equal(got[2, :, 1:].numpy(), masks[2, :, 1:])  # x - 0.5 -> x
+    assert got[6].any() and got[7].any()
+
+
+def test_half_pixel_shift_rounds_half_away_from_zero():
+    """Columns 2-4 moved +0.5 px: JAX keeps columns 2-4, where a
+    ties-to-even rounding (``grid_sample``'s nearest) gives 2-5."""
+    mask = np.zeros((1, 8, 8, 1), np.uint8)
+    mask[0, :, 2:5] = 1
+    mats = np.eye(3, dtype=np.float32)[None].copy()
+    mats[0, 0, 2] = 0.5
+    want = np.asarray(_ja_warp(jnp.asarray(mask), jnp.asarray(mats), order=0))
+    got = pa.warp_image(_t(mask), _t(mats), order=0).numpy()
+    np.testing.assert_array_equal(want[0, 0, :, 0], [0, 0, 1, 1, 1, 0, 0, 0])
+    np.testing.assert_array_equal(got, want)
+
+
+# Random matrices: pixels whose f64 source coordinate lies within TIE_TOL
+# of a half-integer may round apart (f32 coordinates an ulp apart); at
+# most MAX_TIES such pixels a case, and masks equal everywhere else.
+TIE_TOL, MAX_TIES = 1e-5, 4
+
+
+@pytest.mark.parametrize("h,w,seed", [(32, 32, 0), (24, 30, 1), (17, 29, 2)])
+def test_warp_nearest_random_matrices_differ_only_at_ties(h, w, seed):
+    mats, masks = _numpy_mats(6, h, w, seed), _masks(6, h, w, 2, "uint8", seed)
+    want = np.asarray(_ja_warp(jnp.asarray(masks), jnp.asarray(mats), order=0))
+    got = pa.warp_image(_t(masks), _t(mats), order=0).numpy()
+    inv = np.linalg.inv(mats.astype(np.float64))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    ties = np.zeros((6, h, w), bool)
+    for r in range(2):
+        src = inv[:, r, 0, None, None] * xx + inv[:, r, 1, None, None] * yy + inv[:, r, 2, None,
+                                                                                  None]
+        ties |= np.abs(src - np.floor(src) - 0.5) < TIE_TOL
+    assert ties.sum() <= MAX_TIES
+    differ = (got != want).any(-1)
+    assert not (differ & ~ties).any()
+    assert (want != masks).any() and want.any()  # the warp moved something, kept something
+
+
+def test_flip_with_masks_matches_jax(monkeypatch):
+    key, b = jax.random.PRNGKey(5), 6
+    img, pts, masks = _img(b), _inst(b), _masks(b, 20, 28, 2, "uint8")
+    want = ja.apply_flip_augmentation(key, jnp.asarray(img), jnp.asarray(pts),
+                                      symmetric_inds=[(0, 3)], flip_p=0.5,
+                                      masks=jnp.asarray(masks))
+    do = _t(jax.random.uniform(key, (b,)) < 0.5)
+    assert 0 < int(do.sum()) < b
+    got = pa.apply_flip(_t(img), _t(pts), do, [(0, 3)], masks=_t(masks))
+    monkeypatch.setattr(pa, "sample_flip", lambda g, batch, p: do[:batch])
+    chained = pa.apply_flip_augmentation(_gen(), _t(img), _t(pts), [(0, 3)], 0.5, _t(masks))
+    for out in (got, chained):
+        assert len(out) == 3 and out[2].dtype == torch.uint8
+        for g, w_ in zip(out, want):
+            _close(g, w_, atol=0)
+    assert len(pa.apply_flip(_t(img), _t(pts), do, [(0, 3)])) == 2
+    no_masks = pa.apply_flip_augmentation(_gen(), _t(img), _t(pts), [(0, 3)], 0.5)
+    assert no_masks[2] is None and torch.equal(no_masks[0], chained[0])
+
+
+def _jax_drawn(monkeypatch, key, b, h, w, kw):
+    """Patch the port's samplers to return what JAX's chain draws from ``key``."""
+    k_flip, k_aff, k_erase, k_mix = jax.random.split(key, 4)
+    aff_kw = {k: kw[k] for k in ("rotation_p", "scale_p", "translate_width", "translate_p")
+              if k in kw}
+    values = {"flip": _t(jax.random.uniform(k_flip, (b,)) < kw.get("flip_p", 0.0)),
+              "affine": _jax_affine_values(k_aff, b, h, w, **aff_kw)}
+    k_area, k_ratio, k_x, k_y, k_p = jax.random.split(k_erase, 5)
+    area = jax.random.uniform(k_area, (b,), minval=kw["erase_scale_min"],
+                              maxval=kw["erase_scale_max"]) * h * w
+    eh = ew = jnp.sqrt(area)
+    values["erase"] = {"eh": _t(eh), "ew": _t(ew),
+                       "on": _t(jax.random.uniform(k_p, (b,)) < kw["erase_p"]),
+                       "y0": _t(jax.random.uniform(k_y, (b,), maxval=1.0) * (h - eh)),
+                       "x0": _t(jax.random.uniform(k_x, (b,), maxval=1.0) * (w - ew))}
+    lam = jax.random.uniform(k_mix, (b, 1, 1, 1), minval=0.01, maxval=0.05)
+    values["mixup"] = _t(lam * (jax.random.uniform(jax.random.fold_in(k_mix, 1),
+                                                   (b, 1, 1, 1)) < kw["mixup_p"]))
+    monkeypatch.setattr(pa, "sample_flip", lambda g, batch, p: values["flip"])
+    monkeypatch.setattr(pa, "sample_affine", lambda g, batch, *a: values["affine"])
+    monkeypatch.setattr(pa, "sample_random_erase", lambda g, batch, *a: values["erase"])
+    monkeypatch.setattr(pa, "sample_mixup", lambda g, batch, *a: values["mixup"])
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_geometric_chain_with_masks_matches_jax(monkeypatch, dtype):
+    """The port's chain on JAX's drawn values: images and points to ATOL,
+    masks exactly, in their dtype; erase and mixup leave the masks alone."""
+    key, b, h, w = jax.random.PRNGKey(9), 6, 20, 28
+    img, pts = _img(b, h, w), _inst(b, h=h, w=w)
+    masks = (_masks(b, h, w, 3, "uint8") if dtype == "uint8"
+             else (_masks(b, h, w, 3, "float32") > 0.5).astype(np.float32))
+    kw = dict(rotation_p=1.0, scale_p=1.0, translate_width=0.1, translate_p=0.5, erase_p=0.5,
+              erase_scale_min=0.02, erase_scale_max=0.1, mixup_p=0.5, flip_p=0.5)
+    want = ja.apply_geometric_augmentation(key, jnp.asarray(img), jnp.asarray(pts),
+                                           symmetric_inds=[(0, 1)], masks=jnp.asarray(masks),
+                                           **kw)
+    _jax_drawn(monkeypatch, key, b, h, w, kw)
+    got = pa.apply_geometric_augmentation(_gen(), _t(img), _t(pts), symmetric_inds=[(0, 1)],
+                                          masks=_t(masks), **kw)
+    assert len(got) == 3 and got[2].dtype == MASK_DTYPES[dtype][1]
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert set(np.unique(got[2].numpy())) == {0, 1}
+    plain = pa.apply_geometric_augmentation(_gen(), _t(img), _t(pts), symmetric_inds=[(0, 1)],
+                                            **kw)
+    assert len(plain) == 2  # masks=None: the 2-tuple, the same image and points bit for bit
+    assert torch.equal(plain[0], got[0]) and torch.equal(plain[1].nan_to_num(),
+                                                         got[1].nan_to_num())
+
+
+def test_flip_cotransforms_masks():
+    """JAX's ``test_flip_cotransforms_masks`` on the port."""
+    img = torch.zeros(1, 32, 32, 1)
+    img[0, 12, 8] = 1.0
+    mask = torch.zeros(1, 32, 32, 1)
+    mask[0, :, :16] = 1.0
+    _, _, out_mask = pa.apply_flip_augmentation(_gen(), img, torch.zeros(1, 1, 2), flip_p=1.0,
+                                                masks=mask)
+    assert float(out_mask[0, 0, 0, 0]) == 0.0
+    assert float(out_mask[0, 0, 31, 0]) == 1.0
+
+
+def test_masks_follow_affine_warp():
+    """JAX's ``test_masks_follow_affine_warp`` on the port."""
+    img = torch.zeros(1, 32, 32, 1)
+    img[0, 12, 8] = 1.0
+    mask = torch.zeros(1, 32, 32, 1)
+    mask[0, 10:20, 10:20] = 1.0
+    out = pa.apply_geometric_augmentation(_gen(), img, torch.zeros(1, 1, 2), rotation_min=90.0,
+                                          rotation_max=90.0, affine_p=1.0, masks=mask)
+    assert len(out) == 3
+    m = out[2].numpy()
+    assert set(np.unique(m)) <= {0.0, 1.0}  # stays binary (nearest warp)
+    assert 50 <= m.sum() <= 150  # area roughly preserved under rotation
+
+
+def test_rows_of_a_global_batch_keep_their_masks():
+    """A rank's rows of the global batch, masks included, are the single
+    process's rows."""
+    b = 6
+    img, pts, masks = _t(_img(b)), _t(_inst(b)), _t(_masks(b, 20, 28, 2, "uint8"))
+    kw = dict(rotation_p=1.0, scale_p=0.5, translate_width=0.1, translate_p=0.5, flip_p=0.5,
+              erase_p=0.5, symmetric_inds=[(0, 1)])
+    whole = pa.apply_geometric_augmentation(_gen(7), img, pts, masks=masks, **kw)
+    for rows in (torch.tensor([0, 1, 2]), torch.tensor([3, 5])):
+        part = pa.apply_geometric_augmentation(_gen(7), img[rows], pts[rows], masks=masks[rows],
+                                               rows=rows, global_batch=b, **kw)
+        for p, w_ in zip(part, whole):
+            assert torch.equal(p.nan_to_num(), w_[rows].nan_to_num())
+        flipped = pa.apply_flip_augmentation(_gen(7), img[rows], pts[rows], flip_p=0.5,
+                                             masks=masks[rows], rows=rows, global_batch=b)
+        one = pa.apply_flip_augmentation(_gen(7), img, pts, flip_p=0.5, masks=masks)
+        for p, w_ in zip(flipped, one):
+            assert torch.equal(p.nan_to_num(), w_[rows].nan_to_num())

@@ -43,6 +43,7 @@ from tests.test_torch_backbones import random_params
 from tests.test_torch_model_dir import FrameVideo
 from tests.test_torch_pretrained import CONFIGS as PRETRAINED_CONFIGS
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW, N_FRAMES, CROP = 64, 6, 32
 PARTS = ["n0", "n1", "n2"]

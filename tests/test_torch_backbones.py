@@ -33,6 +33,7 @@ from sleap_nn_tpu_torch.models.encoder_decoder import SimpleUpsamplingBlock
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.models.swint import SwinTWrapper
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 

@@ -37,6 +37,7 @@ from sleap_nn_tpu_torch.inference.providers import VideoProvider
 from sleap_nn_tpu_torch.models.heads import MultiInstanceConfmapsHead, PartAffinityFieldsHead
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 HW = 64

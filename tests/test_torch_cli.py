@@ -59,6 +59,7 @@ from tests.test_torch_model_dir import FrameVideo, dirs  # noqa: F401  (dirs: a 
 from tests.test_torch_pipeline import cfg_dict
 from tests.test_torch_run_video import write_clip
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 ATOL = {"topdown": 1e-4, "bottomup": 1e-5}

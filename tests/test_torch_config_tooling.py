@@ -50,6 +50,7 @@ from sleap_nn_tpu_torch.config.base import to_yaml
 from sleap_nn_tpu_torch.config_generator import architecture_estimates as parch
 from sleap_nn_tpu_torch.config_generator import tui as ptui
 from tests.test_torch_model_dir import FrameVideo
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 SAMPLE_DIR = ROOT / "docs" / "sample_configs"

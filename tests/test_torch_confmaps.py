@@ -28,6 +28,7 @@ from sleap_nn_tpu_torch.ops.kernels import (
     confmap_tile,
     multi_confmaps,
 )
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 

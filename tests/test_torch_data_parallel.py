@@ -54,6 +54,7 @@ from tests.test_torch_multiclass import id_labels
 from tests.test_torch_run_video import write_clip
 from tests.test_torch_segmentation_dirs import assert_same_seg_labels, condition_seg, seg_config
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 TWO_CPU = [torch.device("cpu"), torch.device("cpu")]
 BATCH = 8  # divides the JAX package's 8 virtual devices and the port's 2 replicas
@@ -65,40 +66,59 @@ ATOL = {"single_instance": 1e-4, "topdown": 1e-4, "bottomup": 1e-5,
         "multi_class_bottomup": 1e-5}
 
 
+GROUPS = {"pose": ("single_instance", "centroid", "centered_instance", "bottomup"),
+          "identity": ("multi_class_bottomup", "multi_class_topdown", "mc_centroid"),
+          "segmentation": ("bottomup_segmentation", "semantic_segmentation",
+                           "centered_instance_segmentation")}
+
+
+def _train_dir(name, root):
+    """The conditioned dir of ``name`` (``mc_centroid``: the centroid model of
+    the identity frames), trained one step on the CPU."""
+    group = next(g for g, names in GROUPS.items() if name in names)
+    if group == "identity":
+        mt = "centroid" if name == "mc_centroid" else name
+        frames = blob_frames(8, seed=2)
+        labels = id_labels(pio, frames=frames, max_inst=2, seed=2, spread=4)
+        cfg = mc_config(mt, root / "mc")
+    else:
+        mt = name
+        frames, labels = frames_and_labels(pio, 1 if mt == "single_instance" else 2)
+        cfg = (config_dict if group == "pose" else seg_config)(
+            mt, root if group == "pose" else root / "seg")
+    trainer = ModelTrainer.get_model_trainer_from_config(PConfig.from_dict(cfg), [labels],
+                                                         device="cpu")
+    trainer.train()
+    if group == "pose":
+        condition(trainer.model, frames, mt)
+    elif group == "identity":
+        condition_mc(trainer.model, frames)
+    else:
+        crops = np.zeros((4, 32, 32, 1), np.uint8)
+        crops[:, 4:28, 4:28] = frames[:4, 20:44, 20:44]
+        condition_seg(trainer.model, crops if mt.startswith("centered") else frames)
+    trainer.save_checkpoint("best.ckpt")
+    return trainer.ckpt_dir
+
+
+class _Dirs:
+    """One conditioned dir per model type, each trained on first use, so a
+    module trains only the types its tests read."""
+
+    def __init__(self, root):
+        self._root, self._built = root, {}
+
+    def __getattr__(self, name):
+        if name.startswith("_") or not any(name in g for g in GROUPS.values()):
+            raise AttributeError(name)
+        if name not in self._built:
+            self._built[name] = _train_dir(name, self._root)
+        return self._built[name]
+
+
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
-    """One conditioned dir per model type, trained one step on the CPU."""
-    root = tmp_path_factory.mktemp("dp_runs")
-    out = {}
-    for mt in ("single_instance", "centroid", "centered_instance", "bottomup"):
-        frames, labels = frames_and_labels(pio, 1 if mt == "single_instance" else 2)
-        trainer = ModelTrainer.get_model_trainer_from_config(
-            PConfig.from_dict(config_dict(mt, root)), [labels], device="cpu")
-        trainer.train()
-        condition(trainer.model, frames, mt)
-        trainer.save_checkpoint("best.ckpt")
-        out[mt] = trainer.ckpt_dir
-    frames = blob_frames(8, seed=2)
-    labels = id_labels(pio, frames=frames, max_inst=2, seed=2, spread=4)
-    for mt in ("multi_class_bottomup", "multi_class_topdown", "centroid"):
-        trainer = ModelTrainer.get_model_trainer_from_config(
-            PConfig.from_dict(mc_config(mt, root / "mc")), [labels], device="cpu")
-        trainer.train()
-        condition_mc(trainer.model, frames)
-        trainer.save_checkpoint("best.ckpt")
-        out["mc_" + mt if mt == "centroid" else mt] = trainer.ckpt_dir
-    frames, labels = frames_and_labels(pio, 2)
-    crops = np.zeros((4, 32, 32, 1), np.uint8)
-    crops[:, 4:28, 4:28] = frames[:4, 20:44, 20:44]
-    for mt in ("bottomup_segmentation", "semantic_segmentation",
-               "centered_instance_segmentation"):
-        trainer = ModelTrainer.get_model_trainer_from_config(
-            PConfig.from_dict(seg_config(mt, root / "seg")), [labels], device="cpu")
-        trainer.train()
-        condition_seg(trainer.model, crops if mt.startswith("centered") else frames)
-        trainer.save_checkpoint("best.ckpt")
-        out[mt] = trainer.ckpt_dir
-    return ns(**out)
+    return _Dirs(tmp_path_factory.mktemp("dp_runs"))
 
 
 def _paths(dirs, type_set):

@@ -36,6 +36,7 @@ import torch
 from sleap_nn_tpu_torch.config import TrainingJobConfig as PConfig
 from sleap_nn_tpu_torch.parallel import distributed as pdist
 from sleap_nn_tpu_torch.parallel import mesh as pmesh
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 OHKM = {"online_mining": True, "hard_to_easy_ratio": 1.05, "min_hard_keypoints": 1,
         "max_hard_keypoints": 2, "loss_scale": 5.0}

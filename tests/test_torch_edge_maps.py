@@ -18,6 +18,7 @@ import torch
 
 from sleap_nn_tpu.ops import edge_maps as jem
 from sleap_nn_tpu_torch.ops import edge_maps as pem
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 

@@ -23,6 +23,7 @@ from sleap_nn_tpu.io import video as jvideo
 from sleap_nn_tpu_torch import evaluation as pev
 from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io import video as pvideo
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 PACKAGES = ((jev, jio, jvideo), (pev, pio, pvideo))
 

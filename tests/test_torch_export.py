@@ -53,6 +53,7 @@ from tests.test_torch_model_dir import (
 from tests.test_torch_multiclass import head_configs
 from tests.test_torch_segmentation_dirs import condition_seg, seg_config
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 BATCH = 4
 SINGLE = ("single_instance", "centroid", "centered_instance", "bottomup",

@@ -17,6 +17,7 @@ import torch
 from sleap_nn_tpu.ops.fused_conv import _plain_double_conv as jax_plain
 from sleap_nn_tpu.ops.fused_conv import fused_double_conv3x3 as jax_fused
 from sleap_nn_tpu_torch.ops.fused_conv import _plain_double_conv, fused_double_conv3x3
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(shape, c_mid, c_out, seed, bias=True):

@@ -49,6 +49,7 @@ from sleap_nn_tpu_torch.training import ModelTrainer
 from tests.test_torch_model_dir import FrameVideo, condition, config_dict, frames_and_labels
 from tests.test_torch_run_video import write_clip
 from tests.test_torch_topdown import HW, _model_pair, blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 N_FRAMES, SEED = 7, 11
 NODES = ["n0", "n1", "n2"]

@@ -23,6 +23,7 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from sleap_nn_tpu_torch.io import hdf5
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 POINT = np.dtype([("x", "<f8"), ("y", "<f8"), ("visible", "?"), ("complete", "?"),
                   ("score", "<f8")])

@@ -31,6 +31,7 @@ from sleap_nn_tpu_torch.inference import identity as pid
 from sleap_nn_tpu_torch.models.heads import ClassVectorsHeadLayer
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_path_for, flax_to_torch_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _peaks(rng, n_samples=3, n_channels=4, n_classes=3, per=5, ties=False, nan_rows=0,

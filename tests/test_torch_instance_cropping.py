@@ -17,6 +17,7 @@ from sleap_nn_tpu.io import model as jio
 from sleap_nn_tpu_torch.data import instance_cropping as pic
 from sleap_nn_tpu_torch.io import model as pio
 from tests.test_torch_pipeline import make_labels
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bbox,rot,scale", [

@@ -30,6 +30,7 @@ from sleap_nn_tpu_torch.inference import provenance as pprov
 from sleap_nn_tpu_torch.inference.predictor import Predictor
 from sleap_nn_tpu_torch.inference.providers import LabelsProvider
 from sleap_nn_tpu_torch.io import model as pio
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 N_NODES, B = 4, 4
 RENAME = {"sleap_nn_tpu_version": "sleap_nn_tpu_torch_version", "jax_version": "torch_version"}

@@ -46,6 +46,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.weights import flax_to_torch_state, torch_key_paths
 from tests.test_torch_model_dir import FrameVideo, condition
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW, N_FRAMES, CROP = 64, 6, 32
 PARTS = ["n0", "n1", "n2"]

@@ -54,6 +54,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.training import ModelTrainer
 from tests.test_torch_pipeline import cfg_dict
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW, N_FRAMES, CROP = 64, 7, 32
 TYPES = ("single_instance", "centroid", "centered_instance", "bottomup")

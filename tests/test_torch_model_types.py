@@ -36,6 +36,7 @@ from sleap_nn_tpu_torch.training import ModelTrainer
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_pipeline import cfg_dict, make_labels
 from tests.test_torch_training import _jax_grads
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 TYPES = ("single_instance", "centered_instance", "bottomup")
 TARGETS = {"single_instance": ("confmaps",), "centered_instance": ("confmaps",),

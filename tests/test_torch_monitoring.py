@@ -41,6 +41,7 @@ from sleap_nn_tpu_torch.training import viz as pviz
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_model_dir import frames_and_labels
 from tests.test_torch_pipeline import cfg_dict
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 zmq = pytest.importorskip("zmq")
 

@@ -69,6 +69,7 @@ from tests.test_torch_model_dir import FrameVideo
 from tests.test_torch_pipeline import ArrayVideo, cfg_dict
 from tests.test_torch_topdown import blob_frames
 from tests.test_torch_training import _jax_grads
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 TYPES = ("multi_class_bottomup", "multi_class_topdown")

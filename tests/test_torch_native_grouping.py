@@ -24,6 +24,7 @@ import sleap_nn_tpu.native
 from sleap_nn_tpu.inference import paf_grouping as jpg
 from sleap_nn_tpu_torch import native as tnative
 from sleap_nn_tpu_torch.inference import paf_grouping as tpg
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 NAMES = [f"n{i}" for i in range(15)]
 EDGES = [("n0", "n1"), ("n0", "n6"), ("n0", "n9"), ("n0", "n12"), ("n1", "n2"),

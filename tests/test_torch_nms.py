@@ -14,6 +14,7 @@ from sleap_nn_tpu.ops.pallas_kernels import nms_scores_pallas
 from sleap_nn_tpu.ops.peaks import nms_max_pool as jax_nms_max_pool
 from sleap_nn_tpu_torch.ops.kernels import nms_scores
 from sleap_nn_tpu_torch.ops.peaks import nms_max_pool
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _maps(shape, seed, levels=None):

@@ -24,6 +24,7 @@ from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_backbone_dirs import CONVNEXT, SWINT
 from tests.test_torch_model_dir import _orbax_to_torch, config_dict, frames_and_labels
 from tests.test_torch_pretrained import CONFIGS as PRETRAINED_CONFIGS
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _backbones(tmp_path):

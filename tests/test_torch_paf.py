@@ -31,6 +31,7 @@ from sleap_nn_tpu.inference import streaming as jstream
 from sleap_nn_tpu_torch.inference import paf_grouping as tpg
 from sleap_nn_tpu_torch.inference import streaming as tstream
 from sleap_nn_tpu_torch.ops.kernels import _plain_paf_line_scores, paf_line_scores
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _jax_scores(pafs, peaks, mask, edges, **kw):

@@ -15,6 +15,7 @@ from sleap_nn_tpu.ops import crops as jcrops
 from sleap_nn_tpu.ops import peaks as jpeaks
 from sleap_nn_tpu_torch.ops import crops as tcrops
 from sleap_nn_tpu_torch.ops import peaks as tpeaks
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _assert_same(got, want, atol=0.0):

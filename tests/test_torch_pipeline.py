@@ -27,6 +27,27 @@ from sleap_nn_tpu_torch.data import providers as pprov
 from sleap_nn_tpu_torch.io import model as pio
 
 
+# torch's CPU threads a test process. The suite runs in several processes
+# at once (xdist), each of which would otherwise start a thread a core, and
+# the oversubscribed cores ran the heavy parity modules half as fast. The
+# count also fixes the summation order of torch's CPU reductions, which a
+# few comparisons follow: the export and tiling modules' 1e-4 ones hold at
+# 2 threads and at 8 and miss at 1 (export also at 4); the Kalman-tracked
+# bottom-up case of ``test_torch_run_tracking.py`` holds at 8 and not at 2,
+# so that module keeps the process's own count.
+TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """``TORCH_THREADS`` for the module's tests (imported into every port
+    parity module), the process's own count restored after them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(before)
+
+
 class ArrayVideo:
     """Duck-typed in-memory video: ``video[i]`` and ``.shape``."""
 

@@ -21,6 +21,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from tests.test_torch_data_parallel import dirs  # noqa: F401  (the module's dir fixture)
 from tests.test_torch_model_dir import FrameVideo
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 CLASSES = {  # class -> (its path keywords by model type, the type set it builds)
     "SingleInstancePredictor": ({"confmap_ckpt_path": "single_instance"}, "single_instance"),

@@ -19,6 +19,7 @@ from sleap_nn_tpu_torch.data import normalization as tnorm
 from sleap_nn_tpu_torch.data import resizing as tres
 from sleap_nn_tpu_torch.inference import layers as tlayers
 from sleap_nn_tpu_torch.inference.predictor import rgb_to_gray_uint8
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _frames(shape, seed=0):

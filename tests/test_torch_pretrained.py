@@ -36,6 +36,7 @@ from sleap_nn_tpu_torch.models import transformer_encoders as tte
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_backbones import assert_close, random_params
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 CONFIGS = {
     "convnextv2": {"model_type": "convnextv2", "depths": [1, 1, 2, 1],

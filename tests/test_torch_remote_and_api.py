@@ -66,6 +66,7 @@ from tests.test_torch_model_dir import (  # noqa: F401  (dirs: a fixture)
 )
 from tests.test_torch_run_video import assert_same_labels, write_clip
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 N_FRAMES = 6

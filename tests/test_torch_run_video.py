@@ -48,6 +48,7 @@ from tests.test_torch_model_dir import (  # noqa: F401  (dirs: fixtures)
 )
 from tests.test_torch_multiclass import _condition, _dir_config, id_labels
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 N_FRAMES = 10
 ATOL_POINTS, ATOL_SCORES = 1e-4, 1e-5

@@ -23,6 +23,7 @@ import torch
 from sleap_nn_tpu.models import sam_jax as jsam
 from sleap_nn_tpu_torch.models import sam_jax as psam
 from sleap_nn_tpu_torch.weights import sam_params_to_torch
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 EMB_TOL = 1e-5
 LOGIT_TOL = 1e-4

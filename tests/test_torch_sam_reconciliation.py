@@ -17,6 +17,7 @@ from sleap_nn_tpu.io import model as jio
 from sleap_nn_tpu_torch.inference.sam import reconciliation as prec
 from sleap_nn_tpu_torch.inference.sam import retrack as port_retrack
 from sleap_nn_tpu_torch.io import model as pio
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 H, W = 48, 64
 NODES = ["head", "thorax", "abdomen", "tail"]

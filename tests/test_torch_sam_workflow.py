@@ -46,6 +46,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io.slp import load_slp, save_slp
 from sleap_nn_tpu_torch.models import sam_jax as psam
 from tests.test_torch_sam_model import TINY_HF, seeded_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 TOL = {False: 1e-4, True: 0.25}
 IOU_TOL = {False: 1e-4, True: 0.05}

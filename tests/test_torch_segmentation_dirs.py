@@ -50,6 +50,7 @@ from tests.test_torch_model_dir import (
 from tests.test_torch_segmentation_train import SEG_HEADS
 from tests.test_torch_pipeline import cfg_dict
 from tests.test_torch_topdown import blob_frames
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 CROP = 32
 TYPES = ("bottomup_segmentation", "semantic_segmentation", "centered_instance_segmentation",

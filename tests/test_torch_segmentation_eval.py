@@ -18,6 +18,7 @@ from sleap_nn_tpu.io.slp import save_slp as jax_save_slp
 from sleap_nn_tpu_torch import evaluation as pev
 from sleap_nn_tpu_torch.io import model as pio
 from tests.test_torch_evaluation import assert_same
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW = 96
 

@@ -17,6 +17,7 @@ from sleap_nn_tpu.io.slp import load_slp as jax_load_slp
 from sleap_nn_tpu.io.slp import save_slp as jax_save_slp
 from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io.slp import load_slp, save_slp
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _mask(rng, hw):

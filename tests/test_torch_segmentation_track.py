@@ -17,6 +17,7 @@ from sleap_nn_tpu.tracking import utils as jut
 from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.tracking import tracker as ptr
 from sleap_nn_tpu_torch.tracking import utils as put
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW = 120
 

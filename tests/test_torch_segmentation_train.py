@@ -35,6 +35,7 @@ from sleap_nn_tpu_torch.training import losses as plosses
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_pipeline import cfg_dict, make_labels
 from tests.test_torch_training import _jax_grads
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 TYPES = ("bottomup_segmentation", "semantic_segmentation", "centered_instance_segmentation")
 SEG_HEADS = {

@@ -29,6 +29,7 @@ from sleap_nn_tpu_torch.inference.providers import VideoProvider
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_topdown import HW, ArrayVideo, blob_frames, ns
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 N_NODES = 4
 

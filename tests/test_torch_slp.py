@@ -33,6 +33,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io import video as pvideo
 from sleap_nn_tpu_torch.io.png import decode_png, encode_png
 from sleap_nn_tpu_torch.io.slp import load_slp, save_slp
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 class ArrayBackend:

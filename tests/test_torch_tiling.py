@@ -51,6 +51,7 @@ from sleap_nn_tpu_torch.training import ModelTrainer
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_pipeline import cfg_dict, make_labels
 from tests.test_torch_topdown import ArrayVideo
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 N_NODES = 3

@@ -36,6 +36,7 @@ from sleap_nn_tpu_torch.inference.providers import VideoProvider
 from sleap_nn_tpu_torch.io.model import Skeleton
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 N_NODES, CROP, MAX_INST, HW = 3, 32, 3, 64

@@ -28,6 +28,7 @@ from sleap_nn_tpu_torch.tracking import candidates as pcand
 from sleap_nn_tpu_torch.tracking import kalman as pkal
 from sleap_nn_tpu_torch.tracking import tracker as ptr
 from sleap_nn_tpu_torch.tracking import utils as put
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 JAX = (jio, jtr)
 PORT = (pio, ptr)

@@ -25,8 +25,11 @@ ConvNeXtV2 and ViT.
   (``weights.flax_to_torch_state``, the reverse of
   ``tools/orbax_to_torch.py``'s key rules).
 
-A ResNet dir also resumes (its statistics restored) and seeds a transfer
-init (the statistics kept, as the JAX trainer swaps ``params`` only).
+The pretrained cases run from ``tests/test_torch_train_backbones_pretrained.py``
+(these tests, parametrised over its ``CASES``), so that the two halves run
+on two workers; there a ResNet dir also resumes (its statistics restored)
+and seeds a transfer init (the statistics kept, as the JAX trainer swaps
+``params`` only).
 """
 
 import functools
@@ -54,8 +57,8 @@ from sleap_nn_tpu_torch.training.model_trainer import (
 )
 from sleap_nn_tpu_torch.weights import flax_to_torch_state, torch_key_paths
 from tests.test_torch_pipeline import cfg_dict, make_labels
-from tests.test_torch_pretrained import snapshots  # noqa: F401 (a fixture)
 from tests.test_torch_training import _jax_grads
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 NARROW = {
     "convnext": {"convnext": {"arch": {"depths": [1, 1, 1, 1], "channels": [8, 16, 32, 64]},
@@ -67,17 +70,40 @@ NARROW = {
 # family of the snapshot, freeze, head stride
 PRETRAINED = {"convnextv2": ("convnextv2", True, 2), "resnet": ("resnet_bottleneck", False, 2),
               "swinv2": ("swinv2", False, 2), "vit": ("vit", True, 8)}
-CASES = list(NARROW) + list(PRETRAINED)
+# The cases of this module's tests (``pytest_generate_tests``): the narrow
+# backbones here, the pretrained ones in the ``_pretrained`` module.
+CASES = list(NARROW)
 KERNELS = ("conv_kernel", "trans_conv_kernel", "dense_kernel")
 LR = 1e-4  # the learning rate of both configs (the default)
 
 
+# The cases whose port side keeps oneDNN: torch's native grouped convolution
+# (ConvNeXt's 7x7 depthwise) is about ten times slower on the CPU. Their
+# three steps sit as far inside the tolerances with oneDNN as without.
+ONEDNN_CASES = ("convnext", "convnextv2")
+
+
+def pytest_generate_tests(metafunc):
+    if "case" in metafunc.fixturenames and \
+            metafunc.definition.get_closest_marker("parametrize") is None:
+        metafunc.parametrize("case", metafunc.module.CASES)
+
+
+@pytest.fixture(scope="module")
+def snapshots():
+    """The narrow cases load no HF snapshot (the ``_pretrained`` module
+    takes ``tests/test_torch_pretrained.py``'s)."""
+    return None
+
+
 @pytest.fixture(autouse=True)
-def _native_cpu_convs():
-    """The port's side runs torch's native CPU convolutions: this torch's
-    oneDNN backward of a strided 1x1 conv on channels-last tensors (the
-    ResNet bottleneck's ``conv0``) crashes with more than one thread."""
-    with torch.backends.mkldnn.flags(enabled=False):
+def _native_cpu_convs(request):
+    """The port's side runs torch's native CPU convolutions (but in
+    ``ONEDNN_CASES``): this torch's oneDNN backward of a strided 1x1 conv on
+    channels-last tensors (the ResNet bottleneck's ``conv0``) crashes with
+    more than one thread."""
+    case = getattr(request.node, "callspec", None) and request.node.callspec.params.get("case")
+    with torch.backends.mkldnn.flags(enabled=case in ONEDNN_CASES):
         yield
 
 
@@ -167,7 +193,6 @@ def _train_both(case, snapshots, tmp):  # noqa: F811
     return out
 
 
-@pytest.mark.parametrize("case", CASES)
 def test_init_draws_what_the_jax_trainer_draws(trained, case):
     got = trained(case)
     pt, port, jax_init, paths = got["pt"], got["port_init"], got["jax_init"], got["paths"]
@@ -228,7 +253,6 @@ def test_random_leaves_follow_flax_and_the_generator():
     assert torch.equal(holder.state_dict()["attn.rel_pos_bias"], table)  # not a kernel
 
 
-@pytest.mark.parametrize("case", CASES)
 def test_three_steps_match_the_jax_trainer(trained, case):
     got = trained(case)
     pt = got["pt"]
@@ -275,28 +299,6 @@ def _zero_gradient_rows(name, p):
     return None
 
 
-@pytest.mark.parametrize("case", ["convnextv2", "resnet", "vit"])
-def test_frozen_encoder_and_statistics_stay_bit_identical(trained, case):
-    got = trained(case)
-    pt, start = got["pt"], got["start"]
-    end_port = pt.model.state_dict()
-    end_jax = flax_to_torch_state(got["jax_end"], pt.model)
-    begin_jax = flax_to_torch_state(got["jax_start"], pt.model)
-    frozen = set(frozen_encoder_parameters(pt.model)) if PRETRAINED[case][1] else set()
-    stats = {k for k, (path, _) in got["paths"].items() if path[0] == "batch_stats"}
-    assert bool(stats) == (case == "resnet")
-    moved = 0
-    for key in end_port:
-        if key in frozen or key in stats:
-            assert torch.equal(end_port[key], start[key]), key
-            assert torch.equal(end_jax[key], begin_jax[key]), key
-        else:
-            moved += not torch.equal(end_port[key], start[key])
-    assert moved > 0
-    assert all(not p.requires_grad for n, p in pt.model.named_parameters() if n in frozen)
-
-
-@pytest.mark.parametrize("case", CASES)
 def test_the_written_dir_loads_and_maps_to_the_jax_tree(trained, case):
     got = trained(case)
     pt = got["pt"]
@@ -309,34 +311,3 @@ def test_the_written_dir_loads_and_maps_to_the_jax_tree(trained, case):
     want = flax_to_torch_state(got["jax_end"], loaded.model)
     assert {k: tuple(v.shape) for k, v in want.items()} == \
         {k: tuple(v.shape) for k, v in mine.items()}
-
-
-def test_resnet_dir_resumes_and_seeds_a_transfer(trained, snapshots, tmp_path):  # noqa: F811
-    got = trained("resnet")
-    src = got["pt"]
-    stats = [k for k, (path, _) in got["paths"].items() if path[0] == "batch_stats"]
-    ckpt = src.ckpt_dir / "best.ckpt"
-    # Marked statistics in the checkpoint show which values each path keeps.
-    state = torch.load(ckpt, weights_only=True)
-    for k in stats:
-        state["state_dict"][f"model.{k}"] = state["state_dict"][f"model.{k}"] + 0.5
-    torch.save(state, ckpt)
-
-    resumed = ModelTrainer.get_model_trainer_from_config(
-        PConfig.from_dict(config("resnet", snapshots, resume_ckpt_path=str(ckpt))),
-        [make_labels(pio)], device="cpu")
-    resumed.setup()
-    for k, v in resumed.model.state_dict().items():
-        assert torch.equal(v, state["state_dict"][f"model.{k}"]), k
-    d = config("resnet", snapshots)
-    d["model_config"]["pretrained_backbone_weights"] = str(ckpt)
-    moved = ModelTrainer.get_model_trainer_from_config(PConfig.from_dict(d),
-                                                       [make_labels(pio)], device="cpu")
-    moved.setup()
-    own = got["port_init"]
-    for k, v in moved.model.state_dict().items():
-        if k in stats:  # JAX swaps the params collection only
-            assert torch.equal(v, own[k]), k
-        elif k.startswith("backbone."):
-            assert torch.equal(v, state["state_dict"][f"model.{k}"]), k
-    moved.train_step(next(iter(moved.train_loader)))  # trains from there

@@ -49,6 +49,7 @@ from sleap_nn_tpu_torch.weights import flax_to_torch_state
 from tests.test_torch_model_dir import FrameVideo, blob_frames
 from tests.test_torch_pipeline import cfg_dict
 from tests.test_torch_train_files import _three_steps
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 HW, N = 64, 12
 

@@ -42,6 +42,7 @@ from sleap_nn_tpu_torch.training import losses as pl
 from sleap_nn_tpu_torch.training import schedulers as ps
 from sleap_nn_tpu_torch.weights import flax_path_for, flax_to_torch_state
 from tests.test_torch_pipeline import cfg_dict, make_labels
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 
 def _t(x):

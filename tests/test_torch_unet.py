@@ -21,6 +21,7 @@ from sleap_nn_tpu.torch_models import torch_state_to_flax
 from sleap_nn_tpu_torch.inference.backends import TorchBackend
 from sleap_nn_tpu_torch.models.model import Model
 from sleap_nn_tpu_torch.weights import flax_to_torch_state
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 ns = types.SimpleNamespace
 

@@ -36,6 +36,7 @@ from sleap_nn_tpu_torch.io import model as pio
 from sleap_nn_tpu_torch.io import video as pvideo
 from sleap_nn_tpu_torch.io.slp import load_slp
 from tests.test_torch_slp import build_labels
+from tests.test_torch_pipeline import torch_threads  # noqa: F401 (autouse)
 
 N, H, W = 9, 48, 64
 
