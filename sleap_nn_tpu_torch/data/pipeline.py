@@ -761,7 +761,7 @@ class Loader:
         from sleap_nn_tpu_torch.data.prefetch import PrefetchIterator
 
         if self.prefetch > 0:
-            return PrefetchIterator(self._gen(), prefetch=self.prefetch)
+            return PrefetchIterator(self._gen(), prefetch=self.prefetch, owner="loader")
         return self._gen()
 
     def _gen(self):

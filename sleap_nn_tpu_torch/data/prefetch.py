@@ -6,10 +6,13 @@ next batch overlaps device work on the current one.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import weakref
 from typing import Optional
+
+from sleap_nn_tpu_torch import profiling
 
 
 class PrefetchIterator:
@@ -18,11 +21,22 @@ class PrefetchIterator:
     Abandonment-safe: the worker's puts poll a stop flag, raised by
     :meth:`close`, garbage collection of the iterator or generator
     exhaustion, so no thread or buffered batch outlives its consumer.
+
+    While a profiler runs it records, under ``owner`` and keyed by the
+    item's ordinal: ``<owner>.make`` (the worker producing an item),
+    ``<owner>.queued`` (from the worker's put to the consumer's take),
+    ``<owner>.wait`` (the consumer blocked on the queue) and the counter
+    ``<owner>.ready`` (the items already waiting when the consumer takes
+    one).
     """
 
-    def __init__(self, gen, prefetch: int = 2):
+    def __init__(self, gen, prefetch: int = 2, owner: str = "prefetch"):
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._done = object()
+        self._taken = 0
+        self._wait, self._queued, self._ready = (f"{owner}.{what}"
+                                                 for what in ("wait", "queued", "ready"))
+        make = f"{owner}.make"
         # The worker closure holds no reference to self, so the GC
         # finalizer below can fire while the thread runs.
         self._err_cell: list = []
@@ -41,8 +55,13 @@ class PrefetchIterator:
 
         def worker():
             try:
-                for item in gen:
-                    if not put(item):
+                items = iter(gen)
+                for key in itertools.count():
+                    with profiling.span(make, key):
+                        item = next(items, done)
+                    if item is done:
+                        break
+                    if not put((item, profiling.stamp())):
                         return  # abandoned: drop everything, exit
             except BaseException as e:  # re-raised in the consumer
                 err_cell.append(e)
@@ -72,9 +91,16 @@ class PrefetchIterator:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        item = self.q.get()
+        key = self._taken
+        with profiling.span(self._wait, key):
+            if profiling.recording():
+                profiling.count(self._ready, self.q.qsize(), key)
+            item = self.q.get()
         if item is self._done:
             if self._err is not None:
                 raise self._err
             raise StopIteration
+        self._taken += 1
+        item, put_ns = item
+        profiling.mark(self._queued, key, put_ns)
         return item

@@ -19,6 +19,12 @@ the layer's host step, ``postprocess_host`` (the identity for top-down, the
 PAF grouping for bottom-up, the Hungarian class assignment for the
 identity layers), which the predictor calls on the numpy it fetched
 itself.
+
+While a profiler runs (``profiling``), the top-down and bottom-up layers
+time their stages on the host and on the card: ``topdown.centroid``
+(preprocess, centroid UNet, local peaks and top-K), ``topdown.crops``
+(boxes and crop gather) and ``topdown.instance`` (instance UNet and global
+peaks); ``bottomup.unet``, ``bottomup.peaks`` and ``bottomup.paf_scores``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.data.normalization import apply_channel_config, normalize_image
 from sleap_nn_tpu_torch.data.resizing import apply_pad_to_stride, apply_sizematcher, resize_image
 from sleap_nn_tpu_torch.data.tiling import generate_tile_grid
@@ -257,20 +264,23 @@ class TopDownLayer(InferenceLayer):
         centroids_scaled: (B, K, 2) in the same scaled space."""
         crop = self.crop_size
         b, k = centroids_scaled.shape[:2]
-        flat_c = centroids_scaled.reshape(b * k, 2)
-        bboxes = make_centered_bboxes(flat_c, crop, crop)
-        sample_inds = torch.arange(b, device=self.device).repeat_interleave(k)
-        crops = crop_bboxes(images_scaled, bboxes, sample_inds, crop, crop)
-        peaks, vals, preds = self.instance_layer.predict_on_crops(crops)  # crop coords
-        # Integer-floored bbox top-left, as crop_bboxes takes it.
-        half = crop // 2
-        top_left = torch.trunc(flat_c - (crop - 1) / 2.0 + half) - half
-        peaks = peaks + top_left[:, None, :]
-        peaks = peaks.reshape(b, k, peaks.shape[1], 2)
-        vals = vals.reshape(b, k, -1)
-        peaks = torch.where(valid[..., None, None], peaks, torch.full_like(peaks, float("nan")))
-        vals = torch.where(valid[..., None], vals, torch.zeros_like(vals))
-        return peaks, vals, self._crop_extras(preds, b, k)
+        with profiling.span("topdown.crops", device=self.device):
+            flat_c = centroids_scaled.reshape(b * k, 2)
+            bboxes = make_centered_bboxes(flat_c, crop, crop)
+            sample_inds = torch.arange(b, device=self.device).repeat_interleave(k)
+            crops = crop_bboxes(images_scaled, bboxes, sample_inds, crop, crop)
+        with profiling.span("topdown.instance", device=self.device):
+            peaks, vals, preds = self.instance_layer.predict_on_crops(crops)  # crop coords
+            # Integer-floored bbox top-left, as crop_bboxes takes it.
+            half = crop // 2
+            top_left = torch.trunc(flat_c - (crop - 1) / 2.0 + half) - half
+            peaks = peaks + top_left[:, None, :]
+            peaks = peaks.reshape(b, k, peaks.shape[1], 2)
+            vals = vals.reshape(b, k, -1)
+            peaks = torch.where(valid[..., None, None], peaks,
+                                torch.full_like(peaks, float("nan")))
+            vals = torch.where(valid[..., None], vals, torch.zeros_like(vals))
+            return peaks, vals, self._crop_extras(preds, b, k)
 
     def _crop_extras(self, preds: Dict[str, torch.Tensor], b: int, k: int) -> Dict[str, Any]:
         """Outputs of the instance model beside its peaks, per (frame, crop)."""
@@ -278,8 +288,9 @@ class TopDownLayer(InferenceLayer):
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         c, inst, k = self.centroid_layer, self.instance_layer, self.max_instances
-        x, eff = preprocess_images(c.pre, images)
-        cres = c.forward_preprocessed(x, eff)
+        with profiling.span("topdown.centroid", device=self.device):
+            x, eff = preprocess_images(c.pre, images)
+            cres = c.forward_preprocessed(x, eff)
         # Frames preprocessed for stage 2 in the instance layer's space.
         x2, eff2 = (x, eff) if inst.pre == c.pre else preprocess_images(inst.pre, images)
         ratio = (inst.pre.scale * eff2) / (c.pre.scale * cres["eff_scale"])
@@ -348,20 +359,23 @@ class BottomUpLayer(InferenceLayer):
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         post = self.post
-        x, eff_scale = preprocess_images(self.pre, images)
-        preds = self.backend(x)
-        cms, pafs = preds[self.cm_head], preds[self.paf_head]
-        points, vals, channels, valid = find_local_peaks(
-            cms,
-            threshold=post.peak_threshold,
-            refinement=post.refinement,
-            integral_patch_size=post.integral_patch_size,
-            max_peaks=post.max_peaks,
-        )
-        points = points * self.cm_output_stride  # image (scaled) coords
-        grouped_peaks, grouped_vals, mask, scores = self.paf_scorer.score_on_device(
-            pafs, points, vals, channels, valid
-        )
+        with profiling.span("bottomup.unet", device=self.device):
+            x, eff_scale = preprocess_images(self.pre, images)
+            preds = self.backend(x)
+            cms, pafs = preds[self.cm_head], preds[self.paf_head]
+        with profiling.span("bottomup.peaks", device=self.device):
+            points, vals, channels, valid = find_local_peaks(
+                cms,
+                threshold=post.peak_threshold,
+                refinement=post.refinement,
+                integral_patch_size=post.integral_patch_size,
+                max_peaks=post.max_peaks,
+            )
+            points = points * self.cm_output_stride  # image (scaled) coords
+        with profiling.span("bottomup.paf_scores", device=self.device):
+            grouped_peaks, grouped_vals, mask, scores = self.paf_scorer.score_on_device(
+                pafs, points, vals, channels, valid
+            )
         out = {
             "grouped_peaks": grouped_peaks,
             "grouped_vals": grouped_vals,

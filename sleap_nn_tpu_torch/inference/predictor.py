@@ -29,6 +29,14 @@ enqueues each replica's rows of the batch in turn (each replica past the
 first on streams of its own), and the fetch thread joins the replicas'
 outputs in row order before the host step. With ``paf_workers > 0`` a bottom-up layer's grouping
 runs in a process pool instead, and results keep submission order.
+
+While a profiler runs (``profiling``), each batch's spans share its
+ordinal as their key: the provider's ``provider.make``, ``provider.queued``
+and ``provider.wait``; ``predict.enqueue`` (timed on the card too: the
+batch's device time), ``predict.in_flight`` (from the enqueue's end until
+the fetch thread holds the outputs on the host), ``predict.postprocess``
+and ``predict.emit``; and the counter ``predict.pending``, the batches
+enqueued and not yet fetched when a batch is enqueued.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.config import get_backbone_type_from_cfg, get_head_config
 from sleap_nn_tpu_torch.inference.backends import TorchBackend, resolve_device
 from sleap_nn_tpu_torch.inference.filters import FilterPipeline
@@ -812,21 +821,23 @@ class Predictor:
                                    self.layer.post.max_instances,
                                    return_paf_graph=self.layer.post.return_paf_graph)
         pool_batches: List = []  # by submission ordinal
+        joined = [0]  # batches the fetch thread has joined
 
-        def emit(out, batch, factor):
+        def emit(out, batch, factor, key):
             nonlocal n_frames
-            out = self._lift_host_coords(out, factor)
-            out["frame_inds"] = batch.frame_inds
-            out["video_inds"] = batch.video_inds
-            out["valid"] = batch.valid
-            n_frames += int(batch.valid.sum())
-            results.append(out)
-            if writer is not None:
-                frames_out = self._frames_from_out(out, videos)
-                writer.add_frames(frames_out)
-                stream_frames.extend(frames_out)
-            if self.progress_callback is not None:
-                self.progress_callback(n_frames)
+            with profiling.span("predict.emit", key):
+                out = self._lift_host_coords(out, factor)
+                out["frame_inds"] = batch.frame_inds
+                out["video_inds"] = batch.video_inds
+                out["valid"] = batch.valid
+                n_frames += int(batch.valid.sum())
+                results.append(out)
+                if writer is not None:
+                    frames_out = self._frames_from_out(out, videos)
+                    writer.add_frames(frames_out)
+                    stream_frames.extend(frames_out)
+                if self.progress_callback is not None:
+                    self.progress_callback(n_frames)
 
         def fetcher():
             # One consumer, so results keep submission order.
@@ -837,15 +848,21 @@ class Predictor:
                 if errors:
                     continue  # keep draining so the producer never blocks
                 try:
-                    fetched, batch, factor = item
+                    fetched, batch, factor, key, enqueued_ns = item
                     out = replicas.join(fetched)  # one batch again, before the host step
+                    joined[0] += 1
+                    profiling.mark("predict.in_flight", key, enqueued_ns)
                     if pool is None:
-                        emit(self.layer.postprocess_host(out), batch, factor)
+                        with profiling.span("predict.postprocess", key):
+                            out = self.layer.postprocess_host(out)
+                        emit(out, batch, factor, key)
                         continue
-                    pool.submit(len(pool_batches), self.layer.host_payload(out))
-                    pool_batches.append((batch, factor))
-                    if len(pool) > 2 * self.paf_workers:  # bound the backlog
-                        ordinal, grouped = pool.drain_one()
+                    with profiling.span("predict.postprocess", key):
+                        pool.submit(len(pool_batches), self.layer.host_payload(out))
+                        pool_batches.append((batch, factor, key))
+                        drained = pool.drain_one() if len(pool) > 2 * self.paf_workers else None
+                    if drained is not None:  # the backlog bounded
+                        ordinal, grouped = drained
                         emit(grouped, *pool_batches[ordinal])
                 except Exception as e:  # raised again on the main thread
                     errors.append(e)
@@ -856,7 +873,7 @@ class Predictor:
             thread.start()
             batches = provider.batches(self._host_step)
             try:
-                for batch, frames_b, factor in batches:
+                for key, (batch, frames_b, factor) in enumerate(batches):
                     if errors:
                         break
                     arrays = [frames_b]
@@ -864,7 +881,10 @@ class Predictor:
                         # The centroids of every row, padded ones too.
                         arrays += [batch.gt_centroids, batch.gt_centroid_valid,
                                    batch.gt_centroid_vals]
-                    fetch_q.put((replicas.enqueue(self, arrays), batch, factor))
+                    profiling.count("predict.pending", key - joined[0], key)
+                    with profiling.span("predict.enqueue", key, self.device):
+                        fetched = replicas.enqueue(self, arrays)
+                    fetch_q.put((fetched, batch, factor, key, profiling.stamp()))
             finally:
                 fetch_q.put(None)
                 thread.join()

@@ -52,7 +52,7 @@ class _Provider:
         """The batches, decoded ahead on a thread of their own; with
         ``host_step``, ``host_step(batch)`` for each, run on that thread."""
         gen = self._gen() if host_step is None else map(host_step, self._gen())
-        return PrefetchIterator(gen, self.prefetch)
+        return PrefetchIterator(gen, self.prefetch, owner="provider")
 
     def __iter__(self) -> Iterator[Batch]:
         return self.batches()

@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.ops.grid import make_grid_vectors
 from sleap_nn_tpu_torch.ops.kernels import make_confmaps, multi_confmaps
 
@@ -33,10 +34,11 @@ def make_multi_confmaps(
     contribute zeros. Returns ``(..., H, W, n_nodes)``.
     """
     lead = points.shape[:-3]
-    # The kernel takes dense inputs; a view (a node slice, a strided grid)
-    # is copied first. ``reshape`` keeps a view where it can.
-    out = multi_confmaps(points.reshape(-1, *points.shape[-3:]).contiguous(), xv.contiguous(),
-                         yv.contiguous(), sigma)
+    with profiling.span("kernel.make_multi_confmaps"):
+        # The kernel takes dense inputs; a view (a node slice, a strided
+        # grid) is copied first. ``reshape`` keeps a view where it can.
+        out = multi_confmaps(points.reshape(-1, *points.shape[-3:]).contiguous(),
+                             xv.contiguous(), yv.contiguous(), sigma)
     return out.reshape(*lead, *out.shape[1:])
 
 

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops._build import Kernel
 
@@ -273,7 +274,8 @@ def fused_double_conv3x3(
     """
     if library.tracing_active():
         return library.OPS["fused_double_conv3x3"](x, w1, b1, w2, b2, activation)
-    return _fused_double_conv3x3(x, w1, b1, w2, b2, activation)
+    with profiling.span("kernel.fused_double_conv3x3"):
+        return _fused_double_conv3x3(x, w1, b1, w2, b2, activation)
 
 
 def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu"):

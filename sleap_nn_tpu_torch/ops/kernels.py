@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops._build import Kernel
 
@@ -74,7 +75,8 @@ def nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Te
     """
     if library.tracing_active():
         return library.OPS["nms_scores"](cms, float(threshold), int(kernel))
-    return _nms_scores(cms, threshold, kernel)
+    with profiling.span("kernel.nms_scores"):
+        return _nms_scores(cms, threshold, kernel)
 
 
 def _nms_scores(cms: torch.Tensor, threshold: float, kernel: int = 3) -> torch.Tensor:
@@ -182,6 +184,15 @@ def paf_line_scores(pafs: torch.Tensor, grouped_peaks: torch.Tensor,
         ``dist_penalty_weight * min(max_edge_length / length - 1, 0)``;
         ``-inf`` where either endpoint is masked or its x is not finite.
     """
+    with profiling.span("kernel.paf_line_scores"):
+        return _paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, pafs_stride,
+                                max_edge_length, dist_penalty_weight)
+
+
+def _paf_line_scores(pafs, grouped_peaks, grouped_mask, edge_inds, t, pafs_stride,
+                     max_edge_length, dist_penalty_weight):
+    """:func:`paf_line_scores`' body: the plain version on a CPU tensor,
+    kernel 3 on a CUDA tensor."""
     if pafs.ndim != 4 or pafs.shape[-1] != 2 * edge_inds.shape[0]:
         raise ValueError(f"pafs must be (B, Hp, Wp, 2E) with E = {edge_inds.shape[0]}, "
                          f"got {tuple(pafs.shape)}")

@@ -116,7 +116,7 @@ from sleap_nn_tpu_torch.parallel import (
     sync_cache_fill_status,
 )
 from sleap_nn_tpu_torch.parallel import distributed
-from sleap_nn_tpu_torch.profiling import trace
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.training.callbacks import (
     Callback,
     CSVLoggerCallback,
@@ -395,6 +395,7 @@ class ModelTrainer:
                 + "; ".join(missing))
         self.device = resolve_device(device)
         self.should_stop = False
+        self.steps_taken = 0  # train_step calls, the key of their spans
         # Set by the ZMQ controller's set_lr: the learning rate from the
         # next epoch on, in place of the scheduler's.
         self.lr_override: Optional[float] = None
@@ -991,7 +992,10 @@ class ModelTrainer:
 
     # -- steps ----------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
+        """The batch's arrays as tensors on the device (a tensor already
+        there as it is)."""
+        return {k: (batch[k] if torch.is_tensor(batch[k])
+                    else torch.from_numpy(np.asarray(batch[k]))).to(self.device)
                 for k in _BATCH_TENSORS if k in batch}
 
     def render(self, batch: Dict[str, np.ndarray], train: bool) -> Dict[str, torch.Tensor]:
@@ -1041,17 +1045,29 @@ class ModelTrainer:
         on the device. The gradients stay in ``.grad`` until the next step.
         Under data parallelism each rank's share is scaled by the number of
         ranks, so that DDP's average of the gradients is the gradient of
-        the global batch's loss.
+        the global batch's loss. While a profiler runs its parts are
+        spans keyed by the step's index (:attr:`steps_taken` before it),
+        timed on the host and the card: ``train.to_device``,
+        ``train.render``, ``train.forward_loss``, ``train.backward`` and
+        ``train.optimizer``.
         """
+        key, device = self.steps_taken, self.device
+        self.steps_taken += 1
         self.model.train()
-        processed = self.render(batch, train=True)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, parts = self.compute_loss(processed, train=True)
-        (loss * self.n_ranks if self._ddp is not None else loss).backward()
-        for p in self._trained:
-            if p.grad is None:  # unused by every output: optax's zero gradient
-                p.grad = torch.zeros_like(p)
-        self.optimizer.step()
+        with profiling.span("train.to_device", key, device):
+            batch = {**batch, **self._to_device(batch)}
+        with profiling.span("train.render", key, device):
+            processed = self.render(batch, train=True)
+        with profiling.span("train.forward_loss", key, device):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, parts = self.compute_loss(processed, train=True)
+        with profiling.span("train.backward", key, device):
+            (loss * self.n_ranks if self._ddp is not None else loss).backward()
+        with profiling.span("train.optimizer", key, device):
+            for p in self._trained:
+                if p.grad is None:  # unused by every output: optax's zero gradient
+                    p.grad = torch.zeros_like(p)
+            self.optimizer.step()
         return self._logged(loss, parts)
 
     @torch.no_grad()
@@ -1092,7 +1108,7 @@ class ModelTrainer:
         failed = False
         try:
             if traced:
-                stack.enter_context(trace((self.ckpt_dir or Path(".")) / "profile", self.device))
+                stack.enter_context(profiling.trace((self.ckpt_dir or Path(".")) / "profile", self.device))
             for epoch in range(self.current_epoch, tc.max_epochs):
                 self.current_epoch = epoch
                 self._log_all("on_epoch_start", epoch)

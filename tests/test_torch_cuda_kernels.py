@@ -726,3 +726,52 @@ def test_a_trace_holds_the_last_kernels_of_its_block(cuda, tmp_path):
     launched = [ev for ev in events if ev.get("cat") == "kernel"
                 and "nms_scores_kernel" in ev["name"]]
     assert len(launched) == 5
+
+
+# The card machine's host clock (``time.time_ns()``) against CUPTI's
+# device timestamps, as Kineto places them: in 90 trials on an H100 a host
+# span around a launch and its synchronize() began 145 us or more before
+# the kernel and ended 8.6 us or more after it, so no skew showed; a
+# span may miss the kernel by this many us.
+SPAN_SKEW_US = 50.0
+
+
+def test_spans_time_the_card_under_a_device_only_profiler(cuda):
+    """Under a profiler that records the device alone the port's spans are
+    on: a ``device`` span's card time is a CUDA-event timing of its block,
+    and a host span around a launch and its ``synchronize()`` encloses the
+    kernel's device interval (to the clocks' skew)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sleap_nn_tpu_torch import profiling
+
+    a = torch.randn(4096, 4096, device=cuda)
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    profiling.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert profiling.recording()
+        for _ in range(3):  # the stream busy, so that neither timing counts a launch
+            torch.mm(a, a)
+        with profiling.span("timed", device=cuda):
+            start.record()
+            torch.mm(a, a)
+            end.record()
+        torch.cuda.synchronize()
+        with profiling.span("host"):
+            torch.mm(a, a)
+            torch.cuda.synchronize()
+    spans = {s.name: s for s in profiling.spans()}
+    profiling.clear()
+    assert spans["timed"].device_ms == pytest.approx(start.elapsed_time(end), rel=0.02, abs=0.02)
+    assert spans["host"].device_ms is None
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    kernels = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+    assert len(kernels) >= 2
+    last = kernels[-1].time_range
+    host = spans["host"]
+    assert (host.start_ns - t0) / 1e3 - SPAN_SKEW_US <= last.start
+    assert last.end <= (host.end_ns - t0) / 1e3 + SPAN_SKEW_US
