@@ -2772,10 +2772,16 @@ TRAIN_WRAPPERS = (("multi_confmaps", "sleap_nn_tpu_torch.ops.confmaps"),)
 def recording_kernel_calls(seen, calls, wrappers=PATH_WRAPPERS):
     """Within the block, each wrapper of ``wrappers`` appends to ``calls`` a
     copy of its inputs, once for each signature (shapes, dtypes and other
-    arguments) not yet in ``seen``."""
+    arguments, positional or keyword) not yet in ``seen``."""
     import importlib
 
     import torch
+
+    def described(a):
+        return (tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
+
+    def copied(a):
+        return a.clone() if torch.is_tensor(a) else a
 
     saved = []
     for name, module in wrappers:
@@ -2783,12 +2789,12 @@ def recording_kernel_calls(seen, calls, wrappers=PATH_WRAPPERS):
         fn = getattr(mod, name)
 
         def recorded(*args, _fn=fn, _name=name, **kw):
-            sig = (_name, tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
-                                for a in args), tuple(sorted(kw.items())))
+            sig = (_name, tuple(map(described, args)),
+                   tuple(sorted((k, described(v)) for k, v in kw.items())))
             if sig not in seen:
                 seen.add(sig)
-                calls.append((_name, [a.clone() if torch.is_tensor(a) else a for a in args],
-                              dict(kw)))
+                calls.append((_name, [copied(a) for a in args],
+                              {k: copied(v) for k, v in kw.items()}))
             return _fn(*args, **kw)
 
         setattr(mod, name, recorded)
@@ -2881,7 +2887,8 @@ def check_recorded_calls(calls):
             else:
                 tol = {"nms_scores": 0.0, "multi_confmaps": 1e-6}.get(name, 1e-5)
             rows.append({"kernel": name, "dtype": str(args[0].dtype).split(".")[-1],
-                         "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+                         "shapes": [list(a.shape) for a in [*args, *kw.values()]
+                                    if torch.is_tensor(a)],
                          "max_abs_err": err, "tol": tol, "ok": placed and err <= tol})
             del got, want
     return rows

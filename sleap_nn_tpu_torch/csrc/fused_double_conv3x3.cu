@@ -25,7 +25,11 @@
 //    number of 16-byte units] (conflict-free ldmatrix), with 16-byte
 //    loads of each halo row's aligned superset (one NHWC halo row is one
 //    contiguous span, at any channel count), four in flight a thread,
-//    repacked on the way.
+//    repacked on the way. A UNet decoder block's input is concat(skip,
+//    upsample2x(low)): given low, the kernel reads the skip into the first
+//    channels and upsamples low into the rest as it builds the halo
+//    (upsample_halo), so neither the upsampled map nor the concat is ever
+//    written to device memory.
 //  - conv1 is a GEMM with M = the (TH+2) x (TW+2) mid pixels, N = c_mid,
 //    K = 9 taps x c_in in groups of 8 channels: a 16-deep k-step may take
 //    its two halves from two taps, so K pads to 16 only once, not per tap.
@@ -481,30 +485,26 @@ struct OutEpi {
   }
 };
 
-// The input halo of the tile, [pixel][units * 8] bf16 (channels past c_in
-// and pixels outside the image stay 0). Each in-image halo row is one
-// contiguous NHWC span; it is read as its 16-byte-aligned superset with
-// 16-byte loads and repacked element by element.
-__device__ __forceinline__ void load_halo(const bf16* __restrict__ x, int64_t numel, bf16* halo,
-                                          int units, int b, int H, int W, int c_in, int oy0,
-                                          int ox0, int ih, int iw) {
-  const int gx0 = max(0, ox0 - 2), gx1 = min(W, ox0 - 2 + iw);
-  const int px0 = gx0 - (ox0 - 2);
-  const int len = (gx1 - gx0) * c_in;
+// Reads `rows` spans of an NHWC tensor x (numel elements, c channels), row
+// r the len elements from start(r) on (start(r) < 0: no such row), as each
+// span's 16-byte-aligned superset with 16-byte loads, four in flight a
+// thread, and hands each element to put(r, pixel of the span, channel, bits).
+template <typename Start, typename Put>
+__device__ __forceinline__ void load_spans(const bf16* __restrict__ x, int64_t numel, int rows,
+                                           int len, int c, const Start& start, const Put& put) {
   const int nck = len / 8 + 2;
   constexpr int U = 4;  // 16-byte loads in flight per thread
-  for (int i0 = threadIdx.x; i0 < ih * nck; i0 += U * THREADS) {
+  for (int i0 = threadIdx.x; i0 < rows * nck; i0 += U * THREADS) {
     uint4 raw[U];
     int64_t at[U], st[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * THREADS;
       const int r = i / nck, k = i - r * nck;
-      const int gy = oy0 - 2 + r;
-      st[u] = ((int64_t)(b * H + gy) * W + gx0) * c_in;
+      st[u] = i < rows * nck ? start(r) : -1;
       at[u] = (st[u] & ~(int64_t)7) + 8 * k;
-      if (i >= ih * nck || gy < 0 || gy >= H || at[u] >= st[u] + len) {
-        at[u] = -1;  // nothing of the halo in this chunk
+      if (st[u] < 0 || at[u] >= st[u] + len) {
+        at[u] = -1;  // nothing of a span in this chunk
       } else if (at[u] + 8 <= numel) {
         raw[u] = __ldg(reinterpret_cast<const uint4*>(x + at[u]));
       } else {
@@ -523,18 +523,106 @@ __device__ __forceinline__ void load_halo(const bf16* __restrict__ x, int64_t nu
       const unsigned words[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
       const int j0 = (int)(a < s ? s - a : 0);
       const int first = (int)(a + j0 - s);
-      int px = first / c_in, c = first - px * c_in;
-      unsigned short* row =
-          reinterpret_cast<unsigned short*>(halo) + (size_t)(r * iw + px0) * units * 8;
+      int px = first / c, ch = first - px * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j >= j0 && a + j < s + len) {
-          row[px * units * 8 + c] = (unsigned short)(words[j / 2] >> (16 * (j % 2)));
-          if (++c == c_in) {
-            c = 0;
+          put(r, px, ch, (unsigned short)(words[j / 2] >> (16 * (j % 2))));
+          if (++ch == c) {
+            ch = 0;
             ++px;
           }
         }
+      }
+    }
+  }
+}
+
+// The input halo of the tile, [pixel][units * 8] bf16, channels [0, c_x)
+// from x (channels past those and pixels outside the image stay 0). Each
+// in-image halo row is one contiguous NHWC span.
+__device__ __forceinline__ void load_halo(const bf16* __restrict__ x, int64_t numel, bf16* halo,
+                                          int units, int b, int H, int W, int c_x, int oy0,
+                                          int ox0, int ih, int iw) {
+  const int gx0 = max(0, ox0 - 2), gx1 = min(W, ox0 - 2 + iw);
+  const int px0 = gx0 - (ox0 - 2);
+  unsigned short* h = reinterpret_cast<unsigned short*>(halo);
+  load_spans(
+      x, numel, ih, (gx1 - gx0) * c_x, c_x,
+      [&](int r) {
+        const int gy = oy0 - 2 + r;
+        return gy < 0 || gy >= H ? (int64_t)-1 : ((int64_t)(b * H + gy) * W + gx0) * c_x;
+      },
+      [&](int r, int px, int c, unsigned short v) { h[(r * iw + px0 + px) * units * 8 + c] = v; });
+}
+
+// Channels [c_s, c_s + c_l) of the halo: the bilinear 2x upsampling of low,
+// (B, H/2, W/2, c_l) NHWC, with half-pixel centres (F.interpolate with
+// align_corners=False, jax.image.resize): output row 2k + 1 takes 0.75 of
+// source row k and 0.25 of k + 1, row 2k 0.25 of k - 1 and 0.75 of k, the
+// source index clamped to the map; columns alike. The tile's low-resolution
+// footprint, about (th/2 + 4) x (tw/2 + 4) pixels, is read from device
+// memory once, with the halo's 16-byte span loads, and staged in shared
+// memory over the weight ring and the mid tile (both unused until conv1) as
+// [8-channel group][row][col] 16-byte units, as many groups a round as fit
+// (the ring alone holds 1536 units, over three groups of the largest
+// footprint, 20 x 20). Each in-image halo pixel then blends its 2 x 2
+// parents, 8 channels a thread, in f32 in the order of terms of PyTorch's
+// upsample_bilinear2d, and rounds once to bf16. Not inlined: inlined, it
+// raised the <2, 6> kernel's spills and cost the one-source form 3%.
+__device__ __noinline__ void upsample_halo(const bf16* __restrict__ low, bf16* halo,
+                                              unsigned char* stage, int stage_bytes, int units,
+                                              int b, int H, int W, int c_s, int c_l, int oy0,
+                                              int ox0, int ih, int iw) {
+  const int hl = H >> 1, wl = W >> 1;
+  const int64_t numel = (int64_t)gridDim.y * hl * wl * c_l;
+  const int gy0 = max(0, oy0 - 2), gy1 = min(H, oy0 - 2 + ih);
+  const int gx0 = max(0, ox0 - 2), gx1 = min(W, ox0 - 2 + iw);
+  // The first source row of output row g is max(0, (g - 1) >> 1); the last
+  // footprint row is the second source row of the last halo row.
+  const int ly0 = max(0, (gy0 - 1) >> 1), lx0 = max(0, (gx0 - 1) >> 1);
+  const int fh = min(max(0, (gy1 - 2) >> 1) + 1, hl - 1) - ly0 + 1;
+  const int fw = min(max(0, (gx1 - 2) >> 1) + 1, wl - 1) - lx0 + 1;
+  const int fpix = fh * fw, groups = (c_l + 7) / 8, gmax = stage_bytes / 16 / fpix;
+  const int hw = gx1 - gx0, npix = (gy1 - gy0) * hw;
+  const uint4* st = reinterpret_cast<const uint4*>(stage);
+  unsigned short* st16 = reinterpret_cast<unsigned short*>(stage);
+  unsigned short* h16 = reinterpret_cast<unsigned short*>(halo);
+  for (int g0 = 0; g0 < groups; g0 += gmax) {
+    const int gn = min(gmax, groups - g0);
+    if (g0 > 0) __syncthreads();  // the previous round's readers are done
+    load_spans(
+        low, numel, fh, fw * c_l, c_l,
+        [&](int r) { return ((int64_t)(b * hl + ly0 + r) * wl + lx0) * c_l; },
+        [&](int r, int px, int c, unsigned short v) {
+          const int g = (c >> 3) - g0;
+          if (g >= 0 && g < gn) st16[((g * fh + r) * fw + px) * 8 + (c & 7)] = v;
+        });
+    __syncthreads();
+    for (int i = threadIdx.x; i < gn * npix; i += THREADS) {
+      const int g = i / npix, p = i - g * npix;
+      const int gy = gy0 + p / hw, gx = gx0 + p % hw;
+      const float ry = fmaxf(0.f, 0.5f * (gy + 0.5f) - 0.5f);
+      const float rx = fmaxf(0.f, 0.5f * (gx + 0.5f) - 0.5f);
+      const int y0 = (int)ry, x0 = (int)rx;
+      const float h1 = ry - y0, h0 = 1.f - h1, w1 = rx - x0, w0 = 1.f - w1;
+      const int y1 = y0 + (y0 < hl - 1), x1 = x0 + (x0 < wl - 1);
+      const uint4* sg = st + g * fpix;
+      const uint4 q[4] = {sg[(y0 - ly0) * fw + x0 - lx0], sg[(y0 - ly0) * fw + x1 - lx0],
+                          sg[(y1 - ly0) * fw + x0 - lx0], sg[(y1 - ly0) * fw + x1 - lx0]};
+      const int c0 = (g0 + g) * 8, n = min(8, c_l - c0);
+      unsigned short* out =
+          h16 + (size_t)((gy - (oy0 - 2)) * iw + gx - (ox0 - 2)) * units * 8 + c_s + c0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned word = (&q[j].x)[k / 2];
+          v[j] = __uint_as_float(k % 2 ? word & 0xffff0000u : word << 16);
+        }
+        const float y = h0 * (w0 * v[0] + w1 * v[1]) + h1 * (w0 * v[2] + w1 * v[3]);
+        if (k < n) out[k] = __bfloat16_as_ushort(__float2bfloat16_rn(y));
       }
     }
   }
@@ -545,9 +633,10 @@ __device__ __forceinline__ void load_halo(const bf16* __restrict__ x, int64_t nu
 // <1, 8> gives wide blocks the registers of longer passes.
 template <int MINB, int WNMAX>
 __global__ void __launch_bounds__(THREADS, MINB) kernel(
-    const bf16* __restrict__ x, const uint2* __restrict__ w1, const float* __restrict__ b1,
-    const uint2* __restrict__ w2, const float* __restrict__ b2, bf16* __restrict__ y, int H,
-    int W, int c_in, int c_mid, int c_out, int relu, int th, int tw, int tiles_w) {
+    const bf16* __restrict__ x, const bf16* __restrict__ low, const uint2* __restrict__ w1,
+    const float* __restrict__ b1, const uint2* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ y, int H, int W, int c_in, int c_skip, int c_mid, int c_out, int relu,
+    int th, int tw, int tiles_w) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(th, tw, c_in, c_mid, c_out);
   uint2* wbuf = reinterpret_cast<uint2*>(smem + lay.wbuf);
@@ -557,7 +646,8 @@ __global__ void __launch_bounds__(THREADS, MINB) kernel(
   const int oy0 = (blockIdx.x / tiles_w) * th, ox0 = (blockIdx.x % tiles_w) * tw;
   const int mh = th + 2, mw = tw + 2, ih = th + 4, iw = tw + 4;
   const int mid_units = row_units(c_mid);
-  const int64_t numel = (int64_t)gridDim.y * H * W * c_in;
+  const int c_x = low ? c_skip : c_in;  // channels of x
+  const int64_t numel = (int64_t)gridDim.y * H * W * c_x;
 
   // Zero the zero row, and the conv1 source (pads and outside pixels).
   {
@@ -583,7 +673,10 @@ __global__ void __launch_bounds__(THREADS, MINB) kernel(
     }
     s1 = {smem_addr(src), 3, mw, 2, 1};
   } else {
-    load_halo(x, numel, src, row_units(c_in), b, H, W, c_in, oy0, ox0, ih, iw);
+    load_halo(x, numel, src, row_units(c_in), b, H, W, c_x, oy0, ox0, ih, iw);
+    if (low)  // the concat's second part, upsampled here: it never exists in device memory
+      upsample_halo(low, src, smem + lay.wbuf, lay.src - lay.wbuf, row_units(c_in), b, H, W,
+                    c_skip, c_in - c_skip, oy0, ox0, ih, iw);
     s1 = {smem_addr(src), row_units(c_in), iw, (c_in + 7) / 8, 9};
   }
   __syncthreads();
@@ -623,16 +716,23 @@ __global__ void __launch_bounds__(THREADS, MINB) kernel(
 }
 
 template <int MINB, int WNMAX>
-cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, void* y, int B, int H, int W, int c_in, int c_mid,
-                   int c_out, int relu, int th, int tw, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* low, const void* w1, const float* b1,
+                   const void* w2, const float* b2, void* y, int B, int H, int W, int c_in,
+                   int c_skip, int c_mid, int c_out, int relu, int th, int tw,
+                   cudaStream_t stream) {
   if (th < 1 || tw < 1 || B > 65535 || c_in < 1 || c_mid < 1 || c_out < 1)
     return cudaErrorInvalidValue;
+  if (low && (c_skip < 1 || c_skip >= c_in || H % 2 || W % 2)) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
-      reinterpret_cast<uintptr_t>(w1) % 8 || reinterpret_cast<uintptr_t>(w2) % 8)
+      reinterpret_cast<uintptr_t>(low) % 16 || reinterpret_cast<uintptr_t>(w1) % 8 ||
+      reinterpret_cast<uintptr_t>(w2) % 8)
     return cudaErrorMisalignedAddress;
-  const size_t smem = layout(th, tw, c_in, c_mid, c_out).total;
+  const Layout lay = layout(th, tw, c_in, c_mid, c_out);
+  const size_t smem = lay.total;
   if (smem > MAX_SMEM) return cudaErrorInvalidConfiguration;
+  // upsample_halo stages at least one 8-channel group of the footprint a round.
+  if (low && (th / 2 + 4) * (tw / 2 + 4) * 16 > lay.src - lay.wbuf)
+    return cudaErrorInvalidConfiguration;
   // The limit belongs to the function on one device: raise it once a device
   // (the current one, which the wrapper sets to the tensors').
   static bool attr_set[MAX_DEVICES] = {};
@@ -648,9 +748,9 @@ cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w
   }
   const int tiles_w = (W + tw - 1) / tw, tiles_h = (H + th - 1) / th;
   kernel<MINB, WNMAX><<<dim3(tiles_h * tiles_w, B), THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const uint2*>(w1), b1,
-      static_cast<const uint2*>(w2), b2, static_cast<bf16*>(y), H, W, c_in, c_mid, c_out,
-      relu, th, tw, tiles_w);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(low),
+      static_cast<const uint2*>(w1), b1, static_cast<const uint2*>(w2), b2,
+      static_cast<bf16*>(y), H, W, c_in, c_skip, c_mid, c_out, relu, th, tw, tiles_w);
   return cudaGetLastError();
 }
 
@@ -662,23 +762,26 @@ cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w
 // bf16: w1, w2 in the mma fragment order of ops/fused_conv.py::pack_weight
 // (bf16, 8-byte aligned); b1, b2 f32 padded with zeros to a multiple of 8;
 // tile_h x tile_w output tile and the variant (blocks a SM: 2 or 1) from
-// the planner; x and y 16-byte aligned.
+// the planner; x and y 16-byte aligned. low: null, or (bf16 only) the
+// input's second part, (B, H/2, W/2, c_in - c_skip) contiguous and 16-byte
+// aligned, upsampled 2x (bilinear) into channels [c_skip, c_in) as it is
+// read; x then holds channels [0, c_skip).
 // f32: w1 (9, c_in, c_mid padded to 4), w2 (9, c_mid, c_out padded to 4)
 // f32, zero-filled; b1 (c_mid), b2 (c_out) f32; the tile is fixed (8 x 16).
 // Returns a cudaError_t.
-extern "C" int fused_double_conv3x3(const void* x, const void* w1, const float* b1,
-                                    const void* w2, const float* b2, void* y, int B, int H,
-                                    int W, int c_in, int c_mid, int c_out, int relu,
-                                    int is_bf16, int tile_h, int tile_w, int blocks_per_sm,
-                                    void* stream) {
+extern "C" int fused_double_conv3x3(const void* x, const void* low, const void* w1,
+                                    const float* b1, const void* w2, const float* b2, void* y,
+                                    int B, int H, int W, int c_in, int c_skip, int c_mid,
+                                    int c_out, int relu, int is_bf16, int tile_h, int tile_w,
+                                    int blocks_per_sm, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && blocks_per_sm == 2)
-    return tc::launch<2, 6>(x, w1, b1, w2, b2, y, B, H, W, c_in, c_mid, c_out, relu, tile_h,
-                            tile_w, s);
+    return tc::launch<2, 6>(x, low, w1, b1, w2, b2, y, B, H, W, c_in, c_skip, c_mid, c_out,
+                            relu, tile_h, tile_w, s);
   if (is_bf16 && blocks_per_sm == 1)
-    return tc::launch<1, 8>(x, w1, b1, w2, b2, y, B, H, W, c_in, c_mid, c_out, relu, tile_h,
-                            tile_w, s);
-  if (is_bf16) return cudaErrorInvalidValue;
+    return tc::launch<1, 8>(x, low, w1, b1, w2, b2, y, B, H, W, c_in, c_skip, c_mid, c_out,
+                            relu, tile_h, tile_w, s);
+  if (is_bf16 || low) return cudaErrorInvalidValue;
   return f32::launch(x, w1, b1, w2, b2, y, B, H, W, c_in, c_mid, c_out, relu, s);
 }
 

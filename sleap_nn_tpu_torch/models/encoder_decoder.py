@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sleap_nn_tpu_torch import profiling
 from sleap_nn_tpu_torch.data.resizing import resize_bilinear
 from sleap_nn_tpu_torch.ops.fused_conv import fused_double_conv3x3
 
@@ -223,6 +224,13 @@ class SimpleUpsamplingBlock(nn.Module):
 
     ``skip_channels=0`` builds the block without a skip concat.
 
+    With ``use_fused``, bilinear upsampling and a skip exactly twice its
+    input's size, the block hands the skip and the low-resolution input to
+    the fused conv as they are (``upsample=``), whose bf16 kernel builds
+    the upsampled concat itself; the counter ``decoder.fused_upsample``
+    reads 1 for a block the kernel fused that way and 0 for any other
+    block with a skip.
+
     Transposed conv (stride 2, any odd or even ``kernel_size``): the JAX
     package's flax ``ConvTranspose`` pads the dilated input by
     ``trans_conv_pads`` and correlates with its kernel. The torch layer
@@ -274,8 +282,23 @@ class SimpleUpsamplingBlock(nn.Module):
         y = F.pad(y, [lo, hi, lo, hi])
         return (y + conv.bias[:, None, None]).permute(0, 2, 3, 1)
 
+    @property
+    def _fused_convs(self) -> bool:
+        return self.use_fused and self.refine_convs == 2 and self.kernel_size == 3
+
+    def _fuses_upsample(self, x: torch.Tensor, feature: torch.Tensor) -> bool:
+        return (self._fused_convs and self.up_interpolate
+                and feature.shape[1:3] == (2 * x.shape[1], 2 * x.shape[2]))
+
     def forward(self, x: torch.Tensor, feature: Optional[torch.Tensor]) -> torch.Tensor:
         convs = list(self.blocks.values())
+        if self.has_skip:
+            if self._fuses_upsample(x, feature):
+                return fused_double_conv3x3(
+                    feature.contiguous(), hwio(convs[0].weight), convs[0].bias,
+                    hwio(convs[1].weight), convs[1].bias, activation="relu",
+                    upsample=x.contiguous())
+            profiling.count("decoder.fused_upsample", 0)
         if self.up_interpolate:
             x = bilinear_upsample(x)
         else:
@@ -284,7 +307,7 @@ class SimpleUpsamplingBlock(nn.Module):
             if x.shape[1:3] != feature.shape[1:3]:
                 x = resize_bilinear(x, feature.shape[1], feature.shape[2])
             x = torch.cat([feature, x], dim=-1)
-        if self.use_fused and self.refine_convs == 2 and self.kernel_size == 3:
+        if self._fused_convs:
             return fused_double_conv3x3(
                 x.contiguous(), hwio(convs[0].weight), convs[0].bias,
                 hwio(convs[1].weight), convs[1].bias, activation="relu")

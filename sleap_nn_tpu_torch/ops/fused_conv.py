@@ -15,6 +15,11 @@ In bf16 the kernel is an implicit GEMM on the tensor cores; its tile comes
 from :func:`plan_tiles` and its weights from :func:`pack_weight` (packed
 once per weight tensor and version, see :func:`_packed`). f32 runs a
 CUDA-core kernel with a fixed 8 x 16 tile.
+
+A UNet decoder block's input, ``concat(skip, upsample2x(low))``, may be
+given as its two parts (``upsample=low``): the bf16 kernel then builds it
+in shared memory as it reads them, and the upsampled map and the concat
+never exist in device memory.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from sleap_nn_tpu_torch import profiling
+from sleap_nn_tpu_torch.data.resizing import resize_bilinear
 from sleap_nn_tpu_torch.ops import library
 from sleap_nn_tpu_torch.ops._build import Kernel
 
@@ -37,7 +43,7 @@ _ACTS = ("relu", "identity")
 
 KERNEL = Kernel(
     "fused_double_conv3x3", "fused_double_conv3x3.cu",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
 )
 
 
@@ -45,12 +51,15 @@ def _act(v: torch.Tensor, activation: str) -> torch.Tensor:
     return torch.relu(v) if activation == "relu" else v
 
 
-def _plain_double_conv(x, w1, b1, w2, b2, activation="relu"):
+def _plain_double_conv(x, w1, b1, w2, b2, activation="relu", upsample=None):
     """Plain PyTorch version of the kernel, with the same roundings.
 
     The mid tensor is computed over the image only and zero-padded before
     conv2, which is the kernel's zeroing of mid outside the image.
+    ``upsample``: as :func:`fused_double_conv3x3`'s, concatenated first.
     """
+    if upsample is not None:
+        x = _concat_upsampled(x, upsample)
     dt = x.dtype
 
     def conv(v, w, b):  # SAME 3x3 in f32: zero pad, then VALID conv
@@ -238,20 +247,23 @@ def _packed(w: torch.Tensor, b: Optional[torch.Tensor], dtype: torch.dtype):
 # --------------------------------------------------------------------------
 
 
-def _launch(x: torch.Tensor, pw1, pw2, y: torch.Tensor, c_mid: int, activation: str) -> None:
+def _launch(x: torch.Tensor, pw1, pw2, y: torch.Tensor, c_mid: int, activation: str,
+            low: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel on packed weights ``pw1`` / ``pw2`` (from
-    :func:`_packed`) into the preallocated ``y``, on the current stream."""
-    bsz, h, w, c_in = x.shape
+    :func:`_packed`) into the preallocated ``y``, on the current stream;
+    ``low``: the input's upsampled second part (bf16 only)."""
+    bsz, h, w, c_skip = x.shape
+    c_in = c_skip + (0 if low is None else low.shape[3])
     c_out = y.shape[3]
     th = tw = minb = 0  # the f32 kernel's tile is fixed
     if x.dtype == torch.bfloat16:
         plan = plan_tiles(bsz, h, w, c_in, c_mid, c_out)
         th, tw, minb = plan.tile_h, plan.tile_w, plan.blocks_per_sm
     KERNEL.launch(
-        x.data_ptr(), pw1[0].data_ptr(), pw1[1].data_ptr(), pw2[0].data_ptr(),
-        pw2[1].data_ptr(), y.data_ptr(), bsz, h, w, c_in, c_mid, c_out,
-        int(activation == "relu"), int(x.dtype == torch.bfloat16), th, tw, minb,
-        torch.cuda.current_stream().cuda_stream,
+        x.data_ptr(), None if low is None else low.data_ptr(), pw1[0].data_ptr(),
+        pw1[1].data_ptr(), pw2[0].data_ptr(), pw2[1].data_ptr(), y.data_ptr(), bsz, h, w,
+        c_in, c_skip, c_mid, c_out, int(activation == "relu"), int(x.dtype == torch.bfloat16),
+        th, tw, minb, torch.cuda.current_stream().cuda_stream,
     )
 
 
@@ -262,6 +274,7 @@ def fused_double_conv3x3(
     w2: torch.Tensor,
     b2: Optional[torch.Tensor],
     activation: str = "relu",
+    upsample: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """act(conv3x3(act(conv3x3(x)+b1))+b2), SAME padding, NHWC/HWIO.
 
@@ -271,20 +284,54 @@ def fused_double_conv3x3(
     plain version. The kernel is forward only: on CUDA tensors it raises
     when autograd is on and any input requires a gradient. While
     ``torch.export`` traces it calls the registered operator.
+
+    ``upsample``: a (B, H/2, W/2, C_l) map of x's type, contiguous; the
+    input is then ``concat([x, bilinear_upsample(upsample)], -1)`` and w1
+    has C_s + C_l input channels (C_s: x's). The bf16 kernel builds that
+    concat as it reads the two (the counter ``decoder.fused_upsample``
+    1); the plain version, the f32 kernel and the registered operator
+    take it computed first (0).
     """
+    if upsample is not None:
+        _check_upsample(x, upsample)
+        if library.tracing_active() or x.device.type != "cuda" or x.dtype != torch.bfloat16:
+            x, upsample = _concat_upsampled(x, upsample), None
+        profiling.count("decoder.fused_upsample", int(upsample is not None))
     if library.tracing_active():
         return library.OPS["fused_double_conv3x3"](x, w1, b1, w2, b2, activation)
     with profiling.span("kernel.fused_double_conv3x3"):
-        return _fused_double_conv3x3(x, w1, b1, w2, b2, activation)
+        return _fused_double_conv3x3(x, w1, b1, w2, b2, activation, upsample)
 
 
-def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu"):
+def _check_upsample(x, low) -> None:
+    """Raise unless ``low`` can stand for x's half-size second part (the
+    channels are checked against w1 with x's)."""
+    if low.ndim != 4 or x.ndim != 4 or low.shape[0] != x.shape[0] \
+            or 2 * low.shape[1] != x.shape[1] or 2 * low.shape[2] != x.shape[2]:
+        raise ValueError(f"upsample must be (B, H/2, W/2, C) for x {tuple(x.shape)}, "
+                         f"got {tuple(low.shape)}")
+    if low.dtype != x.dtype:
+        raise TypeError(f"upsample must be {x.dtype} like x, got {low.dtype}")
+    if not low.is_contiguous():
+        raise ValueError("upsample must be contiguous (NHWC)")
+    if low.device != x.device:
+        raise ValueError(f"upsample must be on {x.device}, got {low.device}")
+
+
+def _concat_upsampled(x, low):
+    """The input the two parts stand for: ``concat([x, bilinear_upsample(low)], -1)``."""
+    return torch.cat([x, resize_bilinear(low, x.shape[1], x.shape[2])], dim=-1)
+
+
+def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu", low=None):
     """:func:`fused_double_conv3x3`' body: the plain version on a CPU
-    tensor, kernel 1 on a CUDA tensor."""
+    tensor, kernel 1 on a CUDA tensor (``low``: a checked bf16 second
+    part)."""
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {_ACTS}, got {activation!r}")
+    c_in = x.shape[-1] + (0 if low is None else low.shape[3])
     if x.ndim != 4 or w1.shape[:2] != (3, 3) or w2.shape[:2] != (3, 3) \
-            or w1.shape[2] != x.shape[3] or w2.shape[2] != w1.shape[3]:
+            or w1.shape[2] != c_in or w2.shape[2] != w1.shape[3]:
         raise ValueError(
             f"shapes do not chain: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if x.device.type == "cpu":
@@ -292,7 +339,7 @@ def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu"):
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_conv3x3 runs on cuda or cpu tensors, got {x.device}")
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w1, b1, w2, b2)):
+            t is not None and t.requires_grad for t in (x, low, w1, b1, w2, b2)):
         # The kernel writes its result through a raw pointer, so autograd
         # would see a leaf: nothing below the block would get a gradient.
         raise RuntimeError(
@@ -310,8 +357,11 @@ def _fused_double_conv3x3(x, w1, b1, w2, b2, activation="relu"):
     y = torch.empty((bsz, h, w, c_out), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if x.data_ptr() % 16:  # the bf16 kernel reads x in aligned 16-byte chunks
+    # The bf16 kernel reads x and low in aligned 16-byte chunks.
+    if x.data_ptr() % 16:
         x = x.clone()
+    if low is not None and low.data_ptr() % 16:
+        low = low.clone()
     with torch.cuda.device(x.device):
-        _launch(x, _packed(w1, b1, x.dtype), _packed(w2, b2, x.dtype), y, c_mid, activation)
+        _launch(x, _packed(w1, b1, x.dtype), _packed(w2, b2, x.dtype), y, c_mid, activation, low)
     return y

@@ -131,6 +131,112 @@ def test_fused_conv_repacks_a_changed_weight(cuda):
             assert (second.float() - want.float()).abs().max().item() <= tol
 
 
+# The up blocks of both top-down UNets at medium_rf width (filters 24, rate
+# 1.5, max stride 32): (low map's side, its channels, the skip's, c_mid),
+# the centroid model's on 1024^2 frames and the instance model's on 160^2
+# crops.
+UP_BLOCKS_1024 = [(32, 182, 121, 121), (64, 121, 81, 81), (128, 81, 54, 54),
+                  (256, 54, 36, 36), (512, 36, 24, 24)]
+UP_BLOCKS_160 = [(5, 182, 121, 121), (10, 121, 81, 81), (20, 81, 54, 54), (40, 54, 36, 36),
+                 (80, 36, 24, 24)]
+
+
+@pytest.mark.parametrize(
+    "b,hl,wl,c_l,c_s,c_mid,nan",
+    [(b, s, s, c_l, c_s, c_mid, False) for b in (8, 1)
+     for s, c_l, c_s, c_mid in UP_BLOCKS_1024 + UP_BLOCKS_160]
+    # odd sizes: tile edges that split the 2 x 2 parents, one-pixel maps, NaN
+    + [(2, 13, 19, 54, 36, 36, False), (1, 37, 45, 9, 5, 7, False), (3, 7, 3, 81, 54, 54, False),
+       (1, 1, 9, 17, 3, 8, False), (2, 11, 14, 36, 24, 24, True)],
+)
+def test_fused_conv_two_source_form_matches_upsample_and_concat(cuda, b, hl, wl, c_l, c_s,
+                                                                 c_mid, nan):
+    """Kernel 1 given a decoder block's skip and low-resolution input equals
+    kernel 1 on today's ``bilinear_upsample`` + ``cat`` of them, to one bf16
+    ulp of the output's largest magnitude (the blend is PyTorch's
+    arithmetic; prints how many outputs differ at all)."""
+    from sleap_nn_tpu_torch.models.encoder_decoder import bilinear_upsample
+
+    gen = torch.Generator(device=cuda).manual_seed(hl * 1000 + c_l * 10 + b)
+    low = torch.randn(b, hl, wl, c_l, generator=gen, device=cuda).relu_().to(torch.bfloat16)
+    skip = torch.randn(b, 2 * hl, 2 * wl, c_s, generator=gen, device=cuda).relu_().to(
+        torch.bfloat16)
+    if nan:  # one NaN on the low map's border, one in the skip
+        low[0, 0, 5, 1] = skip[-1, 7, 3, 0] = float("nan")
+    c_in = c_s + c_l
+    w1 = torch.randn(3, 3, c_in, c_mid, generator=gen, device=cuda) / np.sqrt(9 * c_in)
+    w2 = torch.randn(3, 3, c_mid, c_mid, generator=gen, device=cuda) / np.sqrt(9 * c_mid)
+    b1 = torch.randn(c_mid, generator=gen, device=cuda) * 0.1
+    b2 = torch.randn(c_mid, generator=gen, device=cuda) * 0.1
+    before = KERNEL.launches
+    got = fused_double_conv3x3(skip, w1, b1, w2, b2, upsample=low)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = fused_double_conv3x3(torch.cat([skip, bilinear_upsample(low)], dim=-1), w1, b1, w2, b2)
+    assert got.shape == want.shape == (b, 2 * hl, 2 * wl, c_mid)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want).any() == nan
+    fin = ~torch.isnan(want)
+    diff = (got[fin].float() - want[fin].float()).abs()
+    top = want[fin].float().abs().max().item()
+    print(f"two_source b={b} low={hl}x{wl}x{c_l} skip={c_s} -> {c_mid}: "
+          f"{int((diff > 0).sum())} of {diff.numel()} differ, max {diff.max().item():.3g} "
+          f"(top {top:.3g})")
+    assert diff.max().item() <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("case,fused", [("bf16", True), ("f32", False), ("grad", True),
+                                        ("not_2x", False), ("tracing", False)])
+def test_decoder_block_falls_back_to_upsample_and_concat_on_the_card(cuda, case, fused,
+                                                                       monkeypatch):
+    """A fused up block with a skip twice its input's size hands both to
+    the wrapper, and kernel 1 builds their concat in bf16 only, with export
+    off (``decoder.fused_upsample`` 1); a non-2x skip (in the block), f32
+    and export (in the wrapper) upsample and concatenate first, as before
+    (0). With autograd on, kernel 1 refuses either way, as before."""
+    from sleap_nn_tpu_torch import profiling
+    from sleap_nn_tpu_torch.models import encoder_decoder as ed
+    from sleap_nn_tpu_torch.ops import library
+
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    block = ed.SimpleUpsamplingBlock(54, 36, 36, use_fused=True).to(cuda, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 20, 22, 54, generator=gen, device=cuda).to(dtype)
+    size = (41, 44) if case == "not_2x" else (40, 44)
+    feature = torch.randn(2, *size, 36, generator=gen, device=cuda).to(dtype)
+    calls, counts = [], []
+    real = ed.fused_double_conv3x3
+    monkeypatch.setattr(ed, "fused_double_conv3x3",
+                        lambda *a, **k: calls.append(k.get("upsample")) or real(*a, **k))
+    monkeypatch.setattr(profiling, "count", lambda name, value, key=None: counts.append(
+        value) if name == "decoder.fused_upsample" else None)
+    if case == "tracing":
+        monkeypatch.setattr(library, "tracing_active", lambda: True)
+    if case == "grad":
+        with pytest.raises(RuntimeError, match="no backward"):
+            block(x, feature)
+    else:
+        with torch.no_grad():
+            got = block(x, feature)
+        assert counts == [int(fused)]
+    assert [low is not None for low in calls] == [case != "not_2x"]
+    if case == "grad":
+        return
+    with torch.no_grad():
+        cat = torch.cat([feature, ed.resize_bilinear(ed.bilinear_upsample(x), *size)], dim=-1)
+        want = real(cat.contiguous(), ed.hwio(block.blocks["dec_refine_conv0"].weight),
+                    block.blocks["dec_refine_conv0"].bias,
+                    ed.hwio(block.blocks["dec_refine_conv1"].weight),
+                    block.blocks["dec_refine_conv1"].bias)
+    torch.cuda.synchronize()
+    if fused:
+        top = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** (
+            np.floor(np.log2(top)) - 7)
+    else:
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", [3, 5])
 @pytest.mark.parametrize("shape", [(2, 37, 45, 3), (2, 29, 101, 15), (1, 3, 1100, 1)])
@@ -520,6 +626,115 @@ def test_bottomup_predict_groups_natively_on_the_card(cuda, paf_workers):
     assert n_inst >= 8
 
 
+def _medium_rf_topdown(device, frame=256, crop=64):
+    """A bf16 top-down layer of two medium_rf UNets (filters 24, rate 1.5,
+    max stride 32, output stride 1; 15 nodes, 6 instances), He-normal
+    convs with zero biases and heads of gain 0.1 and bias 0.5, so that the
+    maps vary about 0.5; noise frames of ``frame``^2."""
+    from sleap_nn_tpu_torch.config.model_config import UNetConfig
+    from sleap_nn_tpu_torch.inference import layers as tl
+    from sleap_nn_tpu_torch.inference.backends import TorchBackend
+    from sleap_nn_tpu_torch.models.model import Model
+
+    ns = types.SimpleNamespace
+    cfg = UNetConfig(in_channels=1, filters=24, filters_rate=1.5, max_stride=32, output_stride=1)
+    gen = torch.Generator().manual_seed(0)
+    models = []
+    for model_type, heads in (
+            ("centroid", ns(confmaps=ns(anchor_part=None, sigma=5.0, output_stride=1,
+                                        loss_weight=None))),
+            ("centered_instance", ns(confmaps=ns(part_names=[f"n{i}" for i in range(15)],
+                                                 anchor_part=None, sigma=5.0, output_stride=1,
+                                                 loss_weight=None)))):
+        model = Model.from_config("unet", cfg, heads, model_type)
+        with torch.no_grad():
+            for conv in model.backbone.modules():
+                if isinstance(conv, torch.nn.Conv2d):
+                    conv.weight.normal_(generator=gen).mul_((2.0 / conv.weight[0].numel()) ** 0.5)
+                    conv.bias.zero_()
+            for layer in model.head_layers:
+                for head in layer.values():
+                    head[0].weight.normal_(generator=gen).mul_(0.1 * head[0].in_channels ** -0.5)
+                    head[0].bias.fill_(0.5)
+        models.append(model)
+    pre = tl.PreprocessConfig(ensure_grayscale=True, max_stride=32)
+    kw = dict(use_bf16=True, fused_convs=True, output_dtype=None, device=device)
+    layer = tl.TopDownLayer(
+        tl.CentroidLayer(TorchBackend(models[0], None, **kw), pre,
+                         tl.PostprocessConfig(peak_threshold=0.2, max_instances=6),
+                         output_stride=1, device=device),
+        tl.CenteredInstanceLayer(TorchBackend(models[1], None, **kw), pre,
+                                 tl.PostprocessConfig(peak_threshold=0.2), output_stride=1,
+                                 device=device),
+        max_instances=6, crop_size=crop, device=device)
+    frames = np.random.default_rng(1).integers(0, 256, (8, frame, frame, 1), dtype=np.uint8)
+    return layer, frames
+
+
+def test_topdown_fused_upsample_matches_the_unfused_sequence(cuda):
+    """The medium_rf top-down layer with its up blocks' fused upsample
+    against the same layer forced onto upsample + concat + kernel 1 (the
+    fallback): the UNets' maps, the peaks and their values to
+    ``tests/test_torch_topdown.py``'s 1e-4, validity and counts exactly."""
+    from sleap_nn_tpu_torch.models.encoder_decoder import SimpleUpsamplingBlock
+
+    layer, frames = _medium_rf_topdown(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    crops = torch.rand(48, layer.crop_size, layer.crop_size, 1, generator=gen, device=cuda)
+    x = torch.from_numpy(frames).to(cuda) / 255
+    backends = (layer.centroid_layer.backend, layer.instance_layer.backend)
+
+    def run():
+        maps = [next(iter(backend(v).values())) for backend, v in zip(backends, (x, crops))]
+        out = layer.predict(frames)
+        torch.cuda.synchronize()
+        return maps, out
+
+    got_maps, got = run()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(SimpleUpsamplingBlock, "_fuses_upsample", lambda *a: False)
+        want_maps, want = run()
+    for g, w in zip(got_maps, want_maps):
+        print(f"topdown maps {tuple(w.shape)}: {int((g != w).sum())} of {w.numel()} differ")
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=1e-4)
+    assert set(got) == set(want)
+    assert want["instance_valid"].sum() >= 8
+    for k, w in want.items():
+        g = got[k]
+        w, g = (w.cpu().numpy(), g.cpu().numpy()) if torch.is_tensor(w) else (w, g)
+        if w.dtype == bool or np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=0, err_msg=k)
+
+
+def test_topdown_batch_fuses_every_up_block(cuda):
+    """One top-down batch: ``decoder.fused_upsample`` reads 1 for each of
+    the 10 up blocks (5 a UNet), and kernel 1 launches once a double-conv
+    block (5 encoder and 5 decoder blocks a UNet), as when the blocks
+    upsampled and concatenated first (the counter read through a patched
+    ``profiling.count``, so no profiler session opens)."""
+    from sleap_nn_tpu_torch import profiling
+    from sleap_nn_tpu_torch.models.encoder_decoder import SimpleUpsamplingBlock
+
+    layer, frames = _medium_rf_topdown(cuda)
+    layer.predict(frames)  # warm: the build, the weights' packing
+    torch.cuda.synchronize()
+    launches = []
+    for force_fallback in (False, True):
+        before, counts = KERNEL.launches, []
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(profiling, "count", lambda name, value, key=None: counts.append(
+                value) if name == "decoder.fused_upsample" else None)
+            if force_fallback:
+                m.setattr(SimpleUpsamplingBlock, "_fuses_upsample", lambda *a: False)
+            layer.predict(frames)
+            torch.cuda.synchronize()
+        assert counts == [0 if force_fallback else 1] * 10
+        launches.append(KERNEL.launches - before)
+    assert launches == [20, 20]
+
+
 # -- the registered operators (ops/library.py) that exported programs call --------
 
 
@@ -775,3 +990,4 @@ def test_spans_time_the_card_under_a_device_only_profiler(cuda):
     host = spans["host"]
     assert (host.start_ns - t0) / 1e3 - SPAN_SKEW_US <= last.start
     assert last.end <= (host.end_ns - t0) / 1e3 + SPAN_SKEW_US
+

@@ -87,6 +87,104 @@ def test_rejects_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
+# The two-source form (``upsample=``): a decoder block's skip and its
+# low-resolution input, standing for concat(skip, bilinear_upsample(low))
+# ---------------------------------------------------------------------------
+
+def _two_sources(b, hl, wl, c_l, c_s, c_mid, c_out, dtype, seed):
+    rng = np.random.default_rng(seed)
+    low = torch.from_numpy(rng.standard_normal((b, hl, wl, c_l), dtype=np.float32)).to(dtype)
+    skip = torch.from_numpy(rng.standard_normal((b, 2 * hl, 2 * wl, c_s),
+                                                dtype=np.float32)).to(dtype)
+    _, w1, b1, w2, b2 = _inputs((1, 1, 1, c_s + c_l), c_mid, c_out, seed)
+    return low, skip, _t(w1), _t(b1), _t(w2), _t(b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hl,wl,c_l,c_s,c_mid,c_out",
+    [(2, 4, 5, 6, 3, 5, 4),      # neither part a multiple of 8
+     (1, 5, 5, 9, 12, 7, 6),     # a 5x5 low map, as the 160^2 crops' first up block
+     (1, 3, 7, 16, 8, 8, 8),     # both parts multiples of 8
+     (2, 1, 2, 3, 2, 4, 3)],     # a one-row low map
+)
+def test_two_source_form_is_upsample_concat_and_conv(b, hl, wl, c_l, c_s, c_mid, c_out, dtype):
+    from sleap_nn_tpu_torch.models.encoder_decoder import bilinear_upsample
+
+    low, skip, w1, b1, w2, b2 = _two_sources(b, hl, wl, c_l, c_s, c_mid, c_out, dtype,
+                                             seed=hl * wl + c_l)
+    want = _plain_double_conv(torch.cat([skip, bilinear_upsample(low)], dim=-1),
+                              w1, b1, w2, b2)
+    for got in (_plain_double_conv(skip, w1, b1, w2, b2, upsample=low),
+                fused_double_conv3x3(skip, w1, b1, w2, b2, upsample=low)):
+        assert got.dtype == dtype and got.shape == (b, 2 * hl, 2 * wl, c_out)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "case,error,match",
+    [("not_half", ValueError, "H/2, W/2"), ("odd_skip", ValueError, "H/2, W/2"),
+     ("channels", ValueError, "chain"), ("dtype", TypeError, "like x"),
+     ("strided", ValueError, "contiguous")],
+)
+def test_two_source_form_rejects_what_does_not_fit(case, error, match):
+    low, skip, w1, b1, w2, b2 = _two_sources(1, 4, 4, 5, 3, 4, 4, torch.float32, seed=5)
+    if case == "not_half":
+        low = torch.cat([low, low[:, :1]], dim=1)
+    elif case == "odd_skip":
+        skip = skip[:, :7].contiguous()
+    elif case == "channels":
+        w1 = torch.cat([w1, w1[:, :, :1]], dim=2)
+    elif case == "dtype":
+        low = low.to(torch.bfloat16)
+    elif case == "strided":
+        low = low.permute(0, 2, 1, 3)
+    with pytest.raises(error, match=match):
+        fused_double_conv3x3(skip, w1, b1, w2, b2, upsample=low)
+
+
+@pytest.mark.parametrize("case,two_sources", [("bf16", True), ("f32", True), ("grad", True),
+                                              ("not_2x", False), ("unfused", False),
+                                              ("tracing", True)])
+def test_decoder_block_fuses_the_upsample_where_its_input_allows(case, two_sources,
+                                                                 monkeypatch):
+    """A fused up block with bilinear upsampling and a skip twice its
+    input's size hands both to the fused conv (``upsample=``); any other
+    block upsamples and concatenates first. On the CPU the wrapper computes
+    the concat first too, so ``decoder.fused_upsample`` reads 0 for every
+    block and both give the same bits (its 1 is held on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sleap_nn_tpu_torch import profiling
+    from sleap_nn_tpu_torch.models import encoder_decoder as ed
+    from sleap_nn_tpu_torch.ops import library
+
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    block = ed.SimpleUpsamplingBlock(6, 4, 5, use_fused=case != "unfused").to(dtype)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 5, 6), dtype=np.float32)).to(dtype)
+    size = (9, 10) if case == "not_2x" else (8, 10)
+    feature = torch.from_numpy(rng.standard_normal((2, *size, 4), dtype=np.float32)).to(dtype)
+    calls = []
+    real = ed.fused_double_conv3x3
+    monkeypatch.setattr(ed, "fused_double_conv3x3",
+                        lambda *a, **k: calls.append(k.get("upsample")) or real(*a, **k))
+    if case == "tracing":
+        monkeypatch.setattr(library, "tracing_active", lambda: True)
+    profiling.clear()
+    with torch.set_grad_enabled(case == "grad"), profile(activities=[ProfilerActivity.CPU]):
+        got = block(x, feature)
+    counts = [c.value for c in profiling.counts() if c.name == "decoder.fused_upsample"]
+    profiling.clear()
+    assert counts == [0]
+    assert [low is not None for low in calls] == ([] if case == "unfused" else [two_sources])
+    monkeypatch.setattr(block, "_fuses_upsample", lambda *a: False)
+    with torch.set_grad_enabled(case == "grad"):
+        want = block(x, feature)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # The bf16 kernel's tile planner and weight packing (pure Python, no card)
 # ---------------------------------------------------------------------------
 

@@ -68,9 +68,9 @@ def main() -> int:
 
             def launch(th=th, tw=tw, minb=minb):
                 fc.KERNEL.launch(
-                    x.data_ptr(), p1[0].data_ptr(), p1[1].data_ptr(), p2[0].data_ptr(),
-                    p2[1].data_ptr(), y.data_ptr(), *shape, c_mid, c_out, 1, 1, th, tw, minb,
-                    torch.cuda.current_stream().cuda_stream)
+                    x.data_ptr(), None, p1[0].data_ptr(), p1[1].data_ptr(), p2[0].data_ptr(),
+                    p2[1].data_ptr(), y.data_ptr(), *shape, c_in, c_mid, c_out, 1, 1, th, tw,
+                    minb, torch.cuda.current_stream().cuda_stream)
 
             launch()
             torch.cuda.synchronize()
